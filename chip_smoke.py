@@ -3,27 +3,39 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the port's main path through its entry point at the paper's
+Drives the port's three paths through their entry points at the paper's
 Netflix scale (n = 17,770 items, m = 480,189 users, d = 100, synthetic
-MF-like factors from ``--seed``): ``RkMIPSEngine("sah").build(...)`` on
-the card, then ``query_batch`` at k = 10 and k = 50 over queries drawn
-from the top 2% of items by norm (the titles a service would promote;
-from the top 20% no user at this scale has a query in its top 50, and
-the item scan never runs). It
+MF-like factors from ``--seed``), each with every launch count set to 0
+just before it and read just after:
+
+  f32 reverse   ``RkMIPSEngine("sah").build(...)`` on the card, then
+                ``query_batch`` at k = 10 and 50 over 16 queries drawn
+                from the top 2% of items by norm (the titles a service
+                would promote; from the top 20% no user at this scale has
+                a query in its top 50, and the item scan never runs);
+  int8 reverse  the same build and queries with ``scan_precision="int8"``
+                (the fused int8 screen);
+  forward       ``kmips(users, 10)`` for 4,096 users drawn with
+                ``--seed`` (a service recomputing its users' top-10
+                items), under the "sah" and the "exact" presets, and the
+                exact answer from ``ops.ip_topk``.
+
+It
 
   1. prints the card (``nvidia-smi`` name and power limit) and versions;
   2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc``;
-  3. runs the main path with every launch count set to 0 just before,
-     and fails unless every kernel launched;
-  4. holds the answers against the exact oracle: recall must be 1.0 but
-     for misses that lie within float32 rounding of their threshold;
+  3. fails unless every kernel of a path launched during that path;
+  4. holds the reverse answers against the exact oracle (recall 1.0 but
+     for misses within float32 rounding of their threshold), the int8
+     answers against the f32 ones bit for bit, and the "exact" forward
+     ids against ``ip_topk``'s but for traced float ties;
   5. holds each kernel against its plain PyTorch version on the inputs
-     the main path gives it (Hamming exactly; SRP bits up to flips whose
-     score lies within the rounding bound of 0);
+     its path gives it (Hamming, ``fused_scan`` and ``ip_topk`` exactly;
+     SRP bits up to flips whose score lies within the rounding bound of 0);
   6. times each kernel and its plain version on the device (launches
      replayed from a CUDA graph) and each wrapper call from Python;
-  7. splits one query batch into plan and execute, and profiles it for
-     the device's busy share and its top kernels.
+  7. splits a query batch into plan and execute, and profiles it for the
+     device's busy share and its top kernels.
 
 Any failure raises and exits nonzero. Without a CUDA device, or away from
 the repository, it exits nonzero before printing any result. The last
@@ -51,6 +63,8 @@ INT32_OP_PER_S = FP32_FLOP_PER_S / 2
 NQ = 16              # promoted items per query batch
 TOP_FRAC = 0.02      # queries come from this top share of items by norm
 ITERS = 200          # timed launches per kernel
+N_FWD = 4096         # users per forward top-k batch
+K_FWD = 10
 
 
 def fail(msg: str) -> None:
@@ -122,6 +136,30 @@ def srp_flip_check(x, proj, got, want):
     return flips, int(diff.any())
 
 
+def ip_tie_check(queries, items, got_ids, want_ids):
+    """Positions where two top-k id lists differ must hold items whose
+    float64 inner products with the query lie within float32 rounding of
+    each other (8 * d * 2**-24 * sum_i |q_i x_i| each). Returns the
+    number of such positions; fails on any other difference."""
+    import torch
+    diff = torch.nonzero(got_ids != want_ids, as_tuple=True)
+    if diff[0].numel() == 0:
+        return 0
+    q = queries[diff[0]].double()
+
+    def ip_and_tol(ids):
+        x = items[ids[diff].long()].double()
+        return ((q * x).sum(-1),
+                8 * q.shape[1] * 2.0 ** -24 * (q * x).abs().sum(-1))
+
+    (a, ta), (b, tb) = ip_and_tol(got_ids), ip_and_tol(want_ids)
+    bad = int(((a - b).abs() > ta + tb).sum())
+    if bad:
+        fail(f"{bad} of {diff[0].numel()} differing top-k ids are not "
+             f"float ties")
+    return diff[0].numel()
+
+
 def profile_query(eng, queries, k: int) -> None:
     """Where one ``query_batch`` spends its time: the plan and execute
     phases on the host clock, and the device's busy share and top kernels
@@ -135,13 +173,14 @@ def profile_query(eng, queries, k: int) -> None:
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     sah.rkmips_execute(eng.index, plan, k, n_cand=cfg.n_cand, scan=cfg.scan,
-                       chunk=cfg.chunk)
+                       chunk=cfg.chunk, scan_precision=cfg.scan_precision)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    print(f"breakdown k={k}: plan {(t1 - t0) * 1e3:.1f} ms, execute "
+    print(f"breakdown {cfg.scan_precision} k={k}: plan {(t1 - t0) * 1e3:.1f} ms, execute "
           f"{(t2 - t1) * 1e3:.1f} ms ({plan.n_work} lanes)")
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    # device activity only: the busy share reads kernel rows, and recording
+    # every host operator as well made each profile take minutes
+    acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         eng.query_batch(queries, k)
@@ -158,7 +197,7 @@ def profile_query(eng, queries, k: int) -> None:
     if not busy:
         print("profile: the profiler recorded no device time: not measured")
         return
-    print(f"profile k={k} (profiler on): wall {wall_us / 1e3:.1f} ms, device "
+    print(f"profile {cfg.scan_precision} k={k} (profiler on): wall {wall_us / 1e3:.1f} ms, device "
           f"busy {busy / 1e3:.1f} ms = {busy / wall_us:.1%}, idle "
           f"{1 - busy / wall_us:.1%}")
     for dev_us, count, key in sorted(rows, reverse=True)[:8]:
@@ -179,7 +218,7 @@ def main() -> int:
     from repro_torch import RkMIPSEngine, get_config
     from repro_torch.core import exact, metrics, sa_alsh, sah
     from repro_torch.data import synthetic
-    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import _build, ip_topk, ops, ref
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -206,18 +245,29 @@ def main() -> int:
           f"nq={NQ} from the top {TOP_FRAC:.0%} by norm, "
           f"seed={args.seed}; config sah {cfg}")
 
-    # -- the main path, counted ---------------------------------------------
+    phases = {}
+    t_phase = time.perf_counter()
+
+    def phase_done(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        phases[name] = round(now - t_phase, 1)
+        t_phase = now
+
+    # -- f32 reverse path, counted -------------------------------------------
+    build_state = gen.get_state()
     ops.reset_launch_counts()
     eng = RkMIPSEngine(cfg).build(items, users, gen)
     after_build = dict(ops.launch_counts)
-    results = {}
+    results, steps = {}, {}
     for k in (10, 50):
         before = dict(ops.launch_counts)
         res = eng.query_batch(queries, k)
         results[k] = res
         ham = ops.launch_counts["hamming_scores"] - before["hamming_scores"]
         chunks = ops.launch_counts["srp_hash"] - before["srp_hash"]
-        print(f"query k={k}: {res.seconds * 1e3 / NQ:.3f} ms/query "
+        steps[k] = ham
+        print(f"query f32 k={k}: {res.seconds * 1e3 / NQ:.3f} ms/query "
               f"({res.seconds:.3f} s for {NQ}); host loop: {chunks} "
               f"chunks, {ham} tile steps")
         print(f"  funnel: {res.funnel.format()}")
@@ -227,10 +277,12 @@ def main() -> int:
           f"{int(idx.alsh.n_parts)}, cone blocks={idx.n_blocks}, "
           f"m_pad={idx.n_users}, item tiles={idx.alsh.tile_max_norm.numel()})"
           f"; launches in build {after_build}")
-    print(f"launch_counts (main path): {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
+    print(f"launch_counts (f32 reverse path): {launches}")
+    for name in ("srp_hash", "hamming_scores"):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the f32 reverse path")
+
+    phase_done("f32 path")
 
     # -- answers against the exact oracle ------------------------------------
     users_unit = sah.unit_rows(users)
@@ -252,6 +304,96 @@ def main() -> int:
               f"min {float(f1.min()):.4f}; audience {int(truth.sum())} true "
               f"/ {int(pred.sum())} predicted; misses {len(missed)} "
               f"(all float ties: {ties})")
+
+    phase_done("oracle")
+
+    # -- int8 reverse path, counted ------------------------------------------
+    cfg8 = cfg.replace(scan_precision="int8")
+    eng8 = RkMIPSEngine(cfg8).build(items, users,
+                                    torch.Generator().set_state(build_state))
+    idx8 = eng8.index
+    if not torch.equal(idx8.alsh.codes, idx.alsh.codes):
+        fail("the int8 engine's index codes differ from the f32 engine's")
+    ops.reset_launch_counts()
+    results8 = {}
+    for k in (10, 50):
+        before = dict(ops.launch_counts)
+        sa_alsh.reset_band_counts()
+        res = eng8.query_batch(queries, k)
+        results8[k] = res
+        fused = ops.launch_counts["fused_scan"] - before["fused_scan"]
+        passes = sa_alsh.band_counts["passes"]
+        lanes = int(sa_alsh.band_counts["lanes"])
+        print(f"query int8 k={k}: {res.seconds * 1e3 / NQ:.3f} ms/query "
+              f"({res.seconds:.3f} s for {NQ}); {fused} fused_scan "
+              f"launches for {steps[k]} f32 tile steps; band: {passes} "
+              f"passes ({passes / max(fused, 1):.3f} per tile step), "
+              f"{lanes} lanes ({lanes / max(fused, 1):.2f} per tile step)")
+        print(f"  funnel: {res.funnel.format()}")
+        if not torch.equal(res.predictions, results[k].predictions):
+            n_diff = int((res.predictions != results[k].predictions).sum())
+            fail(f"int8 k={k}: {n_diff} predictions differ from f32")
+        if not torch.equal(res.stats.tiles_scanned,
+                           results[k].stats.tiles_scanned):
+            fail(f"int8 k={k}: tiles_scanned differ from f32")
+        if fused != steps[k]:
+            fail(f"int8 k={k}: {fused} fused_scan launches for {steps[k]} "
+                 f"tile steps")
+        print(f"  int8 == f32: predictions bitwise equal, tiles_scanned "
+              f"equal, recall as f32 (1.0 but for traced float ties)")
+    launches8 = dict(ops.launch_counts)
+    print(f"launch_counts (int8 reverse path): {launches8}")
+    if launches8["hamming_scores"] != 0:
+        fail(f"the int8 path launched hamming_scores "
+             f"{launches8['hamming_scores']} times")
+    for name in ("srp_hash", "fused_scan"):
+        if launches8[name] <= 0:
+            fail(f"kernel {name} was not launched on the int8 reverse path")
+
+    phase_done("int8 path")
+
+    # -- forward path, counted -----------------------------------------------
+    pick = torch.randperm(ds.m_users,
+                          generator=torch.Generator().manual_seed(args.seed))
+    users_fwd = users[pick[:N_FWD].to(dev)].contiguous()
+    ops.reset_launch_counts()
+    fwd = eng.kmips(users_fwd, K_FWD)
+    exact_vals, exact_ids = ops.ip_topk(users_fwd, items, K_FWD)
+    eng_ex = RkMIPSEngine(get_config("exact")).build(
+        items, None, torch.Generator().manual_seed(args.seed))
+    fwd_ex = eng_ex.kmips(users_fwd, K_FWD)
+    launches_f = dict(ops.launch_counts)
+    print(f"launch_counts (forward path): {launches_f}")
+    for name in ("srp_hash", "hamming_scores", "ip_topk"):
+        if launches_f[name] <= 0:
+            fail(f"kernel {name} was not launched on the forward path")
+    n_items = ds.n_items
+    for name, r in (("sah", fwd), ("exact", fwd_ex)):
+        if (r.values.shape != (N_FWD, K_FWD) or r.ids.shape != (N_FWD, K_FWD)
+                or not bool(torch.isfinite(r.values).all())):
+            fail(f"kmips {name}: bad result {tuple(r.values.shape)}")
+        if bool(((r.ids < 0) | (r.ids >= n_items)).any()):
+            fail(f"kmips {name}: item ids outside [0, {n_items})")
+        if bool((r.values[:, :-1] < r.values[:, 1:]).any()):
+            fail(f"kmips {name}: values are not descending")
+        recomputed = (users_fwd[:, None, :] * items[r.ids.long()]).sum(-1)
+        if not torch.allclose(r.values, recomputed, rtol=1e-5, atol=1e-6):
+            fail(f"kmips {name}: values are not the ids' inner products")
+    hit = (fwd.ids[:, :, None] == exact_ids[:, None, :]).any(-1)
+    recall = float(hit.sum(-1).float().mean()) / K_FWD
+    print(f"kmips sah k={K_FWD}: {N_FWD} users in {fwd.seconds * 1e3:.2f} ms "
+          f"({fwd.seconds * 1e6 / N_FWD:.2f} us/user), {fwd.tiles_visited} "
+          f"of {eng.kmips_index.tile_max_norm.numel()} tiles; recall@10 "
+          f"vs ip_topk {recall:.6f} (min per user "
+          f"{float(hit.sum(-1).min()) / K_FWD:.1f})")
+    ties_f = ip_tie_check(users_fwd, items, fwd_ex.ids, exact_ids)
+    if not torch.allclose(fwd_ex.values, exact_vals, rtol=1e-5, atol=1e-6):
+        fail("kmips exact values differ from ip_topk's")
+    print(f"kmips exact k={K_FWD}: {fwd_ex.seconds * 1e3:.2f} ms, "
+          f"{fwd_ex.tiles_visited} tiles; ids equal ip_topk's but for "
+          f"{ties_f} positions, all float ties; values allclose")
+
+    phase_done("forward path")
 
     # -- kernels against their plain versions, at main-path inputs -----------
     n_top = cfg.n_top or 2 * cfg.k_max
@@ -279,6 +421,24 @@ def main() -> int:
     ham_err = int((ham_k - ham_p).abs().max())
     if ham_err != 0:
         fail(f"hamming_scores differs from its plain version by {ham_err}")
+    a8 = idx8.alsh
+    fused_args = (ucodes, a8.codes[:cfg.tile], a8.item_mask[:cfg.tile],
+                  a8.qitems[:cfg.tile], a8.qscale[:cfg.tile], chunk_users)
+    cand_k, qips_k = ops.fused_scan(*fused_args, n_cand=cfg.n_cand)
+    cand_p, qips_p = ref.fused_scan(*fused_args, cfg.n_cand)
+    if not torch.equal(cand_k, cand_p):
+        fail(f"fused_scan: {int((cand_k != cand_p).sum())} candidates "
+             f"differ from its plain version")
+    fused_err = float((qips_k - qips_p).abs().max())
+    if fused_err != 0.0:
+        fail(f"fused_scan qips differ from its plain version by {fused_err}")
+    plain_vals, plain_ids = ref.ip_topk(users_fwd, items, K_FWD)
+    if not torch.equal(exact_ids, plain_ids):
+        fail(f"ip_topk: {int((exact_ids != plain_ids).sum())} ids differ "
+             f"from its plain version")
+    ip_err = float((exact_vals - plain_vals).abs().max())
+    if ip_err != 0.0:
+        fail(f"ip_topk values differ from its plain version by {ip_err}")
     torch.cuda.synchronize()
     print(f"check srp_hash build rows {tuple(rows.shape)} x "
           f"{tuple(proj.shape)}: {flips_b} flipped bits, each with "
@@ -288,6 +448,13 @@ def main() -> int:
           f"|score| <= 8 * d * 2**-24 * sum_i |x_i p_i|")
     print(f"check hamming_scores {tuple(ucodes.shape)} x "
           f"{tuple(tile_codes.shape)}: exact (max abs err 0)")
+    print(f"check fused_scan {tuple(chunk_users.shape)} lanes x tile 0 "
+          f"({cfg.tile} rows), n_cand {cfg.n_cand}: cand exact, qips "
+          f"bitwise (max abs err 0)")
+    print(f"check ip_topk {tuple(users_fwd.shape)} x {tuple(items.shape)}, "
+          f"k={K_FWD}: ids exact, values bitwise (max abs err 0)")
+
+    phase_done("kernel checks")
 
     # -- times -------------------------------------------------------------
     it = ITERS
@@ -299,25 +466,52 @@ def main() -> int:
     srp_call = call_ms(lambda: ops.srp_hash(chunk_users, qproj), it)
     srpb_ms = device_ms(lambda: ops.srp_hash(rows, proj), it)
     srpb_plain = device_ms(lambda: ref.srp_hash(rows, proj), 20)
+    fused_ms = device_ms(
+        lambda: ops.fused_scan(*fused_args, n_cand=cfg.n_cand), it)
+    fused_plain = device_ms(
+        lambda: ref.fused_scan(*fused_args, cfg.n_cand), 20)
+    fused_call = call_ms(
+        lambda: ops.fused_scan(*fused_args, n_cand=cfg.n_cand), it)
+    ipk_ms = device_ms(
+        lambda: ip_topk.ip_topk_tiles(users_fwd, items, K_FWD), 20)
+    ipk_merged = device_ms(lambda: ops.ip_topk(users_fwd, items, K_FWD), 20)
+    ipk_call = call_ms(lambda: ops.ip_topk(users_fwd, items, K_FWD), 20)
+    ipk_plain = device_ms(lambda: ref.ip_topk(users_fwd, items, K_FWD), 2,
+                          replays=3)
+    ipk_lib = device_ms(lambda: torch.topk(torch.matmul(users_fwd, items.T),
+                                           K_FWD), 20)
 
-    def bound(nbytes, ops_, rate):
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops_ / rate
-        return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+    def bound(nbytes, t_ops):
+        t_b = nbytes / HBM_BYTES_PER_S
+        return max(t_b, t_ops) * 1e3, ("bytes" if t_b >= t_ops
+                                       else "operations")
 
     c, w = ucodes.shape
     t = tile_codes.shape[0]
-    ham_bound, ham_by = bound(4 * (c * w + t * w + c * t), 3 * c * t * w,
-                              INT32_OP_PER_S)
+    ham_bound, ham_by = bound(4 * (c * w + t * w + c * t),
+                              3 * c * t * w / INT32_OP_PER_S)
 
     def srp_bound(x, p):
         (n, d), b = x.shape, p.shape[1]
-        return bound(4 * (n * d + d * b + n * b // 32), 2 * n * d * b,
-                     FP32_FLOP_PER_S)
+        return bound(4 * (n * d + d * b + n * b // 32),
+                     2 * n * d * b / FP32_FLOP_PER_S)
 
     srp_bnd, srp_by = srp_bound(chunk_users, qproj)
     srpb_bnd, srpb_by = srp_bound(rows, proj)
+    d = ds.d
+    nc = cfg.n_cand
+    # fused_scan: codes, mask, int8 rows, scales and users in, cand + qips
+    # out; 3 integer ops per (lane, row, word) for the distances and a
+    # multiply and an add per (lane, candidate, dim) for the scores
+    fused_bound, fused_by = bound(
+        4 * (c * w + t * w + t + c * d) + t * d + 8 * c * nc,
+        3 * c * t * w / INT32_OP_PER_S + 2 * c * nc * d / FP32_FLOP_PER_S)
+    nq_f, n_i = users_fwd.shape[0], items.shape[0]
+    ipk_bound, ipk_by = bound(4 * (nq_f + n_i) * d + 8 * nq_f * K_FWD,
+                              2 * nq_f * n_i * d / FP32_FLOP_PER_S)
     print(f"time hamming_scores {tuple(ucodes.shape)}x"
-          f"{tuple(tile_codes.shape)}: kernel {ham_ms:.5f} ms (device), {ham_call:.5f} ms per call "
+          f"{tuple(tile_codes.shape)}: kernel {ham_ms:.5f} ms (device), "
+          f"{ham_call:.5f} ms per call "
           f"from Python; plain {ham_plain:.5f} ms; bound {ham_bound:.6f} ms "
           f"({ham_by}); no single PyTorch call computes it")
     print(f"time srp_hash query chunk {tuple(chunk_users.shape)}: kernel "
@@ -327,7 +521,21 @@ def main() -> int:
     print(f"time srp_hash build rows {tuple(rows.shape)}: kernel "
           f"{srpb_ms:.5f} ms, plain {srpb_plain:.5f} ms, bound "
           f"{srpb_bnd:.6f} ms ({srpb_by})")
+    print(f"time fused_scan {tuple(chunk_users.shape)} lanes x {t} rows: "
+          f"kernel {fused_ms:.5f} ms (device), {fused_call:.5f} ms per call "
+          f"from Python; plain {fused_plain:.5f} ms; bound "
+          f"{fused_bound:.6f} ms ({fused_by}); no single PyTorch call "
+          f"computes it")
+    print(f"time ip_topk {tuple(users_fwd.shape)} x {tuple(items.shape)} "
+          f"k={K_FWD}: kernel {ipk_ms:.5f} ms (device), with the merge "
+          f"{ipk_merged:.5f} ms, {ipk_call:.5f} ms per call from Python; "
+          f"plain {ipk_plain:.5f} ms; bound {ipk_bound:.6f} ms ({ipk_by}); "
+          f"library torch.topk(torch.matmul(q, items.T), 10), two calls, "
+          f"{ipk_lib:.5f} ms")
+    phase_done("kernel times")
     profile_query(eng, queries, 10)
+    profile_query(eng8, queries, 10)
+    phase_done("profiles")
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -341,15 +549,39 @@ def main() -> int:
          "shape": f"{tuple(chunk_users.shape)}x{tuple(qproj.shape)}",
          "flips": flips_q, "build_shape_ms": srpb_ms,
          "build_shape_bound_ms": srpb_bnd, "build_shape_flips": flips_b,
-         "build_shape_max_abs_err": err_b},
+         "build_shape_max_abs_err": err_b,
+         "launches_int8_path": launches8["srp_hash"],
+         "launches_forward_path": launches_f["srp_hash"]},
         {"name": "hamming_scores", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hamming_scan.cu",
          "replaces": "src/repro/kernels/hamming_scan.py:36",
          "launches": launches["hamming_scores"], "max_abs_err": ham_err,
          "ms": ham_ms, "plain_ms": ham_plain, "bound_ms": ham_bound,
          "bound_by": ham_by, "library_ms": None, "call_ms": ham_call,
-         "shape": f"{tuple(ucodes.shape)}x{tuple(tile_codes.shape)}"},
+         "shape": f"{tuple(ucodes.shape)}x{tuple(tile_codes.shape)}",
+         "launches_int8_path": launches8["hamming_scores"],
+         "launches_forward_path": launches_f["hamming_scores"]},
+        {"name": "fused_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/fused_scan.cu",
+         "replaces": "src/repro/kernels/fused_scan.py:113",
+         "launches": launches8["fused_scan"], "max_abs_err": fused_err,
+         "ms": fused_ms, "plain_ms": fused_plain, "bound_ms": fused_bound,
+         "bound_by": fused_by, "library_ms": None, "call_ms": fused_call,
+         "shape": f"{tuple(chunk_users.shape)}x{t} rows, n_cand {nc}"},
+        {"name": "ip_topk", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ip_topk.cu",
+         "replaces": "src/repro/kernels/ip_topk.py:55",
+         "launches": launches_f["ip_topk"], "max_abs_err": ip_err,
+         "ms": ipk_ms, "plain_ms": ipk_plain, "bound_ms": ipk_bound,
+         "bound_by": ipk_by, "library_ms": ipk_lib,
+         "library_call": "torch.topk(torch.matmul(q, items.T), 10), two "
+                         "calls", "merged_ms": ipk_merged,
+         "call_ms": ipk_call,
+         "shape": f"{tuple(users_fwd.shape)}x{tuple(items.shape)}, k "
+                  f"{K_FWD}"},
     ]
+    print(f"phases (host s): {phases}; total "
+          f"{time.perf_counter() - T_START:.1f} s since start")
     print(f"kernels: {json.dumps([k['name'] for k in kernels])}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -359,8 +591,10 @@ def main() -> int:
     return 0
 
 
+T_START = time.perf_counter()
+
 if __name__ == "__main__":
-    t0 = time.perf_counter()
     rc = main()
-    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s",
+          file=sys.stderr)
     sys.exit(rc)

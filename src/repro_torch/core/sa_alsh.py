@@ -1,7 +1,8 @@
 """SA-ALSH: the shifting-aware asymmetric LSH index and its counting scan.
 
-Port of ``src/repro/core/sa_alsh.py:53-489`` (the build side and the
-RkMIPS decision scan; the forward kMIPS scan is a later slice). Items are
+Port of ``src/repro/core/sa_alsh.py:53-511,601-643`` (the build side,
+the RkMIPS decision scan in f32 and int8, and the forward kMIPS scan; the
+staged-insert delta helpers wait for the artifact slice). Items are
 sorted by descending norm, cut into norm partitions, SAT-shifted by their
 partition's centroid (or QNF-extended, for H2-ALSH) and SRP-hashed into
 packed int32 codes. The decision scan walks norm-ordered tiles, picks
@@ -9,8 +10,9 @@ each lane's ``n_cand`` nearest rows by Hamming distance, and counts the
 exact inner products that beat the lane's threshold, stopping early on
 the Cauchy-Schwarz bound ``mu = tile_max_norm * ||u||`` (users are unit).
 
-The reference's ``lax.while_loop`` over tiles is a host loop here: one
-device-to-host sync per tile step.
+The reference's ``lax.while_loop``s over tiles (and over the int8 band
+passes) are host loops here: one device-to-host sync per tile step and
+per band pass.
 """
 
 from __future__ import annotations
@@ -22,9 +24,19 @@ import torch
 from repro_torch.core import partitions as _parts
 from repro_torch.core import srp as _srp
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 
-BIG_HAMMING = 1 << 30
 SCAN_PRECISIONS = ("f32", "int8")
+
+# Work of the int8 band re-rank in this process, for measurement
+# (``chip_smoke.py``): "passes" counts the host loop's passes; "lanes" sums
+# the lanes that enter a pass with band rows left, accumulated on the
+# device so that counting adds no sync. ``reset_band_counts`` zeroes both.
+band_counts: dict = {"passes": 0, "lanes": 0}
+
+
+def reset_band_counts() -> None:
+    band_counts.update(passes=0, lanes=0)
 
 
 class SAALSHIndex(NamedTuple):
@@ -201,6 +213,19 @@ def _tile_slice(arr: torch.Tensor, t: int, tile: int) -> torch.Tensor:
     return arr[t * tile:(t + 1) * tile]
 
 
+def lane_ips(items_t: torch.Tensor, rows: torch.Tensor,
+             users: torch.Tensor) -> torch.Tensor:
+    """Exact f32 IPs of each lane's tile rows: items_t (tile, d), rows
+    (C, s) -> (C, s), by a per-lane elementwise product and row sum.
+
+    The one expression for a gathered re-rank: the f32 scan scores its
+    (C, n_cand) candidates with it and the int8 band re-rank its (C, s)
+    band rows, so the two paths round a lane's IP identically and their
+    counts agree bit for bit (PORT.md). A lane's IPs never depend on which
+    lanes share the chunk (a batched GEMM's blocking may)."""
+    return (items_t[rows.long()] * users[:, None, :]).sum(dim=-1)
+
+
 def _tile_candidates(index: SAALSHIndex, ucodes, users, t: int, *,
                      n_cand: int, scan: str):
     """Exact IPs of tile t's top-``n_cand`` sketch candidates.
@@ -209,9 +234,8 @@ def _tile_candidates(index: SAALSHIndex, ucodes, users, t: int, *,
     the tile); ``scan="exact"`` takes the whole tile (c == tile).
 
     The reference selects with ``lax.top_k(-dist, n_cand)``, which breaks
-    the everywhere-present Hamming ties toward the lower row. Selecting on
-    the unique int64 key ``dist * tile + row`` gives exactly that set in
-    exactly that order (``torch.topk`` alone promises neither).
+    the everywhere-present Hamming ties toward the lower row;
+    ``ref.nearest_rows`` gives exactly that set in exactly that order.
     """
     tile = index.tile
     items_t = _tile_slice(index.items, t, tile)
@@ -223,26 +247,81 @@ def _tile_candidates(index: SAALSHIndex, ucodes, users, t: int, *,
         return ips, mask_t[None, :].expand(ips.shape), local
     codes_t = _tile_slice(index.codes, t, tile)
     dist = kops.hamming_scores(ucodes, codes_t)
-    dist = torch.where(mask_t[None, :], dist, BIG_HAMMING)
-    key = dist.to(torch.int64) * tile + torch.arange(tile,
-                                                     device=dist.device)
-    cand = torch.topk(key, n_cand, dim=-1, largest=False,
-                      sorted=True).values % tile
-    # Per-lane elementwise product and row sum: a lane's IPs never depend
-    # on which lanes share the chunk (a batched GEMM's blocking may).
-    ips = (items_t[cand] * users[:, None, :]).sum(dim=-1)
-    return ips, mask_t[cand], cand.to(torch.int32)
+    dist = torch.where(mask_t[None, :], dist, kref.BIG_HAMMING)
+    cand = kref.nearest_rows(dist, n_cand)
+    return lane_ips(items_t, cand, users), mask_t[cand.long()], cand
+
+
+# Headroom on the quantization error ball (``sa_alsh.py:328-332``): the
+# ball bounds the real-arithmetic rounding residual; the extra 1% covers
+# the f32 rounding of the dequantized and the exact IP evaluations.
+_QERR_SLACK = 1.01
+
+
+def _tile_beat_int8(index: SAALSHIndex, ucodes, users, unorm, thr,
+                    t: int, *, n_cand: int, scan: str) -> torch.Tensor:
+    """Per-lane count of tile t's rows that beat ``thr`` under the int8
+    screen: bitwise the f32 scan's count (port of ``sa_alsh.py:337-407``).
+
+    Candidates are classified with their dequantized int8 IPs and the
+    conservative error ball ``qerr = 0.5 * sqrt(d) * slack * scale *
+    ||u||`` (Cauchy-Schwarz on the per-coordinate residual |delta_i| <=
+    scale / 2): a definite beat (qips - qerr > thr) counts at once, a
+    definite miss (qips + qerr <= thr) drops, and only the band between is
+    re-ranked in exact f32, in passes of ``s_slots`` rows per lane. The
+    reference's ``lax.while_loop`` over passes is a host loop here: one
+    ``left.any()`` sync per pass.
+    """
+    tile = index.tile
+    radius = 0.5 * float(index.dim) ** 0.5 * _QERR_SLACK
+    items_t = _tile_slice(index.items, t, tile)
+    mask_t = _tile_slice(index.item_mask, t, tile)
+    qitems_t = _tile_slice(index.qitems, t, tile)
+    qscale_t = _tile_slice(index.qscale, t, tile)
+    thr2 = thr[:, None]
+    if scan == "exact":
+        # Dense screen over the whole tile; the band re-ranks against the
+        # same (C, tile) GEMM the f32 exact scan computes.
+        qips = (users @ qitems_t.T.to(torch.float32)) * qscale_t[None, :]
+        qerr = (radius * qscale_t)[None, :] * unorm[:, None]
+        valid = mask_t[None, :]
+        definite = valid & (qips - qerr > thr2)
+        band = valid & ~definite & (qips + qerr > thr2)
+        ips = users @ items_t.T
+        return (definite.sum(dim=-1)
+                + (band & (ips > thr2)).sum(dim=-1)).to(torch.int32)
+
+    codes_t = _tile_slice(index.codes, t, tile)
+    cand, qips = kops.fused_scan(ucodes, codes_t, mask_t, qitems_t,
+                                 qscale_t, users, n_cand=n_cand)
+    rows = cand.long()
+    valid = mask_t[rows]
+    qerr = radius * qscale_t[rows] * unorm[:, None]
+    definite = valid & (qips - qerr > thr2)
+    left = valid & ~definite & (qips + qerr > thr2)
+    count = definite.sum(dim=-1).to(torch.int32)
+    # Exact re-rank of the band, s_slots rows per lane per pass (one pass
+    # in practice: the band is the thin shell |ip - thr| < qerr). Each pass
+    # takes each lane's first s_slots band positions in position order, as
+    # the reference's top_k over the band flags does.
+    s_slots = min(16, n_cand)
+    while bool(left.any()):
+        band_counts["passes"] += 1
+        band_counts["lanes"] = band_counts["lanes"] + left.any(dim=-1).sum()
+        pos = torch.argsort((~left).to(torch.uint8), dim=-1,
+                            stable=True)[:, :s_slots]
+        real = left.gather(1, pos)
+        eips = lane_ips(items_t, cand.gather(1, pos), users)
+        count = count + (real & (eips > thr2)).sum(dim=-1).to(torch.int32)
+        left = left.scatter(1, pos, False)
+    return count
 
 
 def check_precision(scan_precision: str) -> None:
-    """Refuse a scan precision this slice of the port does not run."""
+    """Refuse an unknown scan precision."""
     if scan_precision not in SCAN_PRECISIONS:
         raise ValueError(f"scan_precision must be one of {SCAN_PRECISIONS},"
                          f" got {scan_precision!r}")
-    if scan_precision == "int8":
-        raise NotImplementedError(
-            "scan_precision='int8' (the fused int8 screen) is ported in the "
-            "next slice of the port; use scan_precision='f32'")
 
 
 def decide_count(index: SAALSHIndex, users: torch.Tensor,
@@ -261,21 +340,81 @@ def decide_count(index: SAALSHIndex, users: torch.Tensor,
     #{p : <u, p> > tau + eps} >= k; "yes" when the scan is exhausted or
     the tile bound mu <= tau with the count still below k. The tile loop
     is a host loop, one sync per tile step.
+
+    ``scan_precision="int8"`` screens each tile with the fused int8 kernel
+    and re-ranks only the band in f32 (``_tile_beat_int8``); its counts,
+    and so its decisions and tile walk, are bitwise the f32 scan's.
     """
     check_precision(scan_precision)
     n_tiles = index.tile_max_norm.shape[0]
     n_cand_eff = index.tile if scan == "exact" else n_cand
     ucodes = user_codes(index, users) if scan == "sketch" else None
     thr = taus + eps
+    unorm = (torch.linalg.norm(users, dim=-1)
+             if scan_precision == "int8" else None)
     count = torch.where(active, init_count, k).to(torch.int32)
     undecided = active & (count < k)
     t = 0
     while t < n_tiles and bool(undecided.any()):
         still = undecided & ~(index.tile_max_norm[t] <= taus)
-        ips, valid, _ = _tile_candidates(index, ucodes, users, t,
-                                         n_cand=n_cand_eff, scan=scan)
-        beat = ((ips > thr[:, None]) & valid).sum(dim=-1).to(torch.int32)
+        if scan_precision == "int8":
+            beat = _tile_beat_int8(index, ucodes, users, unorm, thr, t,
+                                   n_cand=n_cand_eff, scan=scan)
+        else:
+            ips, valid, _ = _tile_candidates(index, ucodes, users, t,
+                                             n_cand=n_cand_eff, scan=scan)
+            beat = ((ips > thr[:, None]) & valid).sum(dim=-1).to(
+                torch.int32)
         count = count + torch.where(still, beat, 0)
         undecided = still & (count < k)
         t += 1
     return active & (count < k), t
+
+
+# ---------------------------------------------------------------------------
+# Forward kMIPS.
+# ---------------------------------------------------------------------------
+
+
+def merge_topk(vals: torch.Tensor, ids: torch.Tensor,
+               extra_vals: torch.Tensor, extra_ids: torch.Tensor, k: int):
+    """Row-wise merge of two candidate sets into one descending top-k
+    (port of ``sa_alsh.py:497-511``): (Q, a) and (Q, b) -> (Q, k) each.
+    Dead candidates carry ``-inf``. Among equal values the lower position
+    of the concatenation ``[vals, extra_vals]`` comes first, as under
+    ``lax.top_k``."""
+    merged_v = torch.cat([vals, extra_vals], dim=-1)
+    merged_i = torch.cat([ids, extra_ids], dim=-1)
+    best, pos = kref.topk_stable(merged_v, k)
+    return best, merged_i.gather(1, pos)
+
+
+def kmips_topk(index: SAALSHIndex, queries: torch.Tensor, k: int, *,
+               n_cand: int = 64, scan: str = "sketch"):
+    """Approximate kMIPS (Algorithm 2) for a batch of queries (port of
+    ``sa_alsh.py:601-643``). queries (Q, d) need not be unit.
+
+    Returns (vals (Q, k) descending, ids (Q, k) int32 original item rows,
+    tiles_visited int). The tile walk stops once every query's k-th best
+    value reaches the Cauchy-Schwarz bound ``tile_max_norm[t] * ||q||`` of
+    the next tile; the reference's ``lax.while_loop`` is a host loop, one
+    sync per tile.
+    """
+    n_tiles = index.tile_max_norm.shape[0]
+    tile = index.tile
+    qn = torch.linalg.norm(queries, dim=-1)
+    n_cand_eff = tile if scan == "exact" else n_cand
+    ucodes = user_codes(index, queries) if scan == "sketch" else None
+    nq = queries.shape[0]
+    vals = torch.full((nq, k), float("-inf"), device=queries.device)
+    ids = torch.full((nq, k), -1, dtype=torch.int32, device=queries.device)
+    t = 0
+    while t < n_tiles and bool(
+            (vals[:, -1] < index.tile_max_norm[t] * qn).any()):
+        ips, valid, local = _tile_candidates(index, ucodes, queries, t,
+                                             n_cand=n_cand_eff, scan=scan)
+        ips = torch.where(valid, ips, float("-inf"))
+        global_ids = index.item_ids[t * tile + local.long()]
+        vals, ids = merge_topk(vals, ids, ips, global_ids, k)
+        t += 1
+    return vals, ids, t

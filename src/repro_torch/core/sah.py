@@ -1,8 +1,8 @@
 """SAH: Shifting-aware Asymmetric Hashing for RkMIPS (Algorithms 4-5).
 
 Port of ``src/repro/core/sah.py`` (build ``:61-227``, query
-``:230-726``), without the staged-insert delta buffer and the int8
-screen (later slices). SA-ALSH (``sa_alsh.py``) indexes the items, cone
+``:230-726``), without the staged-insert delta buffer (the artifact
+slice). SA-ALSH (``sa_alsh.py``) indexes the items, cone
 blocks (``cone.py``) and Simpfer lower bounds (``simpfer.py``) the users.
 
 Query, batched in two phases (the reference's DESIGN.md SS9):
@@ -64,23 +64,33 @@ class SAHIndex(NamedTuple):
         return self.users.shape[0]
 
 
+def _tensor(arrays: Mapping[str, np.ndarray], key: str,
+            device) -> torch.Tensor:
+    """uint32 arrays (the SRP codes) become their int32 bit views; every
+    other dtype (bool, int8, int32, float32) is kept."""
+    a = np.asarray(arrays[key])
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(np.array(a, order="C")).to(device)
+
+
+def alsh_from_numpy(arrays: Mapping[str, np.ndarray], prefix: str,
+                    device) -> _alsh.SAALSHIndex:
+    """The port's ``SAALSHIndex`` from numpy arrays named
+    ``<prefix><field>``: ``index/alsh/`` for the reverse index's item
+    side, ``kmips/`` for the forward index (the artifact layout,
+    ``repro/engine/artifact.py:116-134,600-612``)."""
+    return _alsh.SAALSHIndex(**{f: _tensor(arrays, prefix + f, device)
+                                for f in _alsh.SAALSHIndex._fields})
+
+
 def index_from_numpy(arrays: Mapping[str, np.ndarray], device) -> SAHIndex:
     """The port's ``SAHIndex`` from a reference index given as numpy
     arrays under the artifact layout's names (``index/alsh/<field>``,
-    ``index/<field>``; ``repro/engine/artifact.py:116-129,600-612``).
-
-    uint32 arrays (the SRP codes) become their int32 bit views; every
-    other dtype (bool, int8, int32, float32) is kept.
-    """
-    def tensor(key: str) -> torch.Tensor:
-        a = np.asarray(arrays[key])
-        if a.dtype == np.uint32:
-            a = a.view(np.int32)
-        return torch.from_numpy(np.array(a, order="C")).to(device)
-
-    alsh = _alsh.SAALSHIndex(**{f: tensor(f"index/alsh/{f}")
-                                for f in _alsh.SAALSHIndex._fields})
-    rest = {f: tensor(f"index/{f}") for f in SAHIndex._fields if f != "alsh"}
+    ``index/<field>``)."""
+    alsh = alsh_from_numpy(arrays, "index/alsh/", device)
+    rest = {f: _tensor(arrays, f"index/{f}", device)
+            for f in SAHIndex._fields if f != "alsh"}
     return SAHIndex(alsh=alsh, **rest)
 
 

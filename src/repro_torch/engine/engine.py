@@ -1,13 +1,15 @@
 """RkMIPSEngine: the front door for reverse k-MIPS (RkMIPS) in the port.
 
-A slim twin of ``src/repro/engine/engine.py`` (``:64-115`` for the
-result types): build an index from one ``EngineConfig``, answer reverse
-queries in original user-id space, and check them against the exact
-oracle with the same ``tie_eps``:
+A slim twin of ``src/repro/engine/engine.py`` (``:64-125`` for the
+result types, ``:543-585`` for ``kmips``): build an index from one
+``EngineConfig``, answer reverse queries in original user-id space, check
+them against the exact oracle with the same ``tie_eps``, and answer
+forward top-k MIPS over the items:
 
     eng = RkMIPSEngine("sah").build(items, users, generator)
     res = eng.query_batch(promoted_items, k=10)   # res.predictions (nq, m)
     truth = eng.oracle(promoted_items, k=10)
+    top = eng.kmips(user_rows, k=10)              # top.values, top.ids (Q, k)
 
 The engine runs on the card unless the caller asks for the CPU
 (``device="cpu"``, as the tests do): with no CUDA device the default
@@ -16,7 +18,7 @@ decisions, so float32 products must stay float32: the engine turns off
 TF32 for matrix products and for cuDNN when it is made.
 
 Not here yet (later slices of the port): artifacts and corpus deltas,
-meshes, warmup, forward kMIPS and the servers.
+meshes, warmup and the servers.
 """
 
 from __future__ import annotations
@@ -27,7 +29,9 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import exact as _exact
+from repro_torch.core import sa_alsh as _alsh
 from repro_torch.core import sah as _sah
+from repro_torch.core import srp as _srp
 from repro_torch.engine.config import EngineConfig, get_config
 
 
@@ -78,6 +82,18 @@ class QueryResult(NamedTuple):
     funnel: PruningFunnel | None = None
 
 
+class KMIPSResult(NamedTuple):
+    """Forward top-k MIPS answer: values (k,) / (Q, k) descending, ids
+    original item rows, the tiles the scan visited, the wall seconds of
+    the call to the end of its device work, and k."""
+
+    values: torch.Tensor
+    ids: torch.Tensor
+    tiles_visited: int
+    seconds: float
+    k: int
+
+
 def _device(device) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -119,30 +135,35 @@ class RkMIPSEngine:
         self._index: _sah.SAHIndex | None = None
         self._items: torch.Tensor | None = None
         self._users_unit: torch.Tensor | None = None
+        self._kmips_proj: torch.Tensor | None = None
+        self._kmips_index: _alsh.SAALSHIndex | None = None
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def build(self, items, users, generator: torch.Generator | None = None,
-              *, proj=None, cone_order=None) -> "RkMIPSEngine":
+              *, proj=None, cone_order=None, kmips_proj=None
+              ) -> "RkMIPSEngine":
         """Index ``items`` (n, d) for ``users`` (m, d). Returns self.
 
         ``proj`` ((d+1, n_bits) f32) and ``cone_order`` (a permutation of
-        the m_pad padded users) inject the build's two random draws;
-        whatever is not injected comes from ``generator`` (a CPU
-        generator, seeded 0 when None).
+        the m_pad padded users) inject the reverse build's two random
+        draws, and ``kmips_proj`` ((d+1, n_bits) f32) the projection of the
+        forward index over all items; whatever is not injected comes from
+        ``generator`` (a CPU generator, seeded 0 when None), the forward
+        projection after the reverse draws. ``users=None`` builds only the
+        forward index, at once; otherwise it is built at the first
+        ``kmips`` (``artifact.py:197-215,381-390``).
         """
         cfg = self.config
         items = _as_rows(items, "items", self.device)
-        users = _as_rows(users, "users", self.device)
-        if users.shape[1] != items.shape[1]:
-            raise ValueError(f"users dimensionality ({users.shape[1]}) != "
-                             f"items dimensionality ({items.shape[1]})")
-        if cfg.scan_precision != "f32":
-            raise NotImplementedError(
-                "scan_precision='int8' is ported in the next slice of the "
-                "port; use scan_precision='f32'")
+        if users is not None:
+            users = _as_rows(users, "users", self.device)
+            if users.shape[1] != items.shape[1]:
+                raise ValueError(f"users dimensionality ({users.shape[1]}) "
+                                 f"!= items dimensionality "
+                                 f"({items.shape[1]})")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         if proj is not None:
@@ -150,23 +171,45 @@ class RkMIPSEngine:
         if cone_order is not None:
             cone_order = torch.as_tensor(cone_order).to(torch.int64)
         t0 = time.perf_counter()
-        self._index = _sah.build(items, users, generator=generator,
-                                 proj=proj, cone_order=cone_order,
-                                 **cfg.build_kwargs())
+        self._index = self._users_unit = self.n_users = None
+        if users is not None:
+            self._index = _sah.build(items, users, generator=generator,
+                                     proj=proj, cone_order=cone_order,
+                                     **cfg.build_kwargs())
+            self._users_unit = _sah.unit_rows(users)
+            self.n_users = users.shape[0]
+        if kmips_proj is None:
+            kmips_proj = _srp.make_projection(generator, items.shape[1] + 1,
+                                              cfg.n_bits, self.device)
+        self._kmips_proj = _as_rows(kmips_proj, "kmips_proj", self.device)
+        self._items = items
+        self._kmips_index = None
+        if users is None:
+            self._kmips_index = self.kmips_index
         self._sync()
         self.build_seconds = time.perf_counter() - t0
-        self._items = items
-        self._users_unit = _sah.unit_rows(users)
-        self.n_users = users.shape[0]
         return self
 
     @property
     def index(self) -> _sah.SAHIndex:
-        """The built index (read-only by convention)."""
+        """The built reverse index (read-only by convention)."""
         if self._index is None:
-            raise RuntimeError("engine not built: call "
+            raise RuntimeError("engine not built for reverse queries: call "
                                "build(items, users, generator) first")
         return self._index
+
+    @property
+    def kmips_index(self) -> _alsh.SAALSHIndex:
+        """The SA-ALSH index over all items that ``kmips`` scans, built
+        from ``cfg.kmips_build_kwargs(n)`` at its first use."""
+        if self._items is None:
+            raise RuntimeError("engine not built: call "
+                               "build(items, users, generator) first")
+        if self._kmips_index is None:
+            self._kmips_index = _alsh.build_index(
+                self._items, proj=self._kmips_proj,
+                **self.config.kmips_build_kwargs(self._items.shape[0]))
+        return self._kmips_index
 
     def _check_k(self, k: int) -> None:
         if not 1 <= k <= self.config.k_max:
@@ -213,6 +256,29 @@ class RkMIPSEngine:
         res = self.query_batch(torch.as_tensor(q)[None], k)
         stats = _sah.QueryStats(*(s[0] for s in res.stats))
         return res._replace(predictions=res.predictions[0], stats=stats)
+
+    def kmips(self, q, k: int, *, n_cand: int | None = None) -> KMIPSResult:
+        """Approximate top-k MIPS over all items (``core/sa_alsh.py::
+        kmips_topk``, tiled and early-terminating). q: (d,) or (Q, d);
+        ``n_cand`` overrides the config's re-rank depth and is clamped to
+        the tile."""
+        index = self.kmips_index
+        if not 1 <= k <= self._items.shape[0]:
+            raise ValueError(f"k={k} outside [1, n_items="
+                             f"{self._items.shape[0]}]")
+        n_cand = self.config.n_cand if n_cand is None else n_cand
+        q = torch.as_tensor(q)
+        single = q.dim() == 1
+        queries = _as_rows(q[None] if single else q, "queries", self.device)
+        t0 = time.perf_counter()
+        vals, ids, tiles = _alsh.kmips_topk(
+            index, queries, k, n_cand=min(n_cand, index.tile),
+            scan=self.config.scan)
+        self._sync()
+        seconds = time.perf_counter() - t0
+        if single:
+            vals, ids = vals[0], ids[0]
+        return KMIPSResult(vals, ids, tiles, seconds, k)
 
     def oracle(self, queries, k: int) -> torch.Tensor:
         """Exact RkMIPS truth (nq, m) with the engine's own ``tie_eps``."""

@@ -29,9 +29,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-KERNELS = ("hamming_scan", "srp_hash")
+KERNELS = ("hamming_scan", "srp_hash", "fused_scan", "ip_topk")
 
-launch_counts: dict[str, int] = {"hamming_scores": 0, "srp_hash": 0}
+launch_counts: dict[str, int] = {"hamming_scores": 0, "srp_hash": 0,
+                                 "fused_scan": 0, "ip_topk": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _entries: dict[str, ctypes._CFuncPtr] = {}
@@ -101,6 +102,18 @@ def entry(name: str, symbol: str, n_ptrs: int, n_ints: int):
         fn.restype = ctypes.c_int
         _entries[symbol] = fn
     return fn
+
+
+def check_input(name: str, t, dtype, dim: int) -> None:
+    """Raise unless ``t`` is a contiguous ``dim``-D ``dtype`` CUDA tensor:
+    what every kernel's wrapper checks before it passes a pointer."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype or t.dim() != dim:
+        raise ValueError(f"{name} must be {dim}-D {dtype}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 def check(err: int, kernel: str) -> None:

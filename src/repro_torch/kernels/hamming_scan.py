@@ -20,13 +20,7 @@ def hamming_scores(query_codes: torch.Tensor,
     """(q, W) x (n, W) int32 codes on one CUDA device -> (q, n) int32
     Hamming distances. Raises on anything the kernel does not take."""
     for name, t in (("query_codes", query_codes), ("item_codes", item_codes)):
-        if t.device.type != "cuda":
-            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.dtype != torch.int32 or t.dim() != 2:
-            raise ValueError(f"{name} must be 2-D int32, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        _build.check_input(name, t, torch.int32, 2)
     if query_codes.device != item_codes.device:
         raise ValueError("query_codes and item_codes are on different devices")
     (nq, w), (n, w2) = query_codes.shape, item_codes.shape

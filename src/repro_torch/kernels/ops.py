@@ -1,6 +1,6 @@
 """Entry points of the kernels, dispatched by the device of the tensors.
 
-Twin of ``src/repro/kernels/ops.py:38-78``. A CUDA tensor launches the
+Twin of ``src/repro/kernels/ops.py:38-116``. A CUDA tensor launches the
 hand-written kernel (or the call raises); a CPU tensor takes the plain
 PyTorch version in ``ref.py``. There is no fallback between the two and
 no switch: the device of the input decides.
@@ -13,13 +13,15 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import fused_scan as _fused
 from repro_torch.kernels import hamming_scan as _hamming
+from repro_torch.kernels import ip_topk as _ip_topk
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import srp_hash as _srp
 from repro_torch.kernels._build import launch_counts
 
-__all__ = ["hamming_scores", "launch_counts", "reset_launch_counts",
-           "srp_hash"]
+__all__ = ["fused_scan", "hamming_scores", "ip_topk", "launch_counts",
+           "reset_launch_counts", "srp_hash"]
 
 
 def reset_launch_counts() -> None:
@@ -49,3 +51,36 @@ def srp_hash(x: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
     if _route(x, "srp_hash"):
         return _srp.srp_hash(x, proj)
     return _ref.srp_hash(x, proj)
+
+
+def fused_scan(ucodes: torch.Tensor, item_codes: torch.Tensor,
+               item_mask: torch.Tensor, qitems: torch.Tensor,
+               qscale: torch.Tensor, users: torch.Tensor, *, n_cand: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Hamming filter + top-``n_cand`` + dequantized int8 IP per lane:
+    (C, W) x (T, W) int32 codes with a (T,) mask, (T, d) int8 rows and
+    (T,) scales, (C, d) users -> (cand (C, n_cand) int32, qips (C, n_cand)
+    f32). Kernel and plain version agree bit for bit."""
+    if _route(users, "fused_scan"):
+        return _fused.fused_scan(ucodes, item_codes, item_mask, qitems,
+                                 qscale, users, n_cand=n_cand)
+    return _ref.fused_scan(ucodes, item_codes, item_mask, qitems, qscale,
+                           users, n_cand)
+
+
+def ip_topk(queries: torch.Tensor, items: torch.Tensor,
+            k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k inner products: (q, d) x (n, d) f32 -> (vals (q, k)
+    descending, ids (q, k) int32), the lower id first among equal values.
+
+    On CUDA the kernel reduces every tile of items to its top-k and a
+    stable descending sort merges the tiles (the reference's
+    ``ops._merge_topk``). Unlike the reference, which takes its Pallas
+    kernel only when ``n`` is a multiple of its block, the kernel runs for
+    every n: it masks the tail tile itself."""
+    if _route(queries, "ip_topk"):
+        vals, ids = _ip_topk.ip_topk_tiles(queries, items, k)
+        flat_v = vals.reshape(vals.shape[0], -1)
+        best, pos = _ref.topk_stable(flat_v, k)
+        return best, ids.reshape(ids.shape[0], -1).gather(1, pos)
+    return _ref.ip_topk(queries, items, k)

@@ -1,19 +1,26 @@
 """Plain PyTorch versions of the hand-written CUDA kernels.
 
-Twins of ``src/repro/kernels/ref.py:16-34``. Each function computes what
-its kernel computes, by the kernel's own algorithm, in ordinary tensor
-ops: the CPU path of ``kernels/ops.py`` runs them, and ``chip_smoke.py``
-holds each CUDA kernel against them on the card.
+Twins of ``src/repro/kernels/ref.py:16-34,53-93``. Each function computes
+what its kernel computes, by the kernel's own algorithm, in ordinary
+tensor ops: the CPU path of ``kernels/ops.py`` runs them, and
+``chip_smoke.py`` holds each CUDA kernel against them on the card.
 
 SRP codes travel as int32 *bit views* of the reference's uint32 words:
 CPU torch has no ``>>`` or ``-`` on uint32 and no popcount op, and the
 bits are what matter. ``codes.numpy().view(np.uint32)`` recovers the
 reference's words exactly.
+
+Float sums that a kernel must reproduce bit for bit (``fused_scan``'s
+quantized inner products, ``ip_topk``'s scores) run one rounded multiply
+and one rounded add per term, in index order, exactly as the kernels do
+with ``__fmul_rn`` / ``__fadd_rn``.
 """
 
 from __future__ import annotations
 
 import torch
+
+BIG_HAMMING = 1 << 30   # distance given to masked rows: behind every live row
 
 _M1 = 0x55555555
 _M2 = 0x33333333
@@ -54,15 +61,24 @@ def pack_signs(signs: torch.Tensor) -> torch.Tensor:
     return _words_to_int32((grouped * pow2).sum(dim=-1))
 
 
+def index_order_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``sum_i a[..., i] * b[..., i]`` over broadcast leading dims, one
+    running float32 sum per output over i = 0..d-1, each product and each
+    sum rounded on its own (the kernels' ``__fmul_rn`` / ``__fadd_rn``
+    loop). Elementwise per output, so an output never depends on what else
+    shares the call (a GEMM's blocking may)."""
+    s = torch.zeros(torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]),
+                    dtype=torch.float32, device=a.device)
+    for i in range(a.shape[-1]):
+        s = s + a[..., i] * b[..., i]
+    return s
+
+
 def srp_scores(x: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
     """``x @ proj`` summed in the kernel's order: one running sum per
-    output, over i = 0..d-1. Elementwise per row, so a row's scores never
-    depend on which other rows share the call (a GEMM's blocking may)."""
-    s = torch.zeros(x.shape[0], proj.shape[1], dtype=torch.float32,
-                    device=x.device)
-    for i in range(x.shape[1]):
-        s = s + x[:, i, None] * proj[i]
-    return s
+    output, over i = 0..d-1 (the kernel's ``fmaf`` rounds each step once,
+    this twice, so the two may differ in the last bit)."""
+    return index_order_dot(x[:, None, :], proj.T[None])
 
 
 def srp_hash(x: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
@@ -70,3 +86,60 @@ def srp_hash(x: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
     (n, B // 32) int32. Bit j of word w is set iff
     ``<x, proj[:, 32 w + j]> >= 0`` (so -0.0 sets it and NaN does not)."""
     return pack_signs(srp_scores(x, proj) >= 0.0)
+
+
+def nearest_rows(dist: torch.Tensor, n_cand: int) -> torch.Tensor:
+    """The ``n_cand`` columns of lowest ``dist`` in each row, ascending,
+    the lower column first on ties -> (rows, n_cand) int32. That is the
+    order of ``lax.top_k(-dist)`` and of the kernels' iterated argmin;
+    selecting on the unique int64 key ``dist * n + column`` gives exactly
+    it (``torch.topk`` alone promises neither the set nor the order)."""
+    n = dist.shape[-1]
+    key = dist.to(torch.int64) * n + torch.arange(n, device=dist.device)
+    best = torch.topk(key, n_cand, dim=-1, largest=False, sorted=True)
+    return (best.values % n).to(torch.int32)
+
+
+def fused_scan(ucodes: torch.Tensor, item_codes: torch.Tensor,
+               item_mask: torch.Tensor, qitems: torch.Tensor,
+               qscale: torch.Tensor, users: torch.Tensor,
+               n_cand: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused int8 sketch scan of one item tile (twin of the reference's
+    ``ref.fused_scan``): ucodes (C, W) int32, item_codes (T, W) int32,
+    item_mask (T,) bool, qitems (T, d) int8, qscale (T,) f32, users
+    (C, d) f32 -> (cand (C, n_cand) int32 tile rows, qips (C, n_cand) f32).
+
+    Candidates ascend by Hamming distance, the lower row first on ties;
+    masked rows get ``BIG_HAMMING`` and so rank behind every live row but
+    still give deterministic candidates. ``qips[c, p]`` is
+    ``<float(qitems[r]), users[c]> * qscale[r]`` for ``r = cand[c, p]``:
+    the scale multiplies after the integer-valued dot, which is what the
+    error ball of ``core/sa_alsh.py::_tile_beat_int8`` assumes."""
+    dist = hamming_scores(ucodes, item_codes)
+    dist = torch.where(item_mask[None, :], dist, BIG_HAMMING)
+    cand = nearest_rows(dist, n_cand)
+    rows = cand.long()
+    qvecs = qitems[rows].to(torch.float32)               # (C, n_cand, d)
+    qips = index_order_dot(qvecs, users[:, None, :]) * qscale[rows]
+    return cand, qips
+
+
+def topk_stable(vals: torch.Tensor, k: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest of each row, descending, the lower position first
+    among equal values (``lax.top_k``'s rule; ``torch.topk`` promises no
+    order): (values, int64 positions), by a stable descending sort."""
+    v, pos = torch.sort(vals, dim=-1, descending=True, stable=True)
+    return v[..., :k], pos[..., :k]
+
+
+def ip_topk(queries: torch.Tensor, items: torch.Tensor,
+            k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k inner products: queries (q, d), items (n, d) -> (vals
+    (q, k) f32 descending, ids (q, k) int32), the lower id first among
+    equal values. For finite scores this is what the kernel's per-tile
+    argmax followed by the stable merge of the tiles gives: each tile keeps
+    its equal values in id order, and the tiles come in id order."""
+    scores = index_order_dot(queries[:, None, :], items[None, :, :])
+    vals, ids = topk_stable(scores, k)
+    return vals, ids.to(torch.int32)

@@ -21,13 +21,7 @@ def srp_hash(x: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
     """x (n, d) f32, proj (d, B) f32 on one CUDA device -> (n, B // 32)
     int32 codes. Raises on anything the kernel does not take."""
     for name, t in (("x", x), ("proj", proj)):
-        if t.device.type != "cuda":
-            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.dtype != torch.float32 or t.dim() != 2:
-            raise ValueError(f"{name} must be 2-D float32, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        _build.check_input(name, t, torch.float32, 2)
     if x.device != proj.device:
         raise ValueError("x and proj are on different devices")
     (n, d), (d2, b) = x.shape, proj.shape

@@ -170,6 +170,8 @@ def test_engine_rejects_bad_use():
     eng = RkMIPSEngine("sah", device="cpu")
     with pytest.raises(RuntimeError, match="not built"):
         eng.query_batch(np.ones((1, 4), np.float32), 1)
+    with pytest.raises(RuntimeError, match="not built"):
+        eng.kmips(np.ones((1, 4), np.float32), 1)
     items, users = mf_data(1, 300, 200, 8)
     with pytest.raises(ValueError, match="dimensionality"):
         eng.build(items, users[:, :4])
@@ -178,9 +180,8 @@ def test_engine_rejects_bad_use():
     eng.build(items, users, torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="outside"):
         eng.query_batch(items[:2], 51)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        RkMIPSEngine(get_config("sah").replace(scan_precision="int8"),
-                     device="cpu").build(items, users)
+    with pytest.raises(ValueError, match="kmips_proj must be a non-empty"):
+        eng.build(items, users, kmips_proj=np.ones(4, np.float32))
     with pytest.raises(TypeError):
         RkMIPSEngine(3, device="cpu")
 

@@ -6,13 +6,17 @@ the reference's ``ref.hamming_scores`` and its Pallas kernel in interpret
 mode exactly; SRP codes must equal the reference bit for bit except for
 flips whose float64 score lies within ``8 * d * 2**-24 * sum_i |x_i p_i|``
 of 0 (the two sum in different orders). Codes travel as int32 bit views
-and are compared through ``.view(np.uint32)``.
+and are compared through ``.view(np.uint32)``. ``fused_scan`` candidates
+and ``ip_topk`` ids must equal the reference's exactly (ties toward the
+lower row); their floats are allclose at rtol 1e-5, atol 1e-5.
 
 Tests marked ``gpu`` hold each CUDA kernel against its plain version and
 skip where no CUDA device is present (decided in a fixture, so every
-worker collects the same tests). They need no JAX: the reference is
-imported by the ``jx`` fixture, so this file also runs where only the
-port is installed (``pytest -m gpu tests/test_torch_kernels.py``).
+worker collects the same tests): integers exactly, and the ``fused_scan``
+and ``ip_topk`` floats bit for bit (kernel and plain version both round
+each product and each sum in index order). They need no JAX: the
+reference is imported by the ``jx`` fixture, so this file also runs where
+only the port is installed (``pytest -m gpu tests/test_torch_kernels.py``).
 """
 
 import types
@@ -21,7 +25,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import hamming_scan, ops, ref, srp_hash
+from repro_torch.core import sa_alsh
+from repro_torch.kernels import fused_scan, hamming_scan, ip_topk, ops, ref
+from repro_torch.kernels import srp_hash
 
 
 @pytest.fixture
@@ -35,11 +41,15 @@ def cuda():
 def jx():
     """The JAX reference's kernel modules."""
     jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels import fused_scan as jax_fused
     from repro.kernels import hamming_scan as jax_hamming
+    from repro.kernels import ip_topk as jax_ip_topk
     from repro.kernels import ref as jax_ref
     from repro.kernels import srp_hash as jax_srp
+    from repro.kernels.ops import _merge_topk
     return types.SimpleNamespace(jnp=jnp, hamming=jax_hamming, ref=jax_ref,
-                                 srp=jax_srp)
+                                 srp=jax_srp, fused=jax_fused,
+                                 ip_topk=jax_ip_topk, merge=_merge_topk)
 
 
 def _u32(rng, shape):
@@ -148,6 +158,113 @@ def test_srp_plain_rows_do_not_depend_on_the_batch():
         assert torch.equal(ref.srp_hash(x[lo:hi], proj), full[lo:hi])
 
 
+def _fused_inputs(seed, c, t, w, d, live=0.8):
+    """numpy inputs of one fused_scan call: (ucodes, item_codes) uint32,
+    mask bool, qitems int8, qscale f32, users f32."""
+    rng = np.random.default_rng(seed)
+    return (_u32(rng, (c, w)), _u32(rng, (t, w)), rng.random(t) < live,
+            rng.integers(-127, 128, size=(t, d)).astype(np.int8),
+            rng.uniform(0.0, 0.1, size=t).astype(np.float32),
+            rng.standard_normal((c, d)).astype(np.float32))
+
+
+def _torch_fused(args, device="cpu"):
+    uc, ic, mask, qi, qs, us = args
+    return (_t(uc).to(device), _t(ic).to(device),
+            torch.from_numpy(mask).to(device),
+            torch.from_numpy(qi).to(device), torch.from_numpy(qs).to(device),
+            torch.from_numpy(us).to(device))
+
+
+def _jax_fused(jnp, args):
+    return [jnp.asarray(a) for a in args]
+
+
+# (C, T, W, d, n_cand): prime sizes, n_cand == T (every row selected),
+# one word and eight
+_FUSED_SHAPES = [(16, 97, 3, 19, 7), (8, 256, 4, 32, 16), (4, 513, 1, 5, 64),
+                 (32, 144, 8, 24, 13), (3, 31, 2, 17, 31)]
+
+
+@pytest.mark.parametrize("c,t,w,d,n_cand", _FUSED_SHAPES)
+def test_fused_scan_plain_equals_reference(jx, c, t, w, d, n_cand):
+    args = _fused_inputs(c + t + d, c, t, w, d)
+    cand, qips = ref.fused_scan(*_torch_fused(args), n_cand)
+    jargs = _jax_fused(jx.jnp, args)
+    rc, rq = jx.ref.fused_scan(*jargs, n_cand)
+    lc, lq = jx.fused.fused_scan_lax(*jargs, n_cand=n_cand)
+    assert cand.dtype == torch.int32 and qips.dtype == torch.float32
+    for want_c, want_q in ((rc, rq), (lc, lq)):
+        np.testing.assert_array_equal(cand.numpy(), np.asarray(want_c))
+        np.testing.assert_allclose(qips.numpy(), np.asarray(want_q),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("live", [0.8, 0.0, 0.05])
+def test_fused_scan_plain_equals_pallas_interpret(jx, live):
+    """At a tiny shape against the Pallas kernel run in interpret mode;
+    live=0 masks every row (candidates are then rows 0..n_cand-1) and
+    live=0.05 leaves fewer live rows than n_cand."""
+    args = _fused_inputs(7, 8, 64, 2, 9, live=live)
+    cand, qips = ref.fused_scan(*_torch_fused(args), 12)
+    pc, pq = jx.fused.fused_scan_tiles(*_jax_fused(jx.jnp, args), n_cand=12,
+                                       block_q=4, interpret=True)
+    np.testing.assert_array_equal(cand.numpy(), np.asarray(pc))
+    np.testing.assert_allclose(qips.numpy(), np.asarray(pq), rtol=1e-5,
+                               atol=1e-5)
+    mask = args[2]
+    n_live = int(mask.sum())
+    if n_live < 12:                    # live rows first, then masked rows
+        assert mask[cand.numpy()[:, :n_live]].all()
+        assert not mask[cand.numpy()[:, n_live:]].any()
+    if live == 0.0:
+        np.testing.assert_array_equal(cand.numpy(),
+                                      np.tile(np.arange(12), (8, 1)))
+
+
+def _ip_inputs(seed, q, n, d, dup=False):
+    rng = np.random.default_rng(seed)
+    if dup:       # every query ties with the first half of the items
+        return (np.ones((q, d), np.float32),
+                np.concatenate([np.ones((n // 2, d)),
+                                np.zeros((n - n // 2, d))]).astype(np.float32))
+    return (rng.standard_normal((q, d)).astype(np.float32),
+            rng.standard_normal((n, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("q,n,d,k,dup", [(8, 1024, 32, 8, False),
+                                         (5, 389, 29, 10, False),
+                                         (4, 128, 16, 8, True),
+                                         (3, 300, 7, 64, False)])
+def test_ip_topk_plain_equals_reference(jx, q, n, d, k, dup):
+    """Against the reference's exact top-k and its Pallas kernel in
+    interpret mode plus merge (on a block multiple); ids exactly."""
+    queries, items = _ip_inputs(q + n, q, n, d, dup)
+    vals, ids = ref.ip_topk(torch.from_numpy(queries),
+                            torch.from_numpy(items), k)
+    assert ids.dtype == torch.int32
+    jq, ji = jx.jnp.asarray(queries), jx.jnp.asarray(items)
+    rv, ri = jx.ref.ip_topk(jq, ji, k)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(ri))
+    np.testing.assert_allclose(vals.numpy(), np.asarray(rv), rtol=1e-5,
+                               atol=1e-5)
+    bn = 32 if n % 32 == 0 else n
+    tv, ti = jx.ip_topk.ip_topk_tiles(jq, ji, k, block_q=q, block_n=bn,
+                                      interpret=True)
+    mv, mi = jx.merge(tv, ti, k)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(mi))
+    np.testing.assert_allclose(vals.numpy(), np.asarray(mv), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_topk_stable_keeps_the_lower_position_first():
+    v = torch.tensor([[1.0, 3.0, 3.0, 0.0, 3.0, 1.0]])
+    vals, pos = ref.topk_stable(v, 4)
+    assert pos.tolist() == [[1, 2, 4, 0]] and vals.tolist() == [[3, 3, 3, 1]]
+    assert ref.nearest_rows(torch.tensor([[2, 1, 1, 0, 1]]), 3).tolist() \
+        == [[3, 1, 2]]
+
+
 def test_ops_dispatch_by_device():
     rng = np.random.default_rng(1)
     q, n = _t(_u32(rng, (4, 4))), _t(_u32(rng, (9, 4)))
@@ -155,9 +272,17 @@ def test_ops_dispatch_by_device():
     assert torch.equal(ops.hamming_scores(q, n), ref.hamming_scores(q, n))
     x, p = torch.randn(3, 5), torch.randn(5, 64)
     assert torch.equal(ops.srp_hash(x, p), ref.srp_hash(x, p))
+    args = _torch_fused(_fused_inputs(2, 6, 40, 2, 5))
+    for got, want in zip(ops.fused_scan(*args, n_cand=7),
+                         ref.fused_scan(*args, 7)):
+        assert torch.equal(got, want)
+    for got, want in zip(ops.ip_topk(x, x, 2), ref.ip_topk(x, x, 2)):
+        assert torch.equal(got, want)
     assert ops.launch_counts == before          # the plain path launches none
     with pytest.raises(ValueError, match="no kernel for device meta"):
         ops.hamming_scores(q.to("meta"), n.to("meta"))
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ops.ip_topk(x.to("meta"), x.to("meta"), 2)
 
 
 def test_wrappers_refuse_cpu_tensors():
@@ -167,6 +292,11 @@ def test_wrappers_refuse_cpu_tensors():
                                     torch.zeros(3, 4, dtype=torch.int32))
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         srp_hash.srp_hash(torch.zeros(2, 4), torch.zeros(4, 32))
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        fused_scan.fused_scan(*_torch_fused(_fused_inputs(0, 2, 8, 1, 3)),
+                              n_cand=2)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        ip_topk.ip_topk_tiles(torch.zeros(2, 4), torch.zeros(3, 4), 1)
 
 
 def test_reset_launch_counts():
@@ -213,3 +343,74 @@ def test_cuda_wrappers_refuse_bad_inputs(cuda):
     with pytest.raises(ValueError, match="multiple of 32"):
         srp_hash.srp_hash(torch.zeros(2, 4, device=cuda),
                           torch.zeros(4, 48, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,t,w,d,n_cand,live", [
+    (256, 512, 4, 100, 64, 0.8),      # the main path's shape
+    (16, 97, 3, 19, 7, 0.8), (3, 31, 2, 17, 31, 0.8),
+    (5, 200, 32, 8, 16, 0.5),          # the widest code
+    (8, 64, 2, 9, 12, 0.0),            # every row masked
+    (8, 64, 2, 9, 12, 0.05)])          # fewer live rows than n_cand
+def test_cuda_fused_scan_equals_plain_bitwise(cuda, c, t, w, d, n_cand,
+                                              live):
+    args = _fused_inputs(c * t + w, c, t, w, d, live=live)
+    before = ops.launch_counts["fused_scan"]
+    cand, qips = ops.fused_scan(*_torch_fused(args, cuda), n_cand=n_cand)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["fused_scan"] == before + 1
+    want_c, want_q = ref.fused_scan(*_torch_fused(args), n_cand)
+    assert torch.equal(cand.cpu(), want_c)
+    assert torch.equal(qips.cpu(), want_q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,n,d,k,dup", [(64, 1000, 100, 10, False),
+                                         (5, 77, 3, 1, False),
+                                         (33, 300, 16, 128, False),
+                                         (4, 256, 16, 8, True),
+                                         (40, 129, 5, 20, False)])
+def test_cuda_ip_topk_equals_plain_bitwise(cuda, q, n, d, k, dup):
+    queries, items = _ip_inputs(q * n, q, n, d, dup)
+    before = ops.launch_counts["ip_topk"]
+    vals, ids = ops.ip_topk(torch.from_numpy(queries).to(cuda),
+                            torch.from_numpy(items).to(cuda), k)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["ip_topk"] == before + 1
+    want_v, want_i = ref.ip_topk(torch.from_numpy(queries),
+                                 torch.from_numpy(items), k)
+    assert torch.equal(ids.cpu(), want_i)
+    assert torch.equal(vals.cpu(), want_v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,n_cand,d", [(256, 64, 100), (7, 24, 300)])
+def test_cuda_lane_ips_of_a_subset_are_bitwise_the_full_ones(cuda, c,
+                                                             n_cand, d):
+    """The int8 band re-rank scores (C, 16) rows with the helper the f32
+    scan uses at (C, n_cand): on the card each lane's IP must not depend
+    on how many rows share the call."""
+    rng = np.random.default_rng(c)
+    items_t = torch.from_numpy(rng.standard_normal((512, d)).astype(
+        np.float32)).to(cuda)
+    users = torch.from_numpy(rng.standard_normal((c, d)).astype(
+        np.float32)).to(cuda)
+    rows = torch.from_numpy(rng.integers(0, 512, (c, n_cand))).to(cuda)
+    full = sa_alsh.lane_ips(items_t, rows, users)
+    for s in (16, 8):
+        pos = torch.argsort(torch.rand(c, n_cand, device=cuda))[:, :s]
+        sub = sa_alsh.lane_ips(items_t, rows.gather(1, pos), users)
+        assert torch.equal(sub, full.gather(1, pos))
+
+
+@pytest.mark.gpu
+def test_cuda_new_wrappers_refuse_bad_inputs(cuda):
+    args = list(_torch_fused(_fused_inputs(1, 4, 16, 2, 5), cuda))
+    with pytest.raises(ValueError, match="n_cand must be in"):
+        fused_scan.fused_scan(*args, n_cand=17)
+    args[3] = args[3].to(torch.int32)
+    with pytest.raises(ValueError, match="qitems must be 2-D torch.int8"):
+        fused_scan.fused_scan(*args, n_cand=3)
+    x = torch.zeros(4, 8, device=cuda)
+    with pytest.raises(ValueError, match="k must be in"):
+        ip_topk.ip_topk_tiles(x, x, 5)

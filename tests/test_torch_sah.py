@@ -14,9 +14,14 @@ index and queries:
   n_scan) are equal under the same rule: every lane on which the two
   plans disagree is traced.
 
+The int8 screen (``scan_precision="int8"``) is held against the
+reference's int8 path by the same rule: tile counts, decisions and
+predictions.
+
 Inside the port, bitwise: the batched driver equals the per-query
-driver, ``scan_budget=0`` equals no budget, and the chunk size does not
-change a prediction.
+driver, ``scan_budget=0`` equals no budget, the chunk size does not
+change a prediction, and the int8 screen gives the f32 scan's counts,
+predictions and counters.
 """
 
 import jax
@@ -84,6 +89,20 @@ def indexes(corpus):
         arrays = reference_index_arrays(ref_idx)
         out[preset] = (ref_idx, sah.index_from_numpy(arrays, "cpu"), arrays)
     return out
+
+
+_port_runs = {}
+
+
+def port_batch(indexes, corpus, preset, k, precision="f32"):
+    """The port's ``rkmips_batch`` on the module's queries, run once per
+    (preset, k, precision) and shared by the tests of this file."""
+    key = (preset, k, precision)
+    if key not in _port_runs:
+        _port_runs[key] = sah.rkmips_batch(
+            indexes[preset][1], torch.from_numpy(corpus[2]), k,
+            scan_precision=precision, **query_kwargs(preset))
+    return _port_runs[key]
 
 
 def query_kwargs(preset):
@@ -187,7 +206,7 @@ def test_predictions_match_reference(indexes, corpus, preset, k):
     queries = corpus[2]
     kw = query_kwargs(preset)
     want, _ = jsah.rkmips_batch(ref_idx, jnp.asarray(queries), k, **kw)
-    got, stats = sah.rkmips_batch(idx, torch.from_numpy(queries), k, **kw)
+    got, stats = port_batch(indexes, corpus, preset, k)
     want = np.asarray(want)
     n_tied = assert_traced(arrays, idx, queries, k, want, got.numpy())
     assert n_tied <= 0.001 * want.size, n_tied
@@ -342,12 +361,116 @@ def test_tile_candidates_match_reference_exactly(indexes):
     assert len(torch.unique(dist[0])) < 256          # ties are present
 
 
-def test_batch_guard_and_int8_refusal(indexes):
+def test_batch_guard_and_int8_refusal(indexes, corpus):
+    """The int32-queue guard and the refusal of an unknown precision stay;
+    int8, refused before the int8 screen was ported, now answers as f32."""
     _, idx, _ = indexes["sah"]
     huge = idx._replace(users=torch.zeros(1, D).expand(2 ** 30, D))
     with pytest.raises(ValueError, match="int32 flat work queue"):
         sah.rkmips_plan(huge, torch.ones(2, D), 10)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        sah.rkmips_batch(idx, torch.ones(1, D), 10, scan_precision="int8")
+    q = torch.from_numpy(corpus[2][:1])
+    got, _ = sah.rkmips_batch(idx, q, 10, scan_precision="int8")
+    want, _ = sah.rkmips_batch(idx, q, 10, scan_precision="f32")
+    assert torch.equal(got, want)
     with pytest.raises(ValueError, match="scan_precision must be one of"):
         sah.rkmips_batch(idx, torch.ones(1, D), 10, scan_precision="bf16")
+
+
+@pytest.mark.parametrize("preset", ["sah", "simpfer"])
+@pytest.mark.parametrize("k", [10, 50])
+def test_int8_equals_f32_bitwise_and_matches_reference(indexes, corpus,
+                                                       preset, k):
+    """The int8 screen ("sah": fused sketch kernel and band re-rank;
+    "simpfer": the dense exact-scan screen) gives the f32 scan's
+    predictions and every counter bitwise, and the reference's int8
+    predictions and plan counters up to traced float ties."""
+    ref_idx, idx, arrays = indexes[preset]
+    queries = corpus[2]
+    got, stats = port_batch(indexes, corpus, preset, k, "int8")
+    f32, stats32 = port_batch(indexes, corpus, preset, k)
+    assert torch.equal(got, f32)
+    for a, b in zip(stats, stats32):
+        assert torch.equal(a, b)
+    want, jstats = jsah.rkmips_batch(ref_idx, jnp.asarray(queries), k,
+                                     scan_precision="int8",
+                                     **query_kwargs(preset))
+    n_tied = assert_traced(arrays, idx, queries, k, np.asarray(want),
+                           got.numpy())
+    assert n_tied <= 0.001 * got.numel(), n_tied
+    for f in ("blocks_alive", "users_alive", "n_no_lb", "n_yes_norm",
+              "n_scan"):
+        np.testing.assert_array_equal(getattr(stats, f).numpy(),
+                                      np.asarray(getattr(jstats, f)))
+    if k == 50:
+        assert int(stats.n_scan.sum()) > 0
+
+
+def _lane_ties(items_t, users, thr, lanes):
+    """Each lane must have a tile row whose float64 IP with the lane's
+    user lies within float32 rounding of its threshold."""
+    rows = items_t.astype(np.float64)
+    for c in lanes:
+        u = users[c].astype(np.float64)
+        tol = 8 * len(u) * 2.0 ** -24 * np.abs(rows * u).sum(-1)
+        assert np.any(np.abs(rows @ u - thr[c]) <= tol + 1e-7), c
+
+
+@pytest.mark.parametrize("scan", ["sketch", "exact"])
+def test_tile_beat_int8_matches_reference_and_f32(indexes, corpus, scan):
+    """Fed the reference's user codes, each tile's int8 count equals the
+    port's f32 count bitwise and the reference's int8 count but for lanes
+    traced to a float tie at the threshold; the band re-rank runs."""
+    from repro.core import sa_alsh as jalsh
+    from repro_torch.core import sa_alsh
+    ref_idx, idx, arrays = indexes["sah"]
+    q = corpus[2][0]
+    users = ref_idx.users[:256]
+    tusers = idx.users[:256]
+    ucodes = jalsh.user_codes(ref_idx.alsh, users)
+    tucodes = torch.from_numpy(np.array(ucodes).view(np.int32))
+    thr = (np.asarray(users) @ q + TIE_EPS * np.linalg.norm(q)).astype(
+        np.float32)
+    tthr = torch.from_numpy(thr)
+    unorm = jnp.linalg.norm(users, axis=-1)
+    tunorm = torch.linalg.norm(tusers, dim=-1)
+    tile = idx.alsh.tile
+    sa_alsh.reset_band_counts()
+    for t in range(idx.alsh.tile_max_norm.shape[0]):
+        want = np.asarray(jalsh._tile_beat_int8(
+            ref_idx.alsh, ucodes, users, unorm, jnp.asarray(thr), t,
+            n_cand=64 if scan == "sketch" else tile, scan=scan))
+        got = sa_alsh._tile_beat_int8(
+            idx.alsh, tucodes if scan == "sketch" else None, tusers, tunorm,
+            tthr, t, n_cand=64 if scan == "sketch" else tile, scan=scan)
+        ips, valid, _ = sa_alsh._tile_candidates(
+            idx.alsh, tucodes, tusers, t, n_cand=64, scan=scan)
+        assert torch.equal(got, ((ips > tthr[:, None]) & valid).sum(-1).to(
+            torch.int32))
+        _lane_ties(arrays["index/alsh/items"][t * tile:(t + 1) * tile],
+                   np.asarray(users), thr, np.nonzero(got.numpy() != want)[0])
+    if scan == "sketch":
+        assert sa_alsh.band_counts["passes"] > 0
+
+
+def test_decide_count_int8_matches_f32_and_reference(indexes, corpus):
+    from repro.core import sa_alsh as jalsh
+    from repro_torch.core import sa_alsh
+    ref_idx, idx, arrays = indexes["sah"]
+    q = corpus[2][0]
+    k = 50
+    p = sah._plan_one(idx, torch.from_numpy(q), k, TIE_EPS)
+    n_und = int(p.undecided.sum())
+    ids = sah._undecided_first(p.undecided)[:256]
+    active = torch.arange(256) < n_und
+    args = (idx.users[ids], p.tau[ids], p.count0[ids], active)
+    kw = dict(n_cand=64, scan="sketch", eps=p.eps)
+    yes8, t8 = sa_alsh.decide_count(idx.alsh, *args, k,
+                                    scan_precision="int8", **kw)
+    yes32, t32 = sa_alsh.decide_count(idx.alsh, *args, k, **kw)
+    assert torch.equal(yes8, yes32) and t8 == t32 and n_und > 0
+    jyes, jt = jalsh.decide_count(
+        ref_idx.alsh, *(jnp.asarray(a.numpy()) for a in args), k, n_cand=64,
+        scan="sketch", eps=float(p.eps), scan_precision="int8")
+    diff = np.nonzero(yes8.numpy() != np.asarray(jyes))[0]
+    trace(arrays, idx, q, k, ids.numpy()[diff])
+    assert t8 == int(jt) or len(diff)
