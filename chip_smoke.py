@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the port's three paths through their entry points at the paper's
-Netflix scale (n = 17,770 items, m = 480,189 users, d = 100, synthetic
-MF-like factors from ``--seed``), each with every launch count set to 0
-just before it and read just after:
+Drives the port's four paths through their entry points, each with every
+launch count set to 0 just before it and read just after. The first three
+run at the paper's Netflix scale (n = 17,770 items, m = 480,189 users,
+d = 100, synthetic MF-like factors from ``--seed``):
 
   f32 reverse   ``RkMIPSEngine("sah").build(...)`` on the card, then
                 ``query_batch`` at k = 10 and 50 over 16 queries drawn
@@ -18,24 +18,35 @@ just before it and read just after:
   forward       ``kmips(users, 10)`` for 4,096 users drawn with
                 ``--seed`` (a service recomputing its users' top-10
                 items), under the "sah" and the "exact" presets, and the
-                exact answer from ``ops.ip_topk``.
+                exact answer from ``ops.ip_topk``;
+  LM serving    qwen3-0.6b at full width and depth (28 layers, d 1024,
+                vocab 151,936, bf16, weights drawn from ``--seed``) with
+                ``attn_impl="flash"``: ``prefill`` of 4 prompts of 2,048
+                tokens, then 32 greedy ``decode_step``s.
 
 It
 
   1. prints the card (``nvidia-smi`` name and power limit) and versions;
   2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc``;
-  3. fails unless every kernel of a path launched during that path;
+  3. fails unless every kernel of a path launched during that path (and
+     ``flash_attention`` exactly once per layer in prefill, never in
+     decode);
   4. holds the reverse answers against the exact oracle (recall 1.0 but
      for misses within float32 rounding of their threshold), the int8
-     answers against the f32 ones bit for bit, and the "exact" forward
-     ids against ``ip_topk``'s but for traced float ties;
+     answers against the f32 ones bit for bit, the "exact" forward ids
+     against ``ip_topk``'s but for traced float ties, and the flash
+     prefill's logits against the plain chunked prefill's and a decode step
+     against a prefill one token longer, with the same model in float32 as
+     the arbiter of how far two bf16 paths may drift apart;
   5. holds each kernel against its plain PyTorch version on the inputs
      its path gives it (Hamming, ``fused_scan`` and ``ip_topk`` exactly;
-     SRP bits up to flips whose score lies within the rounding bound of 0);
+     SRP bits up to flips whose score lies within the rounding bound of 0;
+     flash attention within two bf16 ulps on layer 0's q/k/v, and within
+     5e-5 in float32);
   6. times each kernel and its plain version on the device (launches
      replayed from a CUDA graph) and each wrapper call from Python;
-  7. splits a query batch into plan and execute, and profiles it for the
-     device's busy share and its top kernels.
+  7. splits a query batch into plan and execute, and profiles it and one
+     LM prefill for the device's busy share and their top kernels.
 
 Any failure raises and exits nonzero. Without a CUDA device, or away from
 the repository, it exits nonzero before printing any result. The last
@@ -46,6 +57,7 @@ before that is the per-kernel JSON.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import subprocess
 import sys
@@ -57,6 +69,7 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 # An SM issues INT32 work on half as many lanes as FP32 work.
 INT32_OP_PER_S = FP32_FLOP_PER_S / 2
 
@@ -65,6 +78,14 @@ TOP_FRAC = 0.02      # queries come from this top share of items by norm
 ITERS = 200          # timed launches per kernel
 N_FWD = 4096         # users per forward top-k batch
 K_FWD = 10
+LM_BATCH = 4         # prompts per prefill
+LM_PROMPT = 2048     # tokens per prompt
+LM_STEPS = 32        # greedy decode steps
+# further flash checks on unit-scale inputs: float32 at the prefill shape,
+# a ragged S in bf16, and full (non-causal) attention in float32
+FLASH_CHECKS = (((4, 16, 2048, 128), "float32", True),
+                ((4, 16, 300, 128), "bfloat16", True),
+                ((4, 16, 300, 128), "float32", False))
 
 
 def fail(msg: str) -> None:
@@ -178,12 +199,22 @@ def profile_query(eng, queries, k: int) -> None:
     t2 = time.perf_counter()
     print(f"breakdown {cfg.scan_precision} k={k}: plan {(t1 - t0) * 1e3:.1f} ms, execute "
           f"{(t2 - t1) * 1e3:.1f} ms ({plan.n_work} lanes)")
+    device_profile(f"{cfg.scan_precision} k={k}",
+                   lambda: eng.query_batch(queries, k))
+
+
+def device_profile(label: str, fn) -> None:
+    """Run ``fn`` once under ``torch.profiler`` and print the device's busy
+    share of the wall time (to a device sync) and the top kernels."""
+    import torch
     # device activity only: the busy share reads kernel rows, and recording
     # every host operator as well made each profile take minutes
     acts = [torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        eng.query_batch(queries, k)
+        fn()
+        torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
     for ev in prof.key_averages():
@@ -197,11 +228,252 @@ def profile_query(eng, queries, k: int) -> None:
     if not busy:
         print("profile: the profiler recorded no device time: not measured")
         return
-    print(f"profile {cfg.scan_precision} k={k} (profiler on): wall {wall_us / 1e3:.1f} ms, device "
-          f"busy {busy / 1e3:.1f} ms = {busy / wall_us:.1%}, idle "
+    print(f"profile {label} (profiler on): wall {wall_us / 1e3:.1f} ms, "
+          f"device busy {busy / 1e3:.1f} ms = {busy / wall_us:.1%}, idle "
           f"{1 - busy / wall_us:.1%}")
     for dev_us, count, key in sorted(rows, reverse=True)[:8]:
         print(f"  {dev_us / 1e3:9.2f} ms  {count:7d} x  {key[:90]}")
+
+
+def greedy_ties(want, got, tol):
+    """Rows where two logit matrices pick different argmax tokens must be
+    rows where ``want``'s two largest logits lie within ``tol`` of each
+    other. Returns the number of such rows; fails on any other
+    difference."""
+    import torch
+    diff = want.argmax(-1) != got.argmax(-1)
+    top2 = torch.topk(want, 2, dim=-1).values
+    near = (top2[:, 0] - top2[:, 1]) <= tol
+    if bool((diff & ~near).any()):
+        fail(f"{int((diff & ~near).sum())} greedy tokens differ without a "
+             f"near-tie")
+    return int(diff.sum())
+
+
+def flash_close(got, want, tol) -> float:
+    """Max |got - want|; fails unless every element is within ``tol(want)``."""
+    err = (got.float() - want.float()).abs()
+    bad = int((err > tol(want.float().abs())).sum())
+    if bad:
+        fail(f"flash_attention: {bad} of {err.numel()} values outside the "
+             f"tolerance (max abs err {float(err.max())})")
+    return float(err.max())
+
+
+def lm_path(seed: int, dev):
+    """The LM serving path: qwen3-0.6b at full width and depth in bf16,
+    ``attn_impl="flash"``, weights drawn from ``seed``; prefill of
+    LM_BATCH prompts of LM_PROMPT tokens, then LM_STEPS greedy decode
+    steps. Holds flash against chunked prefill and decode against a longer
+    prefill; returns what the kernel checks and the kernels line need."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import base
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(base.get("qwen3-0.6b").make_config(),
+                              attn_impl="flash",
+                              max_seq=LM_PROMPT + LM_STEPS)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    model = tf.init_params(cfg, gen, dev)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                            generator=gen, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"lm: {cfg.name} L={cfg.n_layers} d={cfg.d_model} heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} d_head={cfg.head_dim} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab} {cfg.dtype}, {n_params:,} "
+          f"parameters (n_params {cfg.n_params:,} + qk-norm scales), "
+          f"weights from seed {seed} in {time.perf_counter() - t0:.2f} s; "
+          f"{LM_BATCH} prompts x {LM_PROMPT} tokens, {LM_STEPS} greedy "
+          f"steps, max_seq {cfg.max_seq}")
+    tf.prefill(model, prompts[:, :256])       # warm-up: cuBLAS handles etc.
+
+    peak_before = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = tf.prefill(model, prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches_prefill = dict(ops.launch_counts)
+    ops.reset_launch_counts()
+    nxt = logits.argmax(-1)
+    tokens_out = []
+    t0 = time.perf_counter()
+    for step in range(LM_STEPS):
+        step_logits, cache = tf.decode_step(model, cache, nxt)
+        if step == 0:
+            first_step = step_logits
+        nxt = step_logits.argmax(-1)
+        tokens_out.append(nxt)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches_decode = dict(ops.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"lm prefill: {prefill_s:.4f} s for {LM_BATCH} x {LM_PROMPT} "
+          f"tokens = {LM_BATCH * LM_PROMPT / prefill_s:,.0f} prompt "
+          f"tokens/s; launches {launches_prefill}")
+    print(f"lm decode: {decode_s * 1e3 / LM_STEPS:.3f} ms/step, "
+          f"{LM_BATCH * LM_STEPS / decode_s:,.1f} generated tokens/s "
+          f"({LM_STEPS} steps, batch {LM_BATCH}); launches "
+          f"{launches_decode}")
+    print(f"lm peak device memory (prefill + decode): {peak / 2**30:.2f} GiB")
+    if launches_prefill["flash_attention"] != cfg.n_layers:
+        fail(f"prefill launched flash_attention "
+             f"{launches_prefill['flash_attention']} times, not "
+             f"{cfg.n_layers}")
+    if launches_decode["flash_attention"] != 0:
+        fail("decode launched flash_attention")
+    out = torch.stack(tokens_out, 1)
+    if (logits.shape != (LM_BATCH, cfg.vocab) or cache["length"] !=
+            LM_PROMPT + LM_STEPS or out.shape != (LM_BATCH, LM_STEPS)
+            or not bool(torch.isfinite(logits).all())
+            or not bool(torch.isfinite(step_logits).all())
+            or bool(((out < 0) | (out >= cfg.vocab)).any())):
+        fail("lm: bad prefill or decode output")
+
+    # flash against the plain chunked attention on the same weights and
+    # prompts. Through 28 bf16 layers of random weights both drift from the
+    # exact function by rounding, so a fixed tolerance says little; the
+    # arbiter is the same model in float32 (the bf16 weights upcast exactly,
+    # chunked attention). The flash model must be no further from it than
+    # the plain bf16 model is (1.25x margin, max and mean), and flash and
+    # chunked must agree within twice the plain model's distance to it.
+    model.cfg = dataclasses.replace(cfg, attn_impl="chunked")
+    chunked, _ = tf.prefill(model, prompts)
+    model32 = copy.deepcopy(model).float()
+    model32.cfg = dataclasses.replace(cfg, attn_impl="chunked",
+                                      dtype=torch.float32)
+    exact, _ = tf.prefill(model32, prompts)
+    del model32
+    model.cfg = cfg
+    err_f, err_c = (logits - exact).abs(), (chunked - exact).abs()
+    tol = 2 * float(err_c.max())
+    diff = float((logits - chunked).abs().max())
+    ties = greedy_ties(chunked, logits, tol)
+    ties32 = greedy_ties(exact, logits, tol)
+    print(f"lm check prefill last logits (|logit| <= "
+          f"{float(exact.abs().max()):.3f}) against the float32 model: "
+          f"flash max {float(err_f.max()):.6f} mean "
+          f"{float(err_f.mean()):.6f}, chunked max {float(err_c.max()):.6f} "
+          f"mean {float(err_c.mean()):.6f}; flash vs chunked max {diff:.6f} "
+          f"(tolerance {tol:.6f}); greedy tokens differ from chunked in "
+          f"{ties} and from float32 in {ties32} of {LM_BATCH} rows, all "
+          f"traced near-ties")
+    if (float(err_f.max()) > 1.25 * float(err_c.max())
+            or float(err_f.mean()) > 1.25 * float(err_c.mean())):
+        fail("lm: the flash prefill is further from the float32 model than "
+             "the chunked prefill")
+    if diff > tol:
+        fail(f"lm: flash and chunked prefill logits differ by {diff}, more "
+             f"than {tol}")
+
+    # the cache: decoding position S equals prefilling S + 1 tokens (two
+    # bf16 paths again: held within the same tolerance)
+    longer = torch.cat([prompts, logits.argmax(-1)[:, None]], 1)
+    whole, _ = tf.prefill(model, longer)
+    cerr = float((first_step - whole).abs().max())
+    cties = greedy_ties(whole, first_step, tol)
+    print(f"lm check cache: decode_step at {LM_PROMPT} vs prefill of "
+          f"{LM_PROMPT + 1} tokens (flash, ragged S): max abs err "
+          f"{cerr:.6f} (tolerance {tol:.6f}); greedy ties {cties}")
+    if cerr > tol:
+        fail(f"lm: decode logits differ from the longer prefill's by {cerr}")
+
+    device_profile("lm prefill", lambda: tf.prefill(model, prompts))
+    _, cache = tf.prefill(model, prompts)
+    nxt = logits.argmax(-1)
+
+    def steps():
+        for _ in range(4):
+            tf.decode_step(model, cache, nxt)
+
+    device_profile("lm 4 decode steps", steps)
+    return dict(cfg=cfg, model=model, prompts=prompts, prefill_s=prefill_s,
+                launches=launches_prefill, peak_before=peak_before)
+
+
+def flash_kernel_entry(lm: dict, seed: int, dev) -> dict:
+    """Hold the flash kernel against its plain version on layer 0's own
+    q/k/v from the LM prefill (bf16), on float32 and on a ragged S; time
+    it, its plain version and SDPA; return its kernels-line entry."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as tf
+    cfg, model = lm["cfg"], lm["model"]
+    blk = model.blocks[0]
+    with torch.no_grad():
+        h = tf._rms_norm(model.embed[lm["prompts"]], blk.ln1)
+        pos = torch.arange(LM_PROMPT, device=dev)
+        q, k, v = tf._project_qkv(h, blk, cfg, pos)
+        rep = cfg.n_heads // cfg.n_kv_heads
+        q = q.contiguous()
+        k = attention.repeat_kv(k, rep).contiguous()
+        v = attention.repeat_kv(v, rep).contiguous()
+
+    def bf16_tol(a):           # two bf16 ulps of the plain output
+        return 2.0 ** -6 * a + 1e-3
+
+    def f32_tol(a):
+        return 5e-5
+
+    err = flash_close(ops.flash_attention(q, k, v),
+                      ref.flash_attention(q, k, v), bf16_tol)
+    print(f"check flash_attention layer 0 q/k/v {tuple(q.shape)} bf16 "
+          f"causal: max abs err {err:.6f}, every value within 2**-6 "
+          f"|plain| + 1e-3")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f32_args = None
+    for shape, dtype, causal in FLASH_CHECKS:
+        a, b, c = (torch.randn(shape, generator=gen, device=dev).to(
+            getattr(torch, dtype)) for _ in range(3))
+        e = flash_close(ops.flash_attention(a, b, c, causal=causal),
+                        ref.flash_attention(a, b, c, causal=causal),
+                        bf16_tol if dtype == "bfloat16" else f32_tol)
+        print(f"check flash_attention {shape} {dtype} causal={causal}: "
+              f"max abs err {e:.7f}")
+        if f32_args is None and dtype == "float32" and causal:
+            f32_args = (a, b, c)
+
+    b, hh, s, dh = q.shape
+    ms = device_ms(lambda: ops.flash_attention(q, k, v), 20, replays=3)
+    call = call_ms(lambda: ops.flash_attention(q, k, v), 20)
+    plain = device_ms(lambda: ref.flash_attention(q, k, v), 2, replays=3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = device_ms(lambda: sdpa(q, k, v, is_causal=True), 20, replays=3)
+    f32_ms = device_ms(lambda: ops.flash_attention(*f32_args), 5, replays=3)
+    flops = 4 * dh * b * hh * s * (s + 1) // 2
+    nbytes = 4 * q.numel() * q.element_size()
+    t_ops, t_b = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    bound = max(t_ops, t_b) * 1e3
+    by = "operations" if t_ops >= t_b else "bytes"
+    f32_simt = flops / FP32_FLOP_PER_S * 1e3
+    print(f"time flash_attention {tuple(q.shape)} bf16 causal: kernel "
+          f"{ms:.5f} ms (device), {call:.5f} ms per call from Python; plain "
+          f"{plain:.5f} ms; bound {bound:.6f} ms ({by}: {flops / 1e9:.1f} "
+          f"GFLOP at 989 TFLOP/s bf16; {nbytes / 1e6:.1f} MB at 3.35 TB/s; "
+          f"f32 SIMT figure {f32_simt:.4f} ms at 67 TFLOP/s); library "
+          f"scaled_dot_product_attention(is_causal=True) {lib:.5f} ms; "
+          f"{flops / ms / 1e9:.1f} TFLOP/s; the float32 (SIMT) kernel at "
+          f"{tuple(f32_args[0].shape)}: {f32_ms:.5f} ms")
+    print(f"lm prefill share of flash: {cfg.n_layers} x {ms:.3f} ms = "
+          f"{cfg.n_layers * ms:.1f} ms of {lm['prefill_s'] * 1e3:.1f} ms")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:81",
+            "launches": lm["launches"]["flash_attention"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib,
+            "library_call": "torch.nn.functional."
+                            "scaled_dot_product_attention(is_causal=True)",
+            "call_ms": call, "f32_simt_bound_ms": f32_simt,
+            "f32_ms": f32_ms, "f32_shape": str(tuple(f32_args[0].shape)),
+            "shape": f"{tuple(q.shape)} bf16 causal"}
 
 
 def main() -> int:
@@ -395,6 +667,10 @@ def main() -> int:
 
     phase_done("forward path")
 
+    # -- LM serving path, counted ----------------------------------------------
+    lm = lm_path(args.seed, dev)
+    phase_done("lm path")
+
     # -- kernels against their plain versions, at main-path inputs -----------
     n_top = cfg.n_top or 2 * cfg.k_max
     split = sah.split_items_by_norm(items, n_top)
@@ -532,12 +808,13 @@ def main() -> int:
           f"plain {ipk_plain:.5f} ms; bound {ipk_bound:.6f} ms ({ipk_by}); "
           f"library torch.topk(torch.matmul(q, items.T), 10), two calls, "
           f"{ipk_lib:.5f} ms")
+    flash_entry = flash_kernel_entry(lm, args.seed, dev)
     phase_done("kernel times")
     profile_query(eng, queries, 10)
     profile_query(eng8, queries, 10)
     phase_done("profiles")
-    print(f"peak device memory: "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    peak = max(lm["peak_before"], torch.cuda.max_memory_allocated())
+    print(f"peak device memory: {peak / 2**30:.2f} GiB")
 
     kernels = [
         {"name": "srp_hash", "route": "cuda",
@@ -579,6 +856,7 @@ def main() -> int:
          "call_ms": ipk_call,
          "shape": f"{tuple(users_fwd.shape)}x{tuple(items.shape)}, k "
                   f"{K_FWD}"},
+        flash_entry,
     ]
     print(f"phases (host s): {phases}; total "
           f"{time.perf_counter() - T_START:.1f} s since start")

@@ -29,10 +29,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-KERNELS = ("hamming_scan", "srp_hash", "fused_scan", "ip_topk")
+KERNELS = ("hamming_scan", "srp_hash", "fused_scan", "ip_topk",
+           "flash_attention")
 
 launch_counts: dict[str, int] = {"hamming_scores": 0, "srp_hash": 0,
-                                 "fused_scan": 0, "ip_topk": 0}
+                                 "fused_scan": 0, "ip_topk": 0,
+                                 "flash_attention": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _entries: dict[str, ctypes._CFuncPtr] = {}

@@ -1,6 +1,6 @@
 """Entry points of the kernels, dispatched by the device of the tensors.
 
-Twin of ``src/repro/kernels/ops.py:38-116``. A CUDA tensor launches the
+Twin of ``src/repro/kernels/ops.py:30-116``. A CUDA tensor launches the
 hand-written kernel (or the call raises); a CPU tensor takes the plain
 PyTorch version in ``ref.py``. There is no fallback between the two and
 no switch: the device of the input decides.
@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import fused_scan as _fused
 from repro_torch.kernels import hamming_scan as _hamming
 from repro_torch.kernels import ip_topk as _ip_topk
@@ -20,8 +21,8 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import srp_hash as _srp
 from repro_torch.kernels._build import launch_counts
 
-__all__ = ["fused_scan", "hamming_scores", "ip_topk", "launch_counts",
-           "reset_launch_counts", "srp_hash"]
+__all__ = ["flash_attention", "fused_scan", "hamming_scores", "ip_topk",
+           "launch_counts", "reset_launch_counts", "srp_hash"]
 
 
 def reset_launch_counts() -> None:
@@ -84,3 +85,15 @@ def ip_topk(queries: torch.Tensor, items: torch.Tensor,
         best, pos = _ref.topk_stable(flat_v, k)
         return best, ids.reshape(ids.shape[0], -1).gather(1, pos)
     return _ref.ip_topk(queries, items, k)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    *, causal: bool = True) -> torch.Tensor:
+    """Fused attention, causal by default: q/k/v (B, H, S, Dh) bf16 or
+    float32 -> (B, H, S, Dh) in q's dtype. On CUDA the hand-written kernel
+    (any S, Dh <= 128, contiguous inputs); on the CPU the O(S^2)-memory
+    plain version, for smoke-scale shapes (the transformer's default
+    ``attn_impl`` stays ``"chunked"``)."""
+    if _route(q, "flash_attention"):
+        return _flash.flash_attention(q, k, v, causal=causal)
+    return _ref.flash_attention(q, k, v, causal=causal)

@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the hand-written CUDA kernels.
 
-Twins of ``src/repro/kernels/ref.py:16-34,53-93``. Each function computes
+Twins of ``src/repro/kernels/ref.py:16-93``. Each function computes
 what its kernel computes, by the kernel's own algorithm, in ordinary
 tensor ops: the CPU path of ``kernels/ops.py`` runs them, and
 ``chip_smoke.py`` holds each CUDA kernel against them on the card.
@@ -13,7 +13,9 @@ reference's words exactly.
 Float sums that a kernel must reproduce bit for bit (``fused_scan``'s
 quantized inner products, ``ip_topk``'s scores) run one rounded multiply
 and one rounded add per term, in index order, exactly as the kernels do
-with ``__fmul_rn`` / ``__fadd_rn``.
+with ``__fmul_rn`` / ``__fadd_rn``. ``flash_attention`` is the one
+exception: its kernel sums in another order than this O(S^2) version, so
+the two agree within a stated tolerance, not bit for bit.
 """
 
 from __future__ import annotations
@@ -143,3 +145,23 @@ def ip_topk(queries: torch.Tensor, items: torch.Tensor,
     scores = index_order_dot(queries[:, None, :], items[None, :, :])
     vals, ids = topk_stable(scores, k)
     return vals, ids.to(torch.int32)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """O(S^2)-memory version of the flash attention kernel (twin of the
+    reference's ``ref.flash_attention``): q/k/v (B, H, S, Dh) ->
+    (B, H, S, Dh) in q's dtype. Scores ``q k^T * Dh^-0.5`` in float32,
+    positions above the diagonal set to -1e30 when ``causal``, softmax
+    and the product with v in float32."""
+    dh = q.shape[-1]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32)) * dh ** -0.5
+    if causal:
+        sq, skv = q.shape[2], k.shape[2]
+        q_pos = torch.arange(sq, device=q.device) + (skv - sq)
+        mask = q_pos[:, None] >= torch.arange(skv, device=q.device)[None, :]
+        s = torch.where(mask[None, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p,
+                        v.to(torch.float32)).to(q.dtype)

@@ -237,7 +237,9 @@ def test_f1_matches_reference():
 
 def test_import_pulls_in_neither_jax_nor_the_reference():
     code = ("import sys, repro_torch, repro_torch.core.sah, "
-            "repro_torch.data.synthetic, repro_torch.kernels.ops; "
+            "repro_torch.data.synthetic, repro_torch.kernels.ops, "
+            "repro_torch.models.transformer, repro_torch.models.convert, "
+            "repro_torch.configs.base; repro_torch.configs.base.all_archs(); "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.')); print(bad); sys.exit(1 if bad else 0)")

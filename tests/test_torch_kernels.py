@@ -8,17 +8,24 @@ flips whose float64 score lies within ``8 * d * 2**-24 * sum_i |x_i p_i|``
 of 0 (the two sum in different orders). Codes travel as int32 bit views
 and are compared through ``.view(np.uint32)``. ``fused_scan`` candidates
 and ``ip_topk`` ids must equal the reference's exactly (ties toward the
-lower row); their floats are allclose at rtol 1e-5, atol 1e-5.
+lower row); their floats are allclose at rtol 1e-5, atol 1e-5. The plain
+``flash_attention`` must match the reference's ``ref.flash_attention`` and
+its Pallas kernel in interpret mode within the reference's own tolerances
+(atol 5e-5 in float32, 3e-2 in bf16).
 
 Tests marked ``gpu`` hold each CUDA kernel against its plain version and
 skip where no CUDA device is present (decided in a fixture, so every
 worker collects the same tests): integers exactly, and the ``fused_scan``
 and ``ip_topk`` floats bit for bit (kernel and plain version both round
-each product and each sum in index order). They need no JAX: the
+each product and each sum in index order). The flash attention kernel
+sums in another order than its plain version: float32 within atol 5e-5;
+bf16 within ``2**-6 * |plain| + 1e-3`` (two bf16 ulps: both outputs are
+rounded to bf16 from float32 values that differ by rounding). They need no JAX: the
 reference is imported by the ``jx`` fixture, so this file also runs where
 only the port is installed (``pytest -m gpu tests/test_torch_kernels.py``).
 """
 
+import dataclasses
 import types
 
 import numpy as np
@@ -27,7 +34,7 @@ import torch
 
 from repro_torch.core import sa_alsh
 from repro_torch.kernels import fused_scan, hamming_scan, ip_topk, ops, ref
-from repro_torch.kernels import srp_hash
+from repro_torch.kernels import flash_attention, srp_hash
 
 
 @pytest.fixture
@@ -41,6 +48,7 @@ def cuda():
 def jx():
     """The JAX reference's kernel modules."""
     jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels import flash_attention as jax_flash
     from repro.kernels import fused_scan as jax_fused
     from repro.kernels import hamming_scan as jax_hamming
     from repro.kernels import ip_topk as jax_ip_topk
@@ -49,7 +57,8 @@ def jx():
     from repro.kernels.ops import _merge_topk
     return types.SimpleNamespace(jnp=jnp, hamming=jax_hamming, ref=jax_ref,
                                  srp=jax_srp, fused=jax_fused,
-                                 ip_topk=jax_ip_topk, merge=_merge_topk)
+                                 ip_topk=jax_ip_topk, merge=_merge_topk,
+                                 flash=jax_flash)
 
 
 def _u32(rng, shape):
@@ -299,6 +308,53 @@ def test_wrappers_refuse_cpu_tensors():
         ip_topk.ip_topk_tiles(torch.zeros(2, 4), torch.zeros(3, 4), 1)
 
 
+def _qkv(seed, shape):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32)
+            for _ in range(3)]
+
+
+_FLASH_CASES = [   # tests/test_kernels.py's shapes, blocks and tolerances
+    ((2, 3, 128, 32), 32, 32, True, "float32", 5e-5),
+    ((1, 2, 256, 64), 64, 128, True, "float32", 5e-5),
+    ((2, 2, 64, 16), 64, 16, False, "float32", 5e-5),
+    ((1, 1, 128, 128), 128, 32, True, "float32", 5e-5),
+    ((1, 2, 64, 32), 32, 32, True, "bfloat16", 3e-2)]
+
+
+@pytest.mark.parametrize("shape,bq,bk,causal,dtype,atol", _FLASH_CASES)
+def test_flash_plain_equals_reference_and_pallas(jx, shape, bq, bk, causal,
+                                                 dtype, atol):
+    jnp = jx.jnp
+    q, k, v = _qkv(shape[2] * shape[3], shape)
+    jq, jk, jv = (jnp.asarray(a).astype(dtype) for a in (q, k, v))
+    tq, tk, tv = (torch.from_numpy(a).to(getattr(torch, dtype))
+                  for a in (q, k, v))
+    got = ref.flash_attention(tq, tk, tv, causal=causal)
+    assert got.dtype == tq.dtype
+    got = got.float().numpy()
+    want = np.asarray(jx.ref.flash_attention(jq, jk, jv, causal=causal),
+                      np.float32)
+    np.testing.assert_allclose(got, want, atol=atol)
+    pallas = jx.flash.flash_attention(jq, jk, jv, causal=causal, block_q=bq,
+                                      block_k=bk, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas, np.float32),
+                               atol=atol)
+
+
+def test_ops_flash_attention_takes_the_plain_version_on_cpu():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(0, (2, 2, 40, 16)))
+    before = dict(ops.launch_counts)
+    for causal in (True, False):
+        assert torch.equal(ops.flash_attention(q, k, v, causal=causal),
+                           ref.flash_attention(q, k, v, causal=causal))
+    assert ops.launch_counts == before          # the plain path launches none
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        flash_attention.flash_attention(q, k, v)
+
+
 def test_reset_launch_counts():
     ops.launch_counts["srp_hash"] += 3
     ops.reset_launch_counts()
@@ -414,3 +470,73 @@ def test_cuda_new_wrappers_refuse_bad_inputs(cuda):
     x = torch.zeros(4, 8, device=cuda)
     with pytest.raises(ValueError, match="k must be in"):
         ip_topk.ip_topk_tiles(x, x, 5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype,causal", [
+    ((1, 2, 64, 32), "float32", True),
+    ((2, 16, 512, 128), "bfloat16", True),       # the prefill kernel's width
+    ((1, 3, 300, 128), "bfloat16", True),        # ragged S
+    ((2, 2, 300, 64), "float32", True),
+    ((2, 4, 200, 128), "bfloat16", False),       # non-causal, ragged
+    ((1, 2, 130, 96), "float32", False),
+    ((1, 2, 77, 40), "bfloat16", True),          # Dh % 8 != 0: 2-byte loads
+    ((3, 1, 1, 8), "bfloat16", True)])           # one position
+def test_cuda_flash_attention_matches_plain(cuda, shape, dtype, causal):
+    assert not torch.backends.cuda.matmul.allow_tf32
+    q, k, v = (torch.from_numpy(a).to(getattr(torch, dtype)).to(cuda)
+               for a in _qkv(shape[2] + shape[3], shape))
+    before = ops.launch_counts["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["flash_attention"] == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    want = ref.flash_attention(q, k, v, causal=causal).float()
+    err = (got.float() - want).abs()
+    if dtype == "float32":
+        assert float(err.max()) <= 5e-5
+    else:
+        assert bool((err <= 2.0 ** -6 * want.abs() + 1e-3).all()), \
+            float(err.max())
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_refuses_bad_inputs(cuda):
+    x = torch.zeros(1, 2, 8, 16, device=cuda)
+    with pytest.raises(ValueError, match="bf16 or float32"):
+        flash_attention.flash_attention(x.half(), x.half(), x.half())
+    with pytest.raises(ValueError, match="k must be 4-D torch.float32"):
+        flash_attention.flash_attention(x, x.bfloat16(), x)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention.flash_attention(x.transpose(1, 2), x, x)
+    with pytest.raises(ValueError, match="one shape"):
+        flash_attention.flash_attention(x, x[:, :, :4].contiguous(), x)
+    big = torch.zeros(1, 1, 4, 160, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention(big, big, big)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2-1.5b"])
+def test_cuda_lm_flash_prefill_matches_cpu_chunked(cuda, arch):
+    """The smoke LM on the card through the kernel (float32) against the
+    same weights on the CPU through plain chunked attention."""
+    from repro_torch.configs import base
+    from repro_torch.models import transformer as tf
+    cfg = base.get(arch).make_smoke_config()
+    model = tf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 48))).long()
+    want, cache_want = tf.prefill(model, toks)
+    model.cfg = dataclasses.replace(cfg, attn_impl="flash")
+    model.to(cuda)
+    before = ops.launch_counts["flash_attention"]
+    got, cache = tf.prefill(model, toks.to(cuda))
+    step, _ = tf.decode_step(model, cache, toks[:, 0].to(cuda))
+    torch.cuda.synchronize()
+    assert ops.launch_counts["flash_attention"] == before + cfg.n_layers
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    step_want, _ = tf.decode_step(model.to("cpu"), cache_want, toks[:, 0])
+    np.testing.assert_allclose(step.cpu().numpy(), step_want.numpy(),
+                               rtol=1e-4, atol=1e-4)
