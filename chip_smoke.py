@@ -29,8 +29,8 @@ It
   1. prints the card (``nvidia-smi`` name and power limit) and versions;
   2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc``;
   3. fails unless every kernel of a path launched during that path (and
-     ``flash_attention`` exactly once per layer in prefill, never in
-     decode);
+     ``flash_attention`` exactly once per layer in prefill, every launch
+     on its ``wgmma`` route, never in decode);
   4. holds the reverse answers against the exact oracle (recall 1.0 but
      for misses within float32 rounding of their threshold), the int8
      answers against the f32 ones bit for bit, the "exact" forward ids
@@ -41,10 +41,13 @@ It
   5. holds each kernel against its plain PyTorch version on the inputs
      its path gives it (Hamming, ``fused_scan`` and ``ip_topk`` exactly;
      SRP bits up to flips whose score lies within the rounding bound of 0;
-     flash attention within two bf16 ulps on layer 0's q/k/v, and within
-     5e-5 in float32);
+     flash attention within two bf16 ulps on layer 0's q/k/v, with its 8
+     KV heads read in place, and on ``FLASH_CHECKS``, and within 5e-5 in
+     float32);
   6. times each kernel and its plain version on the device (launches
-     replayed from a CUDA graph) and each wrapper call from Python;
+     replayed from a CUDA graph) and each wrapper call from Python, and
+     prints the flash kernels' ``-Xptxas -v`` registers, shared memory
+     and spills and their ``HGMMA`` / ``UTMALDG`` counts in the SASS;
   7. splits a query batch into plan and execute, and profiles it and one
      LM prefill for the device's busy share and their top kernels.
 
@@ -81,11 +84,15 @@ K_FWD = 10
 LM_BATCH = 4         # prompts per prefill
 LM_PROMPT = 2048     # tokens per prompt
 LM_STEPS = 32        # greedy decode steps
-# further flash checks on unit-scale inputs: float32 at the prefill shape,
-# a ragged S in bf16, and full (non-causal) attention in float32
-FLASH_CHECKS = (((4, 16, 2048, 128), "float32", True),
-                ((4, 16, 300, 128), "bfloat16", True),
-                ((4, 16, 300, 128), "float32", False))
+# further flash checks on unit-scale inputs, (B, H, S, Dh), KV heads,
+# dtype, causal: float32 at the prefill shape, a ragged S in bf16, full
+# (non-causal) attention in float32, and GQA (H / Hkv = 4) with an S that
+# is no multiple of the wgmma route's 128-row tiles and Dh 64, in bf16
+FLASH_CHECKS = (((4, 16, 2048, 128), 16, "float32", True),
+                ((4, 16, 300, 128), 16, "bfloat16", True),
+                ((4, 16, 300, 128), 16, "float32", False),
+                ((2, 16, 1000, 64), 4, "bfloat16", True),
+                ((2, 16, 1000, 64), 4, "bfloat16", False))
 
 
 def fail(msg: str) -> None:
@@ -289,7 +296,14 @@ def lm_path(seed: int, dev):
           f"weights from seed {seed} in {time.perf_counter() - t0:.2f} s; "
           f"{LM_BATCH} prompts x {LM_PROMPT} tokens, {LM_STEPS} greedy "
           f"steps, max_seq {cfg.max_seq}")
-    tf.prefill(model, prompts[:, :256])       # warm-up: cuBLAS handles etc.
+    # warm-up at full size: the first prefill at these shapes also pays
+    # cuBLAS's handles and heuristics and the caching allocator's first
+    # blocks (68.7 to 150.5 ms on one H100 after a 256-token warm-up)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tf.prefill(model, prompts)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
 
     peak_before = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -316,18 +330,19 @@ def lm_path(seed: int, dev):
     peak = torch.cuda.max_memory_allocated()
     print(f"lm prefill: {prefill_s:.4f} s for {LM_BATCH} x {LM_PROMPT} "
           f"tokens = {LM_BATCH * LM_PROMPT / prefill_s:,.0f} prompt "
-          f"tokens/s; launches {launches_prefill}")
+          f"tokens/s (the first, cold, {cold_s:.4f} s); launches "
+          f"{launches_prefill}")
     print(f"lm decode: {decode_s * 1e3 / LM_STEPS:.3f} ms/step, "
           f"{LM_BATCH * LM_STEPS / decode_s:,.1f} generated tokens/s "
           f"({LM_STEPS} steps, batch {LM_BATCH}); launches "
           f"{launches_decode}")
     print(f"lm peak device memory (prefill + decode): {peak / 2**30:.2f} GiB")
-    if launches_prefill["flash_attention"] != cfg.n_layers:
-        fail(f"prefill launched flash_attention "
-             f"{launches_prefill['flash_attention']} times, not "
-             f"{cfg.n_layers}")
-    if launches_decode["flash_attention"] != 0:
-        fail("decode launched flash_attention")
+    for name in ("flash_attention", "flash_attention_wgmma"):
+        if launches_prefill[name] != cfg.n_layers:
+            fail(f"prefill launched {name} {launches_prefill[name]} times, "
+                 f"not {cfg.n_layers}")
+        if launches_decode[name] != 0:
+            fail(f"decode launched {name}")
     out = torch.stack(tokens_out, 1)
     if (logits.shape != (LM_BATCH, cfg.vocab) or cache["length"] !=
             LM_PROMPT + LM_STEPS or out.shape != (LM_BATCH, LM_STEPS)
@@ -397,12 +412,70 @@ def lm_path(seed: int, dev):
                 launches=launches_prefill, peak_before=peak_before)
 
 
+def flash_build_report() -> dict:
+    """Registers, shared memory and spills of each flash kernel from the
+    build's ``-Xptxas -v`` output, and the count of ``HGMMA`` and
+    ``UTMALDG`` instructions in each kernel's SASS (``cuobjdump``; None
+    where the toolkit has none). Prints both and returns them."""
+    import re
+    from torch.utils.cpp_extension import CUDA_HOME
+    from repro_torch.kernels import _build
+
+    def short(mangled):
+        m = re.search(r"(flash_(?:wgmma|bf16|f32)_kernel)(?:ILi(\d+)E)?",
+                      mangled)
+        return f"{m.group(1)}<{m.group(2)}>" if m.group(2) else m.group(1)
+
+    ptxas, name = {}, None
+    for line in _build.build_log("flash_attention").splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m and "flash_" in m.group(1):
+            name = short(m.group(1))
+        elif name and ("spill" in line or "Used" in line):
+            ptxas[name] = (ptxas.get(name, "") + " " + line.split(":")[-1]
+                           .strip()).strip()
+    lib = _build.load("flash_attention")
+    for dp in (64, 128):        # dynamic, so not in the -Xptxas -v lines
+        ptxas[f"flash_wgmma_kernel<{dp}>"] += (
+            f", {lib.flash_wgmma_smem_bytes(dp)} bytes dynamic smem")
+    for k, v in ptxas.items():   # wgmma: the count at entry; setmaxnreg
+        print(f"ptxas {k}: {v}")  # then gives consumers 240, producer 24
+    tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
+    sass = None
+    if tool.exists():
+        out = subprocess.run([str(tool), "-sass",
+                              str(_build._target("flash_attention"))],
+                             capture_output=True, text=True,
+                             check=True).stdout
+        sass, name = {}, None
+        for line in out.splitlines():
+            m = re.search(r"Function : (\w+)", line)
+            if m:
+                name = short(m.group(1))
+                sass[name] = {"HGMMA": 0, "UTMALDG": 0}
+            elif name:
+                for ins in ("HGMMA", "UTMALDG"):
+                    sass[name][ins] += ins in line
+        for k, v in sass.items():
+            print(f"sass {k}: {v['HGMMA']} HGMMA, {v['UTMALDG']} UTMALDG")
+        wg = [v for k, v in sass.items() if k.startswith("flash_wgmma")]
+        if not wg or not all(v["HGMMA"] and v["UTMALDG"] for v in wg):
+            fail("the wgmma flash kernels issue no HGMMA or no UTMALDG")
+    else:
+        print(f"sass: cuobjdump is missing ({tool}): HGMMA and UTMALDG "
+              f"not counted")
+    return {"ptxas": ptxas, "sass": sass}
+
+
 def flash_kernel_entry(lm: dict, seed: int, dev) -> dict:
     """Hold the flash kernel against its plain version on layer 0's own
-    q/k/v from the LM prefill (bf16), on float32 and on a ragged S; time
-    it, its plain version and SDPA; return its kernels-line entry."""
+    q/k/v from the LM prefill (bf16, the 8 KV heads as the model makes
+    them), on ``FLASH_CHECKS``; time it, the earlier mma.sync kernel on the
+    same inputs, its plain version and SDPA; return its kernels-line
+    entry."""
     import torch
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import flash_attention, ops, ref
     from repro_torch.models import attention
     from repro_torch.models import transformer as tf
     cfg, model = lm["cfg"], lm["model"]
@@ -410,11 +483,10 @@ def flash_kernel_entry(lm: dict, seed: int, dev) -> dict:
     with torch.no_grad():
         h = tf._rms_norm(model.embed[lm["prompts"]], blk.ln1)
         pos = torch.arange(LM_PROMPT, device=dev)
-        q, k, v = tf._project_qkv(h, blk, cfg, pos)
-        rep = cfg.n_heads // cfg.n_kv_heads
-        q = q.contiguous()
-        k = attention.repeat_kv(k, rep).contiguous()
-        v = attention.repeat_kv(v, rep).contiguous()
+        q, k, v = (t.contiguous() for t in tf._project_qkv(h, blk, cfg, pos))
+    rep = cfg.n_heads // cfg.n_kv_heads
+    if flash_attention.route(q, k, v) != "wgmma":
+        fail("layer 0's q/k/v do not take the wgmma route")
 
     def bf16_tol(a):           # two bf16 ulps of the plain output
         return 2.0 ** -6 * a + 1e-3
@@ -424,18 +496,25 @@ def flash_kernel_entry(lm: dict, seed: int, dev) -> dict:
 
     err = flash_close(ops.flash_attention(q, k, v),
                       ref.flash_attention(q, k, v), bf16_tol)
-    print(f"check flash_attention layer 0 q/k/v {tuple(q.shape)} bf16 "
-          f"causal: max abs err {err:.6f}, every value within 2**-6 "
-          f"|plain| + 1e-3")
+    print(f"check flash_attention layer 0 q {tuple(q.shape)} k/v "
+          f"{tuple(k.shape)} bf16 causal: max abs err {err:.6f}, every "
+          f"value within 2**-6 |plain| + 1e-3")
     gen = torch.Generator(device=dev).manual_seed(seed)
     f32_args = None
-    for shape, dtype, causal in FLASH_CHECKS:
-        a, b, c = (torch.randn(shape, generator=gen, device=dev).to(
-            getattr(torch, dtype)) for _ in range(3))
+    for shape, hkv, dtype, causal in FLASH_CHECKS:
+        kv_shape = (shape[0], hkv) + shape[2:]
+        a, b, c = (torch.randn(sh, generator=gen, device=dev).to(
+            getattr(torch, dtype)) for sh in (shape, kv_shape, kv_shape))
+        wgmma = flash_attention.route(a, b, c) == "wgmma"
+        before = ops.launch_counts["flash_attention_wgmma"]
         e = flash_close(ops.flash_attention(a, b, c, causal=causal),
                         ref.flash_attention(a, b, c, causal=causal),
                         bf16_tol if dtype == "bfloat16" else f32_tol)
-        print(f"check flash_attention {shape} {dtype} causal={causal}: "
+        if ops.launch_counts["flash_attention_wgmma"] - before != wgmma:
+            fail(f"flash check {shape}: the wgmma count did not follow "
+                 f"the route")
+        print(f"check flash_attention {shape} KV heads {hkv} {dtype} "
+              f"causal={causal} ({'wgmma' if wgmma else 'not wgmma'}): "
               f"max abs err {e:.7f}")
         if f32_args is None and dtype == "float32" and causal:
             f32_args = (a, b, c)
@@ -443,37 +522,47 @@ def flash_kernel_entry(lm: dict, seed: int, dev) -> dict:
     b, hh, s, dh = q.shape
     ms = device_ms(lambda: ops.flash_attention(q, k, v), 20, replays=3)
     call = call_ms(lambda: ops.flash_attention(q, k, v), 20)
+    mma_ms = device_ms(lambda: flash_attention._launch(q, k, v, True, "mma"),
+                       5, replays=3)
     plain = device_ms(lambda: ref.flash_attention(q, k, v), 2, replays=3)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = device_ms(lambda: sdpa(q, k, v, is_causal=True), 20, replays=3)
+    kr = attention.repeat_kv(k, rep).contiguous()
+    vr = attention.repeat_kv(v, rep).contiguous()
+    lib = device_ms(lambda: sdpa(q, kr, vr, is_causal=True), 20, replays=3)
     f32_ms = device_ms(lambda: ops.flash_attention(*f32_args), 5, replays=3)
     flops = 4 * dh * b * hh * s * (s + 1) // 2
-    nbytes = 4 * q.numel() * q.element_size()
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
     t_ops, t_b = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
     bound = max(t_ops, t_b) * 1e3
     by = "operations" if t_ops >= t_b else "bytes"
     f32_simt = flops / FP32_FLOP_PER_S * 1e3
-    print(f"time flash_attention {tuple(q.shape)} bf16 causal: kernel "
-          f"{ms:.5f} ms (device), {call:.5f} ms per call from Python; plain "
-          f"{plain:.5f} ms; bound {bound:.6f} ms ({by}: {flops / 1e9:.1f} "
-          f"GFLOP at 989 TFLOP/s bf16; {nbytes / 1e6:.1f} MB at 3.35 TB/s; "
-          f"f32 SIMT figure {f32_simt:.4f} ms at 67 TFLOP/s); library "
-          f"scaled_dot_product_attention(is_causal=True) {lib:.5f} ms; "
-          f"{flops / ms / 1e9:.1f} TFLOP/s; the float32 (SIMT) kernel at "
-          f"{tuple(f32_args[0].shape)}: {f32_ms:.5f} ms")
+    print(f"time flash_attention q {tuple(q.shape)} k/v {tuple(k.shape)} "
+          f"bf16 causal: wgmma kernel {ms:.5f} ms (device), {call:.5f} ms "
+          f"per call from Python; the earlier mma.sync kernel on the same "
+          f"inputs {mma_ms:.5f} ms; plain {plain:.5f} ms; bound "
+          f"{bound:.6f} ms ({by}: {flops / 1e9:.2f} GFLOP at 989 TFLOP/s "
+          f"bf16; {nbytes / 1e6:.1f} MB at 3.35 TB/s; f32 SIMT figure "
+          f"{f32_simt:.4f} ms at 67 TFLOP/s); library "
+          f"scaled_dot_product_attention(is_causal=True) on repeated KV "
+          f"{lib:.5f} ms; {flops / ms / 1e9:.1f} TFLOP/s; the float32 "
+          f"(SIMT) kernel at {tuple(f32_args[0].shape)}: {f32_ms:.5f} ms")
     print(f"lm prefill share of flash: {cfg.n_layers} x {ms:.3f} ms = "
           f"{cfg.n_layers * ms:.1f} ms of {lm['prefill_s'] * 1e3:.1f} ms")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:81",
             "launches": lm["launches"]["flash_attention"],
+            "launches_wgmma": lm["launches"]["flash_attention_wgmma"],
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by, "library_ms": lib,
             "library_call": "torch.nn.functional."
-                            "scaled_dot_product_attention(is_causal=True)",
-            "call_ms": call, "f32_simt_bound_ms": f32_simt,
+                            "scaled_dot_product_attention(is_causal=True), "
+                            "KV repeated",
+            "call_ms": call, "mma_sync_ms": mma_ms,
+            "tflops": flops / ms / 1e9, "f32_simt_bound_ms": f32_simt,
             "f32_ms": f32_ms, "f32_shape": str(tuple(f32_args[0].shape)),
-            "shape": f"{tuple(q.shape)} bf16 causal"}
+            "shape": f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal",
+            "build": lm["flash_build"]}
 
 
 def main() -> int:
@@ -504,6 +593,7 @@ def main() -> int:
     build_s = _build.build_all()
     print(f"kernel build: {build_s:.2f} s "
           f"({', '.join(_build.KERNELS)} -> {_build.BUILD_DIR.name}/)")
+    flash_build = flash_build_report()
 
     # -- data at the paper's Netflix scale ---------------------------------
     ds = synthetic.PAPER_DATASETS["netflix"]
@@ -669,6 +759,7 @@ def main() -> int:
 
     # -- LM serving path, counted ----------------------------------------------
     lm = lm_path(args.seed, dev)
+    lm["flash_build"] = flash_build
     phase_done("lm path")
 
     # -- kernels against their plain versions, at main-path inputs -----------

@@ -3,14 +3,17 @@
 Each source is compiled at first use, by ``nvcc`` alone, into a shared
 library with a plain C interface that ``ctypes`` loads:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/torch_kernels/<name>-<hash>.so <name>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xptxas -v
+         -shared -Xcompiler -fPIC -o build/torch_kernels/<name>-<hash>.so
+         <name>.cu
 
 No PyTorch header is compiled, so a build takes seconds. Libraries land
 in ``build/torch_kernels/`` at the repository root, named by a hash of
-their source, so an edited source is rebuilt and an unchanged one is
-loaded as it is. Nothing outside the repository is read but the CUDA
-toolkit.
+their source, every ``csrc/*.cuh`` header and the flags, so an edited
+source, header or flag is rebuilt and an unchanged one is loaded as it
+is; nvcc's output (``-Xptxas -v``: registers, shared memory and spills
+of each kernel) is kept beside the library as ``<name>-<hash>.log``.
+Nothing outside the repository is read but the CUDA toolkit.
 
 Every C entry point takes its pointers and the stream as ``c_void_p`` and
 returns ``cudaGetLastError()`` of its launch; ``check`` raises on a
@@ -31,10 +34,15 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 KERNELS = ("hamming_scan", "srp_hash", "fused_scan", "ip_topk",
            "flash_attention")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
+# "flash_attention" counts every launch of the flash kernels,
+# "flash_attention_wgmma" those of its wgmma route alone
 launch_counts: dict[str, int] = {"hamming_scores": 0, "srp_hash": 0,
                                  "fused_scan": 0, "ip_topk": 0,
-                                 "flash_attention": 0}
+                                 "flash_attention": 0,
+                                 "flash_attention_wgmma": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _entries: dict[str, ctypes._CFuncPtr] = {}
@@ -49,16 +57,25 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """The library of source ``name``: named by a hash of the source, every
+    header in ``CSRC`` and ``NVCC_FLAGS``, so that a change to any of them
+    builds anew."""
+    h = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_log(name: str) -> str:
+    """nvcc's output from the build of the current library of ``name``."""
+    return _target(name).with_suffix(".log").read_text()
 
 
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path]:
     out = _target(name)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
@@ -76,6 +93,7 @@ def build_all(names=KERNELS) -> float:
         if proc.returncode != 0:
             errors.append(f"{out.name}:\n{log}")
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)   # atomic: concurrent builders never race
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))

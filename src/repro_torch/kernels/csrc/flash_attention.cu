@@ -2,47 +2,350 @@
 //
 // Replaces the Pallas kernel src/repro/kernels/flash_attention.py::
 // flash_attention (body _flash_kernel): o = softmax(q k^T * Dh^-0.5) v over
-// (B, H, S, Dh), scores above the diagonal set to -1e30 when causal, each
-// score tile kept on chip. The TPU kernel walks the k blocks as a sequential
-// grid axis with m, l and acc in VMEM scratch. Blocks of a GPU grid run in no
-// order, so here one block owns a (b*h, 64-query) tile and loops over the K/V
-// tiles itself, staging each in shared memory, with m, l and acc in float32
-// registers per query row. When causal the loop stops at the diagonal tile;
-// the diagonal tile and a ragged tail (any S, where the TPU kernel asks for
-// S % block == 0) are masked with -1e30. The output is acc / max(l, 1e-30)
-// cast to q's dtype.
+// (B, H, S, Dh), scores above the diagonal set to -1e30 when causal, float32
+// running max, sum and accumulator, output acc / max(l, 1e-30) cast to q's
+// dtype. The TPU kernel walks the k blocks as a sequential grid axis with
+// m, l and acc in VMEM scratch. Blocks of a GPU grid run in no order, so
+// here one block owns a query tile of one (batch, head) and loops over the
+// K/V tiles itself, stopping at the diagonal when causal. Any S is taken
+// (the TPU kernel asks for S % block == 0): keys past S are masked with
+// -1e30 and rows past S are not written. k and v may have fewer heads than
+// q (grouped-query attention): query head h reads KV head h / n_rep, the
+// mapping of repeat_kv, in place and without a repeated copy.
 //
 // What bounds it on an H100: at the prefill shape (4, 16, 2048, 128) bf16,
-// causal, the products are 4 Dh S(S+1)/2 B H = 68.7 GFLOP, 0.070 ms at 989
-// TFLOP/s on the bf16 tensor cores, while q, k, v and o once each are 134 MB,
-// 0.040 ms at 3.35 TB/s. Operations bound it. In float32 the products run on
-// the SIMT units: 1.03 ms at 67 TFLOP/s.
+// causal, the products are 4 Dh S (S + 1) / 2 B H = 68.7 GFLOP, 0.070 ms at
+// 989 TFLOP/s on the bf16 tensor cores, while q, k, v and o once each are
+// 134 MB with repeated KV (100 MB with 8 KV heads), 0.040 ms at 3.35 TB/s.
+// Operations bound it.
 //
-// Design. bf16 (flash_bf16_kernel): 4 warps of 16 query rows. The products
-// run on the tensor cores by mma.sync m16n8k16 (bf16 operands, float32 sums;
-// products of bf16 values are exact in float32). S = Q K^T takes Q fragments
-// held in registers and K from shared memory; P V packs the probabilities
-// into A fragments straight from the S accumulators and reads V stored
-// transposed in shared memory. Each p is split into hi + lo, two bf16 values,
-// and both are multiplied with V, so P V stays within ~2^-16 of the float32
-// product the reference takes. Scores are scaled after the product, in
-// float32. No TMA, wgmma, cp.async or pipelining yet: each tile is loaded,
-// then used, which leaves the tensor cores idle during the loads.
-// float32 (flash_f32_kernel): SIMT, 8 warps of 8 query rows; lane j scores
+// Three routes, picked by the wrapper from dtype, Dh and alignment:
+//
+// flash_wgmma_kernel (bf16, Dh % 8 == 0, Dh <= 128, 16-byte aligned
+// tensors) is the Hopper design:
+//  - One block per (query tile of 128 rows, batch x head): 3 warpgroups.
+//    Warpgroup 0 is the producer: one thread issues every TMA load and the
+//    warpgroup gives up registers (setmaxnreg 24). Warpgroups 1 and 2 are
+//    consumers of 64 query rows each (setmaxnreg 240). Blocks are ordered
+//    longest causal tile first over all heads, so the short tiles fill the
+//    tail of the grid.
+//  - TMA loads, 3-D maps (Dh, S, B*H) for q and (Dh, S, B*Hkv) for k and v,
+//    boxes of 64 columns (128 bytes, the swizzle width) x 128 rows, 128-byte
+//    swizzle. The head dim is padded to 64 or 128 by the box: columns past
+//    Dh and rows past S arrive as zeros, and no box reads the next head's
+//    rows. Q once; K and V through a ring of kStages = 2 stages of 128 keys
+//    (32 KB each for Dh 128), each stage with a "full" mbarrier that the
+//    producer arms with expect_tx and TMA completes, and an "empty" one on
+//    which all 256 consumer threads arrive when the wgmma that read it has
+//    completed. K and V have separate barriers, so Q K^T starts while V is
+//    still loading. 160 KB of shared memory for Dh 128, 80 KB for Dh 64.
+//  - S = Q K^T on wgmma m64n128k16, Q and K both K-major from shared
+//    memory; scores scaled after the product, in float32; masked by index
+//    only on the diagonal tile and the ragged last tile. O += P V on wgmma
+//    m64n{Dh}k16 with P as the A operand from registers (the accumulator
+//    layout of S is the A-fragment layout) and V as an MN-major B operand
+//    read straight from the TMA tile: no transposing stores.
+//  - P is split into hi + lo bf16 parts, both multiplied with V, so P V
+//    stays within ~2^-16 of the float32 product the reference takes (the
+//    tensor cores do 1.5x the function's operations). Kept: on an H100
+//    (chip_smoke.py) the kernel is within 0.0039 of its plain version on
+//    layer 0's q/k/v of the qwen3-0.6b prefill, inside the two-ulp
+//    tolerance 2^-6 |plain| + 1e-3; a single bf16 P was not measured.
+//    At that shape it takes 0.248 ms against 0.787 ms for the mma.sync
+//    kernel below on the same inputs (H100 80GB HBM3, 700 W).
+//  Where it can go wrong: mbarrier phase parity across the ring's wrap-around
+//  (the n-th use of a stage waits with parity n & 1, and the producer waits
+//  for the (n-1)-th release before the n-th load); the descriptor fields of
+//  the MN-major V operand (lbo = the 16 KB step between the two 64-column
+//  halves, sbo = 1024 bytes between groups of 8 keys); expect_tx counting
+//  the whole box, out-of-bounds part included; tiles, descriptors' start
+//  addresses and the swizzle atom aligned to 1024 bytes; register pressure
+//  (64 floats of S, up to 64 of O and the hi/lo fragments a thread: read the
+//  -Xptxas -v line for spills).
+//
+// flash_bf16_kernel (bf16, any other Dh <= 128 or unaligned tensors, which
+// TMA cannot address): 4 warps of 16 query rows, mma.sync m16n8k16, K and
+// V^T staged in shared memory by plain loads (V transposed by 2-byte
+// stores), P V as hi + lo parts. 64-query blocks, 64-key tiles.
+//
+// flash_f32_kernel (float32): SIMT, 8 warps of 8 query rows; lane j scores
 // key j of a 32-key tile against q * Dh^-0.5 (scaled in float32 as the
 // reference does); P goes through shared memory; each lane keeps 4 output
-// columns of its warp's 8 rows.
+// columns of its warp's 8 rows. Its bound is the 67 TFLOP/s float32 rate.
 
 #include <cmath>
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
 
-// ---------------------------------------------------------------- bf16 ----
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x0, x1) -> bf16 pairs hi and lo with hi + lo within 2^-16 of each x.
+__device__ __forceinline__ void split_pack(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+// ---------------------------------------------------------- bf16, wgmma ----
+
+namespace wg {
+
+constexpr int kBq = 128;            // query rows per block: 2 x 64
+constexpr int kBk = 128;            // keys per K/V tile
+constexpr int kStages = 2;          // depth of the K/V ring
+constexpr int kThreads = 384;       // warpgroup 0 loads, 1 and 2 compute
+constexpr int kConsumerThreads = 256;
+constexpr int kBoxCols = 64;        // 64 bf16 = 128 bytes = one swizzled row
+constexpr int kHalfBytes = 128 * 128;  // 128 rows x 128 bytes (kBq == kBk)
+
+template <int DP>
+__host__ __device__ constexpr int tile_bytes() {  // one Q, K or V tile
+  return DP / kBoxCols * kHalfBytes;
+}
+
+template <int DP>
+__host__ __device__ constexpr int smem_bytes() {  // + alignment, barriers
+  return (1 + 2 * kStages) * tile_bytes<DP>() + 1024 + 128;
+}
+
+template <int DP>
+__device__ __forceinline__ void pv_product(float (&o)[DP / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b) {
+  if constexpr (DP == 128)
+    hopper::wgmma_rs_m64n128_tb(o, a, b);
+  else
+    hopper::wgmma_rs_m64n64_tb(o, a, b);
+}
+
+template <int DP>  // head dim padded to 64 or 128
+__global__ void __launch_bounds__(kThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   __nv_bfloat16* __restrict__ o, int s, int d, int n_rep,
+                   int causal, float scale) {
+  constexpr int kTile = tile_bytes<DP>();
+  constexpr int kHalves = DP / kBoxCols;
+  extern __shared__ uint8_t smem_raw[];
+  // TMA's 128-byte swizzle repeats every 1024 bytes: align every tile so
+  // the swizzle TMA writes is the one the wgmma descriptors read
+  uint8_t* const smem = smem_raw + ((1024 - hopper::smem_addr(smem_raw) % 1024)
+                                    % 1024);
+  uint8_t* const qs = smem;
+  uint8_t* const ks = qs + kTile;                // kStages tiles
+  uint8_t* const vs = ks + kStages * kTile;      // kStages tiles
+  uint64_t* const q_full = reinterpret_cast<uint64_t*>(vs + kStages * kTile);
+  uint64_t* const k_full = q_full + 1;
+  uint64_t* const v_full = k_full + kStages;
+  uint64_t* const k_empty = v_full + kStages;
+  uint64_t* const v_empty = k_empty + kStages;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBq;  // longest tiles first
+  const int kv_end = causal ? min(q0 + kBq, s) : s;
+  const int n_tiles = (kv_end + kBk - 1) / kBk;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      hopper::mbar_init(&k_full[st], 1);
+      hopper::mbar_init(&v_full[st], 1);
+      hopper::mbar_init(&k_empty[st], kConsumerThreads);
+      hopper::mbar_init(&v_empty[st], kConsumerThreads);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread keeps the ring full ----
+    hopper::regs_dec<24>();
+    if (threadIdx.x == 0) {
+      hopper::prefetch_tensormap(&tq);
+      hopper::prefetch_tensormap(&tk);
+      hopper::prefetch_tensormap(&tv);
+      const int kvz = bh / n_rep;   // query head h reads KV head h / n_rep
+      hopper::mbar_arrive_expect_tx(q_full, kTile);
+      for (int h = 0; h < kHalves; ++h)
+        hopper::tma_load_3d(qs + h * kHalfBytes, &tq, q_full, h * kBoxCols,
+                            q0, bh);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kStages, use = j / kStages;
+        // the whole box counts, zero-filled part past S included
+        if (use > 0) hopper::mbar_wait(&k_empty[st], (use - 1) & 1);
+        hopper::mbar_arrive_expect_tx(&k_full[st], kTile);
+        for (int h = 0; h < kHalves; ++h)
+          hopper::tma_load_3d(ks + st * kTile + h * kHalfBytes, &tk,
+                              &k_full[st], h * kBoxCols, j * kBk, kvz);
+        if (use > 0) hopper::mbar_wait(&v_empty[st], (use - 1) & 1);
+        hopper::mbar_arrive_expect_tx(&v_full[st], kTile);
+        for (int h = 0; h < kHalves; ++h)
+          hopper::tma_load_3d(vs + st * kTile + h * kHalfBytes, &tv,
+                              &v_full[st], h * kBoxCols, j * kBk, kvz);
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each ----
+    hopper::regs_inc<240>();
+    const int c = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row_first = q0 + 64 * c;          // this warpgroup's first row
+    const int row_a = row_first + 16 * warp + g, row_b = row_a + 8;
+    const uint32_t q_addr = hopper::smem_addr(qs) + c * 64 * 128;
+
+    float oacc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) oacc[i] = 0.f;
+    float m_a = kNegInf, m_b = kNegInf;   // rows a and b: running max
+    float l_a = 0.f, l_b = 0.f;           // this thread's part of the sums
+
+    hopper::mbar_wait(q_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % kStages;
+      const uint32_t parity = (j / kStages) & 1;
+      const int k0 = j * kBk;
+
+      // S = Q K^T: DP / 16 steps of 16 along the head dim
+      float sc[64];
+      hopper::mbar_wait(&k_full[st], parity);
+      const uint32_t k_addr = hopper::smem_addr(ks + st * kTile);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kHalfBytes + (kk % 4) * 32;
+        hopper::wgmma_ss_m64n128(sc, hopper::desc_sw128(q_addr + off, 16, 1024),
+                                 hopper::desc_sw128(k_addr + off, 16, 1024),
+                                 kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      hopper::mbar_arrive(&k_empty[st]);
+
+      // scale in float32; mask by index on the diagonal and ragged tiles
+      if (k0 + kBk > s || (causal && k0 + kBk - 1 > row_first)) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = k0 + 8 * i + 2 * t + e;
+            const bool live = key < s;
+            sc[4 * i + e] = (live && (!causal || key <= row_a))
+                ? sc[4 * i + e] * scale : kNegInf;
+            sc[4 * i + 2 + e] = (live && (!causal || key <= row_b))
+                ? sc[4 * i + 2 + e] * scale : kNegInf;
+          }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) sc[i] *= scale;
+      }
+
+      // online softmax: rows a and b, each spread over a quad of threads
+      float mx_a = m_a, mx_b = m_b;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        mx_a = fmaxf(mx_a, fmaxf(sc[4 * i], sc[4 * i + 1]));
+        mx_b = fmaxf(mx_b, fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+      }
+      const float alpha_a = expf(m_a - mx_a), alpha_b = expf(m_b - mx_b);
+      m_a = mx_a;
+      m_b = mx_b;
+      l_a *= alpha_a;
+      l_b *= alpha_b;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        oacc[4 * n] *= alpha_a;
+        oacc[4 * n + 1] *= alpha_a;
+        oacc[4 * n + 2] *= alpha_b;
+        oacc[4 * n + 3] *= alpha_b;
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          sc[4 * i + e] = expf(sc[4 * i + e] - m_a);
+          sc[4 * i + 2 + e] = expf(sc[4 * i + 2 + e] - m_b);
+          l_a += sc[4 * i + e];
+          l_b += sc[4 * i + 2 + e];
+        }
+
+      // P as A fragments: keys 16 kc .. 16 kc + 15 are S columns of n8
+      // blocks 2 kc and 2 kc + 1
+      uint32_t ph[8][4], pl[8][4];
+#pragma unroll
+      for (int kc = 0; kc < 8; ++kc)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          split_pack(sc[8 * kc + 2 * r], sc[8 * kc + 2 * r + 1], ph[kc][r],
+                     pl[kc][r]);
+
+      // O += P V, 16 keys per step; V read MN-major from the TMA tile
+      hopper::mbar_wait(&v_full[st], parity);
+      const uint32_t v_addr = hopper::smem_addr(vs + st * kTile);
+      hopper::fence_regs(oacc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 8; ++kc) {
+        const uint64_t vd = hopper::desc_sw128(v_addr + kc * 16 * 128,
+                                               kHalfBytes, 1024);
+        pv_product<DP>(oacc, ph[kc], vd);
+        pv_product<DP>(oacc, pl[kc], vd);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(oacc);
+      hopper::mbar_arrive(&v_empty[st]);
+    }
+
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+      l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+    }
+    const float den_a = fmaxf(l_a, 1e-30f), den_b = fmaxf(l_b, 1e-30f);
+    __nv_bfloat16* const ob = o + static_cast<int64_t>(bh) * s * d;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int col = 8 * n + 2 * t;   // d % 8 == 0: col < d covers col + 1
+      if (col < d) {
+        if (row_a < s)
+          *reinterpret_cast<__nv_bfloat162*>(
+              ob + static_cast<int64_t>(row_a) * d + col) =
+              __floats2bfloat162_rn(oacc[4 * n] / den_a,
+                                    oacc[4 * n + 1] / den_a);
+        if (row_b < s)
+          *reinterpret_cast<__nv_bfloat162*>(
+              ob + static_cast<int64_t>(row_b) * d + col) =
+              __floats2bfloat162_rn(oacc[4 * n + 2] / den_b,
+                                    oacc[4 * n + 3] / den_b);
+      }
+    }
+  }
+}
+
+}  // namespace wg
+
+// ------------------------------------------------------- bf16, mma.sync ----
 
 constexpr int kBq = 64;          // query rows per block: 4 warps x 16
 constexpr int kBk = 64;          // keys per tile
@@ -53,10 +356,6 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // c += a (16 x 16, row major) * b (16 x 8, column major), float32 sums.
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -65,15 +364,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// (x0, x1) -> bf16 pairs hi and lo with hi + lo within 2^-16 of each x.
-__device__ __forceinline__ void split_pack(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
 }
 
 // Rows row0 .. row0 + 63 of a (S, d) bf16 matrix into dst[64][ld], zero past
@@ -117,8 +407,8 @@ __global__ void __launch_bounds__(kThreadsH)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ o, int s, int d, int causal,
-                  float scale, bool vec) {
+                  __nv_bfloat16* __restrict__ o, int s, int d, int n_rep,
+                  int causal, float scale, bool vec) {
   constexpr int kLdK = DP + 8;   // K (and the staged Q) row stride
   __shared__ __align__(16) __nv_bfloat16 ks[kBk * kLdK];
   __shared__ __align__(16) __nv_bfloat16 vt[DP * kLdV];
@@ -128,6 +418,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   // the longest causal tiles first, so the short ones fill the tail
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBq;
   const int64_t base = static_cast<int64_t>(blockIdx.y) * s * d;
+  const int64_t kv_base = static_cast<int64_t>(blockIdx.y / n_rep) * s * d;
 
   // Q fragments of this warp's 16 rows, through shared memory
   stage<DP, false>(ks, kLdK, q + base, q0, s, d, vec);
@@ -157,8 +448,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int kv_end = causal ? min(q0 + kBq, s) : s;
   for (int k0 = 0; k0 < kv_end; k0 += kBk) {
     __syncthreads();  // every read of ks / vt from the last tile is done
-    stage<DP, false>(ks, kLdK, k + base, k0, s, d, vec);
-    stage<DP, true>(vt, kLdV, v + base, k0, s, d, vec);
+    stage<DP, false>(ks, kLdK, k + kv_base, k0, s, d, vec);
+    stage<DP, true>(vt, kLdV, v + kv_base, k0, s, d, vec);
     __syncthreads();
 
     float sc[kBk / 8][4];
@@ -291,7 +582,7 @@ __device__ __forceinline__ void stage_f32(float* dst, const float* src,
 __global__ void __launch_bounds__(kThreadsF)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int s,
-                 int d, int causal, float scale) {
+                 int d, int n_rep, int causal, float scale) {
   extern __shared__ float4 smem[];
   float* qs = reinterpret_cast<float*>(smem);   // [kBqF][kLdF], q * scale
   float* ks = qs + kBqF * kLdF;                  // [kBkF][kLdF]
@@ -301,6 +592,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBqF;
   const int64_t base = static_cast<int64_t>(blockIdx.y) * s * d;
+  const int64_t kv_base = static_cast<int64_t>(blockIdx.y / n_rep) * s * d;
   const int nd4 = (d + 3) / 4;
 
   stage_f32(qs, q + base, q0, kBqF, s, d, scale);
@@ -317,8 +609,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kv_end = causal ? min(q0 + kBqF, s) : s;
   for (int k0 = 0; k0 < kv_end; k0 += kBkF) {
     __syncthreads();  // every read of ks / vs / ps from the last tile is done
-    stage_f32(ks, k + base, k0, kBkF, s, d, 1.f);
-    stage_f32(vs, v + base, k0, kBkF, s, d, 1.f);
+    stage_f32(ks, k + kv_base, k0, kBkF, s, d, 1.f);
+    stage_f32(vs, v + kv_base, k0, kBkF, s, d, 1.f);
     __syncthreads();
 
     float sc[8];
@@ -391,21 +683,119 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ------------------------------------------------------------------ host ----
+
+// cuTensorMapEncodeTiled, looked up at run time so the library needs no
+// -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+constexpr int kErrNoEncode = 1000;     // CUDA offers no tensor maps
+constexpr int kErrEncode = 1001;       // 1001 + CUresult of a refused map
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// (planes, s, d) bf16, contiguous, read in boxes of 64 columns x 128 rows
+// of one plane, 128-byte swizzled; outside the tensor reads as zero.
+int encode_map(EncodeTiled fn, CUtensorMap* map, const void* base, int planes,
+               int s, int d) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(planes)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(s) * d * 2};
+  const cuuint32_t box[3] = {wg::kBoxCols, wg::kBk, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                        const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode + static_cast<int>(r);
+}
+
+template <int DP>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b,
+                 int h, int hkv, int s, int d, int causal, float scale,
+                 cudaStream_t st) {
+  static bool smem_set = false;  // above 48 KB needs the opt-in, once
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        wg::flash_wgmma_kernel<DP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, wg::smem_bytes<DP>());
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
+  }
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kErrNoEncode;
+  CUtensorMap tq, tk, tv;
+  int err = encode_map(fn, &tq, q, b * h, s, d);
+  if (err == 0) err = encode_map(fn, &tk, k, b * hkv, s, d);
+  if (err == 0) err = encode_map(fn, &tv, v, b * hkv, s, d);
+  if (err != 0) return err;
+  const dim3 grid(b * h, (s + wg::kBq - 1) / wg::kBq);
+  wg::flash_wgmma_kernel<DP><<<grid, wg::kThreads, wg::smem_bytes<DP>(), st>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), s, d, h / hkv, causal,
+      scale);
+  return 0;
+}
+
 }  // namespace
 
-// Launches on `stream`; returns the CUDA error of the launch (0 if none).
-// q, k, v and o are (bh, s, d) contiguous, bf16 when is_bf16 else float32.
-// Requires 1 <= d <= 128, s >= 1 and 1 <= bh <= 65535 (checked by the
-// wrapper).
+// Dynamic shared memory of a block of the wgmma route for head dims padded
+// to dp (64 or 128), in bytes: what -Xptxas -v does not report.
+extern "C" int flash_wgmma_smem_bytes(int dp) {
+  return dp <= 64 ? wg::smem_bytes<64>() : wg::smem_bytes<128>();
+}
+
+// Launches on `stream`; returns the CUDA error of the launch (0 if none),
+// or 1000 when CUDA offers no tensor maps and 1001 + the CUresult
+// when it refuses one. q and o are (b, h, s, d), k and v (b, hkv, s, d),
+// all contiguous. route 0: float32 (SIMT); 1: bf16 on mma.sync; 2: bf16 on
+// wgmma and TMA, which needs d % 8 == 0, d <= 128 and 16-byte aligned
+// pointers. Requires 1 <= d <= 128, s >= 1, h % hkv == 0 and
+// 1 <= b * h <= 65535 (checked by the wrapper, which picks the route).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int bh, int s,
-                                      int d, int causal, int is_bf16,
-                                      void* stream) {
+                                      const void* v, void* o, int b, int h,
+                                      int hkv, int s, int d, int causal,
+                                      int route, void* stream) {
   const float scale = static_cast<float>(std::pow(static_cast<double>(d),
                                                   -0.5));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    const dim3 grid((s + kBq - 1) / kBq, bh);
+  const int n_rep = h / hkv;
+  int err = 0;
+  if (route == 2) {
+    if (d % 8 != 0 || d > 128 ||
+        (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+         reinterpret_cast<uintptr_t>(v)) % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    err = d <= 64 ? launch_wgmma<64>(q, k, v, o, b, h, hkv, s, d, causal,
+                                     scale, st)
+                  : launch_wgmma<128>(q, k, v, o, b, h, hkv, s, d, causal,
+                                      scale, st);
+  } else if (route == 1) {
+    const dim3 grid((s + kBq - 1) / kBq, b * h);
     const auto* qb = static_cast<const __nv_bfloat16*>(q);
     const auto* kb = static_cast<const __nv_bfloat16*>(k);
     const auto* vb = static_cast<const __nv_bfloat16*>(v);
@@ -414,28 +804,29 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                     reinterpret_cast<uintptr_t>(k) |
                                     reinterpret_cast<uintptr_t>(v)) % 16 == 0;
     if (d <= 32)
-      flash_bf16_kernel<32><<<grid, kThreadsH, 0, st>>>(qb, kb, vb, ob, s, d,
-                                                        causal, scale, vec);
+      flash_bf16_kernel<32><<<grid, kThreadsH, 0, st>>>(
+          qb, kb, vb, ob, s, d, n_rep, causal, scale, vec);
     else if (d <= 64)
-      flash_bf16_kernel<64><<<grid, kThreadsH, 0, st>>>(qb, kb, vb, ob, s, d,
-                                                        causal, scale, vec);
+      flash_bf16_kernel<64><<<grid, kThreadsH, 0, st>>>(
+          qb, kb, vb, ob, s, d, n_rep, causal, scale, vec);
     else
-      flash_bf16_kernel<128><<<grid, kThreadsH, 0, st>>>(qb, kb, vb, ob, s, d,
-                                                         causal, scale, vec);
+      flash_bf16_kernel<128><<<grid, kThreadsH, 0, st>>>(
+          qb, kb, vb, ob, s, d, n_rep, causal, scale, vec);
   } else {
     static bool smem_set = false;  // above 48 KB needs the opt-in, once
     if (!smem_set) {
-      const cudaError_t err = cudaFuncSetAttribute(
+      const cudaError_t e = cudaFuncSetAttribute(
           flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
           kSmemF);
-      if (err != cudaSuccess) return static_cast<int>(err);
+      if (e != cudaSuccess) return static_cast<int>(e);
       smem_set = true;
     }
-    const dim3 grid((s + kBqF - 1) / kBqF, bh);
+    const dim3 grid((s + kBqF - 1) / kBqF, b * h);
     flash_f32_kernel<<<grid, kThreadsF, kSmemF, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), s, d, causal,
-        scale);
+        static_cast<const float*>(v), static_cast<float*>(o), s, d, n_rep,
+        causal, scale);
   }
+  if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());
 }

@@ -89,10 +89,13 @@ def ip_topk(queries: torch.Tensor, items: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     *, causal: bool = True) -> torch.Tensor:
-    """Fused attention, causal by default: q/k/v (B, H, S, Dh) bf16 or
-    float32 -> (B, H, S, Dh) in q's dtype. On CUDA the hand-written kernel
-    (any S, Dh <= 128, contiguous inputs); on the CPU the O(S^2)-memory
-    plain version, for smoke-scale shapes (the transformer's default
+    """Fused attention, causal by default: q (B, H, S, Dh) and k/v (B,
+    Hkv, S, Dh) with H % Hkv == 0 (query head h reads KV head
+    h // (H // Hkv); Hkv = H is the reference's layout), bf16 or float32
+    -> (B, H, S, Dh) in q's dtype. On CUDA the hand-written kernels (any
+    S, Dh <= 128, contiguous inputs; the route is picked by shape, see
+    ``kernels/flash_attention.py``); on the CPU the O(S^2)-memory plain
+    version, for smoke-scale shapes (the transformer's default
     ``attn_impl`` stays ``"chunked"``)."""
     if _route(q, "flash_attention"):
         return _flash.flash_attention(q, k, v, causal=causal)

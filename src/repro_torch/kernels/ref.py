@@ -22,6 +22,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models.attention import repeat_kv
+
 BIG_HAMMING = 1 << 30   # distance given to masked rows: behind every live row
 
 _M1 = 0x55555555
@@ -147,13 +149,34 @@ def ip_topk(queries: torch.Tensor, items: torch.Tensor,
     return vals, ids.to(torch.int32)
 
 
+def kv_repeats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
+    """The GQA factor n_rep = H // Hkv of q (B, H, S, Dh) and k, v
+    (B, Hkv, S, Dh); raises ``ValueError`` unless k and v have one shape,
+    B, S and Dh equal q's, and H % Hkv == 0."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"q, k and v must be 4-D with k and v of one "
+                         f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    (b, h, s, dh), hkv = q.shape, k.shape[1]
+    if (k.shape[0], k.shape[2], k.shape[3]) != (b, s, dh):
+        raise ValueError(f"k and v must match q in B, S and Dh, got q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    if hkv < 1 or h % hkv:
+        raise ValueError(f"q's {h} heads are not a multiple of k's {hkv}")
+    return h // hkv
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """O(S^2)-memory version of the flash attention kernel (twin of the
-    reference's ``ref.flash_attention``): q/k/v (B, H, S, Dh) ->
-    (B, H, S, Dh) in q's dtype. Scores ``q k^T * Dh^-0.5`` in float32,
-    positions above the diagonal set to -1e30 when ``causal``, softmax
-    and the product with v in float32."""
+    reference's ``ref.flash_attention``): q (B, H, S, Dh), k/v (B, Hkv, S,
+    Dh) with H % Hkv == 0 -> (B, H, S, Dh) in q's dtype. k and v are
+    repeated to H heads first (``repeat_kv``: head h reads KV head
+    h // n_rep), then scores ``q k^T * Dh^-0.5`` in float32, positions
+    above the diagonal set to -1e30 when ``causal``, softmax and the
+    product with v in float32."""
+    n_rep = kv_repeats(q, k, v)
+    k, v = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
     dh = q.shape[-1]
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
                      k.to(torch.float32)) * dh ** -0.5

@@ -214,13 +214,14 @@ def _layer(x: torch.Tensor, p: Block, cfg: LMConfig,
     """One transformer block. x (B, S, D) -> (x', (k, v))."""
     h = _rms_norm(x, p.ln1)
     q, k, v = _project_qkv(h, p, cfg, positions)
-    rep = cfg.n_heads // cfg.n_kv_heads
-    kr, vr = attn.repeat_kv(k, rep), attn.repeat_kv(v, rep)
     if cfg.attn_impl == "flash":
-        o = kops.flash_attention(q.contiguous(), kr.contiguous(),
-                                 vr.contiguous(), causal=True)
+        # the kernel reads KV head h // n_rep in place: no repeated copy
+        o = kops.flash_attention(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal=True)
     else:
-        o = attn.chunked_attention(q, kr, vr,
+        rep = cfg.n_heads // cfg.n_kv_heads
+        o = attn.chunked_attention(q, attn.repeat_kv(k, rep),
+                                   attn.repeat_kv(v, rep),
                                    chunk=min(cfg.attn_chunk, x.shape[1]))
     b, s, _ = x.shape
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)

@@ -355,6 +355,65 @@ def test_ops_flash_attention_takes_the_plain_version_on_cpu():
         flash_attention.flash_attention(q, k, v)
 
 
+@pytest.mark.parametrize("hkv,causal", [(1, True), (2, True), (2, False)])
+def test_flash_gqa_equals_repeated_kv_and_pallas(jx, hkv, causal):
+    """k and v with Hkv < H heads: ops and ref equal, bit for bit, the same
+    call on repeat_kv copies, and match the reference's Pallas kernel
+    (interpret mode) fed the reference's repeat_kv of the same arrays."""
+    from repro.models import attention as jattn
+    from repro_torch.models.attention import repeat_kv
+    jnp = jx.jnp
+    rng = np.random.default_rng(10 * hkv + causal)
+    q = rng.standard_normal((2, 4, 64, 32)).astype(np.float32)
+    k, v = (rng.standard_normal((2, hkv, 64, 32)).astype(np.float32)
+            for _ in range(2))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    tkr, tvr = repeat_kv(tk, 4 // hkv), repeat_kv(tv, 4 // hkv)
+    for fn in (ops.flash_attention, ref.flash_attention):
+        got = fn(tq, tk, tv, causal=causal)
+        assert torch.equal(got, fn(tq, tkr, tvr, causal=causal))
+    pallas = jx.flash.flash_attention(
+        jnp.asarray(q), jattn.repeat_kv(jnp.asarray(k), 4 // hkv),
+        jattn.repeat_kv(jnp.asarray(v), 4 // hkv), causal=causal,
+        block_q=32, block_k=32, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), atol=5e-5)
+
+
+@pytest.mark.parametrize("k_shape,match", [
+    ((2, 3, 16, 8), "not a multiple"),       # H % Hkv != 0
+    ((1, 2, 16, 8), "B, S and Dh"),          # B differs
+    ((2, 2, 12, 8), "B, S and Dh"),          # S differs
+    ((2, 2, 16, 4), "B, S and Dh")])         # Dh differs
+def test_flash_attention_refuses_mismatched_kv(k_shape, match):
+    q = torch.zeros(2, 4, 16, 8)
+    k = torch.zeros(k_shape)
+    for fn in (ops.flash_attention, ref.flash_attention):
+        with pytest.raises(ValueError, match=match):
+            fn(q, k, k)
+    with pytest.raises(ValueError, match="one shape"):
+        ops.flash_attention(q, q, q[:, :2].contiguous())
+
+
+def test_build_target_follows_headers_and_flags(tmp_path, monkeypatch):
+    """A library is named by its source, every csrc header and the nvcc
+    flags: an edit to any of them loads no stale build."""
+    from repro_torch.kernels import _build
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build._target("k")
+    assert _build._target("k") == first           # deterministic
+    (tmp_path / "h.cuh").write_text("// two\n")
+    second = _build._target("k")
+    assert second != first
+    (tmp_path / "other.cuh").write_text("// new header\n")
+    third = _build._target("k")
+    assert third != second
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
+    assert _build._target("k") != third
+    assert _build._target("k").suffix == ".so"
+
+
 def test_reset_launch_counts():
     ops.launch_counts["srp_hash"] += 3
     ops.reset_launch_counts()
@@ -387,18 +446,6 @@ def test_cuda_srp_equals_plain_up_to_rounding_flips(cuda, n, d, b):
     want = ref.srp_hash(torch.from_numpy(x), torch.from_numpy(proj))
     _flip_bound_check(x, proj, got.cpu().numpy().view(np.uint32),
                       want.numpy().view(np.uint32))
-
-
-@pytest.mark.gpu
-def test_cuda_wrappers_refuse_bad_inputs(cuda):
-    codes = torch.zeros(4, 8, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="contiguous"):
-        hamming_scan.hamming_scores(codes[:, ::2], codes[:, ::2])
-    with pytest.raises(ValueError, match="widths differ"):
-        hamming_scan.hamming_scores(codes, codes[:, :4].contiguous())
-    with pytest.raises(ValueError, match="multiple of 32"):
-        srp_hash.srp_hash(torch.zeros(2, 4, device=cuda),
-                          torch.zeros(4, 48, device=cuda))
 
 
 @pytest.mark.gpu
@@ -460,36 +507,36 @@ def test_cuda_lane_ips_of_a_subset_are_bitwise_the_full_ones(cuda, c,
 
 
 @pytest.mark.gpu
-def test_cuda_new_wrappers_refuse_bad_inputs(cuda):
-    args = list(_torch_fused(_fused_inputs(1, 4, 16, 2, 5), cuda))
-    with pytest.raises(ValueError, match="n_cand must be in"):
-        fused_scan.fused_scan(*args, n_cand=17)
-    args[3] = args[3].to(torch.int32)
-    with pytest.raises(ValueError, match="qitems must be 2-D torch.int8"):
-        fused_scan.fused_scan(*args, n_cand=3)
-    x = torch.zeros(4, 8, device=cuda)
-    with pytest.raises(ValueError, match="k must be in"):
-        ip_topk.ip_topk_tiles(x, x, 5)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("shape,dtype,causal", [
-    ((1, 2, 64, 32), "float32", True),
-    ((2, 16, 512, 128), "bfloat16", True),       # the prefill kernel's width
-    ((1, 3, 300, 128), "bfloat16", True),        # ragged S
-    ((2, 2, 300, 64), "float32", True),
-    ((2, 4, 200, 128), "bfloat16", False),       # non-causal, ragged
-    ((1, 2, 130, 96), "float32", False),
-    ((1, 2, 77, 40), "bfloat16", True),          # Dh % 8 != 0: 2-byte loads
-    ((3, 1, 1, 8), "bfloat16", True)])           # one position
-def test_cuda_flash_attention_matches_plain(cuda, shape, dtype, causal):
+@pytest.mark.parametrize("shape,hkv,dtype,causal,wgmma", [
+    ((1, 2, 64, 32), 2, "float32", True, False),
+    ((2, 16, 512, 128), 16, "bfloat16", True, True),   # the prefill width
+    ((2, 16, 512, 128), 8, "bfloat16", True, True),    # qwen3's 2 q per KV
+    ((1, 12, 300, 128), 2, "bfloat16", True, True),    # qwen2-1.5b's 6
+    ((1, 3, 300, 128), 3, "bfloat16", True, True),     # ragged S
+    ((2, 2, 300, 64), 1, "float32", True, False),
+    ((2, 4, 200, 128), 4, "bfloat16", False, True),    # non-causal, ragged
+    ((2, 4, 200, 64), 2, "bfloat16", False, True),     # Dh 64, non-causal
+    ((1, 2, 130, 96), 2, "float32", False, False),
+    ((1, 2, 77, 40), 2, "bfloat16", True, True),       # Dh % 8 == 0: TMA,
+                                                       # padded to 64
+    ((1, 2, 77, 36), 1, "bfloat16", True, False),      # Dh % 8 != 0: mma
+    ((3, 1, 1, 8), 1, "bfloat16", True, True),         # one position
+    ((2, 4, 1, 128), 2, "bfloat16", True, True),       # S = 1
+    ((2, 4, 129, 128), 1, "bfloat16", True, True)])    # one row past a tile
+def test_cuda_flash_attention_matches_plain(cuda, shape, hkv, dtype, causal,
+                                            wgmma):
     assert not torch.backends.cuda.matmul.allow_tf32
+    b, h, s, d = shape
     q, k, v = (torch.from_numpy(a).to(getattr(torch, dtype)).to(cuda)
-               for a in _qkv(shape[2] + shape[3], shape))
-    before = ops.launch_counts["flash_attention"]
+               for a in _qkv(s + d, shape))
+    k, v = k[:, :hkv].contiguous(), v[:, :hkv].contiguous()
+    before = dict(ops.launch_counts)
     got = ops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert ops.launch_counts["flash_attention"] == before + 1
+    assert ops.launch_counts["flash_attention"] == \
+        before["flash_attention"] + 1
+    assert ops.launch_counts["flash_attention_wgmma"] == \
+        before["flash_attention_wgmma"] + int(wgmma)
     assert got.dtype == q.dtype and got.shape == q.shape
     want = ref.flash_attention(q, k, v, causal=causal).float()
     err = (got.float() - want).abs()
@@ -501,7 +548,47 @@ def test_cuda_flash_attention_matches_plain(cuda, shape, dtype, causal):
 
 
 @pytest.mark.gpu
-def test_cuda_flash_attention_refuses_bad_inputs(cuda):
+def test_cuda_flash_attention_unaligned_takes_mma(cuda):
+    """A bf16 view 2 bytes past an aligned base takes mma.sync, right."""
+    q, k, v = (torch.from_numpy(a).bfloat16().to(cuda)
+               for a in _qkv(3, (1, 2, 70, 64)))
+    buf = torch.empty(q.numel() + 8, dtype=torch.bfloat16, device=cuda)
+    qu = buf[1:1 + q.numel()].view(q.shape)
+    qu.copy_(q)
+    assert flash_attention.route(qu, k, v) == "mma"
+    before = ops.launch_counts["flash_attention_wgmma"]
+    got = ops.flash_attention(qu, k, v)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["flash_attention_wgmma"] == before
+    want = ref.flash_attention(q, k, v).float()
+    assert bool(((got.float() - want).abs()
+                 <= 2.0 ** -6 * want.abs() + 1e-3).all())
+
+
+def _refuse_hamming_srp(cuda):
+    codes = torch.zeros(4, 8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        hamming_scan.hamming_scores(codes[:, ::2], codes[:, ::2])
+    with pytest.raises(ValueError, match="widths differ"):
+        hamming_scan.hamming_scores(codes, codes[:, :4].contiguous())
+    with pytest.raises(ValueError, match="multiple of 32"):
+        srp_hash.srp_hash(torch.zeros(2, 4, device=cuda),
+                          torch.zeros(4, 48, device=cuda))
+
+
+def _refuse_fused_ip_topk(cuda):
+    args = list(_torch_fused(_fused_inputs(1, 4, 16, 2, 5), cuda))
+    with pytest.raises(ValueError, match="n_cand must be in"):
+        fused_scan.fused_scan(*args, n_cand=17)
+    args[3] = args[3].to(torch.int32)
+    with pytest.raises(ValueError, match="qitems must be 2-D torch.int8"):
+        fused_scan.fused_scan(*args, n_cand=3)
+    x = torch.zeros(4, 8, device=cuda)
+    with pytest.raises(ValueError, match="k must be in"):
+        ip_topk.ip_topk_tiles(x, x, 5)
+
+
+def _refuse_flash(cuda):
     x = torch.zeros(1, 2, 8, 16, device=cuda)
     with pytest.raises(ValueError, match="bf16 or float32"):
         flash_attention.flash_attention(x.half(), x.half(), x.half())
@@ -511,9 +598,24 @@ def test_cuda_flash_attention_refuses_bad_inputs(cuda):
         flash_attention.flash_attention(x.transpose(1, 2), x, x)
     with pytest.raises(ValueError, match="one shape"):
         flash_attention.flash_attention(x, x[:, :, :4].contiguous(), x)
+    with pytest.raises(ValueError, match="B, S and Dh"):
+        flash_attention.flash_attention(x, x[:, :, :4].contiguous(),
+                                        x[:, :, :4].contiguous())
+    x4 = torch.zeros(1, 4, 8, 16, device=cuda)
+    with pytest.raises(ValueError, match="not a multiple"):
+        flash_attention.flash_attention(x4, x4[:, :3].contiguous(),
+                                        x4[:, :3].contiguous())
     big = torch.zeros(1, 1, 4, 160, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention.flash_attention(big, big, big)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("check", [_refuse_hamming_srp, _refuse_fused_ip_topk,
+                                   _refuse_flash],
+                         ids=["hamming_srp", "fused_ip_topk", "flash"])
+def test_cuda_wrappers_refuse_bad_inputs(cuda, check):
+    check(cuda)
 
 
 @pytest.mark.gpu

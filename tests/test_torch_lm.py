@@ -305,6 +305,34 @@ def test_flash_and_chunked_prefill_agree_in_the_port():
                                **F32_TOL)
 
 
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2-1.5b"])
+def test_flash_route_reads_unrepeated_kv(arch, monkeypatch):
+    """On the "flash" route each layer hands the kernel k and v with
+    n_kv_heads heads (no repeat_kv copy); the output is the repeated-KV
+    call's, bit for bit."""
+    _, cfg = _configs(arch, attn_impl="flash")
+    assert cfg.n_heads > cfg.n_kv_heads
+    model = tf.init_params(cfg, torch.Generator().manual_seed(8), "cpu")
+    toks = torch.from_numpy(_tokens(np.random.default_rng(8), cfg.vocab,
+                                    (2, 12))).long()
+    seen = []
+    flash = tf.kops.flash_attention
+
+    def spy(q, k, v, *, causal=True):
+        seen.append((q.shape[1], k.shape[1], v.shape[1]))
+        got = flash(q, k, v, causal=causal)
+        rep = q.shape[1] // k.shape[1]
+        assert torch.equal(got, flash(q, attention.repeat_kv(k, rep),
+                                      attention.repeat_kv(v, rep),
+                                      causal=causal))
+        return got
+
+    monkeypatch.setattr(tf.kops, "flash_attention", spy)
+    tf.prefill(model, toks)
+    assert seen == [(cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads)] \
+        * cfg.n_layers
+
+
 def test_decode_continues_prefill():
     """decode_step at position S after a prefill of S tokens gives the
     last logits of a prefill of the S + 1 tokens."""
