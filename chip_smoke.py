@@ -39,15 +39,20 @@ It
      against a prefill one token longer, with the same model in float32 as
      the arbiter of how far two bf16 paths may drift apart;
   5. holds each kernel against its plain PyTorch version on the inputs
-     its path gives it (Hamming, ``fused_scan`` and ``ip_topk`` exactly;
-     SRP bits up to flips whose score lies within the rounding bound of 0;
-     flash attention within two bf16 ulps on layer 0's q/k/v, with its 8
-     KV heads read in place, and on ``FLASH_CHECKS``, and within 5e-5 in
-     float32);
+     its path gives it (Hamming exactly; ``fused_scan`` exactly at the
+     path's tile and at 4,096 rows; ``ip_topk`` exactly, the merged answer
+     and the kernel's raw per-split lists against
+     ``ref.ip_topk_partials``; SRP bits up to flips whose score lies
+     within the rounding bound of 0; flash attention within two bf16 ulps
+     on layer 0's q/k/v, with its 8 KV heads read in place, and on
+     ``FLASH_CHECKS``, and within 5e-5 in float32);
   6. times each kernel and its plain version on the device (launches
-     replayed from a CUDA graph) and each wrapper call from Python, and
-     prints the flash kernels' ``-Xptxas -v`` registers, shared memory
-     and spills and their ``HGMMA`` / ``UTMALDG`` counts in the SASS;
+     replayed from a CUDA graph) and each wrapper call from Python
+     (``ops.ip_topk`` with its merge against one library call, the
+     like-for-like pair), and prints the ``-Xptxas -v`` registers and
+     spills of ``ip_topk`` and ``fused_scan``, and of the flash kernels
+     with their shared memory and their ``HGMMA`` / ``UTMALDG`` counts in
+     the SASS;
   7. splits a query batch into plan and execute, and profiles it and one
      LM prefill for the device's busy share and their top kernels.
 
@@ -75,11 +80,15 @@ FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
 # An SM issues INT32 work on half as many lanes as FP32 work.
 INT32_OP_PER_S = FP32_FLOP_PER_S / 2
+# FP32 lane-instructions a second (a multiply or an add each; an FMA is 2
+# of the FLOP above in one instruction)
+FP32_INSTR_PER_S = FP32_FLOP_PER_S / 2
 
 NQ = 16              # promoted items per query batch
 TOP_FRAC = 0.02      # queries come from this top share of items by norm
 ITERS = 200          # timed launches per kernel
 N_FWD = 4096         # users per forward top-k batch
+TILE_LARGE = 4096    # fused_scan also checked and timed at the largest tile
 K_FWD = 10
 LM_BATCH = 4         # prompts per prefill
 LM_PROMPT = 2048     # tokens per prompt
@@ -799,6 +808,14 @@ def main() -> int:
     fused_err = float((qips_k - qips_p).abs().max())
     if fused_err != 0.0:
         fail(f"fused_scan qips differ from its plain version by {fused_err}")
+    fused_args4k = (ucodes, a8.codes[:TILE_LARGE],
+                    a8.item_mask[:TILE_LARGE], a8.qitems[:TILE_LARGE],
+                    a8.qscale[:TILE_LARGE], chunk_users)
+    for got, want in zip(ops.fused_scan(*fused_args4k, n_cand=cfg.n_cand),
+                         ref.fused_scan(*fused_args4k, cfg.n_cand)):
+        if not torch.equal(got, want):
+            fail(f"fused_scan at {TILE_LARGE} rows differs from its plain "
+                 f"version")
     plain_vals, plain_ids = ref.ip_topk(users_fwd, items, K_FWD)
     if not torch.equal(exact_ids, plain_ids):
         fail(f"ip_topk: {int((exact_ids != plain_ids).sum())} ids differ "
@@ -806,6 +823,14 @@ def main() -> int:
     ip_err = float((exact_vals - plain_vals).abs().max())
     if ip_err != 0.0:
         fail(f"ip_topk values differ from its plain version by {ip_err}")
+    raw_vals, raw_ids = ip_topk.ip_topk_tiles(users_fwd, items, K_FWD)
+    splits = raw_vals.shape[1]
+    part_vals, part_ids = ref.ip_topk_partials(users_fwd, items, K_FWD,
+                                               splits)
+    if not (torch.equal(raw_ids, part_ids)
+            and torch.equal(raw_vals, part_vals)):
+        fail("ip_topk: the kernel's per-split lists differ from "
+             "ref.ip_topk_partials")
     torch.cuda.synchronize()
     print(f"check srp_hash build rows {tuple(rows.shape)} x "
           f"{tuple(proj.shape)}: {flips_b} flipped bits, each with "
@@ -816,10 +841,12 @@ def main() -> int:
     print(f"check hamming_scores {tuple(ucodes.shape)} x "
           f"{tuple(tile_codes.shape)}: exact (max abs err 0)")
     print(f"check fused_scan {tuple(chunk_users.shape)} lanes x tile 0 "
-          f"({cfg.tile} rows), n_cand {cfg.n_cand}: cand exact, qips "
-          f"bitwise (max abs err 0)")
+          f"({cfg.tile} rows) and the first {TILE_LARGE} rows, n_cand "
+          f"{cfg.n_cand}: cand exact, qips bitwise (max abs err 0)")
     print(f"check ip_topk {tuple(users_fwd.shape)} x {tuple(items.shape)}, "
-          f"k={K_FWD}: ids exact, values bitwise (max abs err 0)")
+          f"k={K_FWD}: ids exact, values bitwise (max abs err 0); the "
+          f"kernel's {splits} per-split lists equal ref.ip_topk_partials "
+          f"bitwise")
 
     phase_done("kernel checks")
 
@@ -839,9 +866,11 @@ def main() -> int:
         lambda: ref.fused_scan(*fused_args, cfg.n_cand), 20)
     fused_call = call_ms(
         lambda: ops.fused_scan(*fused_args, n_cand=cfg.n_cand), it)
-    ipk_ms = device_ms(
+    fused4k_ms = device_ms(
+        lambda: ops.fused_scan(*fused_args4k, n_cand=cfg.n_cand), it)
+    ipk_pass = device_ms(
         lambda: ip_topk.ip_topk_tiles(users_fwd, items, K_FWD), 20)
-    ipk_merged = device_ms(lambda: ops.ip_topk(users_fwd, items, K_FWD), 20)
+    ipk_ms = device_ms(lambda: ops.ip_topk(users_fwd, items, K_FWD), 20)
     ipk_call = call_ms(lambda: ops.ip_topk(users_fwd, items, K_FWD), 20)
     ipk_plain = device_ms(lambda: ref.ip_topk(users_fwd, items, K_FWD), 2,
                           replays=3)
@@ -870,12 +899,20 @@ def main() -> int:
     # fused_scan: codes, mask, int8 rows, scales and users in, cand + qips
     # out; 3 integer ops per (lane, row, word) for the distances and a
     # multiply and an add per (lane, candidate, dim) for the scores
-    fused_bound, fused_by = bound(
-        4 * (c * w + t * w + t + c * d) + t * d + 8 * c * nc,
-        3 * c * t * w / INT32_OP_PER_S + 2 * c * nc * d / FP32_FLOP_PER_S)
+    def fused_bound_of(t):
+        return bound(
+            4 * (c * w + t * w + t + c * d) + t * d + 8 * c * nc,
+            3 * c * t * w / INT32_OP_PER_S
+            + 2 * c * nc * d / FP32_FLOP_PER_S)
+
+    fused_bound, fused_by = fused_bound_of(t)
+    fused4k_bound, _ = fused_bound_of(TILE_LARGE)
     nq_f, n_i = users_fwd.shape[0], items.shape[0]
     ipk_bound, ipk_by = bound(4 * (nq_f + n_i) * d + 8 * nq_f * K_FWD,
                               2 * nq_f * n_i * d / FP32_FLOP_PER_S)
+    # the floor of the bitwise contract: a separate multiply and add per
+    # term, each one FP32 lane-instruction, 33.5 T of them a second
+    ipk_floor = 2 * nq_f * n_i * d / FP32_INSTR_PER_S * 1e3
     print(f"time hamming_scores {tuple(ucodes.shape)}x"
           f"{tuple(tile_codes.shape)}: kernel {ham_ms:.5f} ms (device), "
           f"{ham_call:.5f} ms per call "
@@ -891,14 +928,22 @@ def main() -> int:
     print(f"time fused_scan {tuple(chunk_users.shape)} lanes x {t} rows: "
           f"kernel {fused_ms:.5f} ms (device), {fused_call:.5f} ms per call "
           f"from Python; plain {fused_plain:.5f} ms; bound "
-          f"{fused_bound:.6f} ms ({fused_by}); no single PyTorch call "
-          f"computes it")
+          f"{fused_bound:.6f} ms ({fused_by}); at {TILE_LARGE} rows "
+          f"{fused4k_ms:.5f} ms (bound {fused4k_bound:.6f} ms); no single "
+          f"PyTorch call computes it")
     print(f"time ip_topk {tuple(users_fwd.shape)} x {tuple(items.shape)} "
-          f"k={K_FWD}: kernel {ipk_ms:.5f} ms (device), with the merge "
-          f"{ipk_merged:.5f} ms, {ipk_call:.5f} ms per call from Python; "
-          f"plain {ipk_plain:.5f} ms; bound {ipk_bound:.6f} ms ({ipk_by}); "
-          f"library torch.topk(torch.matmul(q, items.T), 10), two calls, "
-          f"{ipk_lib:.5f} ms")
+          f"k={K_FWD}: ops.ip_topk (kernel + merge of {splits} splits) "
+          f"{ipk_ms:.5f} ms (device), the kernel alone {ipk_pass:.5f} ms, "
+          f"{ipk_call:.5f} ms per call from Python; plain {ipk_plain:.5f} "
+          f"ms; bound {ipk_bound:.6f} ms ({ipk_by}: 67 TFLOP/s, FMA = 2), "
+          f"no-FMA floor {ipk_floor:.6f} ms (two FP32 instructions a term "
+          f"at 33.5 T/s); library torch.topk(torch.matmul(q, items.T), "
+          f"10), two calls, {ipk_lib:.5f} ms")
+    for name in ("ip_topk", "fused_scan"):
+        print(f"ptxas {name}: " + "; ".join(
+            line.split(":", 1)[-1].strip()
+            for line in _build.build_log(name).splitlines()
+            if "Used" in line or "spill" in line or "stack" in line))
     flash_entry = flash_kernel_entry(lm, args.seed, dev)
     phase_done("kernel times")
     profile_query(eng, queries, 10)
@@ -935,7 +980,8 @@ def main() -> int:
          "launches": launches8["fused_scan"], "max_abs_err": fused_err,
          "ms": fused_ms, "plain_ms": fused_plain, "bound_ms": fused_bound,
          "bound_by": fused_by, "library_ms": None, "call_ms": fused_call,
-         "shape": f"{tuple(chunk_users.shape)}x{t} rows, n_cand {nc}"},
+         "shape": f"{tuple(chunk_users.shape)}x{t} rows, n_cand {nc}",
+         "rows_4096_ms": fused4k_ms, "rows_4096_bound_ms": fused4k_bound},
         {"name": "ip_topk", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ip_topk.cu",
          "replaces": "src/repro/kernels/ip_topk.py:55",
@@ -943,8 +989,9 @@ def main() -> int:
          "ms": ipk_ms, "plain_ms": ipk_plain, "bound_ms": ipk_bound,
          "bound_by": ipk_by, "library_ms": ipk_lib,
          "library_call": "torch.topk(torch.matmul(q, items.T), 10), two "
-                         "calls", "merged_ms": ipk_merged,
-         "call_ms": ipk_call,
+                         "calls", "timed": "ops.ip_topk: kernel + merge",
+         "kernel_only_ms": ipk_pass, "no_fma_floor_ms": ipk_floor,
+         "splits": splits, "call_ms": ipk_call,
          "shape": f"{tuple(users_fwd.shape)}x{tuple(items.shape)}, k "
                   f"{K_FWD}"},
         flash_entry,

@@ -16,140 +16,282 @@
 // What bounds it on an H100: at the main-path shape (C = 256 lanes, T = 512,
 // W = 4, d = 100, n_cand = 64) it reads about 0.17 MB and writes 0.13 MB
 // (0.09 us at 3.35 TB/s) and does about 1.6 M integer and 3.3 M float
-// operations (0.1 us); both are far below one launch, so its time is launch
-// latency and the tail of one short wave.
+// operations (0.1 us); both are far below one launch, so its time is the
+// latency of its dependent phases, each a global or shared round trip.
 //
-// Design: one warp per user lane, four lanes per 128-thread block. The
-// selection is a counting sort over the B + 2 possible distances (0..B with
-// B = 32 W, and the masked value), not n_cand rounds of argmin over T:
-//   1. the warp builds its lane's histogram of distances in shared memory;
-//   2. an exclusive scan turns it into each distance's first output slot;
-//   3. the warp walks the rows in ascending order, 32 at a time; a row's slot
-//      is its distance's next slot plus its rank among the rows of the same
-//      distance in this step (__match_any_sync), and rows whose slot is below
-//      n_cand are written out. Walking rows in order is what sends ties to
-//      the lower row;
-//   4. each thread scores candidates p = lane, lane + 32, ..., reading the
-//      int8 row (d bytes, an L2 hit: the tile is 51 KB) and the user row.
-// Distances are computed again in step 3 (W loads from L1) rather than kept,
-// so shared memory (4 warps x (B + 2 + W) ints, 17 KB at most) does not grow
-// with T.
+// Design: one block of 256 threads (8 warps) per user lane, so C = 256 gives
+// 256 blocks, all resident at once on 132 SMs. The selection is a counting
+// sort over the B + 2 bins (distances 0..B with B = 32 W, then masked):
+//   1. warp v owns the contiguous rows [32 R v, 32 R (v + 1)), R the power
+//      of two at or above ceil(T / 256) (a template parameter, <= 16); its
+//      thread l takes rows 32 R v + 32 i + l, i < R, reads each row's W
+//      words once (16-byte loads when W % 4 == 0, one word of every row in
+//      flight at a time; the lane's code words come through L1 as
+//      broadcasts) and keeps the R bins in registers. The user row is staged
+//      in shared memory meanwhile;
+//   2. the warp walks its rows in order, 32 at a time: __match_any_sync
+//      groups the rows of one bin, the lowest of them adds the group's size
+//      to the warp's private count of that bin, and each row keeps its rank
+//      among the warp's earlier rows of its bin. No atomics;
+//   3. an exclusive scan over the counts in (bin, warp) order gives each
+//      warp's first slot in each bin;
+//   4. a row's slot is that base plus its rank: ascending by bin, then by
+//      warp, then by row within the warp, which is the lower-row-first
+//      rule. Rows whose slot is below n_cand write their row to a shared
+//      list;
+//   5. one thread per candidate: it reads the candidate's int8 row as 32-bit
+//      words when d % 4 == 0 (8 words ahead of the sum), else as bytes, and
+//      runs the dependent sum in index order against the shared user row
+//      (each read a broadcast).
+// The tile's codes are read straight into registers, not staged in shared
+// memory: each row is read once per lane by one thread, so staging would
+// add a copy and a barrier and cap T W by the shared memory.
+// Shared memory: 4 (8 (32 W + 2) + 8 + n_cand + d) bytes, 4.6 KB at the
+// main shape; at the largest tile (T = 4,096, n_cand = T) with W = 32 and
+// d = 100, 49.6 KB, past the 48 KB default, so the launch opts in above it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarps = 4;  // user lanes per block, one warp each
+constexpr int kThreads = 256;  // one user lane per block
+constexpr int kWarps = kThreads / 32;
+constexpr int kChunk = 8;      // int8 row words fetched one chunk ahead
+constexpr unsigned kAll = 0xffffffffu;
 
-// Histogram bin of row j: its Hamming distance, or `masked` for a dead row.
-__device__ __forceinline__ int row_bin(const uint32_t* uc,
-                                       const uint32_t* __restrict__ codes,
-                                       const uint8_t* __restrict__ mask,
-                                       int j, int w, int masked) {
-  if (!mask[j]) return masked;
-  const uint32_t* row = codes + static_cast<int64_t>(j) * w;
-  int dist = 0;
-  for (int k = 0; k < w; ++k) dist += __popc(uc[k] ^ row[k]);
-  return dist;
+size_t smem_bytes(int w, int d, int n_cand) {
+  return sizeof(int) * (static_cast<size_t>(kWarps) * (32 * w + 2) + kWarps +
+                        n_cand + d);
 }
 
-__global__ void fused_scan_kernel(const uint32_t* __restrict__ ucodes,
-                                  const uint32_t* __restrict__ codes,
-                                  const uint8_t* __restrict__ mask,
-                                  const int8_t* __restrict__ qitems,
-                                  const float* __restrict__ qscale,
-                                  const float* __restrict__ users,
-                                  int32_t* __restrict__ cand,
-                                  float* __restrict__ qips, int c, int t,
-                                  int w, int d, int n_cand) {
-  extern __shared__ int smem[];
+__device__ __forceinline__ float s8(uint32_t word, int b) {
+  return static_cast<float>(static_cast<int8_t>(word >> (8 * b)));
+}
+
+// The dequantization sum of one candidate row against the shared user row:
+// sum_i float(row[i]) * u[i], i = 0..d-1 in order, no FMA. With `words`
+// (d % 4 == 0, the row 4-byte aligned) the row is read 8 words at a time,
+// the next 8 in flight while these 32 terms are summed.
+__device__ __forceinline__ float int8_dot(const int8_t* __restrict__ row,
+                                          const float* u, int d,
+                                          bool words) {
+  float s = 0.f;
+  if (!words) {
+#pragma unroll 8
+    for (int i = 0; i < d; ++i)
+      s = __fadd_rn(s, __fmul_rn(static_cast<float>(__ldg(row + i)), u[i]));
+    return s;
+  }
+  const int32_t* row4 = reinterpret_cast<const int32_t*>(row);
+  const int d4 = d / 4;
+  uint32_t next[kChunk];
+#pragma unroll
+  for (int j = 0; j < kChunk; ++j)
+    if (j < d4) next[j] = static_cast<uint32_t>(__ldg(row4 + j));
+  for (int w0 = 0; w0 < d4; w0 += kChunk) {
+    uint32_t x[kChunk];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      x[j] = next[j];
+      if (w0 + kChunk + j < d4)
+        next[j] = static_cast<uint32_t>(__ldg(row4 + w0 + kChunk + j));
+    }
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j)
+      if (w0 + j < d4) {
+        const float* uj = u + 4 * (w0 + j);
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          s = __fadd_rn(s, __fmul_rn(s8(x[j], b), uj[b]));
+      }
+  }
+  return s;
+}
+
+// R: rows per thread, the power of two at or above ceil(T / 256).
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+fused_scan_kernel(const uint32_t* __restrict__ ucodes,
+                  const uint32_t* __restrict__ codes,
+                  const uint8_t* __restrict__ mask,
+                  const int8_t* __restrict__ qitems,
+                  const float* __restrict__ qscale,
+                  const float* __restrict__ users, int32_t* __restrict__ cand,
+                  float* __restrict__ qips, int t, int w, int d, int n_cand,
+                  bool vec_codes, bool vec_rows) {
+  extern __shared__ __align__(16) int smem[];
+  const int nb = 32 * w + 2;  // bins: distances 0..32 w, then masked
+  int* count = smem;                       // [nb][kWarps]
+  int* warp_sum = count + nb * kWarps;     // [kWarps]
+  int* cand_s = warp_sum + kWarps;         // [n_cand]
+  float* u = reinterpret_cast<float*>(cand_s + n_cand);  // [d]
+  const int c = blockIdx.x;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int nb = 32 * w + 2;  // bins: distances 0..32 w, then masked
-  int* hist = smem + warp * (nb + w);
-  uint32_t* uc = reinterpret_cast<uint32_t*>(hist + nb);
-  const int lane_c = blockIdx.x * kWarps + warp;
-  if (lane_c >= c) return;  // the whole warp leaves; no block barrier is used
+  const uint32_t* uc = ucodes + static_cast<int64_t>(c) * w;
 
-  for (int k = lane; k < w; k += 32)
-    uc[k] = ucodes[static_cast<int64_t>(lane_c) * w + k];
-  for (int b = lane; b < nb; b += 32) hist[b] = 0;
-  __syncwarp();
+  for (int e = threadIdx.x; e < nb * kWarps; e += kThreads) count[e] = 0;
+  for (int e = threadIdx.x; e < d; e += kThreads)
+    u[e] = users[static_cast<int64_t>(c) * d + e];
 
-  // 1. histogram of the lane's distances
-  for (int j = lane; j < t; j += 32)
-    atomicAdd(&hist[row_bin(uc, codes, mask, j, w, nb - 1)], 1);
-  __syncwarp();
+  // 1. the bins of this thread's rows 32 R warp + 32 i + lane, each computed
+  //    once: a word of every row in flight at a time
+  const int row0 = warp * 32 * R + lane;
+  int dist[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) dist[i] = 0;
+  if (vec_codes) {
+    const int w4 = w / 4;
+    for (int k4 = 0; k4 < w4; ++k4) {
+      const uint32_t u0 = __ldg(uc + 4 * k4), u1 = __ldg(uc + 4 * k4 + 1);
+      const uint32_t u2 = __ldg(uc + 4 * k4 + 2), u3 = __ldg(uc + 4 * k4 + 3);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int j = row0 + 32 * i;
+        if (j < t) {
+          const uint4 x = __ldg(reinterpret_cast<const uint4*>(
+                                    codes + static_cast<int64_t>(j) * w) +
+                                k4);
+          dist[i] += __popc(u0 ^ x.x) + __popc(u1 ^ x.y) + __popc(u2 ^ x.z) +
+                     __popc(u3 ^ x.w);
+        }
+      }
+    }
+  } else {
+    for (int k = 0; k < w; ++k) {
+      const uint32_t uk = __ldg(uc + k);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int j = row0 + 32 * i;
+        if (j < t)
+          dist[i] +=
+              __popc(uk ^ __ldg(codes + static_cast<int64_t>(j) * w + k));
+      }
+    }
+  }
+  int bin[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int j = row0 + 32 * i;
+    bin[i] = j < t ? (__ldg(mask + j) ? dist[i] : nb - 1) : nb;  // nb: none
+  }
+  __syncthreads();  // counts zeroed, user row staged
 
-  // 2. exclusive scan: each thread owns a contiguous run of bins
-  const int per = (nb + 31) / 32;
-  const int b0 = min(lane * per, nb);
-  const int b1 = min(b0 + per, nb);
+  // 2. per-warp counts, and each row's rank among the warp's earlier rows of
+  //    its bin
+  int rank[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int b = bin[i];
+    const unsigned peers = __match_any_sync(kAll, b);
+    const int below = __popc(peers & ((1u << lane) - 1u));
+    int* slot = count + min(b, nb - 1) * kWarps + warp;
+    const int prior = b < nb ? *slot : 0;
+    __syncwarp();
+    if (b < nb && below == 0) *slot = prior + __popc(peers);
+    __syncwarp();
+    rank[i] = prior + below;
+  }
+  __syncthreads();
+
+  // 3. exclusive scan over the counts in (bin, warp) order
+  const int total = nb * kWarps;
+  const int per = (total + kThreads - 1) / kThreads;
+  const int e0 = min(static_cast<int>(threadIdx.x) * per, total);
+  const int e1 = min(e0 + per, total);
   int run = 0;
-  for (int b = b0; b < b1; ++b) run += hist[b];
+  for (int e = e0; e < e1; ++e) run += count[e];
   int incl = run;
+#pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    const int v = __shfl_up_sync(0xffffffffu, incl, off);
+    const int v = __shfl_up_sync(kAll, incl, off);
     if (lane >= off) incl += v;
   }
-  int slot = incl - run;
-  for (int b = b0; b < b1; ++b) {
-    const int count = hist[b];
-    hist[b] = slot;
-    slot += count;
+  if (lane == 31) warp_sum[warp] = incl;
+  __syncthreads();
+  int base = incl - run;
+  for (int v = 0; v < warp; ++v) base += warp_sum[v];
+  for (int e = e0; e < e1; ++e) {
+    const int n_e = count[e];
+    count[e] = base;
+    base += n_e;
   }
-  __syncwarp();
+  __syncthreads();
 
-  // 3. rows in ascending order take their slots
-  int32_t* cand_c = cand + static_cast<int64_t>(lane_c) * n_cand;
-  for (int base = 0; base < t; base += 32) {
-    const int j = base + lane;
-    const bool live = j < t;
-    const int b = live ? row_bin(uc, codes, mask, j, w, nb - 1) : nb;
-    const unsigned peers = __match_any_sync(0xffffffffu, b);
-    const int rank = __popc(peers & ((1u << lane) - 1u));
-    const int pos = live ? hist[b] + rank : n_cand;
-    __syncwarp();
-    if (live && rank == 0) hist[b] += __popc(peers);
-    __syncwarp();
-    if (pos < n_cand) cand_c[pos] = j;
-  }
-  __syncwarp();  // orders the warp's cand writes before the reads below
+  // 4. rows below slot n_cand take their slots
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    if (bin[i] < nb) {
+      const int pos = count[bin[i] * kWarps + warp] + rank[i];
+      if (pos < n_cand) cand_s[pos] = row0 + 32 * i;
+    }
+  __syncthreads();
 
-  // 4. dequantized inner products of the candidates
-  const float* u = users + static_cast<int64_t>(lane_c) * d;
-  float* qips_c = qips + static_cast<int64_t>(lane_c) * n_cand;
-  for (int p = lane; p < n_cand; p += 32) {
-    const int r = cand_c[p];
-    const int8_t* qrow = qitems + static_cast<int64_t>(r) * d;
-    float s = 0.f;
-    for (int i = 0; i < d; ++i)
-      s = __fadd_rn(s, __fmul_rn(static_cast<float>(qrow[i]), u[i]));
-    qips_c[p] = __fmul_rn(s, qscale[r]);
+  // 5. one thread per candidate: its dequantized inner product
+  for (int p = threadIdx.x; p < n_cand; p += kThreads) {
+    const int r = cand_s[p];
+    const float scale = __ldg(qscale + r);
+    const float s = int8_dot(qitems + static_cast<int64_t>(r) * d, u, d,
+                             vec_rows);
+    const int64_t out = static_cast<int64_t>(c) * n_cand + p;
+    cand[out] = r;
+    qips[out] = __fmul_rn(s, scale);
   }
+}
+
+template <int R>
+int launch(const void* ucodes, const void* codes, const void* mask,
+           const void* qitems, const void* qscale, const void* users,
+           void* cand, void* qips, int c, int t, int w, int d, int n_cand,
+           cudaStream_t stream) {
+  const size_t smem = smem_bytes(w, d, n_cand);
+  static size_t allowed = 48 * 1024;  // above it needs the opt-in
+  if (smem > allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_scan_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed = smem;
+  }
+  const bool vec_codes =
+      w % 4 == 0 && reinterpret_cast<uintptr_t>(codes) % 16 == 0;
+  const bool vec_rows =
+      d % 4 == 0 && reinterpret_cast<uintptr_t>(qitems) % 4 == 0;
+  fused_scan_kernel<R><<<c, kThreads, smem, stream>>>(
+      static_cast<const uint32_t*>(ucodes), static_cast<const uint32_t*>(codes),
+      static_cast<const uint8_t*>(mask), static_cast<const int8_t*>(qitems),
+      static_cast<const float*>(qscale), static_cast<const float*>(users),
+      static_cast<int32_t*>(cand), static_cast<float*>(qips), t, w, d, n_cand,
+      vec_codes, vec_rows);
+  return 0;
 }
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() of the launch.
-// Requires 1 <= w <= 32 and 1 <= n_cand <= t (checked by the wrapper).
+// Launches on `stream`; returns the CUDA error of the launch (0 if none).
+// Requires 1 <= w <= 32, 1 <= t <= 4096 and 1 <= n_cand <= t (checked by
+// the wrapper).
 extern "C" int fused_scan_launch(const void* ucodes, const void* codes,
                                  const void* mask, const void* qitems,
                                  const void* qscale, const void* users,
                                  void* cand, void* qips, int c, int t, int w,
                                  int d, int n_cand, void* stream) {
   if (c > 0) {
-    const int grid = (c + kWarps - 1) / kWarps;
-    const size_t smem = sizeof(int) * kWarps * (32 * w + 2 + w);
-    fused_scan_kernel<<<grid, 32 * kWarps, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(ucodes),
-        static_cast<const uint32_t*>(codes),
-        static_cast<const uint8_t*>(mask), static_cast<const int8_t*>(qitems),
-        static_cast<const float*>(qscale), static_cast<const float*>(users),
-        static_cast<int32_t*>(cand), static_cast<float*>(qips), c, t, w, d,
-        n_cand);
+    const int rows = (t + kThreads - 1) / kThreads;
+    const auto st = static_cast<cudaStream_t>(stream);
+    const int err =
+        rows <= 1 ? launch<1>(ucodes, codes, mask, qitems, qscale, users,
+                              cand, qips, c, t, w, d, n_cand, st)
+        : rows <= 2 ? launch<2>(ucodes, codes, mask, qitems, qscale, users,
+                                cand, qips, c, t, w, d, n_cand, st)
+        : rows <= 4 ? launch<4>(ucodes, codes, mask, qitems, qscale, users,
+                                cand, qips, c, t, w, d, n_cand, st)
+        : rows <= 8 ? launch<8>(ucodes, codes, mask, qitems, qscale, users,
+                                cand, qips, c, t, w, d, n_cand, st)
+                    : launch<16>(ucodes, codes, mask, qitems, qscale, users,
+                                 cand, qips, c, t, w, d, n_cand, st);
+    if (err != 0) return err;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,7 +14,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-_MAX_WORDS = 32      # code width: the per-warp histogram has 32 W + 2 bins
+_MAX_WORDS = 32      # code width: each warp counts 32 W + 2 bins
+_MAX_ROWS = 4096     # tile rows: 16 a thread (the reference's largest tile)
 
 
 def fused_scan(ucodes: torch.Tensor, item_codes: torch.Tensor,
@@ -47,6 +48,8 @@ def fused_scan(ucodes: torch.Tensor, item_codes: torch.Tensor,
     if qitems.shape[1] != d or c2 != c:
         raise ValueError(f"users {tuple(users.shape)} do not match ucodes "
                          f"({c} lanes) and qitems ({qitems.shape[1]} dims)")
+    if not 1 <= t <= _MAX_ROWS:
+        raise ValueError(f"the tile must have 1 to {_MAX_ROWS} rows, got {t}")
     if not 1 <= n_cand <= t:
         raise ValueError(f"n_cand must be in [1, {t}], got {n_cand}")
     cand = torch.empty((c, n_cand), dtype=torch.int32, device=users.device)

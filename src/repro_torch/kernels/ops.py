@@ -74,16 +74,14 @@ def ip_topk(queries: torch.Tensor, items: torch.Tensor,
     """Exact top-k inner products: (q, d) x (n, d) f32 -> (vals (q, k)
     descending, ids (q, k) int32), the lower id first among equal values.
 
-    On CUDA the kernel reduces every tile of items to its top-k and a
-    stable descending sort merges the tiles (the reference's
-    ``ops._merge_topk``). Unlike the reference, which takes its Pallas
-    kernel only when ``n`` is a multiple of its block, the kernel runs for
-    every n: it masks the tail tile itself."""
+    On CUDA the kernel reduces each split of the items (a range of whole
+    tiles) to its top-k and ``ref.merge_topk`` merges the splits with a
+    stable descending sort (the reference's ``ops._merge_topk``). Unlike
+    the reference, which takes its Pallas kernel only when ``n`` is a
+    multiple of its block, the kernel runs for every n: it masks the tail
+    tile itself."""
     if _route(queries, "ip_topk"):
-        vals, ids = _ip_topk.ip_topk_tiles(queries, items, k)
-        flat_v = vals.reshape(vals.shape[0], -1)
-        best, pos = _ref.topk_stable(flat_v, k)
-        return best, ids.reshape(ids.shape[0], -1).gather(1, pos)
+        return _ref.merge_topk(*_ip_topk.ip_topk_tiles(queries, items, k), k)
     return _ref.ip_topk(queries, items, k)
 
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.ip_topk import BLOCK_N
 from repro_torch.models.attention import repeat_kv
 
 BIG_HAMMING = 1 << 30   # distance given to masked rows: behind every live row
@@ -141,12 +142,47 @@ def ip_topk(queries: torch.Tensor, items: torch.Tensor,
             k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k inner products: queries (q, d), items (n, d) -> (vals
     (q, k) f32 descending, ids (q, k) int32), the lower id first among
-    equal values. For finite scores this is what the kernel's per-tile
-    argmax followed by the stable merge of the tiles gives: each tile keeps
-    its equal values in id order, and the tiles come in id order."""
+    equal values. For finite scores this is what ``merge_topk`` of the
+    kernel's per-split lists gives: each split keeps its equal values in
+    id order, and the splits come in id order."""
     scores = index_order_dot(queries[:, None, :], items[None, :, :])
     vals, ids = topk_stable(scores, k)
     return vals, ids.to(torch.int32)
+
+
+def ip_topk_partials(queries: torch.Tensor, items: torch.Tensor, k: int,
+                     splits: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of the CUDA ``ip_topk`` kernel's raw output: the items cut
+    into ``splits`` ranges of whole ``BLOCK_N``-item tiles (split s covers
+    tiles [s * per, (s + 1) * per) with per = ceil(tiles / splits), clipped
+    to n, possibly empty), each reduced to its top-k by ``index_order_dot``
+    and ``topk_stable`` -> (vals (q, splits, k) f32, ids (q, splits, k)
+    int32 global rows), padded with (-inf, -1) where a split holds fewer
+    than k items."""
+    nq, n = queries.shape[0], items.shape[0]
+    n_tiles = -(-n // BLOCK_N)
+    per = -(-n_tiles // splits) * BLOCK_N               # items per split
+    scores = index_order_dot(queries[:, None, :], items[None, :, :])
+    vals = torch.full((nq, splits, k), -torch.inf, device=queries.device)
+    ids = torch.full((nq, splits, k), -1, dtype=torch.int32,
+                     device=queries.device)
+    for s in range(splits):
+        lo, hi = min(s * per, n), min((s + 1) * per, n)
+        v, pos = topk_stable(scores[:, lo:hi], min(k, hi - lo))
+        vals[:, s, :v.shape[1]] = v
+        ids[:, s, :v.shape[1]] = (pos + lo).to(torch.int32)
+    return vals, ids
+
+
+def merge_topk(vals: torch.Tensor, ids: torch.Tensor, k: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge per-split top-k lists (q, splits, k) into the top-k of each
+    row (q, k), by a stable descending sort over the splits' lists in
+    order (twin of the reference's ``ops._merge_topk``): the lower id first
+    among equal values when each list is in (value desc, id asc) order and
+    the splits come in id order."""
+    best, pos = topk_stable(vals.reshape(vals.shape[0], -1), k)
+    return best, ids.reshape(ids.shape[0], -1).gather(1, pos)
 
 
 def kv_repeats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:

@@ -8,7 +8,10 @@ flips whose float64 score lies within ``8 * d * 2**-24 * sum_i |x_i p_i|``
 of 0 (the two sum in different orders). Codes travel as int32 bit views
 and are compared through ``.view(np.uint32)``. ``fused_scan`` candidates
 and ``ip_topk`` ids must equal the reference's exactly (ties toward the
-lower row); their floats are allclose at rtol 1e-5, atol 1e-5. The plain
+lower row); their floats are allclose at rtol 1e-5, atol 1e-5. The CUDA
+``ip_topk``'s split-and-merge algorithm is held in plain PyTorch
+(``ref.ip_topk_partials`` then ``ref.merge_topk``) against ``ref.ip_topk``
+bit for bit and the reference's Pallas kernel plus its merge. The plain
 ``flash_attention`` must match the reference's ``ref.flash_attention`` and
 its Pallas kernel in interpret mode within the reference's own tolerances
 (atol 5e-5 in float32, 3e-2 in bf16).
@@ -17,7 +20,8 @@ Tests marked ``gpu`` hold each CUDA kernel against its plain version and
 skip where no CUDA device is present (decided in a fixture, so every
 worker collects the same tests): integers exactly, and the ``fused_scan``
 and ``ip_topk`` floats bit for bit (kernel and plain version both round
-each product and each sum in index order). The flash attention kernel
+each product and each sum in index order), ``ip_topk``'s raw per-split
+lists too. The flash attention kernel
 sums in another order than its plain version: float32 within atol 5e-5;
 bf16 within ``2**-6 * |plain| + 1e-3`` (two bf16 ulps: both outputs are
 rounded to bf16 from float32 values that differ by rounding). They need no JAX: the
@@ -167,11 +171,16 @@ def test_srp_plain_rows_do_not_depend_on_the_batch():
         assert torch.equal(ref.srp_hash(x[lo:hi], proj), full[lo:hi])
 
 
-def _fused_inputs(seed, c, t, w, d, live=0.8):
+def _fused_inputs(seed, c, t, w, d, live=0.8, patterns=0):
     """numpy inputs of one fused_scan call: (ucodes, item_codes) uint32,
-    mask bool, qitems int8, qscale f32, users f32."""
+    mask bool, qitems int8, qscale f32, users f32. With ``patterns`` > 0
+    the item codes repeat that many rows, so each lane's distances take at
+    most that many values and long runs of rows tie."""
     rng = np.random.default_rng(seed)
-    return (_u32(rng, (c, w)), _u32(rng, (t, w)), rng.random(t) < live,
+    codes = _u32(rng, (t, w))
+    if patterns:
+        codes = codes[rng.integers(0, patterns, size=t)]
+    return (_u32(rng, (c, w)), codes, rng.random(t) < live,
             rng.integers(-127, 128, size=(t, d)).astype(np.int8),
             rng.uniform(0.0, 0.1, size=t).astype(np.float32),
             rng.standard_normal((c, d)).astype(np.float32))
@@ -231,6 +240,28 @@ def test_fused_scan_plain_equals_pallas_interpret(jx, live):
                                       np.tile(np.arange(12), (8, 1)))
 
 
+@pytest.mark.parametrize("t,n_cand,patterns", [(512, 100, 3), (300, 64, 1),
+                                               (1000, 333, 5)])
+def test_fused_scan_plain_ties_equal_reference(jx, t, n_cand, patterns):
+    """Long runs of equal distances (the item codes repeat a few rows), cut
+    by n_cand inside a run: candidates must equal the reference's and its
+    lax mirror's exactly, the lower row first in each run."""
+    args = _fused_inputs(t + patterns, 6, t, 2, 11, patterns=patterns)
+    cand, qips = ref.fused_scan(*_torch_fused(args), n_cand)
+    jargs = _jax_fused(jx.jnp, args)
+    for want_c, want_q in (jx.ref.fused_scan(*jargs, n_cand),
+                           jx.fused.fused_scan_lax(*jargs, n_cand=n_cand)):
+        np.testing.assert_array_equal(cand.numpy(), np.asarray(want_c))
+        np.testing.assert_allclose(qips.numpy(), np.asarray(want_q),
+                                   rtol=1e-5, atol=1e-5)
+    dist = ref.hamming_scores(*_torch_fused(args)[:2])
+    dist = torch.where(torch.from_numpy(args[2])[None, :], dist,
+                       ref.BIG_HAMMING).gather(1, cand.long())
+    assert bool((dist[:, 1:] >= dist[:, :-1]).all())
+    tied = dist[:, 1:] == dist[:, :-1]
+    assert bool((cand[:, 1:] > cand[:, :-1])[tied].all()) and tied.any()
+
+
 def _ip_inputs(seed, q, n, d, dup=False):
     rng = np.random.default_rng(seed)
     if dup:       # every query ties with the first half of the items
@@ -264,6 +295,90 @@ def test_ip_topk_plain_equals_reference(jx, q, n, d, k, dup):
     np.testing.assert_array_equal(ids.numpy(), np.asarray(mi))
     np.testing.assert_allclose(vals.numpy(), np.asarray(mv), rtol=1e-5,
                                atol=1e-5)
+
+
+def _straddle_inputs(q, n, d, lo, hi):
+    """Every query ties with items lo..hi-1 (all ones) above the rest
+    (standard normal scaled down): equal values across split bounds."""
+    rng = np.random.default_rng(n)
+    items = (0.01 * rng.standard_normal((n, d))).astype(np.float32)
+    items[lo:hi] = 1.0
+    return np.ones((q, d), np.float32), items
+
+
+# (q, n, d, k, splits, straddle): several split counts, a ragged last split
+# (389 items: the third of 3 splits has 5), fewer items than k in the last
+# split, more splits than tiles (empty splits), k equal to a split's 128
+# items, and a run of equal values straddling the bounds at 128 and 256
+_PARTIAL_CASES = [(5, 389, 29, 10, 1, None), (5, 389, 29, 10, 3, None),
+                  (4, 1024, 32, 8, 4, None), (3, 300, 7, 64, 3, None),
+                  (2, 256, 5, 20, 5, None), (3, 512, 16, 128, 4, None),
+                  (4, 512, 8, 40, 4, (100, 300)),
+                  (2, 300, 8, 128, 2, (0, 300))]
+
+
+@pytest.mark.parametrize("q,n,d,k,splits,straddle", _PARTIAL_CASES)
+def test_ip_topk_partials_merge_equal_plain_and_reference(jx, q, n, d, k,
+                                                          splits, straddle):
+    """The CUDA kernel's split-and-merge algorithm in plain PyTorch: each
+    split's top-k (``ref.ip_topk_partials``) merged by ``ref.merge_topk``
+    equals ``ref.ip_topk`` bit for bit, and the reference's Pallas kernel
+    in interpret mode plus its ``_merge_topk`` (ids exactly)."""
+    if straddle:
+        queries, items = _straddle_inputs(q, n, d, *straddle)
+    else:
+        queries, items = _ip_inputs(q + n + splits, q, n, d)
+    tq, ti = torch.from_numpy(queries), torch.from_numpy(items)
+    pv, pi = ref.ip_topk_partials(tq, ti, k, splits)
+    assert pv.shape == pi.shape == (q, splits, k) and pi.dtype == torch.int32
+    per = -(-(-(-n // ip_topk.BLOCK_N)) // splits) * ip_topk.BLOCK_N
+    for s_ in range(splits):
+        size = max(0, min(n, (s_ + 1) * per) - s_ * per)
+        assert bool((pi[:, s_, size:] == -1).all())
+        assert bool((pv[:, s_, size:] == -np.inf).all())
+        live = pi[:, s_, :min(size, k)]
+        assert bool(((live >= s_ * per) & (live < s_ * per + size)).all())
+    vals, ids = ref.merge_topk(pv, pi, k)
+    want_v, want_i = ref.ip_topk(tq, ti, k)
+    assert torch.equal(ids, want_i) and torch.equal(vals, want_v)
+    jq, ji = jx.jnp.asarray(queries), jx.jnp.asarray(items)
+    bn = next(b for b in (32, 64, 128, n) if n % b == 0 and b >= k)
+    tv, tidx = jx.ip_topk.ip_topk_tiles(jq, ji, k, block_q=q, block_n=bn,
+                                        interpret=True)
+    mv, mi = jx.merge(tv, tidx, k)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(mi))
+    np.testing.assert_allclose(vals.numpy(), np.asarray(mv), rtol=1e-5,
+                               atol=1e-5)
+    if straddle:
+        lo, hi = straddle
+        assert ids[0].tolist() == list(range(lo, lo + min(k, hi - lo)))
+
+
+def test_ip_topk_merge_keeps_the_lower_id_first():
+    """Equal values in different splits: the merge keeps them in split
+    order, which is id order, and never takes a padded slot over a live
+    one."""
+    vals = torch.tensor([[[5.0, 2.0, -np.inf], [5.0, 5.0, 2.0],
+                          [7.0, -np.inf, -np.inf]]])
+    ids = torch.tensor([[[3, 9, -1], [130, 200, 131], [300, -1, -1]]],
+                       dtype=torch.int32)
+    v, i = ref.merge_topk(vals, ids, 6)
+    assert v.tolist() == [[7.0, 5.0, 5.0, 5.0, 2.0, 2.0]]
+    assert i.tolist() == [[300, 3, 130, 200, 9, 131]]
+    assert i.dtype == torch.int32
+
+
+@pytest.mark.parametrize("nq,n,slots,want", [
+    (4096, 17770, 264, (8, 18)), (4096, 17770, 132, (4, 35)),
+    (1, 17770, 264, (139, 1)), (4096, 100, 264, (1, 1)),
+    (100000, 17770, 264, (1, 139)), (256, 1000, 132, (8, 1))])
+def test_ip_topk_split_count(nq, n, slots, want):
+    """Splits fill the resident blocks once, are whole tiles, none empty."""
+    splits, per = ip_topk.split_count(nq, n, slots)
+    assert (splits, per) == want
+    n_tiles = -(-n // ip_topk.BLOCK_N)
+    assert (splits - 1) * per < n_tiles <= splits * per
+    assert splits * -(-nq // ip_topk.BLOCK_Q) <= max(slots, -(-nq // 128))
 
 
 def test_topk_stable_keeps_the_lower_position_first():
@@ -454,7 +569,11 @@ def test_cuda_srp_equals_plain_up_to_rounding_flips(cuda, n, d, b):
     (16, 97, 3, 19, 7, 0.8), (3, 31, 2, 17, 31, 0.8),
     (5, 200, 32, 8, 16, 0.5),          # the widest code
     (8, 64, 2, 9, 12, 0.0),            # every row masked
-    (8, 64, 2, 9, 12, 0.05)])          # fewer live rows than n_cand
+    (8, 64, 2, 9, 12, 0.05),           # fewer live rows than n_cand
+    (64, 4096, 8, 100, 256, 0.8),      # the largest tile: 16 rows a thread
+    (32, 512, 4, 37, 64, 0.8),         # d % 4 != 0 at d > 32: byte rows
+    (7, 300, 4, 100, 64, 0.8),         # an odd number of lanes
+    (4, 4096, 32, 5, 4096, 0.9)])      # n_cand = T at W 32: > 48 KB smem
 def test_cuda_fused_scan_equals_plain_bitwise(cuda, c, t, w, d, n_cand,
                                               live):
     args = _fused_inputs(c * t + w, c, t, w, d, live=live)
@@ -468,22 +587,61 @@ def test_cuda_fused_scan_equals_plain_bitwise(cuda, c, t, w, d, n_cand,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("c,t,w,d,n_cand,patterns", [
+    (256, 512, 4, 100, 64, 2),         # the main shape, 2 distances a lane
+    (16, 512, 4, 100, 200, 3),         # a cutoff run over several warps
+    (8, 4096, 8, 16, 1000, 4),         # runs of ~1,000 rows, 16 a thread
+    (5, 97, 3, 12, 50, 1)])            # every live row ties
+def test_cuda_fused_scan_ties_across_warps_bitwise(cuda, c, t, w, d, n_cand,
+                                                   patterns):
+    """Runs of equal distances that span several warps' row ranges, cut by
+    n_cand inside a run: slots go by bin, then warp, then row, so the
+    kernel keeps the lower row first, as its plain version does."""
+    args = _fused_inputs(c + t + patterns, c, t, w, d, patterns=patterns)
+    cand, qips = ops.fused_scan(*_torch_fused(args, cuda), n_cand=n_cand)
+    want_c, want_q = ref.fused_scan(*_torch_fused(args), n_cand)
+    assert torch.equal(cand.cpu(), want_c)
+    assert torch.equal(qips.cpu(), want_q)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("q,n,d,k,dup", [(64, 1000, 100, 10, False),
                                          (5, 77, 3, 1, False),
                                          (33, 300, 16, 128, False),
                                          (4, 256, 16, 8, True),
-                                         (40, 129, 5, 20, False)])
+                                         (40, 129, 5, 20, False),
+                                         (4096, 17770, 100, 10, False),
+                                         (300, 20000, 24, 128, False),
+                                         (1, 17770, 100, 10, False),
+                                         (8, 4000, 16, 10, True),
+                                         (4096, 100, 8, 10, False)])
 def test_cuda_ip_topk_equals_plain_bitwise(cuda, q, n, d, k, dup):
+    """The merged answer against ``ref.ip_topk`` and the kernel's raw
+    per-split lists against ``ref.ip_topk_partials``, bit for bit: the
+    forward truth's shape (4,096 x 17,770, d 100), k = 128 over many
+    splits, one query, all-equal scores over many splits, and fewer items
+    than one tile. The plain versions run on the CPU for the small cases
+    and on the card for the large (the same elementwise ops, each rounded
+    on its own)."""
     queries, items = _ip_inputs(q * n, q, n, d, dup)
+    tq, ti = torch.from_numpy(queries).to(cuda), torch.from_numpy(items).to(
+        cuda)
     before = ops.launch_counts["ip_topk"]
-    vals, ids = ops.ip_topk(torch.from_numpy(queries).to(cuda),
-                            torch.from_numpy(items).to(cuda), k)
+    vals, ids = ops.ip_topk(tq, ti, k)
     torch.cuda.synchronize()
     assert ops.launch_counts["ip_topk"] == before + 1
-    want_v, want_i = ref.ip_topk(torch.from_numpy(queries),
-                                 torch.from_numpy(items), k)
-    assert torch.equal(ids.cpu(), want_i)
-    assert torch.equal(vals.cpu(), want_v)
+    plain = cuda if q * n > 1 << 20 else torch.device("cpu")
+    pq, pi = tq.to(plain), ti.to(plain)
+    want_v, want_i = ref.ip_topk(pq, pi, k)
+    assert torch.equal(ids.cpu(), want_i.cpu())
+    assert torch.equal(vals.cpu(), want_v.cpu())
+    raw_v, raw_i = ip_topk.ip_topk_tiles(tq, ti, k)
+    splits = raw_v.shape[1]
+    if dup:
+        assert splits > 1
+    part_v, part_i = ref.ip_topk_partials(pq, pi, k, splits)
+    assert torch.equal(raw_i.cpu(), part_i.cpu())
+    assert torch.equal(raw_v.cpu(), part_v.cpu())
 
 
 @pytest.mark.gpu
@@ -583,9 +741,15 @@ def _refuse_fused_ip_topk(cuda):
     args[3] = args[3].to(torch.int32)
     with pytest.raises(ValueError, match="qitems must be 2-D torch.int8"):
         fused_scan.fused_scan(*args, n_cand=3)
+    args = list(_torch_fused(_fused_inputs(1, 4, 4097, 2, 5), cuda))
+    with pytest.raises(ValueError, match="tile must have 1 to 4096 rows"):
+        fused_scan.fused_scan(*args, n_cand=3)
     x = torch.zeros(4, 8, device=cuda)
     with pytest.raises(ValueError, match="k must be in"):
         ip_topk.ip_topk_tiles(x, x, 5)
+    big = torch.zeros(200, 8, device=cuda)
+    with pytest.raises(ValueError, match="k must be in"):
+        ip_topk.ip_topk_tiles(x, big, 129)
 
 
 def _refuse_flash(cuda):
