@@ -29,8 +29,10 @@ It
   1. prints the card (``nvidia-smi`` name and power limit) and versions;
   2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc``;
   3. fails unless every kernel of a path launched during that path (and
-     ``flash_attention`` exactly once per layer in prefill, every launch
-     on its ``wgmma`` route, never in decode);
+     ``hamming_nearest`` once per tile step of the f32 scan, as many times
+     as ``fused_scan`` on the int8 path, the dense ``hamming_scores``
+     never; ``flash_attention`` exactly once per layer in prefill, every
+     launch on its ``wgmma`` route, never in decode);
   4. holds the reverse answers against the exact oracle (recall 1.0 but
      for misses within float32 rounding of their threshold), the int8
      answers against the f32 ones bit for bit, the "exact" forward ids
@@ -39,22 +41,28 @@ It
      against a prefill one token longer, with the same model in float32 as
      the arbiter of how far two bf16 paths may drift apart;
   5. holds each kernel against its plain PyTorch version on the inputs
-     its path gives it (Hamming exactly; ``fused_scan`` exactly at the
-     path's tile and at 4,096 rows; ``ip_topk`` exactly, the merged answer
-     and the kernel's raw per-split lists against
-     ``ref.ip_topk_partials``; SRP bits up to flips whose score lies
-     within the rounding bound of 0; flash attention within two bf16 ulps
-     on layer 0's q/k/v, with its 8 KV heads read in place, and on
-     ``FLASH_CHECKS``, and within 5e-5 in float32);
+     its path gives it (the dense Hamming matrix exactly;
+     ``hamming_nearest`` and ``fused_scan`` exactly at the path's tile and
+     at 4,096 rows; ``ip_topk`` exactly, the merged answer and the
+     kernel's raw per-split lists against ``ref.ip_topk_partials``; SRP
+     codes bit for bit at the query chunk and the build; flash attention
+     within two bf16 ulps on layer 0's q/k/v, with its 8 KV heads read in
+     place, and on ``FLASH_CHECKS``, and within 5e-5 in float32);
   6. times each kernel and its plain version on the device (launches
      replayed from a CUDA graph) and each wrapper call from Python
      (``ops.ip_topk`` with its merge against one library call, the
-     like-for-like pair), and prints the ``-Xptxas -v`` registers and
-     spills of ``ip_topk`` and ``fused_scan``, and of the flash kernels
-     with their shared memory and their ``HGMMA`` / ``UTMALDG`` counts in
-     the SASS;
+     like-for-like pair; ``hamming_nearest`` against the dense kernel +
+     ``torch.where`` + ``ref.nearest_rows`` route it replaced; SRP
+     against its bound and its no-FMA floor at both shapes), and prints
+     the ``-Xptxas -v`` registers and spills of ``hamming_scan``,
+     ``srp_hash``, ``ip_topk`` and ``fused_scan``, and of the flash
+     kernels with their shared memory and their ``HGMMA`` / ``UTMALDG``
+     counts in the SASS;
   7. splits a query batch into plan and execute, and profiles it and one
-     LM prefill for the device's busy share and their top kernels.
+     LM prefill for the device's busy share, their top kernels and the
+     device launches per tile step (the f32 profile must hold no
+     ``gatherTopK`` or ``radixSortKVInPlace`` row: the selection is in
+     ``hamming_nearest``).
 
 Any failure raises and exits nonzero. Without a CUDA device, or away from
 the repository, it exits nonzero before printing any result. The last
@@ -152,25 +160,15 @@ def device_ms(fn, iters: int, replays: int = 5) -> float:
     return start.elapsed_time(stop) / (iters * replays)
 
 
-def srp_flip_check(x, proj, got, want):
-    """Compare packed SRP codes bit by bit. Every differing bit must have a
-    float64 score within 8 * d * 2**-24 * sum_i |x_i p_i| of 0. Returns
-    (flips, max |bit difference|)."""
+def codes_equal(name: str, got, want) -> int:
+    """Fail unless two int32 code (or row) tensors are equal; returns the
+    max |difference|, 0."""
     import torch
-    bits = lambda c: ((c.to(torch.int64)[:, :, None]
-                       >> torch.arange(32, device=c.device)) & 1).reshape(
-                           c.shape[0], -1)
-    diff = bits(got) != bits(want)
-    flips = int(diff.sum())
-    if flips:
-        rows, cols = torch.nonzero(diff, as_tuple=True)
-        xr, pc = x[rows].double(), proj[:, cols].T.double()
-        score = (xr * pc).sum(-1).abs()
-        bound = 8 * x.shape[1] * 2.0 ** -24 * (xr * pc).abs().sum(-1)
-        if bool((score > bound).any()):
-            fail(f"srp_hash: {int((score > bound).sum())} of {flips} flipped "
-                 f"bits lie outside the rounding bound")
-    return flips, int(diff.any())
+    if got.shape != want.shape or not torch.equal(got, want):
+        n_diff = (int((got != want).sum()) if got.shape == want.shape
+                  else "shape")
+        fail(f"{name}: differs from its plain version ({n_diff})")
+    return 0
 
 
 def ip_tie_check(queries, items, got_ids, want_ids):
@@ -197,10 +195,11 @@ def ip_tie_check(queries, items, got_ids, want_ids):
     return diff[0].numel()
 
 
-def profile_query(eng, queries, k: int) -> None:
+def profile_query(eng, queries, k: int, tile_steps: int) -> None:
     """Where one ``query_batch`` spends its time: the plan and execute
-    phases on the host clock, and the device's busy share and top kernels
-    from ``torch.profiler`` over a second run."""
+    phases on the host clock, and the device's busy share, top kernels and
+    launches per tile step (``tile_steps`` of the batch) from
+    ``torch.profiler`` over a second run."""
     import torch
     from repro_torch.core import sah
     cfg = eng.config
@@ -215,13 +214,39 @@ def profile_query(eng, queries, k: int) -> None:
     t2 = time.perf_counter()
     print(f"breakdown {cfg.scan_precision} k={k}: plan {(t1 - t0) * 1e3:.1f} ms, execute "
           f"{(t2 - t1) * 1e3:.1f} ms ({plan.n_work} lanes)")
-    device_profile(f"{cfg.scan_precision} k={k}",
-                   lambda: eng.query_batch(queries, k))
+    rows = device_profile(f"{cfg.scan_precision} k={k}",
+                          lambda: eng.query_batch(queries, k))
+    if rows:
+        launches = sum(r[1] for r in rows)
+        topk = [r for r in rows if "gatherTopK" in r[2]
+                or "radixSortKVInPlace" in r[2]]
+        print(f"  {launches} device launches, {launches / tile_steps:.2f} "
+              f"per tile step ({tile_steps} tile steps); gatherTopK / "
+              f"radixSortKVInPlace rows: {len(topk)}")
+        if topk and cfg.scan_precision == "f32":
+            fail("the f32 tile scan still runs a torch.topk selection")
 
 
-def device_profile(label: str, fn) -> None:
+def kernel_launches(fn) -> int | None:
+    """Device kernel launches of one call of ``fn`` (after a warm-up call),
+    counted by ``torch.profiler``; None where it records none."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(ev.count for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
+
+
+def device_profile(label: str, fn) -> list:
     """Run ``fn`` once under ``torch.profiler`` and print the device's busy
-    share of the wall time (to a device sync) and the top kernels."""
+    share of the wall time (to a device sync) and the top kernels. Returns
+    the kernel rows (device us, launches, name); empty when the profiler
+    recorded no device time."""
     import torch
     # device activity only: the busy share reads kernel rows, and recording
     # every host operator as well made each profile take minutes
@@ -243,12 +268,13 @@ def device_profile(label: str, fn) -> None:
     busy = sum(r[0] for r in rows)
     if not busy:
         print("profile: the profiler recorded no device time: not measured")
-        return
+        return []
     print(f"profile {label} (profiler on): wall {wall_us / 1e3:.1f} ms, "
           f"device busy {busy / 1e3:.1f} ms = {busy / wall_us:.1%}, idle "
           f"{1 - busy / wall_us:.1%}")
     for dev_us, count, key in sorted(rows, reverse=True)[:8]:
         print(f"  {dev_us / 1e3:9.2f} ms  {count:7d} x  {key[:90]}")
+    return rows
 
 
 def greedy_ties(want, got, tol):
@@ -635,7 +661,7 @@ def main() -> int:
         before = dict(ops.launch_counts)
         res = eng.query_batch(queries, k)
         results[k] = res
-        ham = ops.launch_counts["hamming_scores"] - before["hamming_scores"]
+        ham = ops.launch_counts["hamming_nearest"] - before["hamming_nearest"]
         chunks = ops.launch_counts["srp_hash"] - before["srp_hash"]
         steps[k] = ham
         print(f"query f32 k={k}: {res.seconds * 1e3 / NQ:.3f} ms/query "
@@ -649,9 +675,11 @@ def main() -> int:
           f"m_pad={idx.n_users}, item tiles={idx.alsh.tile_max_norm.numel()})"
           f"; launches in build {after_build}")
     print(f"launch_counts (f32 reverse path): {launches}")
-    for name in ("srp_hash", "hamming_scores"):
+    for name in ("srp_hash", "hamming_nearest"):
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the f32 reverse path")
+    if launches["hamming_scores"] != 0:
+        fail("the f32 reverse path launched the dense hamming_scores")
 
     phase_done("f32 path")
 
@@ -709,14 +737,14 @@ def main() -> int:
             fail(f"int8 k={k}: tiles_scanned differ from f32")
         if fused != steps[k]:
             fail(f"int8 k={k}: {fused} fused_scan launches for {steps[k]} "
-                 f"tile steps")
+                 f"f32 tile steps (hamming_nearest launches)")
         print(f"  int8 == f32: predictions bitwise equal, tiles_scanned "
               f"equal, recall as f32 (1.0 but for traced float ties)")
     launches8 = dict(ops.launch_counts)
     print(f"launch_counts (int8 reverse path): {launches8}")
-    if launches8["hamming_scores"] != 0:
-        fail(f"the int8 path launched hamming_scores "
-             f"{launches8['hamming_scores']} times")
+    for name in ("hamming_scores", "hamming_nearest"):
+        if launches8[name] != 0:
+            fail(f"the int8 path launched {name} {launches8[name]} times")
     for name in ("srp_hash", "fused_scan"):
         if launches8[name] <= 0:
             fail(f"kernel {name} was not launched on the int8 reverse path")
@@ -735,7 +763,7 @@ def main() -> int:
     fwd_ex = eng_ex.kmips(users_fwd, K_FWD)
     launches_f = dict(ops.launch_counts)
     print(f"launch_counts (forward path): {launches_f}")
-    for name in ("srp_hash", "hamming_scores", "ip_topk"):
+    for name in ("srp_hash", "hamming_nearest", "ip_topk"):
         if launches_f[name] <= 0:
             fail(f"kernel {name} was not launched on the forward path")
     n_items = ds.n_items
@@ -782,21 +810,28 @@ def main() -> int:
     codes_k = ops.srp_hash(rows, proj)
     if not torch.equal(codes_k, idx.alsh.codes):
         fail("srp_hash is not deterministic against the built index codes")
-    flips_b, err_b = srp_flip_check(rows, proj, codes_k,
-                                    ref.srp_hash(rows, proj))
+    err_b = codes_equal("srp_hash at the build shape", codes_k,
+                        ref.srp_hash(rows, proj))
     plan = sah.rkmips_plan(idx, queries, 10, tie_eps=cfg.tie_eps)
     lane_ids = plan.queue[:cfg.chunk] % idx.n_users
     chunk_users = idx.users[lane_ids].contiguous()
     qproj = proj[:-1]
     ucodes = ops.srp_hash(chunk_users, qproj)
-    flips_q, err_q = srp_flip_check(chunk_users, qproj, ucodes,
-                                    ref.srp_hash(chunk_users, qproj))
+    err_q = codes_equal("srp_hash at the query chunk", ucodes,
+                        ref.srp_hash(chunk_users, qproj))
     tile_codes = idx.alsh.codes[:cfg.tile]
-    ham_k = ops.hamming_scores(ucodes, tile_codes)
-    ham_p = ref.hamming_scores(ucodes, tile_codes)
-    ham_err = int((ham_k - ham_p).abs().max())
-    if ham_err != 0:
-        fail(f"hamming_scores differs from its plain version by {ham_err}")
+    ham_err = codes_equal("hamming_scores",
+                          ops.hamming_scores(ucodes, tile_codes),
+                          ref.hamming_scores(ucodes, tile_codes))
+    tile_mask = idx.alsh.item_mask[:cfg.tile]
+    near_args = (ucodes, tile_codes, tile_mask, cfg.n_cand)
+    near_err = codes_equal("hamming_nearest", ops.hamming_nearest(*near_args),
+                           ref.hamming_nearest(*near_args))
+    near_args4k = (ucodes, idx.alsh.codes[:TILE_LARGE],
+                   idx.alsh.item_mask[:TILE_LARGE], cfg.n_cand)
+    codes_equal(f"hamming_nearest at {TILE_LARGE} rows",
+                ops.hamming_nearest(*near_args4k),
+                ref.hamming_nearest(*near_args4k))
     a8 = idx8.alsh
     fused_args = (ucodes, a8.codes[:cfg.tile], a8.item_mask[:cfg.tile],
                   a8.qitems[:cfg.tile], a8.qscale[:cfg.tile], chunk_users)
@@ -833,13 +868,14 @@ def main() -> int:
              "ref.ip_topk_partials")
     torch.cuda.synchronize()
     print(f"check srp_hash build rows {tuple(rows.shape)} x "
-          f"{tuple(proj.shape)}: {flips_b} flipped bits, each with "
-          f"|score| <= 8 * d * 2**-24 * sum_i |x_i p_i|")
-    print(f"check srp_hash query chunk {tuple(chunk_users.shape)} x "
-          f"{tuple(qproj.shape)}: {flips_q} flipped bits, each with "
-          f"|score| <= 8 * d * 2**-24 * sum_i |x_i p_i|")
-    print(f"check hamming_scores {tuple(ucodes.shape)} x "
+          f"{tuple(proj.shape)} and query chunk {tuple(chunk_users.shape)} x "
+          f"{tuple(qproj.shape)}: codes equal ref.srp_hash bit for bit "
+          f"(torch.equal; 0 flipped bits)")
+    print(f"check hamming_scores (dense) {tuple(ucodes.shape)} x "
           f"{tuple(tile_codes.shape)}: exact (max abs err 0)")
+    print(f"check hamming_nearest {tuple(ucodes.shape)} lanes x tile 0 "
+          f"({cfg.tile} rows) and the first {TILE_LARGE} rows, n_cand "
+          f"{cfg.n_cand}: rows equal ref.hamming_nearest exactly")
     print(f"check fused_scan {tuple(chunk_users.shape)} lanes x tile 0 "
           f"({cfg.tile} rows) and the first {TILE_LARGE} rows, n_cand "
           f"{cfg.n_cand}: cand exact, qips bitwise (max abs err 0)")
@@ -855,6 +891,21 @@ def main() -> int:
     ham_ms = device_ms(lambda: ops.hamming_scores(ucodes, tile_codes), it)
     ham_plain = device_ms(lambda: ref.hamming_scores(ucodes, tile_codes), it)
     ham_call = call_ms(lambda: ops.hamming_scores(ucodes, tile_codes), it)
+    near_ms = device_ms(lambda: ops.hamming_nearest(*near_args), it)
+    near_plain = device_ms(lambda: ref.hamming_nearest(*near_args), 20)
+    near_call = call_ms(lambda: ops.hamming_nearest(*near_args), it)
+    near4k_ms = device_ms(lambda: ops.hamming_nearest(*near_args4k), it)
+
+    def unfused():             # the route hamming_nearest replaced
+        dist = ops.hamming_scores(ucodes, tile_codes)
+        dist = torch.where(tile_mask[None, :], dist, ref.BIG_HAMMING)
+        return ref.nearest_rows(dist, cfg.n_cand)
+
+    if not torch.equal(unfused(), ops.hamming_nearest(*near_args)):
+        fail("hamming_nearest differs from the route it replaced")
+    unfused_ms = device_ms(unfused, 20)
+    near_n, unfused_n = kernel_launches(lambda: ops.hamming_nearest(
+        *near_args)), kernel_launches(unfused)
     srp_ms = device_ms(lambda: ops.srp_hash(chunk_users, qproj), it)
     srp_plain = device_ms(lambda: ref.srp_hash(chunk_users, qproj), 20)
     srp_call = call_ms(lambda: ops.srp_hash(chunk_users, qproj), it)
@@ -887,13 +938,28 @@ def main() -> int:
     ham_bound, ham_by = bound(4 * (c * w + t * w + c * t),
                               3 * c * t * w / INT32_OP_PER_S)
 
+    # hamming_nearest: codes and mask in, (C, n_cand) rows out; the
+    # distances' 3 integer ops per (lane, row, word), the selection not
+    # counted
+    def near_bound_of(t):
+        return bound(4 * (c * w + t * w + c * cfg.n_cand) + t,
+                     3 * c * t * w / INT32_OP_PER_S)
+
+    near_bound, near_by = near_bound_of(t)
+    near4k_bound, _ = near_bound_of(TILE_LARGE)
+
     def srp_bound(x, p):
         (n, d), b = x.shape, p.shape[1]
         return bound(4 * (n * d + d * b + n * b // 32),
                      2 * n * d * b / FP32_FLOP_PER_S)
 
+    def srp_floor(x, p):       # a separate multiply and add per term
+        return 2 * x.shape[0] * x.shape[1] * p.shape[1] / FP32_INSTR_PER_S \
+            * 1e3
+
     srp_bnd, srp_by = srp_bound(chunk_users, qproj)
     srpb_bnd, srpb_by = srp_bound(rows, proj)
+    srp_flr, srpb_flr = srp_floor(chunk_users, qproj), srp_floor(rows, proj)
     d = ds.d
     nc = cfg.n_cand
     # fused_scan: codes, mask, int8 rows, scales and users in, cand + qips
@@ -913,7 +979,16 @@ def main() -> int:
     # the floor of the bitwise contract: a separate multiply and add per
     # term, each one FP32 lane-instruction, 33.5 T of them a second
     ipk_floor = 2 * nq_f * n_i * d / FP32_INSTR_PER_S * 1e3
-    print(f"time hamming_scores {tuple(ucodes.shape)}x"
+    print(f"time hamming_nearest {tuple(ucodes.shape)}x"
+          f"{tuple(tile_codes.shape)}, n_cand {cfg.n_cand}: kernel "
+          f"{near_ms:.5f} ms (device), {near_call:.5f} ms per call from "
+          f"Python; plain {near_plain:.5f} ms; bound {near_bound:.6f} ms "
+          f"({near_by}); at {TILE_LARGE} rows {near4k_ms:.5f} ms (bound "
+          f"{near4k_bound:.6f} ms); the route it replaced (dense kernel + "
+          f"torch.where + ref.nearest_rows, several calls) {unfused_ms:.5f} "
+          f"ms; device launches a tile step {near_n} against {unfused_n} "
+          f"(profiler); no single PyTorch call computes it")
+    print(f"time hamming_scores (dense) {tuple(ucodes.shape)}x"
           f"{tuple(tile_codes.shape)}: kernel {ham_ms:.5f} ms (device), "
           f"{ham_call:.5f} ms per call "
           f"from Python; plain {ham_plain:.5f} ms; bound {ham_bound:.6f} ms "
@@ -921,10 +996,13 @@ def main() -> int:
     print(f"time srp_hash query chunk {tuple(chunk_users.shape)}: kernel "
           f"{srp_ms:.5f} ms (device), {srp_call:.5f} ms per call from "
           f"Python; plain {srp_plain:.5f} ms; bound {srp_bnd:.6f} ms "
-          f"({srp_by}); no single PyTorch call computes it")
+          f"({srp_by}), no-FMA floor {srp_flr:.6f} ms; no single PyTorch "
+          f"call computes it")
     print(f"time srp_hash build rows {tuple(rows.shape)}: kernel "
           f"{srpb_ms:.5f} ms, plain {srpb_plain:.5f} ms, bound "
-          f"{srpb_bnd:.6f} ms ({srpb_by})")
+          f"{srpb_bnd:.6f} ms ({srpb_by}: 67 TFLOP/s, FMA = 2), no-FMA "
+          f"floor {srpb_flr:.6f} ms (two FP32 instructions a term at 33.5 "
+          f"T/s)")
     print(f"time fused_scan {tuple(chunk_users.shape)} lanes x {t} rows: "
           f"kernel {fused_ms:.5f} ms (device), {fused_call:.5f} ms per call "
           f"from Python; plain {fused_plain:.5f} ms; bound "
@@ -939,15 +1017,15 @@ def main() -> int:
           f"no-FMA floor {ipk_floor:.6f} ms (two FP32 instructions a term "
           f"at 33.5 T/s); library torch.topk(torch.matmul(q, items.T), "
           f"10), two calls, {ipk_lib:.5f} ms")
-    for name in ("ip_topk", "fused_scan"):
+    for name in ("hamming_scan", "srp_hash", "ip_topk", "fused_scan"):
         print(f"ptxas {name}: " + "; ".join(
             line.split(":", 1)[-1].strip()
             for line in _build.build_log(name).splitlines()
             if "Used" in line or "spill" in line or "stack" in line))
     flash_entry = flash_kernel_entry(lm, args.seed, dev)
     phase_done("kernel times")
-    profile_query(eng, queries, 10)
-    profile_query(eng8, queries, 10)
+    profile_query(eng, queries, 10, steps[10])
+    profile_query(eng8, queries, 10, steps[10])
     phase_done("profiles")
     peak = max(lm["peak_before"], torch.cuda.max_memory_allocated())
     print(f"peak device memory: {peak / 2**30:.2f} GiB")
@@ -960,20 +1038,32 @@ def main() -> int:
          "ms": srp_ms, "plain_ms": srp_plain, "bound_ms": srp_bnd,
          "bound_by": srp_by, "library_ms": None, "call_ms": srp_call,
          "shape": f"{tuple(chunk_users.shape)}x{tuple(qproj.shape)}",
-         "flips": flips_q, "build_shape_ms": srpb_ms,
-         "build_shape_bound_ms": srpb_bnd, "build_shape_flips": flips_b,
+         "no_fma_floor_ms": srp_flr, "build_shape_ms": srpb_ms,
+         "build_shape_plain_ms": srpb_plain,
+         "build_shape_bound_ms": srpb_bnd,
+         "build_shape_no_fma_floor_ms": srpb_flr,
          "build_shape_max_abs_err": err_b,
          "launches_int8_path": launches8["srp_hash"],
          "launches_forward_path": launches_f["srp_hash"]},
-        {"name": "hamming_scores", "route": "cuda",
+        {"name": "hamming_nearest", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hamming_scan.cu",
          "replaces": "src/repro/kernels/hamming_scan.py:36",
-         "launches": launches["hamming_scores"], "max_abs_err": ham_err,
-         "ms": ham_ms, "plain_ms": ham_plain, "bound_ms": ham_bound,
-         "bound_by": ham_by, "library_ms": None, "call_ms": ham_call,
-         "shape": f"{tuple(ucodes.shape)}x{tuple(tile_codes.shape)}",
-         "launches_int8_path": launches8["hamming_scores"],
-         "launches_forward_path": launches_f["hamming_scores"]},
+         "launches": launches["hamming_nearest"], "max_abs_err": near_err,
+         "ms": near_ms, "plain_ms": near_plain, "bound_ms": near_bound,
+         "bound_by": near_by, "library_ms": None, "call_ms": near_call,
+         "shape": f"{tuple(ucodes.shape)}x{tuple(tile_codes.shape)}, "
+                  f"n_cand {cfg.n_cand}",
+         "replaced_route_ms": unfused_ms, "launches_a_step": near_n,
+         "replaced_route_launches_a_step": unfused_n,
+         "replaced_route": "hamming_scores + torch.where + "
+                           "ref.nearest_rows, several calls",
+         "rows_4096_ms": near4k_ms, "rows_4096_bound_ms": near4k_bound,
+         "launches_forward_path": launches_f["hamming_nearest"],
+         "dense_hamming_scores": {
+             "launches": launches["hamming_scores"]
+             + launches8["hamming_scores"] + launches_f["hamming_scores"],
+             "max_abs_err": ham_err, "ms": ham_ms, "plain_ms": ham_plain,
+             "bound_ms": ham_bound, "bound_by": ham_by, "call_ms": ham_call}},
         {"name": "fused_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_scan.cu",
          "replaces": "src/repro/kernels/fused_scan.py:113",

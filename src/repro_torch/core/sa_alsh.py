@@ -235,7 +235,8 @@ def _tile_candidates(index: SAALSHIndex, ucodes, users, t: int, *,
 
     The reference selects with ``lax.top_k(-dist, n_cand)``, which breaks
     the everywhere-present Hamming ties toward the lower row;
-    ``ref.nearest_rows`` gives exactly that set in exactly that order.
+    ``ops.hamming_nearest`` (one kernel launch on the card) gives exactly
+    that set in exactly that order.
     """
     tile = index.tile
     items_t = _tile_slice(index.items, t, tile)
@@ -246,9 +247,7 @@ def _tile_candidates(index: SAALSHIndex, ucodes, users, t: int, *,
                              device=users.device).expand(ips.shape)
         return ips, mask_t[None, :].expand(ips.shape), local
     codes_t = _tile_slice(index.codes, t, tile)
-    dist = kops.hamming_scores(ucodes, codes_t)
-    dist = torch.where(mask_t[None, :], dist, kref.BIG_HAMMING)
-    cand = kref.nearest_rows(dist, n_cand)
+    cand = kops.hamming_nearest(ucodes, codes_t, mask_t, n_cand)
     return lane_ips(items_t, cand, users), mask_t[cand.long()], cand
 
 

@@ -5,8 +5,9 @@ Non-negative low-rank factor products, which reproduce what the
 algorithms exploit: concentrated positive inner products and a
 long-tailed item-norm distribution. Draws come from a CPU
 ``torch.Generator``: the same distribution as the reference, not the same
-bits (torch cannot replay ``jax.random``). Results land on ``device``,
-which the caller names.
+bits (torch cannot replay ``jax.random``). The low-rank product is formed
+in float64 (``_low_rank``), so one seed gives one dataset on every host.
+Results land on ``device``, which the caller names.
 """
 
 from __future__ import annotations
@@ -37,6 +38,18 @@ def _randn(generator: torch.Generator, *shape: int) -> torch.Tensor:
     return torch.randn(*shape, generator=generator, dtype=torch.float32)
 
 
+def _low_rank(w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """``w @ h`` formed in float64, summed over the rank in a fixed order,
+    then cast to float32. The float64 products of float32 factors are
+    exact, so every host gives the same bits; a float32 matmul's blocking,
+    and so its rounding, follows the host's CPU."""
+    w64, h64 = w.double(), h.double()
+    x = torch.zeros(w.shape[0], h.shape[1], dtype=torch.float64)
+    for k in range(w.shape[1]):
+        x.addcmul_(w64[:, k:k + 1], h64[k])
+    return x.float()
+
+
 def mf_factors(generator: torch.Generator, n: int, d: int, rank: int = 16,
                kind: str = "nmf", h: torch.Tensor | None = None,
                noise: float = 1.0, skew: float = 0.1, *,
@@ -47,7 +60,8 @@ def mf_factors(generator: torch.Generator, n: int, d: int, rank: int = 16,
         w = _randn(generator, n, rank).abs()
         if h is None:
             h = _randn(generator, rank, d).abs()
-        x = w @ h.cpu() / rank + noise * _randn(generator, n, d).abs()
+        x = _low_rank(w, h.cpu()) / rank + noise * _randn(generator, n,
+                                                         d).abs()
         scale = torch.exp(skew * _randn(generator, n, 1))
         return (x * scale).to(device)
     if kind == "gaussian":

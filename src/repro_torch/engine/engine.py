@@ -33,6 +33,7 @@ from repro_torch.core import sa_alsh as _alsh
 from repro_torch.core import sah as _sah
 from repro_torch.core import srp as _srp
 from repro_torch.engine.config import EngineConfig, get_config
+from repro_torch.kernels.hamming_scan import SELECT_MAX_ROWS, SELECT_MAX_WORDS
 
 
 class PruningFunnel(NamedTuple):
@@ -103,6 +104,31 @@ def _device(device) -> torch.device:
     return dev
 
 
+def check_kernel_limits(config: EngineConfig, device_type: str) -> None:
+    """Raise ``ValueError`` for a config whose queries would reach a limit
+    of a CUDA kernel on ``device_type`` ("cuda"), naming the kernel and the
+    limit; the CPU's plain versions have none. The sketch scan selects
+    each tile's candidates on the card in ``hamming_nearest`` (f32 scan,
+    forward kMIPS) or ``fused_scan`` (int8 scan), which take tiles of at
+    most ``SELECT_MAX_ROWS`` rows and codes of at most
+    ``SELECT_MAX_WORDS`` words. ``srp_hash`` and the exact scan take any
+    config the reference's ``EngineConfig`` accepts."""
+    if device_type != "cuda" or config.scan != "sketch":
+        return
+    kernels = ("fused_scan and hamming_nearest"
+               if config.scan_precision == "int8" else "hamming_nearest")
+    if config.tile > SELECT_MAX_ROWS:
+        raise ValueError(f"tile={config.tile} is past the CUDA {kernels} "
+                         f"limit of {SELECT_MAX_ROWS} rows a tile for "
+                         f"scan='sketch'; use a smaller tile, scan='exact' "
+                         f"or device='cpu'")
+    if config.n_bits // 32 > SELECT_MAX_WORDS:
+        raise ValueError(f"n_bits={config.n_bits} is past the CUDA {kernels} "
+                         f"limit of {32 * SELECT_MAX_WORDS} bits "
+                         f"({SELECT_MAX_WORDS} words) for scan='sketch'; use "
+                         f"fewer bits, scan='exact' or device='cpu'")
+
+
 def _as_rows(x, name: str, device: torch.device) -> torch.Tensor:
     t = torch.as_tensor(x)
     if t.dim() != 2 or t.shape[0] < 1:
@@ -127,6 +153,7 @@ class RkMIPSEngine:
             raise TypeError(f"config must be an EngineConfig or a registry "
                             f"name, got {type(config).__name__}")
         self.device = _device(device)
+        check_kernel_limits(config, self.device.type)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.config = config

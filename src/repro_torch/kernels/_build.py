@@ -39,8 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # "flash_attention" counts every launch of the flash kernels,
 # "flash_attention_wgmma" those of its wgmma route alone
-launch_counts: dict[str, int] = {"hamming_scores": 0, "srp_hash": 0,
-                                 "fused_scan": 0, "ip_topk": 0,
+launch_counts: dict[str, int] = {"hamming_scores": 0, "hamming_nearest": 0,
+                                 "srp_hash": 0, "fused_scan": 0, "ip_topk": 0,
                                  "flash_attention": 0,
                                  "flash_attention_wgmma": 0}
 

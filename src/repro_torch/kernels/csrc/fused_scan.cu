@@ -20,32 +20,16 @@
 // latency of its dependent phases, each a global or shared round trip.
 //
 // Design: one block of 256 threads (8 warps) per user lane, so C = 256 gives
-// 256 blocks, all resident at once on 132 SMs. The selection is a counting
-// sort over the B + 2 bins (distances 0..B with B = 32 W, then masked):
-//   1. warp v owns the contiguous rows [32 R v, 32 R (v + 1)), R the power
-//      of two at or above ceil(T / 256) (a template parameter, <= 16); its
-//      thread l takes rows 32 R v + 32 i + l, i < R, reads each row's W
-//      words once (16-byte loads when W % 4 == 0, one word of every row in
-//      flight at a time; the lane's code words come through L1 as
-//      broadcasts) and keeps the R bins in registers. The user row is staged
-//      in shared memory meanwhile;
-//   2. the warp walks its rows in order, 32 at a time: __match_any_sync
-//      groups the rows of one bin, the lowest of them adds the group's size
-//      to the warp's private count of that bin, and each row keeps its rank
-//      among the warp's earlier rows of its bin. No atomics;
-//   3. an exclusive scan over the counts in (bin, warp) order gives each
-//      warp's first slot in each bin;
-//   4. a row's slot is that base plus its rank: ascending by bin, then by
-//      warp, then by row within the warp, which is the lower-row-first
-//      rule. Rows whose slot is below n_cand write their row to a shared
-//      list;
+// 256 blocks, all resident at once on 132 SMs. Phases 1 to 4 are the
+// nearest-rows selection of select.cuh (bins in registers, per-warp counts
+// by __match_any_sync, a scan in (bin, warp) order, slots by (bin, warp,
+// row)), shared with hamming_nearest in hamming_scan.cu; it writes the
+// candidate rows to a shared list. The user row is staged in shared memory
+// while the selection reads the tile's codes. Then
 //   5. one thread per candidate: it reads the candidate's int8 row as 32-bit
 //      words when d % 4 == 0 (8 words ahead of the sum), else as bytes, and
 //      runs the dependent sum in index order against the shared user row
 //      (each read a broadcast).
-// The tile's codes are read straight into registers, not staged in shared
-// memory: each row is read once per lane by one thread, so staging would
-// add a copy and a barrier and cap T W by the shared memory.
 // Shared memory: 4 (8 (32 W + 2) + 8 + n_cand + d) bytes, 4.6 KB at the
 // main shape; at the largest tile (T = 4,096, n_cand = T) with W = 32 and
 // d = 100, 49.6 KB, past the 48 KB default, so the launch opts in above it.
@@ -53,16 +37,15 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "select.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;  // one user lane per block
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = nearest::kThreads;  // one user lane per block
 constexpr int kChunk = 8;      // int8 row words fetched one chunk ahead
-constexpr unsigned kAll = 0xffffffffu;
 
 size_t smem_bytes(int w, int d, int n_cand) {
-  return sizeof(int) * (static_cast<size_t>(kWarps) * (32 * w + 2) + kWarps +
-                        n_cand + d);
+  return sizeof(int) * (nearest::smem_ints(w) + n_cand + d);
 }
 
 __device__ __forceinline__ float s8(uint32_t word, int b) {
@@ -121,111 +104,17 @@ fused_scan_kernel(const uint32_t* __restrict__ ucodes,
                   float* __restrict__ qips, int t, int w, int d, int n_cand,
                   bool vec_codes, bool vec_rows) {
   extern __shared__ __align__(16) int smem[];
-  const int nb = 32 * w + 2;  // bins: distances 0..32 w, then masked
-  int* count = smem;                       // [nb][kWarps]
-  int* warp_sum = count + nb * kWarps;     // [kWarps]
-  int* cand_s = warp_sum + kWarps;         // [n_cand]
+  int* cand_s = smem + nearest::smem_ints(w);             // [n_cand]
   float* u = reinterpret_cast<float*>(cand_s + n_cand);  // [d]
   const int c = blockIdx.x;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const uint32_t* uc = ucodes + static_cast<int64_t>(c) * w;
 
-  for (int e = threadIdx.x; e < nb * kWarps; e += kThreads) count[e] = 0;
+  // the user row is staged while the selection reads the tile's codes; its
+  // first barrier covers both
   for (int e = threadIdx.x; e < d; e += kThreads)
     u[e] = users[static_cast<int64_t>(c) * d + e];
-
-  // 1. the bins of this thread's rows 32 R warp + 32 i + lane, each computed
-  //    once: a word of every row in flight at a time
-  const int row0 = warp * 32 * R + lane;
-  int dist[R];
-#pragma unroll
-  for (int i = 0; i < R; ++i) dist[i] = 0;
-  if (vec_codes) {
-    const int w4 = w / 4;
-    for (int k4 = 0; k4 < w4; ++k4) {
-      const uint32_t u0 = __ldg(uc + 4 * k4), u1 = __ldg(uc + 4 * k4 + 1);
-      const uint32_t u2 = __ldg(uc + 4 * k4 + 2), u3 = __ldg(uc + 4 * k4 + 3);
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const int j = row0 + 32 * i;
-        if (j < t) {
-          const uint4 x = __ldg(reinterpret_cast<const uint4*>(
-                                    codes + static_cast<int64_t>(j) * w) +
-                                k4);
-          dist[i] += __popc(u0 ^ x.x) + __popc(u1 ^ x.y) + __popc(u2 ^ x.z) +
-                     __popc(u3 ^ x.w);
-        }
-      }
-    }
-  } else {
-    for (int k = 0; k < w; ++k) {
-      const uint32_t uk = __ldg(uc + k);
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const int j = row0 + 32 * i;
-        if (j < t)
-          dist[i] +=
-              __popc(uk ^ __ldg(codes + static_cast<int64_t>(j) * w + k));
-      }
-    }
-  }
-  int bin[R];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int j = row0 + 32 * i;
-    bin[i] = j < t ? (__ldg(mask + j) ? dist[i] : nb - 1) : nb;  // nb: none
-  }
-  __syncthreads();  // counts zeroed, user row staged
-
-  // 2. per-warp counts, and each row's rank among the warp's earlier rows of
-  //    its bin
-  int rank[R];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int b = bin[i];
-    const unsigned peers = __match_any_sync(kAll, b);
-    const int below = __popc(peers & ((1u << lane) - 1u));
-    int* slot = count + min(b, nb - 1) * kWarps + warp;
-    const int prior = b < nb ? *slot : 0;
-    __syncwarp();
-    if (b < nb && below == 0) *slot = prior + __popc(peers);
-    __syncwarp();
-    rank[i] = prior + below;
-  }
-  __syncthreads();
-
-  // 3. exclusive scan over the counts in (bin, warp) order
-  const int total = nb * kWarps;
-  const int per = (total + kThreads - 1) / kThreads;
-  const int e0 = min(static_cast<int>(threadIdx.x) * per, total);
-  const int e1 = min(e0 + per, total);
-  int run = 0;
-  for (int e = e0; e < e1; ++e) run += count[e];
-  int incl = run;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int v = __shfl_up_sync(kAll, incl, off);
-    if (lane >= off) incl += v;
-  }
-  if (lane == 31) warp_sum[warp] = incl;
-  __syncthreads();
-  int base = incl - run;
-  for (int v = 0; v < warp; ++v) base += warp_sum[v];
-  for (int e = e0; e < e1; ++e) {
-    const int n_e = count[e];
-    count[e] = base;
-    base += n_e;
-  }
-  __syncthreads();
-
-  // 4. rows below slot n_cand take their slots
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-    if (bin[i] < nb) {
-      const int pos = count[bin[i] * kWarps + warp] + rank[i];
-      if (pos < n_cand) cand_s[pos] = row0 + 32 * i;
-    }
+  // 1-4. the n_cand nearest rows, into the shared list
+  nearest::select_nearest<R>(ucodes + static_cast<int64_t>(c) * w, codes,
+                             mask, t, w, n_cand, vec_codes, smem, cand_s);
   __syncthreads();
 
   // 5. one thread per candidate: its dequantized inner product
@@ -254,8 +143,7 @@ int launch(const void* ucodes, const void* codes, const void* mask,
     if (err != cudaSuccess) return static_cast<int>(err);
     allowed = smem;
   }
-  const bool vec_codes =
-      w % 4 == 0 && reinterpret_cast<uintptr_t>(codes) % 16 == 0;
+  const bool vec_codes = nearest::vector_codes(codes, w);
   const bool vec_rows =
       d % 4 == 0 && reinterpret_cast<uintptr_t>(qitems) % 4 == 0;
   fused_scan_kernel<R><<<c, kThreads, smem, stream>>>(
@@ -278,16 +166,16 @@ extern "C" int fused_scan_launch(const void* ucodes, const void* codes,
                                  void* cand, void* qips, int c, int t, int w,
                                  int d, int n_cand, void* stream) {
   if (c > 0) {
-    const int rows = (t + kThreads - 1) / kThreads;
+    const int rows = nearest::rows_per_thread(t);
     const auto st = static_cast<cudaStream_t>(stream);
     const int err =
-        rows <= 1 ? launch<1>(ucodes, codes, mask, qitems, qscale, users,
+        rows == 1 ? launch<1>(ucodes, codes, mask, qitems, qscale, users,
                               cand, qips, c, t, w, d, n_cand, st)
-        : rows <= 2 ? launch<2>(ucodes, codes, mask, qitems, qscale, users,
+        : rows == 2 ? launch<2>(ucodes, codes, mask, qitems, qscale, users,
                                 cand, qips, c, t, w, d, n_cand, st)
-        : rows <= 4 ? launch<4>(ucodes, codes, mask, qitems, qscale, users,
+        : rows == 4 ? launch<4>(ucodes, codes, mask, qitems, qscale, users,
                                 cand, qips, c, t, w, d, n_cand, st)
-        : rows <= 8 ? launch<8>(ucodes, codes, mask, qitems, qscale, users,
+        : rows == 8 ? launch<8>(ucodes, codes, mask, qitems, qscale, users,
                                 cand, qips, c, t, w, d, n_cand, st)
                     : launch<16>(ucodes, codes, mask, qitems, qscale, users,
                                  cand, qips, c, t, w, d, n_cand, st);

@@ -13,9 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-
-_MAX_WORDS = 32      # code width: each warp counts 32 W + 2 bins
-_MAX_ROWS = 4096     # tile rows: 16 a thread (the reference's largest tile)
+from repro_torch.kernels.hamming_scan import check_selection
 
 
 def fused_scan(ucodes: torch.Tensor, item_codes: torch.Tensor,
@@ -36,22 +34,13 @@ def fused_scan(ucodes: torch.Tensor, item_codes: torch.Tensor,
         _build.check_input(name, t, dtype, dim)
     if len({t.device for _, t, _, _ in args}) != 1:
         raise ValueError("fused_scan inputs are on different devices")
-    (c, w), (t, w2), (c2, d) = ucodes.shape, item_codes.shape, users.shape
-    if w != w2:
-        raise ValueError(f"code widths differ: {w} vs {w2} words")
-    if not 1 <= w <= _MAX_WORDS:
-        raise ValueError(f"code width must be in [1, {_MAX_WORDS}] words, "
-                         f"got {w}")
-    if (item_mask.shape[0], qitems.shape[0], qscale.shape[0]) != (t,) * 3:
-        raise ValueError(f"item_mask, qitems and qscale must have the tile's "
-                         f"{t} rows")
+    check_selection(ucodes, item_codes, item_mask, n_cand)
+    (c, w), t, (c2, d) = ucodes.shape, item_codes.shape[0], users.shape
+    if (qitems.shape[0], qscale.shape[0]) != (t, t):
+        raise ValueError(f"qitems and qscale must have the tile's {t} rows")
     if qitems.shape[1] != d or c2 != c:
         raise ValueError(f"users {tuple(users.shape)} do not match ucodes "
                          f"({c} lanes) and qitems ({qitems.shape[1]} dims)")
-    if not 1 <= t <= _MAX_ROWS:
-        raise ValueError(f"the tile must have 1 to {_MAX_ROWS} rows, got {t}")
-    if not 1 <= n_cand <= t:
-        raise ValueError(f"n_cand must be in [1, {t}], got {n_cand}")
     cand = torch.empty((c, n_cand), dtype=torch.int32, device=users.device)
     qips = torch.empty((c, n_cand), dtype=torch.float32, device=users.device)
     fn = _build.entry("fused_scan", "fused_scan_launch", 8, 5)

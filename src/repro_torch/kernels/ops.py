@@ -21,8 +21,9 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import srp_hash as _srp
 from repro_torch.kernels._build import launch_counts
 
-__all__ = ["flash_attention", "fused_scan", "hamming_scores", "ip_topk",
-           "launch_counts", "reset_launch_counts", "srp_hash"]
+__all__ = ["flash_attention", "fused_scan", "hamming_nearest",
+           "hamming_scores", "ip_topk", "launch_counts",
+           "reset_launch_counts", "srp_hash"]
 
 
 def reset_launch_counts() -> None:
@@ -47,8 +48,20 @@ def hamming_scores(query_codes: torch.Tensor,
     return _ref.hamming_scores(query_codes, item_codes)
 
 
+def hamming_nearest(ucodes: torch.Tensor, item_codes: torch.Tensor,
+                    item_mask: torch.Tensor, n_cand: int) -> torch.Tensor:
+    """Each lane's ``n_cand`` nearest tile rows by Hamming distance: (C, W)
+    x (T, W) int32 codes with a (T,) mask -> (C, n_cand) int32 rows,
+    ascending, masked rows behind every live row, the lower row first on
+    ties. Kernel and plain version agree exactly."""
+    if _route(ucodes, "hamming_nearest"):
+        return _hamming.hamming_nearest(ucodes, item_codes, item_mask, n_cand)
+    return _ref.hamming_nearest(ucodes, item_codes, item_mask, n_cand)
+
+
 def srp_hash(x: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
-    """(n, d) f32 through a (d, B) projection -> (n, B // 32) int32 codes."""
+    """(n, d) f32 through a (d, B) projection -> (n, B // 32) int32 codes.
+    Kernel and plain version agree bit for bit."""
     if _route(x, "srp_hash"):
         return _srp.srp_hash(x, proj)
     return _ref.srp_hash(x, proj)

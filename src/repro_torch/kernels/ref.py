@@ -10,12 +10,13 @@ CPU torch has no ``>>`` or ``-`` on uint32 and no popcount op, and the
 bits are what matter. ``codes.numpy().view(np.uint32)`` recovers the
 reference's words exactly.
 
-Float sums that a kernel must reproduce bit for bit (``fused_scan``'s
-quantized inner products, ``ip_topk``'s scores) run one rounded multiply
-and one rounded add per term, in index order, exactly as the kernels do
-with ``__fmul_rn`` / ``__fadd_rn``. ``flash_attention`` is the one
-exception: its kernel sums in another order than this O(S^2) version, so
-the two agree within a stated tolerance, not bit for bit.
+Float sums that a kernel must reproduce bit for bit (``srp_hash``'s
+scores, ``fused_scan``'s quantized inner products, ``ip_topk``'s scores)
+run one rounded multiply and one rounded add per term, in index order,
+exactly as the kernels do with ``__fmul_rn`` / ``__fadd_rn``.
+``flash_attention`` is the one exception: its kernel sums in another
+order than this O(S^2) version, so the two agree within a stated
+tolerance, not bit for bit.
 """
 
 from __future__ import annotations
@@ -80,9 +81,9 @@ def index_order_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def srp_scores(x: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
-    """``x @ proj`` summed in the kernel's order: one running sum per
-    output, over i = 0..d-1 (the kernel's ``fmaf`` rounds each step once,
-    this twice, so the two may differ in the last bit)."""
+    """``x @ proj`` summed as the kernel sums it: one running sum per
+    output over i = 0..d-1, each product and each sum rounded on its own,
+    so that the kernel's codes equal ``srp_hash``'s bit for bit."""
     return index_order_dot(x[:, None, :], proj.T[None])
 
 
@@ -105,6 +106,19 @@ def nearest_rows(dist: torch.Tensor, n_cand: int) -> torch.Tensor:
     return (best.values % n).to(torch.int32)
 
 
+def hamming_nearest(ucodes: torch.Tensor, item_codes: torch.Tensor,
+                    item_mask: torch.Tensor, n_cand: int) -> torch.Tensor:
+    """Each lane's ``n_cand`` nearest rows of one tile: ucodes (C, W) and
+    item_codes (T, W) int32, item_mask (T,) bool -> (C, n_cand) int32 tile
+    rows, ascending by Hamming distance, the lower row first on ties;
+    masked rows get ``BIG_HAMMING`` and so rank behind every live row (the
+    reference's ``hamming_scores`` then ``lax.top_k(-dist, n_cand)``,
+    ``src/repro/core/sa_alsh.py:319-321``)."""
+    dist = hamming_scores(ucodes, item_codes)
+    dist = torch.where(item_mask[None, :], dist, BIG_HAMMING)
+    return nearest_rows(dist, n_cand)
+
+
 def fused_scan(ucodes: torch.Tensor, item_codes: torch.Tensor,
                item_mask: torch.Tensor, qitems: torch.Tensor,
                qscale: torch.Tensor, users: torch.Tensor,
@@ -120,9 +134,7 @@ def fused_scan(ucodes: torch.Tensor, item_codes: torch.Tensor,
     ``<float(qitems[r]), users[c]> * qscale[r]`` for ``r = cand[c, p]``:
     the scale multiplies after the integer-valued dot, which is what the
     error ball of ``core/sa_alsh.py::_tile_beat_int8`` assumes."""
-    dist = hamming_scores(ucodes, item_codes)
-    dist = torch.where(item_mask[None, :], dist, BIG_HAMMING)
-    cand = nearest_rows(dist, n_cand)
+    cand = hamming_nearest(ucodes, item_codes, item_mask, n_cand)
     rows = cand.long()
     qvecs = qitems[rows].to(torch.float32)               # (C, n_cand, d)
     qips = index_order_dot(qvecs, users[:, None, :]) * qscale[rows]

@@ -1,10 +1,10 @@
 """Wrapper of the CUDA SRP hashing kernel (``csrc/srp_hash.cu``).
 
 Port of ``src/repro/kernels/srp_hash.py:41-59`` (the Pallas ``srp_hash``):
-projection, sign test and bit packing in one pass. The kernel's note in
-its source says what bounds it on an H100 and how it is laid out; this
-wrapper checks what it is given, allocates the output and launches on
-PyTorch's current stream.
+projection, sign test and bit packing in one pass, bit for bit equal to
+``ref.srp_hash``. The kernel's note in its source says what bounds it on
+an H100 and how it is laid out; this wrapper checks what it is given,
+allocates the output and launches on PyTorch's current stream.
 """
 
 from __future__ import annotations
@@ -13,8 +13,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-_MAX_BITS = 1024            # one thread per output bit
-_MAX_DIM = 48 * 1024 // 4   # the staged row fits 48 KB of shared memory
+_MAX_WORDS = 65535          # grid.y covers the output words
 
 
 def srp_hash(x: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
@@ -27,11 +26,11 @@ def srp_hash(x: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
     (n, d), (d2, b) = x.shape, proj.shape
     if d != d2:
         raise ValueError(f"x has {d} columns but proj has {d2} rows")
-    if b % 32 != 0 or not 32 <= b <= _MAX_BITS:
+    if b % 32 != 0 or not 1 <= b // 32 <= _MAX_WORDS:
         raise ValueError(f"bits must be a multiple of 32 in [32, "
-                         f"{_MAX_BITS}], got {b}")
-    if not 1 <= d <= _MAX_DIM:
-        raise ValueError(f"dim must be in [1, {_MAX_DIM}], got {d}")
+                         f"{32 * _MAX_WORDS}], got {b}")
+    if d < 1:
+        raise ValueError(f"dim must be at least 1, got {d}")
     out = torch.empty((n, b // 32), dtype=torch.int32, device=x.device)
     fn = _build.entry("srp_hash", "srp_hash_launch", 3, 3)
     err = fn(x.data_ptr(), proj.data_ptr(), out.data_ptr(), n, d, b,

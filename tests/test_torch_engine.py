@@ -35,6 +35,7 @@ from repro_torch import EngineConfig, RkMIPSEngine, get_config
 from repro_torch.core import exact, metrics
 from repro_torch.data import synthetic
 from repro_torch.engine import config as tconfig
+from repro_torch.engine.engine import check_kernel_limits
 from test_torch_core import mf_data
 from test_torch_sah import reference_index_arrays, trace
 
@@ -220,6 +221,55 @@ def test_synthetic_data_shapes_and_query_draw():
                                           500, 300, 12, device="cpu")
     assert torch.equal(again[0], items)
     assert synthetic.PAPER_DATASETS["netflix"].m_users == 480189
+
+
+@pytest.mark.parametrize("threads", [1, 3])
+def test_synthetic_low_rank_product_is_the_float64_one(threads):
+    """``mf_factors`` forms ``w @ h`` in float64 and casts it, so one seed
+    gives one dataset on every host: the factors equal the float64 product
+    cast to float32 bit for bit, whatever the thread count."""
+    n, d, rank = 300, 20, 16
+    g = torch.Generator().manual_seed(9)
+    w = torch.randn(n, rank, generator=g).abs()
+    h = torch.randn(rank, d, generator=g).abs()
+    noise = torch.randn(n, d, generator=g).abs()
+    scale = torch.exp(0.1 * torch.randn(n, 1, generator=g))
+    want = ((w.double() @ h.double()).float() / rank + noise) * scale
+    old = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        got = synthetic.mf_factors(torch.Generator().manual_seed(9), n, d,
+                                   rank, device="cpu")
+    finally:
+        torch.set_num_threads(old)
+    assert torch.equal(got, want)
+
+
+# (config changes, refused on the card?, the limit named)
+_LIMIT_CASES = [
+    (dict(), None, None),                            # the "sah" preset
+    (dict(tile=4096, n_bits=1024), None, None),      # at both limits
+    (dict(tile=8192), "hamming_nearest", "4096 rows"),
+    (dict(tile=4097, scan_precision="int8"), "fused_scan", "4096 rows"),
+    (dict(n_bits=1056), "hamming_nearest", "1024 bits"),
+    (dict(n_bits=2048, scan_precision="int8"), "fused_scan", "1024 bits"),
+    (dict(tile=8192, n_bits=2048, scan="exact"), None, None),
+    (dict(tile=8192, n_bits=2048, scan="exact", scan_precision="int8"),
+     None, None)]
+
+
+@pytest.mark.parametrize("changes,kernel,limit", _LIMIT_CASES)
+def test_cuda_kernel_limits_refuse_at_construction(changes, kernel, limit):
+    """A CUDA engine refuses, when it is made, every config whose queries
+    would reach a kernel limit (the sketch scan's tile and code width), and
+    names the kernel and the limit; the CPU takes every config."""
+    cfg = get_config("sah").replace(**changes)
+    check_kernel_limits(cfg, "cpu")
+    if kernel is None:
+        check_kernel_limits(cfg, "cuda")
+        return
+    with pytest.raises(ValueError, match=f"{kernel}.*{limit}"):
+        check_kernel_limits(cfg, "cuda")
 
 
 def test_f1_matches_reference():

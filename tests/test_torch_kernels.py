@@ -16,12 +16,16 @@ bit for bit and the reference's Pallas kernel plus its merge. The plain
 its Pallas kernel in interpret mode within the reference's own tolerances
 (atol 5e-5 in float32, 3e-2 in bf16).
 
+``ref.hamming_nearest`` (the plain version of the selecting Hamming
+kernel) must equal the reference's ``hamming_scores`` + mask +
+``lax.top_k(-dist, n_cand)`` exactly, ties toward the lower row.
+
 Tests marked ``gpu`` hold each CUDA kernel against its plain version and
 skip where no CUDA device is present (decided in a fixture, so every
-worker collects the same tests): integers exactly, and the ``fused_scan``
-and ``ip_topk`` floats bit for bit (kernel and plain version both round
-each product and each sum in index order), ``ip_topk``'s raw per-split
-lists too. The flash attention kernel
+worker collects the same tests): integers exactly, SRP codes, and the
+``fused_scan`` and ``ip_topk`` floats bit for bit (kernel and plain
+version both round each product and each sum in index order),
+``ip_topk``'s raw per-split lists too. The flash attention kernel
 sums in another order than its plain version: float32 within atol 5e-5;
 bf16 within ``2**-6 * |plain| + 1e-3`` (two bf16 ulps: both outputs are
 rounded to bf16 from float32 values that differ by rounding). They need no JAX: the
@@ -262,6 +266,41 @@ def test_fused_scan_plain_ties_equal_reference(jx, t, n_cand, patterns):
     assert bool((cand[:, 1:] > cand[:, :-1])[tied].all()) and tied.any()
 
 
+# (C, T, W, n_cand, live, patterns): W 1 to 8, odd T, n_cand == T, every
+# row masked, few live rows, and long runs of equal distances (the item
+# codes repeat a few rows) cut by n_cand inside a run
+_NEAREST_CASES = [(16, 97, 1, 7, 0.8, 0), (8, 256, 2, 16, 0.8, 0),
+                  (4, 513, 3, 64, 0.8, 0), (6, 300, 4, 64, 0.8, 3),
+                  (5, 144, 5, 13, 0.8, 1), (3, 31, 6, 31, 0.8, 0),
+                  (8, 64, 7, 12, 0.0, 0), (8, 64, 8, 12, 0.05, 0),
+                  (4, 1000, 8, 333, 0.9, 5)]
+
+
+@pytest.mark.parametrize("c,t,w,n_cand,live,patterns", _NEAREST_CASES)
+def test_hamming_nearest_plain_equals_reference(jx, c, t, w, n_cand, live,
+                                                patterns):
+    """``ref.hamming_nearest`` against the reference's ``hamming_scores``,
+    its mask sentinel and ``lax.top_k(-dist, n_cand)`` (the selection of
+    ``src/repro/core/sa_alsh.py::_tile_candidates``): rows exactly, in
+    order; ``ops`` on the CPU takes it and launches nothing."""
+    import jax
+    jnp = jx.jnp
+    uc, ic, mask = _fused_inputs(c * t + w, c, t, w, 1, live=live,
+                                 patterns=patterns)[:3]
+    tuc, tic, tmask = _t(uc), _t(ic), torch.from_numpy(mask)
+    got = ref.hamming_nearest(tuc, tic, tmask, n_cand)
+    assert got.dtype == torch.int32 and got.shape == (c, n_cand)
+    dist = jx.ref.hamming_scores(jnp.asarray(uc), jnp.asarray(ic))
+    dist = jnp.where(jnp.asarray(mask)[None, :], dist, 1 << 30)
+    _, want = jax.lax.top_k(-dist, n_cand)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    before = dict(ops.launch_counts)
+    assert torch.equal(ops.hamming_nearest(tuc, tic, tmask, n_cand), got)
+    assert ops.launch_counts == before
+    if live == 0.0:                     # every row masked: rows in order
+        assert got.tolist() == [list(range(n_cand))] * c
+
+
 def _ip_inputs(seed, q, n, d, dup=False):
     rng = np.random.default_rng(seed)
     if dup:       # every query ties with the first half of the items
@@ -407,6 +446,9 @@ def test_ops_dispatch_by_device():
         ops.hamming_scores(q.to("meta"), n.to("meta"))
     with pytest.raises(ValueError, match="no kernel for device meta"):
         ops.ip_topk(x.to("meta"), x.to("meta"), 2)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ops.hamming_nearest(q.to("meta"), n.to("meta"),
+                            torch.ones(9, dtype=torch.bool, device="meta"), 3)
 
 
 def test_wrappers_refuse_cpu_tensors():
@@ -416,6 +458,10 @@ def test_wrappers_refuse_cpu_tensors():
                                     torch.zeros(3, 4, dtype=torch.int32))
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         srp_hash.srp_hash(torch.zeros(2, 4), torch.zeros(4, 32))
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        hamming_scan.hamming_nearest(torch.zeros(2, 4, dtype=torch.int32),
+                                     torch.zeros(3, 4, dtype=torch.int32),
+                                     torch.ones(3, dtype=torch.bool), 2)
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         fused_scan.fused_scan(*_torch_fused(_fused_inputs(0, 2, 8, 1, 3)),
                               n_cand=2)
@@ -537,7 +583,8 @@ def test_reset_launch_counts():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("nq,n,w", [(256, 512, 4), (1, 1, 1), (33, 77, 3),
-                                    (8, 4096, 8)])
+                                    (8, 4096, 8),
+                                    (600000, 3, 1)])   # > 65,535 row groups
 def test_cuda_hamming_equals_plain(cuda, nq, n, w):
     rng = np.random.default_rng(nq + n)
     q, it = _t(_u32(rng, (nq, w))).to(cuda), _t(_u32(rng, (n, w))).to(cuda)
@@ -549,18 +596,60 @@ def test_cuda_hamming_equals_plain(cuda, nq, n, w):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,d,b", [(256, 100, 128), (17920, 101, 128),
-                                   (5, 3, 32), (64, 700, 1024)])
-def test_cuda_srp_equals_plain_up_to_rounding_flips(cuda, n, d, b):
+@pytest.mark.parametrize("n,d,b,nan_rows", [
+    (256, 100, 128, 0),        # the query chunk: the small tile
+    (17920, 101, 128, 0),      # the build: the large tile
+    (5, 3, 32, 0), (64, 700, 1024, 0),
+    (7, 1, 64, 0),             # d = 1: the scalar tail alone
+    (40, 12300, 96, 0),        # d > 12,288: 97 staged chunks
+    (300, 33, 2048, 0),        # B = 2,048: grid.y over 64 words
+    (9000, 17, 160, 0),        # large tile, ragged rows and words
+    (100, 20, 64, 3)])         # NaN rows set no bit
+def test_cuda_srp_equals_plain_up_to_rounding_flips(cuda, n, d, b, nan_rows):
+    """Bit for bit, with no flips: the kernel rounds each product and each
+    sum as ``ref.srp_scores`` does, in index order (the plain version runs
+    on the card at the large shapes, elementwise ops each rounded on its
+    own)."""
     rng = np.random.default_rng(n + d)
     x = rng.standard_normal((n, d)).astype(np.float32)
+    x[:nan_rows, d // 2] = np.nan
     proj = rng.standard_normal((d, b)).astype(np.float32)
-    got = ops.srp_hash(torch.from_numpy(x).to(cuda),
-                       torch.from_numpy(proj).to(cuda))
+    tx, tp = torch.from_numpy(x).to(cuda), torch.from_numpy(proj).to(cuda)
+    before = ops.launch_counts["srp_hash"]
+    got = ops.srp_hash(tx, tp)
     torch.cuda.synchronize()
-    want = ref.srp_hash(torch.from_numpy(x), torch.from_numpy(proj))
-    _flip_bound_check(x, proj, got.cpu().numpy().view(np.uint32),
-                      want.numpy().view(np.uint32))
+    assert ops.launch_counts["srp_hash"] == before + 1
+    plain = cuda if n * b > 1 << 20 else torch.device("cpu")
+    want = ref.srp_hash(tx.to(plain), tp.to(plain))
+    assert torch.equal(got.cpu(), want.cpu())
+    if nan_rows:
+        assert not bool(got[:nan_rows].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,t,w,n_cand,live,patterns", [
+    (256, 512, 4, 64, 0.8, 0),        # the main path's shape
+    (256, 512, 4, 64, 0.8, 2),        # ... with 2 distances a lane
+    (64, 4096, 4, 64, 0.8, 0),        # the largest tile: 16 rows a thread
+    (8, 4096, 8, 1000, 0.9, 4),       # runs of ~1,000 tied rows
+    (16, 512, 4, 200, 0.8, 3),        # a cutoff run over several warps
+    (5, 200, 32, 16, 0.5, 0),         # the widest code
+    (7, 97, 3, 7, 0.8, 0), (3, 31, 2, 31, 0.8, 0),   # odd, n_cand = T
+    (8, 64, 2, 12, 0.0, 0),           # every row masked
+    (8, 64, 1, 12, 0.05, 0),          # fewer live rows than n_cand
+    (4, 4096, 32, 4096, 0.9, 0)])     # n_cand = T at W 32
+def test_cuda_hamming_nearest_equals_plain(cuda, c, t, w, n_cand, live,
+                                           patterns):
+    uc, ic, mask = _fused_inputs(c * t + w, c, t, w, 1, live=live,
+                                 patterns=patterns)[:3]
+    args = (_t(uc), _t(ic), torch.from_numpy(mask))
+    before = dict(ops.launch_counts)
+    got = ops.hamming_nearest(*(a.to(cuda) for a in args), n_cand)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["hamming_nearest"] == \
+        before["hamming_nearest"] + 1
+    assert ops.launch_counts["hamming_scores"] == before["hamming_scores"]
+    assert torch.equal(got.cpu(), ref.hamming_nearest(*args, n_cand))
 
 
 @pytest.mark.gpu
@@ -732,6 +821,15 @@ def _refuse_hamming_srp(cuda):
     with pytest.raises(ValueError, match="multiple of 32"):
         srp_hash.srp_hash(torch.zeros(2, 4, device=cuda),
                           torch.zeros(4, 48, device=cuda))
+    mask = torch.ones(4097, dtype=torch.bool, device=cuda)
+    codes = torch.zeros(4097, 4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="tile must have 1 to 4096 rows"):
+        hamming_scan.hamming_nearest(codes[:2], codes, mask, 3)
+    with pytest.raises(ValueError, match="n_cand must be in"):
+        hamming_scan.hamming_nearest(codes[:2], codes[:8], mask[:8], 9)
+    wide = torch.zeros(8, 33, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="code width must be in"):
+        hamming_scan.hamming_nearest(wide[:2], wide, mask[:8], 3)
 
 
 def _refuse_fused_ip_topk(cuda):
@@ -780,6 +878,21 @@ def _refuse_flash(cuda):
                          ids=["hamming_srp", "fused_ip_topk", "flash"])
 def test_cuda_wrappers_refuse_bad_inputs(cuda, check):
     check(cuda)
+
+
+@pytest.mark.gpu
+def test_cuda_engine_refuses_a_tile_past_the_kernel_limit(cuda):
+    """A CUDA engine whose sketch-scan tile is past the selection's 4,096
+    rows raises when it is made, naming the kernel; the CPU takes it."""
+    from repro_torch import RkMIPSEngine, get_config
+    with pytest.raises(ValueError, match="hamming_nearest.*4096 rows"):
+        RkMIPSEngine(get_config("sah").replace(tile=8192), device=cuda)
+    with pytest.raises(ValueError, match="fused_scan.*1024 bits"):
+        RkMIPSEngine(get_config("sah").replace(n_bits=2048,
+                                               scan_precision="int8"),
+                     device=cuda)
+    RkMIPSEngine(get_config("sah").replace(tile=4096), device=cuda)
+    RkMIPSEngine(get_config("sah").replace(tile=8192), device="cpu")
 
 
 @pytest.mark.gpu

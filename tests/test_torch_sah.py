@@ -361,6 +361,32 @@ def test_tile_candidates_match_reference_exactly(indexes):
     assert len(torch.unique(dist[0])) < 256          # ties are present
 
 
+@pytest.mark.parametrize("n_cand", [1, 64, 256])
+def test_tile_candidates_equal_the_unfused_route(indexes, n_cand):
+    """``_tile_candidates`` selects through ``ops.hamming_nearest`` (one
+    kernel on the card): on the CPU its (ips, valid, local) equal, bit for
+    bit, what the dense distances, the mask sentinel and ``nearest_rows``
+    gave before, on every tile of an index the reference built, n_cand up
+    to the whole tile."""
+    from repro_torch.core import sa_alsh
+    _, idx, _ = indexes["sah"]
+    alsh, users = idx.alsh, idx.users[:200]
+    ucodes = sa_alsh.user_codes(alsh, users)
+    tile = alsh.tile
+    for t in range(int(alsh.tile_max_norm.shape[0])):
+        rows = slice(t * tile, (t + 1) * tile)
+        mask_t = alsh.item_mask[rows]
+        dist = plain.hamming_scores(ucodes, alsh.codes[rows])
+        dist = torch.where(mask_t[None, :], dist, plain.BIG_HAMMING)
+        cand = plain.nearest_rows(dist, n_cand)
+        want = (sa_alsh.lane_ips(alsh.items[rows], cand, users),
+                mask_t[cand.long()], cand)
+        got = sa_alsh._tile_candidates(alsh, ucodes, users, t, n_cand=n_cand,
+                                       scan="sketch")
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
 def test_batch_guard_and_int8_refusal(indexes, corpus):
     """The int32-queue guard and the refusal of an unknown precision stay;
     int8, refused before the int8 screen was ported, now answers as f32."""
