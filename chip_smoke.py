@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the port's four paths through their entry points, each with every
-launch count set to 0 just before it and read just after. The first three
+Drives the port's five paths through their entry points, each with every
+launch count set to 0 just before it and read just after. The first four
 run at the paper's Netflix scale (n = 17,770 items, m = 480,189 users,
 d = 100, synthetic MF-like factors from ``--seed``):
 
@@ -19,6 +19,16 @@ d = 100, synthetic MF-like factors from ``--seed``):
                 ``--seed`` (a service recomputing its users' top-10
                 items), under the "sah" and the "exact" presets, and the
                 exact answer from ``ops.ip_topk``;
+  artifact      on the f32 engine's build: ``save`` and
+                ``IndexArtifact.load`` (fingerprint and predictions
+                equal); a catalogue change from ``--seed`` (64 deletes, 8
+                of them in P', and 192 inserts, new versions of top-5%
+                titles) served by the f32 and int8 reverse paths at k = 10
+                and 50 (recall 1.0 against the oracle over the effective
+                items, int8 equal to f32) and the forward path ("exact" ids
+                equal to ``ip_topk``'s over the effective items); then
+                ``compact``, equal bit for bit to a fresh build on the
+                effective items from the same generator state;
   LM serving    qwen3-0.6b at full width and depth (28 layers, d 1024,
                 vocab 151,936, bf16, weights drawn from ``--seed``) with
                 ``attn_impl="flash"``: ``prefill`` of 4 prompts of 2,048
@@ -32,7 +42,9 @@ It
      ``hamming_nearest`` once per tile step of the f32 scan, as many times
      as ``fused_scan`` on the int8 path, the dense ``hamming_scores``
      never; ``flash_attention`` exactly once per layer in prefill, every
-     launch on its ``wgmma`` route, never in decode);
+     launch on its ``wgmma`` route, never in decode; ``ip_topk``, which
+     the port calls only for the exact forward answer, is counted around
+     that one call);
   4. holds the reverse answers against the exact oracle (recall 1.0 but
      for misses within float32 rounding of their threshold), the int8
      answers against the f32 ones bit for bit, the "exact" forward ids
@@ -98,6 +110,10 @@ ITERS = 200          # timed launches per kernel
 N_FWD = 4096         # users per forward top-k batch
 TILE_LARGE = 4096    # fused_scan also checked and timed at the largest tile
 K_FWD = 10
+POP_FRAC = 0.05      # the artifact phase's change: the top 5% by norm,
+N_DEL_TOP = 8        # ... members of P' deleted,
+N_DEL_POP = 56       # ... more of the top 5% deleted,
+N_INS = 192          # ... and new versions of top-5% items inserted
 LM_BATCH = 4         # prompts per prefill
 LM_PROMPT = 2048     # tokens per prompt
 LM_STEPS = 32        # greedy decode steps
@@ -600,6 +616,241 @@ def flash_kernel_entry(lm: dict, seed: int, dev) -> dict:
             "build": lm["flash_build"]}
 
 
+def catalogue_change(seed: int, items, n_top: int):
+    """The same catalogue change every run from ``seed``: the ids of
+    ``N_DEL_TOP`` members of P' (the top ``n_top`` by norm) and of
+    ``N_DEL_POP`` more items of the top ``POP_FRAC`` by norm, and
+    ``N_INS`` new versions of top-``POP_FRAC`` items (each plus Gaussian
+    noise of 5% of its norm over sqrt(d) per coordinate)."""
+    import torch
+    g = torch.Generator().manual_seed(seed + 1)
+    order = torch.argsort(-torch.linalg.norm(items, dim=-1).cpu(),
+                          stable=True)
+    pop = int(POP_FRAC * items.shape[0])
+    dels = torch.cat([
+        order[torch.randperm(n_top, generator=g)[:N_DEL_TOP]],
+        order[n_top + torch.randperm(pop - n_top, generator=g)[:N_DEL_POP]]])
+    src = order[torch.randint(0, pop, (N_INS,), generator=g)]
+    base = items[src.to(items.device)]
+    noise = torch.randn(N_INS, items.shape[1], generator=g).to(items.device)
+    scale = 0.05 * torch.linalg.norm(base, dim=-1, keepdim=True) \
+        / items.shape[1] ** 0.5
+    return dels.numpy(), base + noise * scale
+
+
+def artifact_path(seed: int, eng, eng_ex, build_state, items, users,
+                  queries, users_fwd, results, results8) -> dict:
+    """The artifact phase on the f32 engine's build: save and load, a
+    catalogue change served by the f32 and int8 reverse paths and the
+    forward path, and ``compact`` against a fresh build. Fails on any
+    miss; returns the peak device memory before the phase."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import RkMIPSEngine
+    from repro_torch.core import exact, metrics, sah
+    from repro_torch.engine import IndexArtifact
+    from repro_torch.kernels import ops, ref
+
+    def now():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    peak_before = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, art = eng.config, eng.artifact
+
+    # -- save and load -------------------------------------------------------
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=ROOT / "build", prefix="artifact-")
+    try:
+        t0 = now()
+        art.save(tmp)
+        t1 = now()
+        loaded = IndexArtifact.load(tmp)
+        t2 = now()
+        size = sum(f.stat().st_size for f in Path(tmp).rglob("*")
+                   if f.is_file())
+    finally:
+        shutil.rmtree(tmp)
+    if loaded.fingerprint != art.fingerprint:
+        fail("the loaded artifact's fingerprint differs from the saved one")
+    got = RkMIPSEngine.from_artifact(loaded).query_batch(queries, 10)
+    if not torch.equal(got.predictions, results[10].predictions):
+        fail("the loaded artifact's predictions differ from the build's")
+    del loaded, got
+    print(f"artifact save {t1 - t0:.3f} s, load {t2 - t1:.3f} s (fingerprint "
+          f"re-check included), {size / 2**20:.1f} MiB on disk; fingerprint "
+          f"{art.fingerprint[:16]} equal; predictions at k=10 equal "
+          f"(torch.equal)")
+
+    # -- a catalogue change --------------------------------------------------
+    n_top = art.index.top_ids.numel()
+    dels, rows = catalogue_change(seed, items, n_top)
+    t0 = now()
+    art_d = art.delete_items(dels)
+    t1 = now()
+    art2 = art_d.insert_items(rows)
+    t2 = now()
+    print(f"catalogue change: delete {len(dels)} ({N_DEL_TOP} of P') in "
+          f"{t1 - t0:.4f} s, insert {N_INS} in {t2 - t1:.4f} s; "
+          f"{art2.n_items} effective items, {art2.delta_used} of "
+          f"{art2.delta_capacity} slots")
+    eff = art2.effective_items()
+    eff_ids = torch.as_tensor(art2.effective_ids(), device=eff.device)
+    every = torch.cat([art2.items, art2.delta_items])    # rows by item id
+    engd = RkMIPSEngine.from_artifact(art2)
+    engd8 = RkMIPSEngine(cfg.replace(scan_precision="int8")).attach(art2)
+
+    # -- reverse queries with the delta, counted -----------------------------
+    resd, launches = {}, {}
+    for prec, e in (("f32", engd), ("int8", engd8)):
+        ops.reset_launch_counts()
+        resd[prec] = {k: e.query_batch(queries, k) for k in (10, 50)}
+        launches[prec] = dict(ops.launch_counts)
+    print(f"launch_counts (reverse with the delta): f32 {launches['f32']}; "
+          f"int8 {launches['int8']}")
+    for name in ("srp_hash", "hamming_nearest"):
+        if launches["f32"][name] <= 0:
+            fail(f"kernel {name} was not launched on the f32 delta path")
+    if launches["int8"]["fused_scan"] <= 0:
+        fail("kernel fused_scan was not launched on the int8 delta path")
+    unit = sah.unit_rows(users)
+    for k in (10, 50):
+        pred = resd["f32"][k].predictions
+        if not torch.equal(resd["int8"][k].predictions, pred):
+            fail(f"delta k={k}: int8 predictions differ from f32")
+        if not torch.equal(resd["int8"][k].stats.tiles_scanned,
+                           resd["f32"][k].stats.tiles_scanned):
+            fail(f"delta k={k}: int8 tiles_scanned differ from f32")
+        truth = engd.oracle(queries, k)
+        missed = torch.nonzero(truth & ~pred).tolist()
+        ties = sum(exact.float_tie(eff, unit[u], queries[q], k, cfg.tie_eps)
+                   for q, u in missed[:1000])
+        if len(missed) > 1000 or ties != len(missed):
+            fail(f"delta k={k}: {len(missed) - ties} missed users are not "
+                 f"float ties")
+        moved = (pred != results[k].predictions).any(-1)
+        if not bool(moved.any()):
+            fail(f"delta k={k}: no audience changed with the catalogue")
+        rec = metrics.recall(pred, truth)
+
+        def ms(res):
+            return f"{res.seconds * 1e3 / NQ:.3f}"
+
+        print(f"delta k={k}: f32 {ms(resd['f32'][k])} ms/query, int8 "
+              f"{ms(resd['int8'][k])} (without the delta: f32 "
+              f"{ms(results[k])}, int8 {ms(results8[k])}); recall min "
+              f"{float(rec.min()):.6f}, misses {len(missed)} (float ties "
+              f"{ties}); audience {int(truth.sum())} true / "
+              f"{int(pred.sum())} predicted, changed in "
+              f"{int(moved.sum())} of {NQ} queries; int8 == f32 bitwise")
+        print(f"  funnel: {resd['f32'][k].funnel.format()}")
+    view = engd.index
+    t0 = now()
+    plan = sah.rkmips_plan(view, queries, 10, tie_eps=cfg.tie_eps,
+                           delta_items=art2.delta_items,
+                           delta_mask=art2.delta_mask)
+    t1 = now()
+    sah.rkmips_plan(eng.index, queries, 10, tie_eps=cfg.tie_eps)
+    t2 = now()
+    print(f"plan k=10 with the delta product: {(t1 - t0) * 1e3:.1f} ms "
+          f"(without a delta {(t2 - t1) * 1e3:.1f} ms)")
+
+    # -- forward kMIPS with the delta ----------------------------------------
+    engx = RkMIPSEngine.from_artifact(
+        eng_ex.artifact.delete_items(dels).insert_items(rows))
+    ops.reset_launch_counts()
+    fx = engx.kmips(users_fwd, K_FWD)
+    fs = engd.kmips(users_fwd, K_FWD)
+    fs8 = engd8.kmips(users_fwd, K_FWD)
+    launches_f = dict(ops.launch_counts)
+    for name in ("srp_hash", "hamming_nearest"):
+        if launches_f[name] <= 0:
+            fail(f"kernel {name} was not launched on the forward delta path")
+    # the truth: exact top-k over the effective items, counted on its own
+    ops.reset_launch_counts()
+    tv, ti = ops.ip_topk(users_fwd, eff, K_FWD)
+    if ops.launch_counts["ip_topk"] != 1:
+        fail("the forward truth over the effective items did not launch "
+             "ip_topk")
+    truth_ids = eff_ids[ti.long()]
+    ties_f = ip_tie_check(users_fwd, every, fx.ids, truth_ids)
+    if not torch.allclose(fx.values, tv, rtol=1e-5, atol=1e-6):
+        fail("kmips exact with the delta: values differ from ip_topk's")
+    if not (torch.equal(fs8.ids, fs.ids) and torch.equal(fs8.values,
+                                                         fs.values)):
+        fail("kmips with the delta: int8 differs from f32")
+    for name, r in (("sah", fs), ("exact", fx)):
+        if bool(torch.isin(r.ids, torch.as_tensor(
+                dels, device=r.ids.device)).any()):
+            fail(f"kmips {name} with the delta returned a deleted item")
+    hit = (fs.ids[:, :, None] == truth_ids[:, None, :]).any(-1)
+    staged = int((fs.ids >= art2.n_base).sum())
+    print(f"kmips with the delta, k={K_FWD}: sah {fs.seconds * 1e6 / N_FWD:.2f}"
+          f" us/user with the merge (int8 {fs8.seconds * 1e6 / N_FWD:.2f}), "
+          f"recall@10 vs ip_topk over the effective items "
+          f"{float(hit.float().mean()):.6f}, {staged} staged ids answered; "
+          f"exact ids equal ip_topk's but for {ties_f} float ties; int8 == "
+          f"f32; launches {launches_f} (the truth's ip_topk apart)")
+
+    # -- compact -------------------------------------------------------------
+    ops.reset_launch_counts()
+    t0 = now()
+    comp = art2.compact()
+    t1 = now()
+    if ops.launch_counts["srp_hash"] <= 0:
+        fail("kernel srp_hash was not launched by compact")
+    if comp.has_pending or comp.n_base != art2.n_items:
+        fail("compact left pending changes or the wrong base size")
+    fresh = RkMIPSEngine(cfg).build(eff, users,
+                                    torch.Generator().set_state(build_state))
+    if comp.fingerprint != fresh.artifact.fingerprint:
+        fail("compact's fingerprint differs from a fresh build's")
+    for name, a, b in zip(("alsh." + f for f in comp.index.alsh._fields),
+                          comp.index.alsh, fresh.index.alsh):
+        if not torch.equal(a, b):
+            fail(f"compact's {name} differs from a fresh build's")
+    for name in comp.index._fields[1:]:
+        if not torch.equal(getattr(comp.index, name),
+                           getattr(fresh.index, name)):
+            fail(f"compact's {name} differs from a fresh build's")
+    predc = RkMIPSEngine.from_artifact(comp).query_batch(queries, 10)
+    if not torch.equal(predc.predictions,
+                       fresh.query_batch(queries, 10).predictions):
+        fail("compact's predictions differ from a fresh build's")
+    print(f"compact {t1 - t0:.3f} s ({comp.build_timings.format()}) against "
+          f"a fresh build {fresh.build_seconds:.3f} s "
+          f"({fresh.build_timings.format()}); index arrays, fingerprint and "
+          f"predictions at k=10 equal the fresh build's bit for bit")
+
+    # -- the scan kernels on the first tile with a deleted row ---------------
+    interior = view.alsh.item_mask != eng.index.alsh.item_mask
+    t = int(torch.nonzero(interior)[0]) // cfg.tile
+    sl = slice(t * cfg.tile, (t + 1) * cfg.tile)
+    a = view.alsh
+    lanes = plan.queue[:cfg.chunk] % view.n_users
+    chunk_users = view.users[lanes].contiguous()
+    ucodes = ops.srp_hash(chunk_users, a.proj[:-1])
+    near = (ucodes, a.codes[sl], a.item_mask[sl], cfg.n_cand)
+    codes_equal(f"hamming_nearest on tile {t} with deleted rows",
+                ops.hamming_nearest(*near), ref.hamming_nearest(*near))
+    fused = (ucodes, a.codes[sl], a.item_mask[sl], a.qitems[sl],
+             a.qscale[sl], chunk_users)
+    for got, want in zip(ops.fused_scan(*fused, n_cand=cfg.n_cand),
+                         ref.fused_scan(*fused, cfg.n_cand)):
+        if not torch.equal(got, want):
+            fail(f"fused_scan on tile {t} with deleted rows differs from "
+                 f"its plain version")
+    print(f"check hamming_nearest and fused_scan on tile {t} "
+          f"({int((~a.item_mask[sl]).sum())} deleted rows inside it), "
+          f"{tuple(chunk_users.shape)} lanes: equal their plain versions "
+          f"exactly")
+    print(f"artifact phase peak device memory: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return {"peak_before": peak_before}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -757,15 +1008,21 @@ def main() -> int:
     users_fwd = users[pick[:N_FWD].to(dev)].contiguous()
     ops.reset_launch_counts()
     fwd = eng.kmips(users_fwd, K_FWD)
-    exact_vals, exact_ids = ops.ip_topk(users_fwd, items, K_FWD)
     eng_ex = RkMIPSEngine(get_config("exact")).build(
         items, None, torch.Generator().manual_seed(args.seed))
     fwd_ex = eng_ex.kmips(users_fwd, K_FWD)
     launches_f = dict(ops.launch_counts)
-    print(f"launch_counts (forward path): {launches_f}")
-    for name in ("srp_hash", "hamming_nearest", "ip_topk"):
+    for name in ("srp_hash", "hamming_nearest"):
         if launches_f[name] <= 0:
             fail(f"kernel {name} was not launched on the forward path")
+    # the exact forward answer (ops.ip_topk, the truth), counted on its own
+    ops.reset_launch_counts()
+    exact_vals, exact_ids = ops.ip_topk(users_fwd, items, K_FWD)
+    launches_f["ip_topk"] = ops.launch_counts["ip_topk"]
+    if launches_f["ip_topk"] != 1:
+        fail("the exact forward answer did not launch ip_topk")
+    print(f"launch_counts (forward path; ip_topk: the exact answer): "
+          f"{launches_f}")
     n_items = ds.n_items
     for name, r in (("sah", fwd), ("exact", fwd_ex)):
         if (r.values.shape != (N_FWD, K_FWD) or r.ids.shape != (N_FWD, K_FWD)
@@ -793,6 +1050,11 @@ def main() -> int:
           f"{ties_f} positions, all float ties; values allclose")
 
     phase_done("forward path")
+
+    # -- artifact: save/load, a catalogue change, compact, counted -----------
+    art_out = artifact_path(args.seed, eng, eng_ex, build_state, items, users,
+                            queries, users_fwd, results, results8)
+    phase_done("artifact")
 
     # -- LM serving path, counted ----------------------------------------------
     lm = lm_path(args.seed, dev)
@@ -1027,7 +1289,8 @@ def main() -> int:
     profile_query(eng, queries, 10, steps[10])
     profile_query(eng8, queries, 10, steps[10])
     phase_done("profiles")
-    peak = max(lm["peak_before"], torch.cuda.max_memory_allocated())
+    peak = max(lm["peak_before"], art_out["peak_before"],
+               torch.cuda.max_memory_allocated())
     print(f"peak device memory: {peak / 2**30:.2f} GiB")
 
     kernels = [

@@ -1,8 +1,9 @@
 """SA-ALSH: the shifting-aware asymmetric LSH index and its counting scan.
 
-Port of ``src/repro/core/sa_alsh.py:53-511,601-643`` (the build side,
-the RkMIPS decision scan in f32 and int8, and the forward kMIPS scan; the
-staged-insert delta helpers wait for the artifact slice). Items are
+Port of ``src/repro/core/sa_alsh.py:53-643`` (the build side, the
+RkMIPS decision scan in f32 and int8, the forward kMIPS scan, and the
+helpers that fold an artifact's staged-insert delta buffer into both
+directions). Items are
 sorted by descending norm, cut into norm partitions, SAT-shifted by their
 partition's centroid (or QNF-extended, for H2-ALSH) and SRP-hashed into
 packed int32 codes. The decision scan walks norm-ordered tiles, picks
@@ -23,6 +24,7 @@ import torch
 
 from repro_torch.core import partitions as _parts
 from repro_torch.core import srp as _srp
+from repro_torch.core import transforms as _tf
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 
@@ -144,16 +146,18 @@ def prepare_items(items: torch.Tensor, *, b: float = 0.5,
                                     max_partitions)
     pid = parts.part_id.long()
     if transform == "sat":
-        shifted = items_sorted - parts.centroid[pid]
-        ext2 = torch.clamp(parts.radius[pid] ** 2
-                           - torch.sum(shifted * shifted, dim=-1), min=0.0)
+        transformed = _tf.sat_item_transform(items_sorted,
+                                             parts.centroid[pid],
+                                             parts.radius[pid])
     elif transform == "qnf":
-        shifted = items_sorted
+        # M^2 - ||p||^2 from the sorted norms, as the reference's build
+        # does (``qnf_item_transform`` sums the squares instead)
         ext2 = torch.clamp(parts.max_norm[pid] ** 2 - norms_sorted ** 2,
                            min=0.0)
+        transformed = torch.cat([items_sorted, torch.sqrt(ext2)[:, None]],
+                                dim=-1)
     else:
         raise ValueError(f"unknown transform {transform!r}")
-    transformed = torch.cat([shifted, torch.sqrt(ext2)[:, None]], dim=-1)
 
     item_mask = _pad_rows(torch.ones(n, dtype=torch.bool,
                                      device=items.device), n_pad)
@@ -221,7 +225,8 @@ def lane_ips(items_t: torch.Tensor, rows: torch.Tensor,
     The one expression for a gathered re-rank: the f32 scan scores its
     (C, n_cand) candidates with it and the int8 band re-rank its (C, s)
     band rows, so the two paths round a lane's IP identically and their
-    counts agree bit for bit (PORT.md). A lane's IPs never depend on which
+    counts agree bit for bit (PORT.md); ``merge_delta_topk`` scores the
+    staged rows with it too. A lane's IPs never depend on which
     lanes share the chunk (a batched GEMM's blocking may)."""
     return (items_t[rows.long()] * users[:, None, :]).sum(dim=-1)
 
@@ -386,6 +391,33 @@ def merge_topk(vals: torch.Tensor, ids: torch.Tensor,
     merged_i = torch.cat([ids, extra_ids], dim=-1)
     best, pos = kref.topk_stable(merged_v, k)
     return best, merged_i.gather(1, pos)
+
+
+def merge_delta_topk(vals: torch.Tensor, ids: torch.Tensor,
+                     queries: torch.Tensor, d_items: torch.Tensor,
+                     d_mask: torch.Tensor, k: int, n_base: int):
+    """Fold the staged-insert delta buffer into a main-index top-k answer
+    (port of ``sa_alsh.py:514-575``).
+
+    vals/ids (Q, k): the main scan's descending top-k; queries (Q, d);
+    d_items (cap, d) staged rows, live where d_mask (cap,). Staged row j
+    gets id ``n_base + j``; the main answer comes first among equal
+    values. Every (query, row) value is a per-pair product and row sum
+    (``lane_ips``, the scans' own expression; the reference maps the
+    merge per query), so a batch row equals the same query sent alone.
+
+    The reference's int8 merge first drops the rows its quantized twin
+    shows cannot beat the k-th value, and scores the rest as here, so its
+    answer is this one bit for bit. The port skips that screen, which
+    costs a (Q, cap) product of its own.
+    """
+    cap = d_items.shape[0]
+    rows = torch.arange(cap, device=queries.device).expand(
+        queries.shape[0], cap)
+    d_vals = torch.where(d_mask[None, :], lane_ips(d_items, rows, queries),
+                         float("-inf"))
+    d_ids = (n_base + rows).to(ids.dtype)
+    return merge_topk(vals, ids, d_vals, d_ids, k)
 
 
 def kmips_topk(index: SAALSHIndex, queries: torch.Tensor, k: int, *,

@@ -1,9 +1,9 @@
 """SAH: Shifting-aware Asymmetric Hashing for RkMIPS (Algorithms 4-5).
 
 Port of ``src/repro/core/sah.py`` (build ``:61-227``, query
-``:230-726``), without the staged-insert delta buffer (the artifact
-slice). SA-ALSH (``sa_alsh.py``) indexes the items, cone
-blocks (``cone.py``) and Simpfer lower bounds (``simpfer.py``) the users.
+``:230-726``, with the staged-insert delta buffer of an artifact).
+SA-ALSH (``sa_alsh.py``) indexes the items, cone blocks (``cone.py``)
+and Simpfer lower bounds (``simpfer.py``) the users.
 
 Query, batched in two phases (the reference's DESIGN.md SS9):
 
@@ -175,10 +175,12 @@ def block_users(users: torch.Tensor, *,
 
 
 def lower_bounds(users_leaf: torch.Tensor, user_mask: torch.Tensor,
-                 top_items: torch.Tensor, k_max: int, n_blocks: int
+                 top_items: torch.Tensor, k_max: int, n_blocks: int, *,
+                 mask: torch.Tensor | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Simpfer per-user and per-block lower bounds over P'."""
-    lb = _simpfer.user_lower_bounds(users_leaf, top_items, k_max)
+    """Simpfer per-user and per-block lower bounds over P' (over the
+    members ``mask`` keeps, when given: an artifact's delete view)."""
+    lb = _simpfer.user_lower_bounds(users_leaf, top_items, k_max, mask=mask)
     block_lb = _simpfer.block_lower_bounds(
         torch.where(user_mask[:, None], lb, float("inf")), n_blocks)
     block_lb = torch.where(torch.isfinite(block_lb), block_lb,
@@ -258,11 +260,39 @@ class PlanLanes(NamedTuple):
     yes_norm: torch.Tensor
 
 
-def _plan_one(index: SAHIndex, q: torch.Tensor, k: int,
-              tie_eps: float) -> PlanLanes:
+class DeltaCounts:
+    """The staged rows' share of every lane's initial count, for one
+    dispatch (``sah.py:308-326``). The (m_pad, cap) product ``users @
+    d_items.T`` is made once per dispatch, never per query, and dropped
+    with it; a lane counts the live rows with ``ip > tau + eps``, the main
+    scan's strict rule.
+
+    Under every ``scan_precision`` the counts come from this one f32
+    product. The reference screens the buffer with its int8 twin under
+    ``"int8"`` and decides only the band exactly, so its counts equal the
+    f32 counts by construction; the port skips that screen, whose tables
+    (``users @ d_qitems.T``) cost as much as the product they would spare.
+    """
+
+    def __init__(self, users: torch.Tensor, d_items: torch.Tensor,
+                 d_mask: torch.Tensor):
+        self.mask = d_mask
+        self.ip = users @ d_items.T
+
+    def count(self, thr: torch.Tensor) -> torch.Tensor:
+        """(m_pad,) int32 live staged rows beating ``thr`` = tau + eps."""
+        return (self.mask[None, :] & (self.ip > thr[:, None])).sum(
+            dim=-1).to(torch.int32)
+
+
+def _plan_one(index: SAHIndex, q: torch.Tensor, k: int, tie_eps: float,
+              delta: DeltaCounts | None = None) -> PlanLanes:
     """Lemmas 2-3 + dense tau + the O(1) decisions for ONE query
-    (``sah.py:248-329`` without the delta buffer). Shared verbatim by the
-    per-query and the batched drivers."""
+    (``sah.py:248-329``). Shared verbatim by the per-query and the batched
+    drivers. ``delta`` adds the live staged rows of an artifact's delta
+    buffer to every lane's initial count; the caller must hand an index
+    view whose ``top_norms`` covers those rows (``IndexArtifact.
+    query_view``)."""
     leaf = index.n_users // index.n_blocks
     qn = torch.linalg.norm(q)
     eps = tie_eps * qn
@@ -283,6 +313,8 @@ def _plan_one(index: SAHIndex, q: torch.Tensor, k: int,
     yes_norm = tau >= index.top_norms[k - 1]
     undecided = user_alive & ~no_lb & ~yes_norm
     count0 = _simpfer.init_count(index.user_lb, tau + eps)
+    if delta is not None:
+        count0 = count0 + delta.count(tau + eps)
     pred0 = yes_norm & index.user_mask
     return PlanLanes(tau, count0, pred0, undecided, eps, block_alive,
                      user_alive, no_lb, yes_norm)
@@ -294,16 +326,30 @@ def _undecided_first(undecided: torch.Tensor) -> torch.Tensor:
     return torch.argsort((~undecided).to(torch.uint8), stable=True)
 
 
+def _delta(index: SAHIndex, delta_items,
+           delta_mask) -> DeltaCounts | None:
+    if delta_items is None:
+        return None
+    return DeltaCounts(index.users, delta_items, delta_mask)
+
+
 def rkmips(index: SAHIndex, q: torch.Tensor, k: int, *, n_cand: int = 64,
            scan: str = "sketch", chunk: int = 256, tie_eps: float = 0.0,
-           scan_precision: str = "f32"):
+           scan_precision: str = "f32",
+           delta_items: torch.Tensor | None = None,
+           delta_mask: torch.Tensor | None = None):
     """Algorithm 5 for one query: the per-query REFERENCE driver
     (``rkmips_impl``, ``sah.py:332-413``). Returns (pred (m_pad,) bool in
-    cone-leaf order, QueryStats of Python ints)."""
+    cone-leaf order, QueryStats of Python ints).
+
+    delta_items (cap, d) / delta_mask (cap,): an artifact's staged-insert
+    buffer, counted into every lane (``DeltaCounts``), with the same
+    counts under every ``scan_precision``."""
     _alsh.check_precision(scan_precision)
     m_pad = index.n_users
     chunk = min(chunk, m_pad)
-    p = _plan_one(index, q, k, tie_eps)
+    p = _plan_one(index, q, k, tie_eps,
+                  _delta(index, delta_items, delta_mask))
     und_ids = _undecided_first(p.undecided)
     n_und = int(p.undecided.sum())
     pred = p.pred0.clone()
@@ -354,15 +400,21 @@ class RkMIPSPlan(NamedTuple):
 
 
 def rkmips_plan(index: SAHIndex, queries: torch.Tensor, k: int, *,
-                tie_eps: float = 0.0) -> RkMIPSPlan:
+                tie_eps: float = 0.0,
+                delta_items: torch.Tensor | None = None,
+                delta_mask: torch.Tensor | None = None) -> RkMIPSPlan:
     """Phase 1: ``_plan_one`` per query (the reference's ``lax.map``),
-    then one stable compaction of the whole (nq, m_pad) grid."""
+    then one stable compaction of the whole (nq, m_pad) grid. A delta
+    buffer's product (``DeltaCounts``) is made once for the batch."""
     nq = queries.shape[0]
     if nq * index.n_users >= 2 ** 31:
         raise ValueError(
             f"batch too large for the int32 flat work queue: nq * m_pad = "
             f"{nq} * {index.n_users} >= 2**31; split the query batch")
-    plans = [_plan_one(index, queries[i], k, tie_eps) for i in range(nq)]
+    delta = _delta(index, delta_items, delta_mask)
+    plans = [_plan_one(index, queries[i], k, tie_eps, delta)
+             for i in range(nq)]
+    del delta                # free the (m_pad, cap) product before stacking
     mask = index.user_mask
 
     def stack(f):
@@ -443,12 +495,16 @@ def rkmips_execute(index: SAHIndex, plan: RkMIPSPlan, k: int, *,
 def rkmips_batch(index: SAHIndex, queries: torch.Tensor, k: int, *,
                  n_cand: int = 64, scan: str = "sketch", chunk: int = 256,
                  tie_eps: float = 0.0, scan_precision: str = "f32",
-                 scan_budget: int = 0):
+                 scan_budget: int = 0,
+                 delta_items: torch.Tensor | None = None,
+                 delta_mask: torch.Tensor | None = None):
     """Batched Algorithm 5: plan + execute. (nq, d) queries -> (pred
     (nq, m_pad), QueryStats of (nq,) counters); bitwise the stack of
-    per-query ``rkmips`` predictions and plan-time counters."""
+    per-query ``rkmips`` predictions and plan-time counters. The delta
+    buffer threads through the plan as in ``rkmips``."""
     _alsh.check_precision(scan_precision)
-    plan = rkmips_plan(index, queries, k, tie_eps=tie_eps)
+    plan = rkmips_plan(index, queries, k, tie_eps=tie_eps,
+                       delta_items=delta_items, delta_mask=delta_mask)
     return rkmips_execute(index, plan, k, n_cand=n_cand, scan=scan,
                           chunk=chunk, scan_precision=scan_precision,
                           scan_budget=scan_budget)

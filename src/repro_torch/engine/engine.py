@@ -1,15 +1,26 @@
 """RkMIPSEngine: the front door for reverse k-MIPS (RkMIPS) in the port.
 
-A slim twin of ``src/repro/engine/engine.py`` (``:64-125`` for the
-result types, ``:543-585`` for ``kmips``): build an index from one
-``EngineConfig``, answer reverse queries in original user-id space, check
-them against the exact oracle with the same ``tie_eps``, and answer
-forward top-k MIPS over the items:
+A twin of ``src/repro/engine/engine.py`` on one device: build an index
+from one ``EngineConfig``, answer reverse queries in original user-id
+space, check them against the exact oracle with the same ``tie_eps``, and
+answer forward top-k MIPS over the items:
 
     eng = RkMIPSEngine("sah").build(items, users, generator)
     res = eng.query_batch(promoted_items, k=10)   # res.predictions (nq, m)
     truth = eng.oracle(promoted_items, k=10)
     top = eng.kmips(user_rows, k=10)              # top.values, top.ids (Q, k)
+
+Building is "make an ``IndexArtifact``, then ``attach`` it"; an engine
+equally serves a saved or mutated version (``engine/artifact.py``):
+
+    art = IndexArtifact.load("/ckpt/sah")
+    eng = RkMIPSEngine.from_artifact(art)
+    eng.attach(art.insert_items(new_rows).delete_items(old_ids))
+
+An attached version's staged changes are served as the reference serves
+them: deleted rows leave the scans, live staged rows are counted exactly
+into every reverse lane and merged into every forward answer with ids
+``n_base + slot``, and ``oracle`` judges against the effective corpus.
 
 The engine runs on the card unless the caller asks for the CPU
 (``device="cpu"``, as the tests do): with no CUDA device the default
@@ -17,8 +28,8 @@ raises. Tau, the lower bounds and the exact re-rank feed discrete
 decisions, so float32 products must stay float32: the engine turns off
 TF32 for matrix products and for cuDNN when it is made.
 
-Not here yet (later slices of the port): artifacts and corpus deltas,
-meshes, warmup and the servers.
+Not here yet (later slices of the port): meshes, warmup and the
+servers.
 """
 
 from __future__ import annotations
@@ -31,7 +42,8 @@ import torch
 from repro_torch.core import exact as _exact
 from repro_torch.core import sa_alsh as _alsh
 from repro_torch.core import sah as _sah
-from repro_torch.core import srp as _srp
+from repro_torch.engine import artifact as _artifact
+from repro_torch.engine.artifact import as_rows, device_of
 from repro_torch.engine.config import EngineConfig, get_config
 from repro_torch.kernels.hamming_scan import SELECT_MAX_ROWS, SELECT_MAX_WORDS
 
@@ -95,15 +107,6 @@ class KMIPSResult(NamedTuple):
     k: int
 
 
-def _device(device) -> torch.device:
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "RkMIPSEngine runs on a CUDA device by default and none is "
-            "available; pass device='cpu' to run the plain PyTorch path")
-    return dev
-
-
 def check_kernel_limits(config: EngineConfig, device_type: str) -> None:
     """Raise ``ValueError`` for a config whose queries would reach a limit
     of a CUDA kernel on ``device_type`` ("cuda"), naming the kernel and the
@@ -129,18 +132,9 @@ def check_kernel_limits(config: EngineConfig, device_type: str) -> None:
                          f"fewer bits, scan='exact' or device='cpu'")
 
 
-def _as_rows(x, name: str, device: torch.device) -> torch.Tensor:
-    t = torch.as_tensor(x)
-    if t.dim() != 2 or t.shape[0] < 1:
-        raise ValueError(f"{name} must be a non-empty 2-D (rows, d) array, "
-                         f"got shape {tuple(t.shape)}")
-    if not t.is_floating_point():
-        raise ValueError(f"{name} must have a floating dtype, got {t.dtype}")
-    return t.to(device=device, dtype=torch.float32).contiguous()
-
-
 class RkMIPSEngine:
-    """Config-driven RkMIPS engine on one device.
+    """Config-driven RkMIPS engine on one device, serving one attached
+    ``IndexArtifact`` version at a time.
 
     config: an ``EngineConfig`` or a registry name ("sah", "simpfer", ...).
     device: where the index lives and the queries run; None means "cuda".
@@ -152,18 +146,18 @@ class RkMIPSEngine:
         if not isinstance(config, EngineConfig):
             raise TypeError(f"config must be an EngineConfig or a registry "
                             f"name, got {type(config).__name__}")
-        self.device = _device(device)
+        self.device = device_of(device, "RkMIPSEngine")
         check_kernel_limits(config, self.device.type)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.config = config
+        self.artifact: _artifact.IndexArtifact | None = None
         self.build_seconds: float | None = None
         self.n_users: int | None = None
         self._index: _sah.SAHIndex | None = None
         self._items: torch.Tensor | None = None
         self._users_unit: torch.Tensor | None = None
-        self._kmips_proj: torch.Tensor | None = None
-        self._kmips_index: _alsh.SAALSHIndex | None = None
+        self._delta: tuple = (None, None)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -174,52 +168,82 @@ class RkMIPSEngine:
               ) -> "RkMIPSEngine":
         """Index ``items`` (n, d) for ``users`` (m, d). Returns self.
 
-        ``proj`` ((d+1, n_bits) f32) and ``cone_order`` (a permutation of
-        the m_pad padded users) inject the reverse build's two random
-        draws, and ``kmips_proj`` ((d+1, n_bits) f32) the projection of the
-        forward index over all items; whatever is not injected comes from
-        ``generator`` (a CPU generator, seeded 0 when None), the forward
-        projection after the reverse draws. ``users=None`` builds only the
-        forward index, at once; otherwise it is built at the first
-        ``kmips`` (``artifact.py:197-215,381-390``).
+        ``attach(IndexArtifact.build(...))`` with this engine's config and
+        device. ``proj`` ((d+1, n_bits) f32) and ``cone_order`` (a
+        permutation of the m_pad padded users) inject the reverse build's
+        two random draws, and ``kmips_proj`` ((d+1, n_bits) f32) the
+        projection of the forward index over all items; the artifact's key
+        and whatever is not injected come from ``generator`` (a CPU
+        generator, seeded 0 when None), the key first and the forward
+        projection last. ``users=None`` builds only the forward index, at
+        once; otherwise it is built at the first ``kmips``.
         """
-        cfg = self.config
-        items = _as_rows(items, "items", self.device)
-        if users is not None:
-            users = _as_rows(users, "users", self.device)
-            if users.shape[1] != items.shape[1]:
-                raise ValueError(f"users dimensionality ({users.shape[1]}) "
-                                 f"!= items dimensionality "
-                                 f"({items.shape[1]})")
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        if proj is not None:
-            proj = _as_rows(proj, "proj", self.device)
-        if cone_order is not None:
-            cone_order = torch.as_tensor(cone_order).to(torch.int64)
         t0 = time.perf_counter()
-        self._index = self._users_unit = self.n_users = None
-        if users is not None:
-            self._index = _sah.build(items, users, generator=generator,
-                                     proj=proj, cone_order=cone_order,
-                                     **cfg.build_kwargs())
-            self._users_unit = _sah.unit_rows(users)
-            self.n_users = users.shape[0]
-        if kmips_proj is None:
-            kmips_proj = _srp.make_projection(generator, items.shape[1] + 1,
-                                              cfg.n_bits, self.device)
-        self._kmips_proj = _as_rows(kmips_proj, "kmips_proj", self.device)
-        self._items = items
-        self._kmips_index = None
-        if users is None:
-            self._kmips_index = self.kmips_index
+        art = _artifact.IndexArtifact.build(
+            items, users, generator, config=self.config, proj=proj,
+            cone_order=cone_order, kmips_proj=kmips_proj, device=self.device)
+        self.attach(art)
         self._sync()
         self.build_seconds = time.perf_counter() - t0
         return self
 
+    @classmethod
+    def from_artifact(cls, artifact: "_artifact.IndexArtifact", *,
+                      device=None) -> "RkMIPSEngine":
+        """An engine with the artifact's own config serving ``artifact``;
+        ``device`` (None means "cuda") must be the artifact's."""
+        return cls(artifact.config, device=device).attach(artifact)
+
+    def attach(self, artifact: "_artifact.IndexArtifact") -> "RkMIPSEngine":
+        """Make ``artifact`` the engine's live version. Returns self.
+
+        The configs must agree but for the knobs that change no answer
+        (``delta_capacity``, ``build_sharding``, ``scan_precision``,
+        ``scan_budget``), as the reference requires (``engine.py:
+        325-342``). Wires up the delta buffer (and its int8 twin) when a
+        staged row is live."""
+        if not isinstance(artifact, _artifact.IndexArtifact):
+            raise TypeError(f"attach expects an IndexArtifact, got "
+                            f"{type(artifact).__name__}")
+        if artifact.config.replace(
+                delta_capacity=self.config.delta_capacity,
+                build_sharding=self.config.build_sharding,
+                scan_precision=self.config.scan_precision,
+                scan_budget=self.config.scan_budget) != self.config:
+            raise ValueError(
+                "artifact config does not match this engine's config; use "
+                "RkMIPSEngine.from_artifact(artifact) (or rebuild the "
+                "artifact with the engine's config)")
+        if artifact.device != self.device:
+            raise ValueError(f"the artifact lives on {artifact.device} and "
+                             f"this engine on {self.device}; load or build "
+                             f"it with device={str(self.device)!r}")
+        self.artifact = artifact
+        self._items = artifact.effective_items()
+        self._index = self._users_unit = self.n_users = None
+        if artifact.users is None:
+            # no reverse index, but live staged rows still join kmips
+            self._delta = artifact.kmips_delta()
+            artifact.ensure_kmips_index()
+            return self
+        # query_view owns the liveness rule: the buffer it returns is the
+        # one its top_norms covers
+        view, d_items, d_mask = artifact.query_view()
+        self._delta = (d_items, d_mask)
+        self._index = view
+        self.n_users = artifact.n_users
+        self._users_unit = artifact.users_unit()
+        return self
+
+    def _require_artifact(self) -> "_artifact.IndexArtifact":
+        if self.artifact is None:
+            raise RuntimeError("engine not built: call "
+                               "build(items, users, generator) first")
+        return self.artifact
+
     @property
     def index(self) -> _sah.SAHIndex:
-        """The built reverse index (read-only by convention)."""
+        """The attached reverse query view (read-only by convention)."""
         if self._index is None:
             raise RuntimeError("engine not built for reverse queries: call "
                                "build(items, users, generator) first")
@@ -227,16 +251,15 @@ class RkMIPSEngine:
 
     @property
     def kmips_index(self) -> _alsh.SAALSHIndex:
-        """The SA-ALSH index over all items that ``kmips`` scans, built
-        from ``cfg.kmips_build_kwargs(n)`` at its first use."""
-        if self._items is None:
-            raise RuntimeError("engine not built: call "
-                               "build(items, users, generator) first")
-        if self._kmips_index is None:
-            self._kmips_index = _alsh.build_index(
-                self._items, proj=self._kmips_proj,
-                **self.config.kmips_build_kwargs(self._items.shape[0]))
-        return self._kmips_index
+        """The base corpus's forward index that ``kmips`` scans, built at
+        its first use and memoized on the attached artifact."""
+        return self._require_artifact().ensure_kmips_index()
+
+    @property
+    def build_timings(self):
+        """The attached artifact's ``BuildTimings`` (engine/build.py), or
+        None when it was loaded or wired from pieces."""
+        return None if self.artifact is None else self.artifact.build_timings
 
     def _check_k(self, k: int) -> None:
         if not 1 <= k <= self.config.k_max:
@@ -261,17 +284,20 @@ class RkMIPSEngine:
 
     def query_batch(self, queries, k: int) -> QueryResult:
         """RkMIPS for a batch (nq, d) -> predictions (nq, m), through the
-        batched plan/execute pipeline (``core.sah.rkmips_batch``)."""
+        batched plan/execute pipeline (``core.sah.rkmips_batch``), with
+        the attached version's staged changes."""
         index = self.index
         self._check_k(k)
-        queries = _as_rows(queries, "queries", self.device)
+        queries = as_rows(queries, "queries", self.device)
+        d_items, d_mask = self._delta
         t0 = time.perf_counter()
         pred, stats = _sah.rkmips_batch(
             index, queries, k, n_cand=self.config.n_cand,
             scan=self.config.scan, chunk=self.config.chunk,
             tie_eps=self.config.tie_eps,
             scan_precision=self.config.scan_precision,
-            scan_budget=self.config.scan_budget)
+            scan_budget=self.config.scan_budget, delta_items=d_items,
+            delta_mask=d_mask)
         po = _sah.predictions_to_original(index, pred, self.n_users)
         self._sync()
         return QueryResult(po, stats, time.perf_counter() - t0, k,
@@ -285,22 +311,30 @@ class RkMIPSEngine:
         return res._replace(predictions=res.predictions[0], stats=stats)
 
     def kmips(self, q, k: int, *, n_cand: int | None = None) -> KMIPSResult:
-        """Approximate top-k MIPS over all items (``core/sa_alsh.py::
-        kmips_topk``, tiled and early-terminating). q: (d,) or (Q, d);
-        ``n_cand`` overrides the config's re-rank depth and is clamped to
-        the tile."""
-        index = self.kmips_index
+        """Approximate top-k MIPS over the effective items
+        (``core/sa_alsh.py::kmips_topk``, tiled and early-terminating).
+        q: (d,) or (Q, d). Deleted rows are masked out of the scan, and
+        live staged rows are merged in (``sa_alsh.merge_delta_topk``, the
+        same answers under every ``scan_precision``) with ids
+        ``n_base + slot``. ``n_cand`` overrides
+        the config's re-rank depth and is clamped to the tile."""
+        art = self._require_artifact()
+        index = art.kmips_query_view()
         if not 1 <= k <= self._items.shape[0]:
             raise ValueError(f"k={k} outside [1, n_items="
                              f"{self._items.shape[0]}]")
         n_cand = self.config.n_cand if n_cand is None else n_cand
         q = torch.as_tensor(q)
         single = q.dim() == 1
-        queries = _as_rows(q[None] if single else q, "queries", self.device)
+        queries = as_rows(q[None] if single else q, "queries", self.device)
         t0 = time.perf_counter()
         vals, ids, tiles = _alsh.kmips_topk(
             index, queries, k, n_cand=min(n_cand, index.tile),
             scan=self.config.scan)
+        d_items, d_mask = self._delta
+        if d_items is not None:
+            vals, ids = _alsh.merge_delta_topk(
+                vals, ids, queries, d_items, d_mask, k, art.n_base)
         self._sync()
         seconds = time.perf_counter() - t0
         if single:
@@ -308,14 +342,15 @@ class RkMIPSEngine:
         return KMIPSResult(vals, ids, tiles, seconds, k)
 
     def oracle(self, queries, k: int) -> torch.Tensor:
-        """Exact RkMIPS truth (nq, m) with the engine's own ``tie_eps``."""
+        """Exact RkMIPS truth (nq, m) over the attached version's
+        effective corpus, with the engine's own ``tie_eps``."""
         if self._users_unit is None:
             raise RuntimeError("engine not built: call "
                                "build(items, users, generator) first")
         queries = torch.as_tensor(queries)
         if queries.dim() == 1:
             queries = queries[None]
-        queries = _as_rows(queries, "queries", self.device)
+        queries = as_rows(queries, "queries", self.device)
         return _exact.rkmips_batch_chunked(self._items, self._users_unit,
                                            queries, k,
                                            tie_eps=self.config.tie_eps)

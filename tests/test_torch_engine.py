@@ -289,6 +289,8 @@ def test_import_pulls_in_neither_jax_nor_the_reference():
     code = ("import sys, repro_torch, repro_torch.core.sah, "
             "repro_torch.data.synthetic, repro_torch.kernels.ops, "
             "repro_torch.models.transformer, repro_torch.models.convert, "
+            "repro_torch.engine.artifact, repro_torch.engine.build, "
+            "repro_torch.train.checkpoint, repro_torch.core.transforms, "
             "repro_torch.configs.base; repro_torch.configs.base.all_archs(); "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "

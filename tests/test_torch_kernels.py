@@ -919,3 +919,42 @@ def test_cuda_lm_flash_prefill_matches_cpu_chunked(cuda, arch):
     step_want, _ = tf.decode_step(model.to("cpu"), cache_want, toks[:, 0])
     np.testing.assert_allclose(step.cpu().numpy(), step_want.numpy(),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_scan_kernels_equal_plain_on_a_tile_with_deleted_rows(cuda):
+    """An artifact's deletions mask rows inside tiles: on the first tile
+    of the delete view that holds a deleted row, ``hamming_nearest`` and
+    ``fused_scan`` equal their plain versions, and the int8 delta path
+    predicts as the f32 one."""
+    from repro_torch import RkMIPSEngine, get_config
+    from repro_torch.engine import IndexArtifact
+    rng = np.random.default_rng(14)
+    items = np.abs(rng.standard_normal((3000, 100))).astype(np.float32)
+    users = np.abs(rng.standard_normal((4000, 100))).astype(np.float32)
+    cfg = get_config("sah").replace(k_max=10, tile=512)
+    art = IndexArtifact.build(items, users, torch.Generator().manual_seed(0),
+                              config=cfg, device=cuda)
+    changed = art.delete_items(np.arange(150, 3000, 7)).insert_items(
+        items[:40] * 1.01)
+    view = changed.query_view()[0]
+    interior = view.alsh.item_mask != art.index.alsh.item_mask
+    t = int(torch.nonzero(interior)[0]) // cfg.tile
+    sl = slice(t * cfg.tile, (t + 1) * cfg.tile)
+    a = view.alsh
+    users_c = view.users[:256].contiguous()
+    ucodes = ops.srp_hash(users_c, a.proj[:-1])
+    args = (ucodes, a.codes[sl], a.item_mask[sl], 64)
+    assert not bool(a.item_mask[sl].all())
+    assert torch.equal(ops.hamming_nearest(*args),
+                       ref.hamming_nearest(*args))
+    fargs = (ucodes, a.codes[sl], a.item_mask[sl], a.qitems[sl],
+             a.qscale[sl], users_c)
+    for got, want in zip(ops.fused_scan(*fargs, n_cand=64),
+                         ref.fused_scan(*fargs, 64)):
+        assert torch.equal(got, want)
+    q = items[np.argsort(-np.linalg.norm(items, axis=1))[:3]]
+    f32 = RkMIPSEngine.from_artifact(changed).query_batch(q, 10)
+    int8 = RkMIPSEngine(cfg.replace(scan_precision="int8")).attach(
+        changed).query_batch(q, 10)
+    assert torch.equal(f32.predictions, int8.predictions)

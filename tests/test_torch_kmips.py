@@ -151,7 +151,7 @@ def test_engine_kmips_is_the_core_scan_on_its_forward_index(corpus):
                        device="cpu")
     eng.build(items, mf_data(8, 8, 300, D)[1], torch.Generator(),
               kmips_proj=proj)
-    assert eng._kmips_index is None              # built at the first kmips
+    assert eng.artifact.kmips_index is None      # built at the first kmips
     res = eng.kmips(queries, 10)
     idx = eng.kmips_index
     vals, ids, tiles = sa_alsh.kmips_topk(idx, torch.from_numpy(queries), 10)
