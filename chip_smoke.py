@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the port's five paths through their entry points, each with every
-launch count set to 0 just before it and read just after. The first four
+Drives the port's six paths through their entry points, each with every
+launch count set to 0 just before it and read just after. The first five
 run at the paper's Netflix scale (n = 17,770 items, m = 480,189 users,
 d = 100, synthetic MF-like factors from ``--seed``):
 
@@ -29,6 +29,17 @@ d = 100, synthetic MF-like factors from ``--seed``):
                 equal to ``ip_topk``'s over the effective items); then
                 ``compact``, equal bit for bit to a fresh build on the
                 effective items from the same generator state;
+  serving       on the f32 build with ``serve_batch_size=8,
+                serve_buckets=(1, 2, 4)``: the reverse server (f32 and
+                int8; 16 tickets and 3 more at rung 4) held against the f32
+                batch, the forward server (the 4,096 users as single
+                tickets, "sketch" and "exact" scans; rungs 1, 2 and 4 held
+                bitwise against the full-batch flush), the threaded runtime
+                (reverse: warmup, 4 submitter threads, the artifact phase's
+                change and a background compaction, each wave held against
+                a synchronous server on the same version; forward: the
+                4,096 users), and a gateway of three tenants in one pool
+                (reverse, reverse under a scan budget, forward);
   LM serving    qwen3-0.6b at full width and depth (28 layers, d 1024,
                 vocab 151,936, bf16, weights drawn from ``--seed``) with
                 ``attn_impl="flash"``: ``prefill`` of 4 prompts of 2,048
@@ -41,7 +52,9 @@ It
   3. fails unless every kernel of a path launched during that path (and
      ``hamming_nearest`` once per tile step of the f32 scan, as many times
      as ``fused_scan`` on the int8 path, the dense ``hamming_scores``
-     never; ``flash_attention`` exactly once per layer in prefill, every
+     never there but once per forward serving dispatch, and ``srp_hash``
+     once per forward serving dispatch and per reverse chunk;
+     ``flash_attention`` exactly once per layer in prefill, every
      launch on its ``wgmma`` route, never in decode; ``ip_topk``, which
      the port calls only for the exact forward answer, is counted around
      that one call);
@@ -851,6 +864,456 @@ def artifact_path(seed: int, eng, eng_ex, build_state, items, users,
     return {"peak_before": peak_before}
 
 
+SERVE_WAIT = 300     # seconds any one wait of the serving phase may take
+PLAN_COUNTERS = ("blocks_alive", "users_alive", "n_no_lb", "n_yes_norm",
+                 "n_scan", "truncated")
+
+
+def answers(tickets, what: str) -> list:
+    """Each ticket's answer; fails the smoke on a wait past SERVE_WAIT."""
+    out = []
+    for t in tickets:
+        try:
+            out.append(t.result(timeout=SERVE_WAIT))
+        except TimeoutError:
+            fail(f"{what}: a ticket was not answered within {SERVE_WAIT} s")
+    return out
+
+
+def submit_from_threads(submit, rows, n_threads: int, what: str) -> list:
+    """Submit ``rows`` one ticket each from ``n_threads`` threads (thread j
+    takes rows j, j + n_threads, ...); the tickets in row order."""
+    import threading
+    tickets = [None] * len(rows)
+
+    def send(j):
+        for i in range(j, len(rows), n_threads):
+            tickets[i] = submit(rows[i])
+
+    threads = [threading.Thread(target=send, args=(j,))
+               for j in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(SERVE_WAIT)
+        if t.is_alive():
+            fail(f"{what}: a submitter thread hung")
+    return tickets
+
+
+def same_reverse(what: str, got, want_pred, want_stats, row=None) -> None:
+    """Fail unless a served reverse answer has ``want_pred`` and the plan
+    counters and truncation flag of ``want_stats`` (row ``row`` of a
+    batch's, or a ticket's own) bit for bit."""
+    import torch
+    if not torch.equal(got.predictions, want_pred):
+        fail(f"{what}: predictions differ")
+    for f in PLAN_COUNTERS:
+        want = getattr(want_stats, f)
+        if not torch.equal(getattr(got.stats, f),
+                           want if row is None else want[row]):
+            fail(f"{what}: stats.{f} differs")
+
+
+def same_forward(what: str, got: list, want: list) -> None:
+    import torch
+    for g, w in zip(got, want):
+        if not (torch.equal(g.ids, w.ids) and torch.equal(g.values,
+                                                          w.values)):
+            fail(f"{what}: ids or values differ")
+
+
+def latency_ms(tickets) -> str:
+    import statistics
+    lat = sorted(t.latency * 1e3 for t in tickets)
+    p99 = lat[min(len(lat) - 1, int(0.99 * len(lat)))]
+    return (f"p50 {statistics.median(lat):.3f} ms, p99 {p99:.3f} ms over "
+            f"{len(lat)} tickets")
+
+
+def serving_path(seed: int, eng, queries, users_fwd, exact_ids, items,
+                 results) -> dict:
+    """The serving phase on the f32 engine's build, with
+    ``serve_batch_size=8, serve_buckets=(1, 2, 4)``: the reverse server
+    (f32 and int8), the forward server ("sah" and "exact" scans, rungs 1,
+    2 and 4 against the full-batch flush), the threaded runtime (reverse
+    with a catalogue change and a background compaction, forward), and a
+    gateway of three tenants in one pool. Fails on any miss; returns the
+    peak device memory before the phase and the dense ``hamming_scores``
+    kernel's serving-shape numbers."""
+    import math
+    import torch
+    from repro_torch import RkMIPSEngine
+    from repro_torch.engine import (RetrievalServer, ServingGateway,
+                                    ServingRuntime, TenantPolicy)
+    from repro_torch.kernels import ops, ref
+
+    t_start = t_mark = time.perf_counter()
+    parts = {}
+
+    def mark(name):                 # host seconds of each part of the phase
+        nonlocal t_mark
+        now = time.perf_counter()
+        parts[name] = round(now - t_mark, 2)
+        t_mark = now
+
+    peak_before = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = eng.config.replace(serve_batch_size=8, serve_buckets=(1, 2, 4))
+    art = eng.artifact.with_config(cfg)
+    k = 10
+    rows = list(queries.unbind(0))
+    m_pad = eng.index.n_users
+
+    def chunks(served) -> int:
+        """srp_hash launches of the reverse dispatches that answered
+        ``served``: one a chunk, ceil(scan lanes / chunk) a dispatch."""
+        funnels = {id(r.funnel): r.funnel for r in served}.values()
+        return sum(math.ceil(f.scan_lanes / min(cfg.chunk, f.queries * m_pad))
+                   for f in funnels)
+
+    # -- the reverse server, f32 and int8, counted ----------------------------
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    srv = {}
+    served = {}
+    for prec in ("f32", "int8"):
+        e = RkMIPSEngine(cfg.replace(scan_precision=prec)).attach(art)
+        srv[prec] = e.reverse_server()
+        srv[prec].submit(queries)
+        full = srv[prec].flush(k)                        # 2 dispatches of 8
+        rung = srv[prec].bucket_for(3)
+        if rung != 4:
+            fail(f"3 tickets pad to rung {rung}, not 4")
+        part = srv[prec]._flush_batch(rows[:3], k, pad_to=rung)
+        served[prec] = full + part
+    t_rev = time.perf_counter() - t0
+    want_pred = results[k].predictions
+    packed_equal = 0
+    for i, r in enumerate(served["f32"]):
+        row = i if i < len(rows) else i - len(rows)
+        same_reverse(f"reverse server ticket {i}", r, want_pred[row],
+                     results[k].stats, row)
+        packed_equal += int(torch.equal(r.stats.tiles_scanned,
+                                        results[k].stats.tiles_scanned[row]))
+        r8 = served["int8"][i]
+        same_reverse(f"int8 reverse server ticket {i}", r8, r.predictions,
+                     r.stats)
+        for f in ("tiles_scanned", "chunks"):
+            if not torch.equal(getattr(r8.stats, f), getattr(r.stats, f)):
+                fail(f"int8 reverse server ticket {i}: stats.{f} differs "
+                     f"from f32's")
+    rev_chunks = chunks(served["f32"]) + chunks(served["int8"])
+    rev_launches = dict(ops.launch_counts)
+    print(f"serving: reverse server k={k}, 16 tickets (2 dispatches of 8) + "
+          f"3 (rung 4), f32 and int8: {t_rev:.2f} s; predictions and plan "
+          f"counters equal the f32 path's batch of 16 bitwise (tiles_scanned "
+          f"in {packed_equal} of 19 rows: a packing count), int8 == f32 "
+          f"bitwise (whole rows); {rev_chunks} chunks; launches "
+          f"{rev_launches}")
+    if rev_launches["srp_hash"] != rev_chunks:
+        fail(f"reverse server: {rev_launches['srp_hash']} srp_hash launches "
+             f"for {rev_chunks} chunks")
+    for name in ("hamming_nearest", "fused_scan"):
+        if rev_launches[name] <= 0:
+            fail(f"kernel {name} was not launched by the reverse server")
+    if rev_launches["hamming_scores"] != 0:
+        fail("the reverse server launched the dense hamming_scores")
+    mark("reverse server")
+
+    # -- the forward server, "sah" and "exact" scans, counted -----------------
+    fsrv = RetrievalServer.from_artifact(art)
+    if fsrv.cache.builds != 0:
+        fail("the forward server rebuilt the artifact's forward index")
+    users = list(users_fwd.unbind(0))
+    fwd, fwd_s, dispatches = {}, {}, 0
+    for scan in ("sketch", "exact"):
+        t0 = time.perf_counter()
+        for u in users:
+            fsrv.submit(u)
+        fwd[scan] = fsrv.flush(k, scan=scan)
+        torch.cuda.synchronize()
+        fwd_s[scan] = time.perf_counter() - t0
+        n_full = -(-len(users) // cfg.serve_batch_size)
+        for rung in (1, 2, 4):
+            for lo in range(0, len(users), rung):
+                got = fsrv._flush_batch(users[lo:lo + rung], k, scan=scan,
+                                        pad_to=rung)
+                same_forward(f"forward {scan} rung {rung} at user {lo}", got,
+                             fwd[scan][lo:lo + rung])
+            n_full += -(-len(users) // rung)
+        if scan == "sketch":
+            dispatches = n_full
+    launches = {n: ops.launch_counts[n] - rev_launches[n]
+                for n in ops.launch_counts}
+    if launches["hamming_scores"] != dispatches:
+        fail(f"forward server: {launches['hamming_scores']} hamming_scores "
+             f"launches for {dispatches} sketch dispatches")
+    if ops.launch_counts["srp_hash"] != dispatches + rev_chunks:
+        fail(f"serving: srp_hash grew by {ops.launch_counts['srp_hash']}, "
+             f"not {dispatches} forward dispatches + {rev_chunks} reverse "
+             f"chunks")
+    ids = {s: torch.stack([r.ids for r in fwd[s]]) for s in fwd}
+    vals = torch.stack([r.values for r in fwd["exact"]])
+    ties = ip_tie_check(users_fwd, items, ids["exact"], exact_ids)
+    recomputed = (users_fwd[:, None, :] * items[ids["exact"].long()]).sum(-1)
+    if not torch.allclose(vals, recomputed, rtol=1e-5, atol=1e-6):
+        fail("forward server exact: values are not the ids' inner products")
+    hit = (ids["sketch"][:, :, None] == exact_ids[:, None, :]).any(-1)
+    print(f"serving: forward server, 4,096 single tickets, k={k}: sketch "
+          f"{fwd_s['sketch']:.3f} s, exact {fwd_s['exact']:.3f} s (512 "
+          f"dispatches each); rungs 1, 2 and 4 bitwise equal to the full "
+          f"batch at every user under both scans; sketch recall@10 vs "
+          f"ip_topk {float(hit.float().mean()):.6f}; exact ids equal "
+          f"ip_topk's but for {ties} float ties; hamming_scores launches = "
+          f"{dispatches} sketch dispatches; srp_hash = {dispatches} + "
+          f"{rev_chunks} reverse chunks; launches {launches}")
+    mark("forward server, rungs included")
+
+    # -- srp_hash and the dense kernel at the serving shapes ------------------
+    state = fsrv.cache.get(cfg)
+    pq = state.proj_q
+    for q in cfg.bucket_ladder():       # every rung and the full batch
+        xq = users_fwd[:q].contiguous()
+        srp_err = codes_equal(f"srp_hash at the serving shape "
+                              f"{tuple(xq.shape)}x{tuple(pq.shape)}",
+                              ops.srp_hash(xq, pq), ref.srp_hash(xq, pq))
+    x8 = users_fwd[:cfg.serve_batch_size].contiguous()
+    ucodes8 = ops.srp_hash(x8, pq)
+    (q8, dq), b = x8.shape, pq.shape[1]
+    srp_bytes = 4 * (q8 * dq + dq * b + q8 * b // 32)
+    t_bytes, t_ops = (srp_bytes / HBM_BYTES_PER_S,
+                      2 * q8 * dq * b / FP32_FLOP_PER_S)
+    srp = {
+        "serving_shape": f"{tuple(x8.shape)}x{tuple(pq.shape)}",
+        "serving_shapes_checked": [[q, dq] for q in cfg.bucket_ladder()],
+        "serving_launches": launches["srp_hash"],
+        "serving_max_abs_err": srp_err,
+        "serving_ms": device_ms(lambda: ops.srp_hash(x8, pq), ITERS),
+        "serving_plain_ms": device_ms(lambda: ref.srp_hash(x8, pq), 20),
+        "serving_call_ms": call_ms(lambda: ops.srp_hash(x8, pq), ITERS),
+        "serving_bound_ms": max(t_bytes, t_ops) * 1e3,
+        "serving_bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    print(f"time srp_hash at the serving shape {srp['serving_shape']} "
+          f"(equal to its plain version at rungs "
+          f"{list(cfg.bucket_ladder())}): kernel {srp['serving_ms']:.5f} ms "
+          f"(device), {srp['serving_call_ms']:.5f} ms per call from "
+          f"Python; plain {srp['serving_plain_ms']:.5f} ms; bound "
+          f"{srp['serving_bound_ms']:.6f} ms ({srp['serving_bound_by']}); "
+          f"{srp['serving_launches']} launches on the forward server")
+    dense_err = codes_equal("hamming_scores at the serving shape",
+                            ops.hamming_scores(ucodes8, state.codes),
+                            ref.hamming_scores(ucodes8, state.codes))
+    (q8, w), n = ucodes8.shape, state.codes.shape[0]
+    nbytes = 4 * (q8 * w + n * w + q8 * n)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 3 * q8 * n * w / INT32_OP_PER_S
+    dense = {
+        "serving_shape": f"{tuple(ucodes8.shape)}x{tuple(state.codes.shape)}",
+        "serving_launches": launches["hamming_scores"],
+        "serving_max_abs_err": dense_err,
+        "serving_ms": device_ms(lambda: ops.hamming_scores(ucodes8,
+                                                           state.codes),
+                                ITERS),
+        "serving_plain_ms": device_ms(lambda: ref.hamming_scores(
+            ucodes8, state.codes), 20),
+        "serving_call_ms": call_ms(lambda: ops.hamming_scores(
+            ucodes8, state.codes), ITERS),
+        "serving_bound_ms": max(t_bytes, t_ops) * 1e3,
+        "serving_bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "serving_bytes": nbytes}
+    print(f"time hamming_scores (dense) at the serving shape "
+          f"{dense['serving_shape']}: kernel {dense['serving_ms']:.5f} ms "
+          f"(device), {dense['serving_call_ms']:.5f} ms per call from "
+          f"Python; plain {dense['serving_plain_ms']:.5f} ms; bound "
+          f"{dense['serving_bound_ms']:.6f} ms ({dense['serving_bound_by']}: "
+          f"{nbytes} bytes); {launches['hamming_scores']} launches in the "
+          f"phase")
+    mark("serving-shape kernel timing")
+
+    # -- the reverse runtime: warmup, threads, a change, a compaction ---------
+    rt = None
+    try:
+        t0 = time.perf_counter()
+        # compact_fill 1.0: the change (192 of 256 slots) starts no
+        # compaction of its own; request_compaction() below does
+        rt = ServingRuntime(RkMIPSEngine(cfg).attach(art).reverse_server(),
+                            k=k, warmup=True, workers=2, compaction=True,
+                            compact_fill=1.0)
+        t_warm = time.perf_counter() - t0
+        warm_sigs = rt.server.compile_count
+        tickets = submit_from_threads(rt.submit, rows, 4, "reverse runtime")
+        first_wave = answers(tickets, "reverse runtime")
+        for i, r in enumerate(first_wave):
+            same_reverse(f"reverse runtime ticket {i}", r,
+                         served["f32"][i].predictions,
+                         served["f32"][i].stats)
+        if rt.stats.traces_after_warmup != 0:
+            fail(f"reverse runtime: {rt.stats.traces_after_warmup} "
+                 f"signatures after warmup")
+        rev_lat = latency_ms(tickets)
+        dels, new_rows = catalogue_change(seed, items,
+                                          art.index.top_ids.numel())
+        rt.delete_items(dels)
+        rt.insert_items(new_rows)
+        after_change = answers(submit_from_threads(
+            rt.submit, rows, 4, "reverse runtime"), "reverse runtime")
+        sync = RkMIPSEngine(cfg).attach(rt.artifact).reverse_server()
+        sync.submit(queries)
+        for i, (r, w) in enumerate(zip(after_change, sync.flush(k))):
+            same_reverse(f"reverse runtime after the change, ticket {i}", r,
+                         w.predictions, w.stats)
+        changed = sum(not torch.equal(r.predictions, want_pred[i])
+                      for i, r in enumerate(after_change))
+        if changed == 0:
+            fail("reverse runtime: no audience moved with the change")
+        t0 = time.perf_counter()
+        rt.request_compaction()
+        end = time.monotonic() + SERVE_WAIT
+        while rt.stats.compactions < 1:
+            if time.monotonic() > end:
+                fail("reverse runtime: the compaction never landed")
+            time.sleep(0.01)
+        t_compact = time.perf_counter() - t0
+        if not rt.drain(timeout=SERVE_WAIT):
+            fail("reverse runtime: drain timed out")
+        st = rt.stats
+        if st.compactions != 1 or rt.artifact.has_pending \
+                or rt.artifact.n_base != art.n_items - len(dels) + len(
+                    new_rows):
+            fail(f"reverse runtime: compaction state wrong ({st})")
+        after_compact = answers(submit_from_threads(
+            rt.submit, rows, 4, "reverse runtime"), "reverse runtime")
+        sync = RkMIPSEngine(cfg).attach(rt.artifact).reverse_server()
+        sync.submit(queries)
+        for i, (r, w) in enumerate(zip(after_compact, sync.flush(k))):
+            same_reverse(f"reverse runtime after the compaction, ticket {i}",
+                         r, w.predictions, w.stats)
+            if not torch.equal(r.predictions, after_change[i].predictions):
+                fail(f"reverse runtime ticket {i}: the compaction moved "
+                     f"an answer")
+        st = rt.stats
+        print(f"serving: reverse runtime (workers 2, warmup {t_warm:.3f} s "
+              f"for {warm_sigs} signatures, 0 after it), 3 waves of 16 "
+              f"tickets from 4 threads: {rev_lat} (first wave); "
+              f"batches {st.batches}, bucket_hits {st.bucket_hits}, "
+              f"bucket_pad_rows {st.bucket_pad_rows}, swaps {st.swaps}, "
+              f"compactions {st.compactions} (requested to landed "
+              f"{t_compact:.3f} s, {rt.last_compaction_seconds:.3f} s "
+              f"off-thread); answers equal the synchronous server's on each "
+              f"version bitwise ({changed} of 16 audiences moved with the "
+              f"change, none with the compaction)")
+    finally:
+        if rt is not None:
+            rt.close(timeout=SERVE_WAIT)
+    mark("reverse runtime, sync references included")
+
+    # -- the forward runtime --------------------------------------------------
+    # 4 submitter threads on 2 workers, then 1 on 1: how much of a
+    # ticket's cost is the threads' contention for the host
+    for n_sub, n_work in ((4, 2), (1, 1)):
+        rt = None
+        try:
+            t0 = time.perf_counter()
+            rt = ServingRuntime(RetrievalServer.from_artifact(art), k=k,
+                                warmup=True, workers=n_work)
+            t_warm_f = time.perf_counter() - t0
+            tickets = submit_from_threads(rt.submit, users, n_sub,
+                                          "forward runtime")
+            same_forward("forward runtime",
+                         answers(tickets, "forward runtime"), fwd["sketch"])
+            if not rt.drain(timeout=SERVE_WAIT):
+                fail("forward runtime: drain timed out")
+            st = rt.stats
+            if st.traces_after_warmup != 0 or st.completed != len(users):
+                fail(f"forward runtime: {st}")
+            span = max(t.done_at for t in tickets) - min(t.submitted_at
+                                                         for t in tickets)
+            print(f"serving: forward runtime (workers {n_work}, warmup "
+                  f"{t_warm_f:.3f} s), 4,096 tickets from {n_sub} "
+                  f"thread(s): {latency_ms(tickets)}; "
+                  f"{len(users) / span:.0f} tickets/s; batches "
+                  f"{st.batches}, bucket_hits {st.bucket_hits}, "
+                  f"bucket_pad_rows {st.bucket_pad_rows}; answers equal the "
+                  f"synchronous flush bitwise")
+        finally:
+            if rt is not None:
+                rt.close(timeout=SERVE_WAIT)
+    mark("forward runtime")
+
+    # -- the gateway: three tenants in one pool -------------------------------
+    budget = max(1, int(results[k].stats.tiles_scanned.median()))
+    gw = ServingGateway(pool_workers=2)
+    try:
+        gw.register("reverse", art, k=k)
+        gw.register("budgeted", art, k=k,
+                    policy=TenantPolicy(scan_budget=budget))
+        gw.register("forward", art, k=k, mode="forward")
+        if gw.runtime("budgeted").server.engine._sigs is not \
+                gw.runtime("reverse").server.engine._sigs:
+            fail("gateway: the budgeted tenant did not adopt the reverse "
+                 "tenant's dispatch")
+        t0 = time.perf_counter()
+        cells = gw.warmup()
+        t_gw_warm = time.perf_counter() - t0
+        rev_t = submit_from_threads(lambda q: gw.submit("reverse", q), rows,
+                                    2, "gateway")
+        bud_t = submit_from_threads(lambda q: gw.submit("budgeted", q), rows,
+                                    2, "gateway")
+        fwd_t = submit_from_threads(lambda u: gw.submit("forward", u), users,
+                                    4, "gateway")
+        rev_g = answers(rev_t, "gateway reverse")
+        bud_g = answers(bud_t, "gateway budgeted")
+        same_forward("gateway forward", answers(fwd_t, "gateway forward"),
+                     fwd["sketch"])
+        if not gw.drain(timeout=SERVE_WAIT):
+            fail("gateway: drain timed out")
+        for i, r in enumerate(rev_g):
+            same_reverse(f"gateway budget-0 ticket {i}", r,
+                         first_wave[i].predictions, first_wave[i].stats)
+        flagged = 0
+        for i, r in enumerate(bud_g):
+            full = rev_g[i].predictions
+            if bool((r.predictions & ~full).any()):
+                fail(f"gateway budgeted ticket {i}: a user the unbudgeted "
+                     f"answer lacks")
+            if r.truncated:
+                flagged += 1
+                if int(r.stats.tiles_scanned) < budget:
+                    fail(f"gateway budgeted ticket {i}: truncated below "
+                         f"its budget")
+            elif not torch.equal(r.predictions, full):
+                fail(f"gateway budgeted ticket {i}: not truncated but not "
+                     f"exact")
+        if flagged == 0:
+            fail(f"gateway: budget {budget} truncated no ticket")
+        st = gw.stats()
+        tn = st.tenants
+        if st.traces_after_warmup != 0 or tn["reverse"].completed != 16 \
+                or tn["budgeted"].completed != 16 \
+                or tn["forward"].completed != len(users) \
+                or tn["budgeted"].truncated != flagged \
+                or tn["reverse"].truncated != 0:
+            fail(f"gateway stats: {st}")
+        print(f"serving: gateway, 3 tenants on 2 pool workers (warmup "
+              f"{cells} cells in {t_gw_warm:.3f} s, 0 signatures after it): "
+              f"budget-0 reverse equals the dedicated runtime bitwise, "
+              f"{latency_ms(rev_t)}; budgeted (scan_budget {budget}, the "
+              f"median tile visits of the 16 queries) truncated {flagged} "
+              f"of 16, each flagged at or past its budget and a subset of "
+              f"the unbudgeted answer, {latency_ms(bud_t)}; forward equals "
+              f"the synchronous flush bitwise, {latency_ms(fwd_t)}; "
+              f"completed {[tn[n].completed for n in tn]}, truncated "
+              f"{[tn[n].truncated for n in tn]}")
+    finally:
+        gw.close(timeout=SERVE_WAIT)
+    mark("gateway")
+
+    print(f"serving phase: {time.perf_counter() - t_start:.1f} s host "
+          f"({parts}), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return {"peak_before": peak_before, "dense": dense, "srp": srp}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1056,7 +1519,12 @@ def main() -> int:
                             queries, users_fwd, results, results8)
     phase_done("artifact")
 
-    # -- LM serving path, counted ----------------------------------------------
+    # -- serving: servers, runtimes and a gateway, counted -------------------
+    serve_out = serving_path(args.seed, eng, queries, users_fwd, exact_ids,
+                             items, results)
+    phase_done("serving")
+
+    # -- LM serving path, counted ---------------------------------------------
     lm = lm_path(args.seed, dev)
     lm["flash_build"] = flash_build
     phase_done("lm path")
@@ -1290,7 +1758,7 @@ def main() -> int:
     profile_query(eng8, queries, 10, steps[10])
     phase_done("profiles")
     peak = max(lm["peak_before"], art_out["peak_before"],
-               torch.cuda.max_memory_allocated())
+               serve_out["peak_before"], torch.cuda.max_memory_allocated())
     print(f"peak device memory: {peak / 2**30:.2f} GiB")
 
     kernels = [
@@ -1307,7 +1775,8 @@ def main() -> int:
          "build_shape_no_fma_floor_ms": srpb_flr,
          "build_shape_max_abs_err": err_b,
          "launches_int8_path": launches8["srp_hash"],
-         "launches_forward_path": launches_f["srp_hash"]},
+         "launches_forward_path": launches_f["srp_hash"],
+         **serve_out["srp"]},
         {"name": "hamming_nearest", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hamming_scan.cu",
          "replaces": "src/repro/kernels/hamming_scan.py:36",
@@ -1323,10 +1792,12 @@ def main() -> int:
          "rows_4096_ms": near4k_ms, "rows_4096_bound_ms": near4k_bound,
          "launches_forward_path": launches_f["hamming_nearest"],
          "dense_hamming_scores": {
-             "launches": launches["hamming_scores"]
+             "launches": serve_out["dense"]["serving_launches"],
+             "launches_reverse_and_kmips_paths": launches["hamming_scores"]
              + launches8["hamming_scores"] + launches_f["hamming_scores"],
              "max_abs_err": ham_err, "ms": ham_ms, "plain_ms": ham_plain,
-             "bound_ms": ham_bound, "bound_by": ham_by, "call_ms": ham_call}},
+             "bound_ms": ham_bound, "bound_by": ham_by, "call_ms": ham_call,
+             "library_ms": None, **serve_out["dense"]}},
         {"name": "fused_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_scan.cu",
          "replaces": "src/repro/kernels/fused_scan.py:113",

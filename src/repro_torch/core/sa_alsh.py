@@ -18,6 +18,7 @@ per band pass.
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import torch
@@ -33,12 +34,15 @@ SCAN_PRECISIONS = ("f32", "int8")
 # Work of the int8 band re-rank in this process, for measurement
 # (``chip_smoke.py``): "passes" counts the host loop's passes; "lanes" sums
 # the lanes that enter a pass with band rows left, accumulated on the
-# device so that counting adds no sync. ``reset_band_counts`` zeroes both.
+# device so that counting adds no sync. ``reset_band_counts`` zeroes both;
+# serving threads update them under ``_band_lock``.
 band_counts: dict = {"passes": 0, "lanes": 0}
+_band_lock = threading.Lock()
 
 
 def reset_band_counts() -> None:
-    band_counts.update(passes=0, lanes=0)
+    with _band_lock:
+        band_counts.update(passes=0, lanes=0)
 
 
 class SAALSHIndex(NamedTuple):
@@ -310,8 +314,10 @@ def _tile_beat_int8(index: SAALSHIndex, ucodes, users, unorm, thr,
     # the reference's top_k over the band flags does.
     s_slots = min(16, n_cand)
     while bool(left.any()):
-        band_counts["passes"] += 1
-        band_counts["lanes"] = band_counts["lanes"] + left.any(dim=-1).sum()
+        with _band_lock:
+            band_counts["passes"] += 1
+            band_counts["lanes"] = band_counts["lanes"] + left.any(
+                dim=-1).sum()
         pos = torch.argsort((~left).to(torch.uint8), dim=-1,
                             stable=True)[:, :s_slots]
         real = left.gather(1, pos)

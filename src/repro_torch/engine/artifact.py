@@ -55,6 +55,10 @@ from repro_torch.train import checkpoint as _ckpt
 
 _FORMAT = 1
 _KIND = "sah-index-artifact"
+# config knobs no built array depends on (``IndexArtifact.with_config``)
+_RECONFIGURABLE = ("build_sharding", "scan_precision", "scan_budget",
+                   "serve_batch_size", "serve_buckets",
+                   "serve_cache_capacity")
 
 
 def device_of(device, who: str) -> torch.device:
@@ -254,6 +258,21 @@ class IndexArtifact:
         child._base_fp = self._base_fp
         child._users_unit = self._users_unit
         child.build_timings = self.build_timings
+        return child
+
+    def with_config(self, config: EngineConfig) -> "IndexArtifact":
+        """This version under ``config``, which may differ from its own
+        only in knobs no built array depends on: the execution-only ones
+        ``RkMIPSEngine.attach`` ignores and the ``serve_*`` ones. The
+        built pieces are shared, not copied; the fingerprint follows the
+        config, which it hashes."""
+        if config.replace(**{f: getattr(self.config, f)
+                             for f in _RECONFIGURABLE}) != self.config:
+            raise ValueError(
+                f"with_config changes only {', '.join(_RECONFIGURABLE)}; "
+                f"any other knob needs a rebuild")
+        child = self._evolve(config=config)
+        child._base_fp = None
         return child
 
     # -- identity ----------------------------------------------------------

@@ -28,13 +28,21 @@ raises. Tau, the lower bounds and the exact re-rank feed discrete
 decisions, so float32 products must stay float32: the engine turns off
 TF32 for matrix products and for cuDNN when it is made.
 
-Not here yet (later slices of the port): meshes, warmup and the
-servers.
+Online serving rides on the engine: ``server()`` and
+``reverse_server()`` (``engine/serving.py``), their threaded runtimes
+``async_server()`` and ``async_reverse_server()`` (``engine/runtime.py``),
+and ``warmup``. ``rkmips_compile_count`` counts the distinct reverse
+dispatch signatures (batch shape, k, delta buffer, index shapes) run
+through this engine's dispatch, shared with every engine made with
+``share_dispatch=`` it (PORT.md, "Serving").
+
+Not here yet (a later slice of the port): meshes.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from typing import NamedTuple
 
 import torch
@@ -138,9 +146,14 @@ class RkMIPSEngine:
 
     config: an ``EngineConfig`` or a registry name ("sah", "simpfer", ...).
     device: where the index lives and the queries run; None means "cuda".
+    share_dispatch: another engine whose dispatch signature set this one
+            adopts (the gateway's shared trace cache, DESIGN.md §15): the
+            configs must agree in every field but ``scan_budget``, on the
+            same device.
     """
 
-    def __init__(self, config: EngineConfig | str = "sah", *, device=None):
+    def __init__(self, config: EngineConfig | str = "sah", *, device=None,
+                 share_dispatch: "RkMIPSEngine | None" = None):
         if isinstance(config, str):
             config = get_config(config)
         if not isinstance(config, EngineConfig):
@@ -155,9 +168,34 @@ class RkMIPSEngine:
         self.build_seconds: float | None = None
         self.n_users: int | None = None
         self._index: _sah.SAHIndex | None = None
+        self._index_sig: tuple = ()
         self._items: torch.Tensor | None = None
         self._users_unit: torch.Tensor | None = None
         self._delta: tuple = (None, None)
+        if share_dispatch is None:
+            self._sigs: set = set()
+            return
+        donor = share_dispatch
+        if not isinstance(donor, RkMIPSEngine):
+            raise TypeError(f"share_dispatch expects an RkMIPSEngine, "
+                            f"got {type(donor).__name__}")
+        # the budget is a per-engine operand; every other knob shapes the
+        # dispatch the signatures stand for
+        if donor.config.replace(scan_budget=config.scan_budget) != config:
+            raise ValueError(
+                "share_dispatch requires configs equal in every field "
+                "except scan_budget (the budget is a traced operand; "
+                "all other query knobs bake into the shared trace)")
+        if donor.device != self.device:
+            raise ValueError("share_dispatch requires an engine on the same "
+                             "device")
+        self._sigs = donor._sigs
+
+    @property
+    def rkmips_compile_count(self) -> int:
+        """Distinct reverse dispatch signatures run, shared with every
+        engine in this engine's ``share_dispatch`` group."""
+        return len(self._sigs)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -221,6 +259,7 @@ class RkMIPSEngine:
         self.artifact = artifact
         self._items = artifact.effective_items()
         self._index = self._users_unit = self.n_users = None
+        self._index_sig = ()
         if artifact.users is None:
             # no reverse index, but live staged rows still join kmips
             self._delta = artifact.kmips_delta()
@@ -231,6 +270,7 @@ class RkMIPSEngine:
         view, d_items, d_mask = artifact.query_view()
         self._delta = (d_items, d_mask)
         self._index = view
+        self._index_sig = _shapes(view)
         self.n_users = artifact.n_users
         self._users_unit = artifact.users_unit()
         return self
@@ -282,6 +322,22 @@ class RkMIPSEngine:
             chunks=tot(stats.chunks),
             truncated=int((torch.as_tensor(stats.truncated) > 0).sum()))
 
+    def _dispatch(self, queries: torch.Tensor, k: int, delta: tuple):
+        """The reverse dispatch: one batched plan/execute over the
+        attached view with ``delta`` = (d_items, d_mask) or (None, None),
+        noting its signature."""
+        d_items, d_mask = delta
+        self._sigs.add((tuple(queries.shape), k,
+                        None if d_items is None else tuple(d_items.shape),
+                        self._index_sig))
+        return _sah.rkmips_batch(
+            self.index, queries, k, n_cand=self.config.n_cand,
+            scan=self.config.scan, chunk=self.config.chunk,
+            tie_eps=self.config.tie_eps,
+            scan_precision=self.config.scan_precision,
+            scan_budget=self.config.scan_budget, delta_items=d_items,
+            delta_mask=d_mask)
+
     def query_batch(self, queries, k: int) -> QueryResult:
         """RkMIPS for a batch (nq, d) -> predictions (nq, m), through the
         batched plan/execute pipeline (``core.sah.rkmips_batch``), with
@@ -289,19 +345,40 @@ class RkMIPSEngine:
         index = self.index
         self._check_k(k)
         queries = as_rows(queries, "queries", self.device)
-        d_items, d_mask = self._delta
         t0 = time.perf_counter()
-        pred, stats = _sah.rkmips_batch(
-            index, queries, k, n_cand=self.config.n_cand,
-            scan=self.config.scan, chunk=self.config.chunk,
-            tie_eps=self.config.tie_eps,
-            scan_precision=self.config.scan_precision,
-            scan_budget=self.config.scan_budget, delta_items=d_items,
-            delta_mask=d_mask)
+        pred, stats = self._dispatch(queries, k, self._delta)
         po = _sah.predictions_to_original(index, pred, self.n_users)
         self._sync()
         return QueryResult(po, stats, time.perf_counter() - t0, k,
                            self._funnel(stats, queries.shape[0]))
+
+    def warmup(self, ks, *, batch_sizes=None) -> int:
+        """First use of the reverse dispatch at every (batch, k) cell the
+        reference's warmup compiles (``engine.py:493-541``): one dispatch
+        on zero queries per cell, for the live delta buffer and, when the
+        artifact has none live, for its empty buffer too (the signature
+        its first staged insert brings). ``batch_sizes`` defaults to the
+        config's ``bucket_ladder()``. Zero queries give tau = 0: the plan
+        decides "no" every lane whose k-th lower bound is positive (on
+        MF data, every lane), so a warmup scans little. Returns the
+        number of cells."""
+        users = self.index.users             # raises unless built
+        batch_sizes = (self.config.bucket_ladder() if batch_sizes is None
+                       else tuple(batch_sizes))
+        deltas = [self._delta]
+        if self.artifact is not None and self._delta[0] is None:
+            deltas.append((self.artifact.delta_items,
+                           self.artifact.delta_mask))
+        cells = 0
+        for b in batch_sizes:
+            qs = users.new_zeros(b, users.shape[-1])
+            for k in tuple(ks):
+                self._check_k(k)
+                for delta in deltas:
+                    self._dispatch(qs, k, delta)
+                    cells += 1
+        self._sync()
+        return cells
 
     def query(self, q, k: int) -> QueryResult:
         """RkMIPS for one query (d,): a batch of one through the same
@@ -341,6 +418,34 @@ class RkMIPSEngine:
             vals, ids = vals[0], ids[0]
         return KMIPSResult(vals, ids, tiles, seconds, k)
 
+    # -- online serving ----------------------------------------------------
+
+    def server(self):
+        """A ``RetrievalServer`` over the attached artifact (its config,
+        this engine's device), seeded from the artifact's forward index
+        when it is built (``engine/serving.py``)."""
+        from repro_torch.engine import serving as _serving
+        return _serving.RetrievalServer.from_artifact(
+            self._require_artifact())
+
+    def reverse_server(self):
+        """A ``ReverseServer`` over this engine: a ticket queue over
+        ``query_batch``. Requires a user-side build."""
+        from repro_torch.engine import serving as _serving
+        return _serving.ReverseServer(self)
+
+    def async_server(self, **runtime_kwargs):
+        """A threaded ``ServingRuntime`` over ``server()``
+        (``engine/runtime.py``); keyword args go to ``ServingRuntime``."""
+        from repro_torch.engine import runtime as _runtime
+        return _runtime.ServingRuntime(self.server(), **runtime_kwargs)
+
+    def async_reverse_server(self, **runtime_kwargs):
+        """A threaded ``ServingRuntime`` over ``reverse_server()``."""
+        from repro_torch.engine import runtime as _runtime
+        return _runtime.ServingRuntime(self.reverse_server(),
+                                       **runtime_kwargs)
+
     def oracle(self, queries, k: int) -> torch.Tensor:
         """Exact RkMIPS truth (nq, m) over the attached version's
         effective corpus, with the engine's own ``tie_eps``."""
@@ -354,3 +459,34 @@ class RkMIPSEngine:
         return _exact.rkmips_batch_chunked(self._items, self._users_unit,
                                            queries, k,
                                            tie_eps=self.config.tie_eps)
+
+
+def _shapes(nt) -> tuple:
+    """The shapes of a NamedTuple's tensor leaves, nested ones included."""
+    return tuple(_shapes(v) if hasattr(v, "_fields")
+                 else tuple(v.shape) if isinstance(v, torch.Tensor) else v
+                 for v in nt)
+
+
+def serving_codes(item_vecs, generator: torch.Generator | None = None, *,
+                  n_bits: int = 256, config: EngineConfig | None = None,
+                  key=None, kmips_proj=None, device=None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """DEPRECATED offline sketch build (``engine.py:649-673``); use
+
+        art = IndexArtifact.build(item_vecs, None, generator,
+                                  config=cfg.replace(n_bits=n_bits))
+        codes, proj_q = art.serving_codes()
+
+    which this shim builds and forwards to: ``(codes (n, W) int32 bit
+    views of the reference's uint32, proj_q (d, n_bits))``. ``key``,
+    ``kmips_proj`` and ``generator`` are ``IndexArtifact.build``'s."""
+    warnings.warn(
+        "repro_torch.engine.serving_codes is deprecated: build an "
+        "IndexArtifact and call artifact.serving_codes() (see "
+        "engine/artifact.py)", DeprecationWarning, stacklevel=2)
+    cfg = (config or get_config("sah")).replace(n_bits=n_bits)
+    art = _artifact.IndexArtifact.build(item_vecs, None, generator,
+                                        config=cfg, key=key,
+                                        kmips_proj=kmips_proj, device=device)
+    return art.serving_codes()

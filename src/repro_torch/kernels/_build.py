@@ -18,7 +18,12 @@ Nothing outside the repository is read but the CUDA toolkit.
 Every C entry point takes its pointers and the stream as ``c_void_p`` and
 returns ``cudaGetLastError()`` of its launch; ``check`` raises on a
 nonzero code. ``launch_counts`` counts, per kernel, the launches its
-wrapper made; the wrappers are the only writers.
+wrapper made; the wrappers are the only writers, through ``count_launch``.
+
+Serving threads may use a kernel for the first time together and launch
+together: ``load`` and ``entry`` run under one lock, so a library is built
+and loaded once per process, each build writes a temporary file of its
+own, and ``count_launch`` adds under a lock, so no launch is lost.
 """
 
 from __future__ import annotations
@@ -27,7 +32,9 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 import time
+import uuid
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -46,6 +53,20 @@ launch_counts: dict[str, int] = {"hamming_scores": 0, "hamming_nearest": 0,
 
 _libs: dict[str, ctypes.CDLL] = {}
 _entries: dict[str, ctypes._CFuncPtr] = {}
+_load_lock = threading.RLock()
+_count_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of kernel ``name`` to ``launch_counts``."""
+    with _count_lock:
+        launch_counts[name] += 1
+
+
+def reset_launch_counts() -> None:
+    with _count_lock:
+        for name in launch_counts:
+            launch_counts[name] = 0
 
 
 def _nvcc() -> str:
@@ -74,7 +95,7 @@ def build_log(name: str) -> str:
 
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path]:
     out = _target(name)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tmp = out.with_suffix(f".{os.getpid()}-{uuid.uuid4().hex}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -102,12 +123,13 @@ def build_all(names=KERNELS) -> float:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel source ``name``, built if needed."""
-    lib = _libs.get(name)
-    if lib is None:
-        build_all((name,))
-        lib = ctypes.CDLL(str(_target(name)))
-        _libs[name] = lib
-    return lib
+    with _load_lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build_all((name,))
+            lib = ctypes.CDLL(str(_target(name)))
+            _libs[name] = lib
+        return lib
 
 
 def entry(name: str, symbol: str, n_ptrs: int, n_ints: int):
@@ -116,11 +138,14 @@ def entry(name: str, symbol: str, n_ptrs: int, n_ints: int):
     Configured once and cached: wrappers call it on every launch."""
     fn = _entries.get(symbol)
     if fn is None:
-        fn = getattr(load(name), symbol)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _entries[symbol] = fn
+        with _load_lock:
+            fn = _entries.get(symbol)
+            if fn is None:
+                fn = getattr(load(name), symbol)
+                fn.argtypes = ([ctypes.c_void_p] * n_ptrs
+                               + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
+                fn.restype = ctypes.c_int
+                _entries[symbol] = fn
     return fn
 
 

@@ -73,7 +73,7 @@ def _launch(q, k, v, causal: bool, kernel: str) -> torch.Tensor:
              k.shape[1], s, dh, int(causal), _ROUTES[kernel],
              _build.stream_ptr(q.device))
     _build.check(err, f"flash_attention ({kernel})")
-    _build.launch_counts["flash_attention"] += 1
+    _build.count_launch("flash_attention")
     if kernel == "wgmma":
-        _build.launch_counts["flash_attention_wgmma"] += 1
+        _build.count_launch("flash_attention_wgmma")
     return out

@@ -49,5 +49,5 @@ def fused_scan(ucodes: torch.Tensor, item_codes: torch.Tensor,
              cand.data_ptr(), qips.data_ptr(), c, t, w, d, n_cand,
              _build.stream_ptr(users.device))
     _build.check(err, "fused_scan")
-    _build.launch_counts["fused_scan"] += 1
+    _build.count_launch("fused_scan")
     return cand, qips

@@ -76,7 +76,7 @@ def hamming_scores(query_codes: torch.Tensor,
     err = fn(query_codes.data_ptr(), item_codes.data_ptr(), out.data_ptr(),
              nq, n, w, _build.stream_ptr(query_codes.device))
     _build.check(err, "hamming_scores")
-    _build.launch_counts["hamming_scores"] += 1
+    _build.count_launch("hamming_scores")
     return out
 
 
@@ -95,5 +95,5 @@ def hamming_nearest(ucodes: torch.Tensor, item_codes: torch.Tensor,
              cand.data_ptr(), c, t, w, n_cand,
              _build.stream_ptr(ucodes.device))
     _build.check(err, "hamming_nearest")
-    _build.launch_counts["hamming_nearest"] += 1
+    _build.count_launch("hamming_nearest")
     return cand

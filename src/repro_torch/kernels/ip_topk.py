@@ -78,5 +78,5 @@ def ip_topk_tiles(queries: torch.Tensor, items: torch.Tensor,
              ids.data_ptr(), nq, n, d, k, splits, per,
              _build.stream_ptr(queries.device))
     _build.check(err, "ip_topk")
-    _build.launch_counts["ip_topk"] += 1
+    _build.count_launch("ip_topk")
     return vals, ids

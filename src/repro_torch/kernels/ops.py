@@ -19,16 +19,11 @@ from repro_torch.kernels import hamming_scan as _hamming
 from repro_torch.kernels import ip_topk as _ip_topk
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import srp_hash as _srp
-from repro_torch.kernels._build import launch_counts
+from repro_torch.kernels._build import launch_counts, reset_launch_counts
 
 __all__ = ["flash_attention", "fused_scan", "hamming_nearest",
            "hamming_scores", "ip_topk", "launch_counts",
            "reset_launch_counts", "srp_hash"]
-
-
-def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
 
 
 def _route(t: torch.Tensor, op: str) -> bool:

@@ -36,5 +36,5 @@ def srp_hash(x: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
     err = fn(x.data_ptr(), proj.data_ptr(), out.data_ptr(), n, d, b,
              _build.stream_ptr(x.device))
     _build.check(err, "srp_hash")
-    _build.launch_counts["srp_hash"] += 1
+    _build.count_launch("srp_hash")
     return out

@@ -958,3 +958,102 @@ def test_cuda_scan_kernels_equal_plain_on_a_tile_with_deleted_rows(cuda):
     int8 = RkMIPSEngine(cfg.replace(scan_precision="int8")).attach(
         changed).query_batch(q, 10)
     assert torch.equal(f32.predictions, int8.predictions)
+
+
+def test_build_load_from_two_threads_builds_once(monkeypatch, tmp_path):
+    """Two threads that first use one kernel together get one library: one
+    nvcc run and one load (``_build.load`` holds a lock), each build
+    writing a temporary file of its own. nvcc and ``ctypes.CDLL`` are
+    stubbed; the stub nvcc sleeps so both threads are inside ``load``."""
+    import ctypes
+    import subprocess
+    import threading
+    import time
+    from repro_torch.kernels import _build
+
+    runs, outs, loads = [], [], []
+
+    class FakeNvcc:
+        def __init__(self, cmd, **kw):
+            runs.append(cmd)
+            out = cmd[cmd.index("-o") + 1]
+            outs.append(out)
+            time.sleep(0.2)
+            with open(out, "w") as f:
+                f.write("lib")
+            self.returncode = 0
+
+        def communicate(self):
+            return "ptxas info: Used 1 registers", None
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(subprocess, "Popen", FakeNvcc)
+    monkeypatch.setattr(ctypes, "CDLL",
+                        lambda path: loads.append(path) or object())
+    got, errors = [], []
+
+    def use():
+        try:
+            got.append(_build.load("hamming_scan"))
+        except BaseException as e:  # noqa: BLE001 -- reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=use) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not errors and len(got) == 2 and got[0] is got[1]
+    assert len(runs) == 1 and len(loads) == 1
+    assert loads[0] == str(_build._target("hamming_scan"))
+    assert (tmp_path / _build._target("hamming_scan").name).exists()
+    # two builds started together never share a temporary file
+    _, tmp_a, _ = _build._start("srp_hash")
+    _, tmp_b, _ = _build._start("srp_hash")
+    assert tmp_a != tmp_b and tmp_a.parent == tmp_path
+
+
+def test_launch_counts_add_up_under_threads():
+    """``count_launch`` from many threads loses no launch."""
+    import threading
+    from repro_torch.kernels import _build
+
+    before = _build.launch_counts["ip_topk"]
+
+    def bump():
+        for _ in range(2000):
+            _build.count_launch("ip_topk")
+
+    threads = [threading.Thread(target=bump) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert _build.launch_counts["ip_topk"] - before == 16000
+
+
+@pytest.mark.gpu
+def test_cuda_flat_scan_rows_do_not_depend_on_the_batch(cuda):
+    """The serving scan on the card (one dense ``hamming_scores`` launch,
+    ``ref.nearest_rows``, the ``lane_ips`` re-rank): a query's ids and
+    values are bitwise the same in batches of 1, 2, 4 and 8, under both
+    scans, as the bucket ladder needs."""
+    from repro_torch.engine import sharding
+    g = torch.Generator().manual_seed(3)
+    items = torch.randn(4000, 100, generator=g)
+    idx = sa_alsh.build_index(items.to(cuda), g, n_bits=128, tile=512)
+    q = torch.randn(8, 100, generator=g).to(cuda)
+    for scan in ("sketch", "exact"):
+        def run(rows):
+            uc = sa_alsh.user_codes(idx, rows) if scan == "sketch" else None
+            return sharding.kmips_flat_arrays(
+                idx.items, idx.item_ids, idx.item_mask, idx.codes, uc, rows,
+                10, n_cand=64, scan=scan)
+        full = run(q)
+        for b in (1, 2, 4):
+            for lo in range(0, 8, b):
+                vals, ids = run(q[lo:lo + b].contiguous())
+                assert torch.equal(ids, full[1][lo:lo + b])
+                assert torch.equal(vals, full[0][lo:lo + b])
