@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the port's six paths through their entry points, each with every
+Drives the port's seven paths through their entry points, each with every
 launch count set to 0 just before it and read just after. The first five
 run at the paper's Netflix scale (n = 17,770 items, m = 480,189 users,
 d = 100, synthetic MF-like factors from ``--seed``):
@@ -40,6 +40,15 @@ d = 100, synthetic MF-like factors from ``--seed``):
                 a synchronous server on the same version; forward: the
                 4,096 users), and a gateway of three tenants in one pool
                 (reverse, reverse under a scan budget, forward);
+  recsys        the recsys archs at full width, weights and feature ids
+                (uniform per field) from ``--seed``: two-tower-retrieval
+                (10M-row tables, towers 1024-512 -> 256) embeds 1,000,000
+                candidate items, builds ``launch/serve.py::
+                build_candidate_index`` (256 bits) and answers 64
+                single-user requests by ``sah_retrieve_step`` (k = 100,
+                n_cand = 512) and 64 by the exact ``ops.ip_topk``; then
+                ``serve_p99`` (batch 512) of two-tower, DeepFM, xDeepFM
+                and DIN, each model freed before the next;
   LM serving    qwen3-0.6b at full width and depth (28 layers, d 1024,
                 vocab 151,936, bf16, weights drawn from ``--seed``) with
                 ``attn_impl="flash"``: ``prefill`` of 4 prompts of 2,048
@@ -57,11 +66,18 @@ It
      ``flash_attention`` exactly once per layer in prefill, every
      launch on its ``wgmma`` route, never in decode; ``ip_topk``, which
      the port calls only for the exact forward answer, is counted around
-     that one call);
+     that one call; on the retrieval path exactly one ``srp_hash`` for the
+     build and one a request, one dense ``hamming_scores`` a sketch
+     request, one ``ip_topk`` an exact request, and nothing else);
   4. holds the reverse answers against the exact oracle (recall 1.0 but
      for misses within float32 rounding of their threshold), the int8
      answers against the f32 ones bit for bit, the "exact" forward ids
-     against ``ip_topk``'s but for traced float ties, and the flash
+     against ``ip_topk``'s but for traced float ties, the
+     retrieval answers (values the ids' inner products, ``ip_topk``'s ids
+     against ``torch.topk(torch.matmul(...))``'s but for traced float
+     ties; recall@100 of the sketch printed, with no limit), each recsys
+     ``serve_p99`` forward against the same model in float64
+     (``RANKER_TOL``, TF32 off), and the flash
      prefill's logits against the plain chunked prefill's and a decode step
      against a prefill one token longer, with the same model in float32 as
      the arbiter of how far two bf16 paths may drift apart;
@@ -70,7 +86,10 @@ It
      ``hamming_nearest`` and ``fused_scan`` exactly at the path's tile and
      at 4,096 rows; ``ip_topk`` exactly, the merged answer and the
      kernel's raw per-split lists against ``ref.ip_topk_partials``; SRP
-     codes bit for bit at the query chunk and the build; flash attention
+     codes bit for bit at the query chunk and the build; at the retrieval
+     shapes, ``srp_hash`` at the 1M-row build and the query, the dense
+     Hamming matrix over 1M rows and ``ip_topk`` at k = 100, each exactly;
+     flash attention
      within two bf16 ulps on layer 0's q/k/v, with its 8 KV heads read in
      place, and on ``FLASH_CHECKS``, and within 5e-5 in float32);
   6. times each kernel and its plain version on the device (launches
@@ -187,6 +206,14 @@ def device_ms(fn, iters: int, replays: int = 5) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / (iters * replays)
+
+
+def bound(nbytes, t_ops) -> tuple[float, str]:
+    """The least ms the card could take: the larger of ``nbytes`` over the
+    memory rate and ``t_ops`` seconds of operations, and which it is."""
+    t_b = nbytes / HBM_BYTES_PER_S
+    return max(t_b, t_ops) * 1e3, ("bytes" if t_b >= t_ops
+                                   else "operations")
 
 
 def codes_equal(name: str, got, want) -> int:
@@ -329,6 +356,354 @@ def flash_close(got, want, tol) -> float:
         fail(f"flash_attention: {bad} of {err.numel()} values outside the "
              f"tolerance (max abs err {float(err.max())})")
     return float(err.max())
+
+
+RETR_REQUESTS = 64   # single-user requests per retrieval serve mode
+RETR_K = 100         # items returned per retrieval request
+RETR_N_CAND = 512    # sketch candidates re-ranked per request
+EMBED_CHUNK = 1 << 16    # candidate items per item_tower call
+# the recsys forwards in float32 against the same model in float64: a
+# logit sums at most ~8k float32 products of unit scale (the CIN's
+# H_k * F = 7,800 a layer), with TF32 off
+RANKER_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def uniform_feats(gen, vocab_sizes, rows: int, dev):
+    """(rows, fields) int32 feature ids, each field uniform over its
+    vocabulary (as the reference's examples draw them)."""
+    import torch
+    return torch.stack([torch.randint(0, v, (rows,), generator=gen,
+                                      device=dev, dtype=torch.int32)
+                        for v in vocab_sizes], -1)
+
+
+def ranker_batch(arch: str, cfg, rows: int, gen, dev) -> dict:
+    """A serving batch of ``rows`` for a DeepFM/xDeepFM or DIN config:
+    ids uniform per field; DIN histories of uniform length 1..T."""
+    import torch
+    if arch != "din":
+        return {"sparse": uniform_feats(gen, cfg.embedding.vocab_sizes, rows,
+                                        dev)}
+    vocab, t = cfg.embedding.vocab_sizes, cfg.seq_len
+    lengths = torch.randint(1, t + 1, (rows, 1), generator=gen, device=dev)
+    return {"hist": uniform_feats(gen, (vocab[0],) * t, rows, dev),
+            "hist_mask": torch.arange(t, device=dev)[None, :] < lengths,
+            "target": uniform_feats(gen, vocab[:1], rows, dev)[:, 0],
+            "profile": uniform_feats(gen, vocab[1:], rows, dev)}
+
+
+def held_in_float64(name: str, model, fwd, out) -> float:
+    """Recompute ``fwd()`` with ``model`` cast to float64 in place; fail
+    unless ``out`` (the float32 result) lies within ``RANKER_TOL`` of it.
+    Returns the max |difference|."""
+    model.double()
+    want = fwd()
+    err = (out.double() - want).abs()
+    if not bool((err <= RANKER_TOL["atol"]
+                 + RANKER_TOL["rtol"] * want.abs()).all()):
+        fail(f"{name}: float32 forward is {float(err.max()):.3g} from "
+             f"float64 (tolerance {RANKER_TOL})")
+    return float(err.max())
+
+
+def recsys_path(seed: int, dev) -> dict:
+    """The recsys serving phase at full width: two-tower retrieval over
+    1,000,000 candidates (``launch/serve.py``: the candidate index, 64
+    single-user requests by the SAH sketch and 64 by the exact
+    ``ip_topk``, counted), its ``serve_p99`` batch, the retrieval-shape
+    kernels against their plain versions, then DeepFM, xDeepFM and DIN at
+    ``serve_p99``, each held against float64 and freed before the next.
+    Fails on any miss; returns the peak device memory before the phase and
+    the kernels' retrieval-shape numbers."""
+    import torch
+    from repro_torch.configs import base
+    from repro_torch.core import sa_alsh
+    from repro_torch.engine.config import get_config
+    from repro_torch.kernels import ip_topk, ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.models import recsys as rec
+
+    t_start = t_mark = time.perf_counter()
+    parts = {}
+
+    def mark(name):                 # host seconds of each part of the phase
+        nonlocal t_mark
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        parts[name] = round(now - t_mark, 2)
+        t_mark = now
+
+    peak_before = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    spec = base.get("two-tower-retrieval")
+    cfg = spec.make_config()
+    n = spec.shape("retrieval_cand").dims["n_candidates"]
+    rows_p99 = spec.shape("serve_p99").dims["batch"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = rec.init_twotower_params(gen, cfg, device=dev)
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        fail("a recsys model on the card left TF32 on")
+    print(f"recsys: {cfg.name} user table {tuple(model.user_table.shape)}, "
+          f"item table {tuple(model.item_table.shape)}, towers "
+          f"{cfg.tower_dims} -> {cfg.out_dim}, "
+          f"{sum(p.numel() for p in model.parameters()):,} parameters from "
+          f"seed {seed}")
+    mark("two-tower init")
+
+    # -- the candidates: 1M items through the item tower, then the index ---
+    items = uniform_feats(gen, cfg.item_embedding.vocab_sizes, n, dev)
+    cand = torch.cat([rec.item_tower(model, items[i:i + EMBED_CHUNK], cfg)
+                      for i in range(0, n, EMBED_CHUNK)])
+    del items
+    mark("embed candidates")
+    d = cand.shape[1]
+    kproj = torch.randn(d + 1, serve.N_BITS,
+                        generator=torch.Generator().manual_seed(seed))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    codes, proj = serve.build_candidate_index(
+        cand, torch.Generator().manual_seed(seed), kmips_proj=kproj,
+        device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    build_launches = dict(ops.launch_counts)
+    if codes.shape != (n, serve.N_BITS // 32) or codes.dtype != torch.int32 \
+            or not torch.equal(proj.cpu(), kproj[:-1]):
+        fail(f"build_candidate_index: codes {tuple(codes.shape)} "
+             f"{codes.dtype}, proj {tuple(proj.shape)}")
+    mark("candidate index")
+
+    # -- 64 requests by the sketch, 64 by the exact kernel, counted --------
+    users = uniform_feats(gen, cfg.user_embedding.vocab_sizes, RETR_REQUESTS,
+                          dev)
+    ms = {"sketch": [], "exact": []}
+    got = {"sketch": [], "exact": []}
+    us = []
+    for i in range(RETR_REQUESTS):
+        t0 = time.perf_counter()
+        ans = serve.sah_retrieve_step(model, users[i:i + 1], cand, codes,
+                                      proj, cfg, n_cand=RETR_N_CAND,
+                                      k=RETR_K)
+        torch.cuda.synchronize()
+        ms["sketch"].append((time.perf_counter() - t0) * 1e3)
+        got["sketch"].append(ans)
+    for i in range(RETR_REQUESTS):
+        t0 = time.perf_counter()
+        u = rec.user_tower(model, users[i:i + 1], cfg)
+        ans = ops.ip_topk(u, cand, RETR_K)
+        torch.cuda.synchronize()
+        ms["exact"].append((time.perf_counter() - t0) * 1e3)
+        got["exact"].append((ans[0][0], ans[1][0]))
+        us.append(u[0])
+    launches = dict(ops.launch_counts)
+    want = {"srp_hash": build_launches["srp_hash"] + RETR_REQUESTS,
+            "hamming_scores": RETR_REQUESTS, "ip_topk": RETR_REQUESTS}
+    if build_launches["srp_hash"] != 1 or any(
+            launches[name] != want.get(name, 0) for name in launches):
+        fail(f"retrieval launch counts {launches}, want {want} (the build's "
+             f"{build_launches})")
+    print(f"launch_counts (retrieval: the index build, then "
+          f"{RETR_REQUESTS} sketch and {RETR_REQUESTS} exact requests): "
+          f"{launches}; the build's srp_hash {build_launches['srp_hash']}")
+    uu = torch.stack(us)
+    vals = {m: torch.stack([a[0] for a in got[m]]) for m in got}
+    ids = {m: torch.stack([a[1] for a in got[m]]) for m in got}
+    for m in got:
+        if vals[m].shape != (RETR_REQUESTS, RETR_K) \
+                or not bool(torch.isfinite(vals[m]).all()) \
+                or bool(((ids[m] < 0) | (ids[m] >= n)).any()) \
+                or bool((vals[m][:, :-1] < vals[m][:, 1:]).any()):
+            fail(f"retrieval {m}: bad answer {tuple(vals[m].shape)}")
+        recomputed = (uu[:, None, :] * cand[ids[m].long()]).sum(-1)
+        if not torch.allclose(vals[m], recomputed, rtol=1e-5, atol=1e-6):
+            fail(f"retrieval {m}: values are not the ids' inner products")
+    hit = (ids["sketch"][:, :, None] == ids["exact"][:, None, :]).any(-1)
+    recall = hit.float().mean(dim=1)
+    lib_ids = torch.topk(torch.matmul(uu, cand.T), RETR_K).indices
+    ties = ip_tie_check(uu, cand, ids["exact"], lib_ids.to(torch.int32))
+
+    # how narrow a cone the random towers' vectors fill: each vector's
+    # cosine to the candidates' mean direction (what the sketch's angles
+    # have to tell apart)
+    axis = torch.nn.functional.normalize(cand.mean(0), dim=0)
+    cos_c = torch.nn.functional.normalize(cand, dim=1) @ axis
+    cos_u = torch.nn.functional.normalize(uu, dim=1) @ axis
+
+    def ms_line(m):
+        t = sorted(ms[m])
+        return (f"{sum(t) / len(t):.3f} ms/request mean, p50 "
+                f"{t[len(t) // 2]:.3f}, max {t[-1]:.3f}")
+
+    print(f"retrieval ({n:,} candidates, d {d}, {serve.N_BITS} bits, k "
+          f"{RETR_K}, n_cand {RETR_N_CAND}, {RETR_REQUESTS} single-user "
+          f"requests a mode): index build {t_build:.3f} s; sketch "
+          f"(sah_retrieve_step) {ms_line('sketch')}; exact (user_tower + "
+          f"ops.ip_topk) {ms_line('exact')}; recall@{RETR_K} of the sketch "
+          f"against ip_topk mean {float(recall.mean()):.6f}, min "
+          f"{float(recall.min()):.2f} (cosine to the candidates' mean "
+          f"direction: candidates mean {float(cos_c.mean()):.4f}, min "
+          f"{float(cos_c.min()):.4f}; users mean {float(cos_u.mean()):.4f})"
+          f"; ip_topk's ids equal torch.topk("
+          f"torch.matmul(u, cand.T))'s but for {ties} positions, all float "
+          f"ties")
+    mark("retrieval requests")
+
+    # -- the retrieval-shape kernels against their plain versions ----------
+    kw = get_config("sah").replace(n_bits=serve.N_BITS).kmips_build_kwargs(n)
+    del kw["n_bits"]
+    prep = sa_alsh.prepare_items(cand, **kw)
+    rows = prep.transformed.contiguous()
+    kproj = kproj.to(dev)
+    item_codes = ops.srp_hash(rows, kproj)
+    live = prep.item_mask
+    if not torch.equal(codes[prep.item_ids[live].long()], item_codes[live]):
+        fail("srp_hash at the build shape is not deterministic against the "
+             "candidate index's codes")
+    srpb_err = codes_equal("srp_hash at the retrieval build shape",
+                           item_codes, ref.srp_hash(rows, kproj))
+    u1 = uu[:1].contiguous()
+    qcode = ops.srp_hash(u1, proj)
+    srpq_err = codes_equal("srp_hash at the retrieval query shape", qcode,
+                           ref.srp_hash(u1, proj))
+    ham_err = codes_equal("hamming_scores at the retrieval shape",
+                          ops.hamming_scores(qcode, codes),
+                          ref.hamming_scores(qcode, codes))
+    ipv, ipi = ops.ip_topk(u1, cand, RETR_K)
+    plain_v, plain_i = ref.ip_topk(u1, cand, RETR_K)
+    if not torch.equal(ipi, plain_i):
+        fail(f"ip_topk at the retrieval shape: "
+             f"{int((ipi != plain_i).sum())} ids differ from its plain "
+             f"version")
+    ip_err = float((ipv - plain_v).abs().max())
+    if ip_err != 0.0:
+        fail(f"ip_topk at the retrieval shape: values differ from its "
+             f"plain version by {ip_err}")
+    raw_v, raw_i = ip_topk.ip_topk_tiles(u1, cand, RETR_K)
+    splits = raw_v.shape[1]
+    part_v, part_i = ref.ip_topk_partials(u1, cand, RETR_K, splits)
+    if not (torch.equal(raw_i, part_i) and torch.equal(raw_v, part_v)):
+        fail("ip_topk at the retrieval shape: the kernel's per-split lists "
+             "differ from ref.ip_topk_partials")
+    (nr, dr), b = rows.shape, kproj.shape[1]
+    w = codes.shape[1]
+    print(f"check at the retrieval shapes: srp_hash build rows {(nr, dr)} "
+          f"x {(dr, b)} and query {(1, d)} x {(d, b)} bit for bit; dense "
+          f"hamming_scores {(1, w)} x {(n, w)} exact; ip_topk {(1, d)} x "
+          f"{(n, d)} k {RETR_K} ids exact, values bitwise, its {splits} "
+          f"per-split lists equal ref.ip_topk_partials")
+    mark("retrieval-shape checks")
+
+    srpb = {"ms": device_ms(lambda: ops.srp_hash(rows, kproj), 20),
+            "plain_ms": device_ms(lambda: ref.srp_hash(rows, kproj), 1,
+                                  replays=1)}
+    srpq = {"ms": device_ms(lambda: ops.srp_hash(u1, proj), ITERS),
+            "plain_ms": device_ms(lambda: ref.srp_hash(u1, proj), 20),
+            "call_ms": call_ms(lambda: ops.srp_hash(u1, proj), ITERS)}
+    ham = {"ms": device_ms(lambda: ops.hamming_scores(qcode, codes), ITERS),
+           "plain_ms": device_ms(lambda: ref.hamming_scores(qcode, codes),
+                                 20),
+           "call_ms": call_ms(lambda: ops.hamming_scores(qcode, codes),
+                              ITERS)}
+    ipk = {"ms": device_ms(lambda: ops.ip_topk(u1, cand, RETR_K), 20),
+           "kernel_only_ms": device_ms(
+               lambda: ip_topk.ip_topk_tiles(u1, cand, RETR_K), 20),
+           "plain_ms": device_ms(lambda: ref.ip_topk(u1, cand, RETR_K), 2,
+                                 replays=3),
+           "library_ms": device_ms(lambda: torch.topk(
+               torch.matmul(u1, cand.T), RETR_K), 20),
+           "call_ms": call_ms(lambda: ops.ip_topk(u1, cand, RETR_K), 20)}
+    srpb["bound_ms"], srpb["bound_by"] = bound(
+        4 * (nr * dr + dr * b + nr * b // 32),
+        2 * nr * dr * b / FP32_FLOP_PER_S)
+    srpq["bound_ms"], srpq["bound_by"] = bound(
+        4 * (d + d * b + b // 32), 2 * d * b / FP32_FLOP_PER_S)
+    ham["bound_ms"], ham["bound_by"] = bound(
+        4 * (w + n * w + n), 3 * n * w / INT32_OP_PER_S)
+    ipk["bound_ms"], ipk["bound_by"] = bound(
+        4 * (1 + n) * d + 8 * RETR_K, 2 * n * d / FP32_FLOP_PER_S)
+    for name, t in (("srp_hash build", srpb), ("srp_hash query", srpq),
+                    ("hamming_scores (dense)", ham), ("ip_topk", ipk)):
+        print(f"time {name} at the retrieval shape: " + ", ".join(
+            f"{key} {val:.6f}" if isinstance(val, float) else f"{key} {val}"
+            for key, val in t.items()))
+    del prep, rows, item_codes
+    mark("retrieval-shape times")
+
+    # -- serve_p99: the towers' row dot at batch 512, then float64 ---------
+    uf = uniform_feats(gen, cfg.user_embedding.vocab_sizes, rows_p99, dev)
+    itf = uniform_feats(gen, cfg.item_embedding.vocab_sizes, rows_p99, dev)
+
+    def two_tower():
+        return (rec.user_tower(model, uf, cfg)
+                * rec.item_tower(model, itf, cfg)).sum(-1)
+
+    out = two_tower()
+    p99 = {spec.arch_id: {"ms": call_ms(two_tower, 20)}}
+    del cand, codes, uu
+    p99[spec.arch_id]["f64_err"] = held_in_float64(spec.arch_id, model,
+                                                   two_tower, out)
+    del model, out
+    torch.cuda.empty_cache()
+    mark("two-tower serve_p99")
+
+    # -- the rankers at serve_p99, one at a time ----------------------------
+    for arch in ("deepfm", "xdeepfm", "din"):
+        rspec = base.get(arch)
+        rcfg = rspec.make_config()
+        rows_b = rspec.shape("serve_p99").dims["batch"]
+        rgen = torch.Generator(device=dev).manual_seed(seed)
+        if arch == "din":
+            model = rec.init_din_params(rgen, rcfg, device=dev)
+            forward = rec.din_forward
+        else:
+            model = rec.init_ctr_params(rgen, rcfg, device=dev)
+            forward = rec.ctr_forward
+        batch = ranker_batch(arch, rcfg, rows_b, rgen, dev)
+
+        def fwd():
+            return forward(model, batch, rcfg)
+
+        out = fwd()
+        if out.shape != (rows_b,) or not bool(torch.isfinite(out).all()):
+            fail(f"{arch}: bad logits {tuple(out.shape)}")
+        p99[arch] = {"ms": call_ms(fwd, 20)}
+        p99[arch]["f64_err"] = held_in_float64(arch, model, fwd, out)
+        del model, batch, out
+        torch.cuda.empty_cache()
+        mark(f"{arch} serve_p99")
+    print(f"serve_p99 (batch {rows_p99}): ms per forward called from Python "
+          f"(CUDA events) and max |float32 - float64| (tolerance "
+          f"{RANKER_TOL}): " + "; ".join(
+              f"{a} {v['ms']:.4f} ms, err {v['f64_err']:.3g}"
+              for a, v in p99.items()))
+
+    peak = torch.cuda.max_memory_allocated()
+    print(f"recsys phase: {time.perf_counter() - t_start:.1f} s host "
+          f"({parts}), peak device memory {peak / 2**30:.2f} GiB")
+
+    def entry(prefix, t, launched, shape, err):
+        out = {f"{prefix}_{key}": val for key, val in t.items()}
+        out.update({f"{prefix}_launches": launched, f"{prefix}_shape": shape,
+                    f"{prefix}_max_abs_err": err})
+        return out
+
+    return {
+        "peak_before": peak_before, "peak": peak,
+        "srp": {**entry("retrieval_build", srpb, build_launches["srp_hash"],
+                        f"{(nr, dr)}x{(dr, b)}", srpb_err),
+                **entry("retrieval_query", srpq,
+                        launches["srp_hash"] - build_launches["srp_hash"],
+                        f"{(1, d)}x{(d, b)}", srpq_err)},
+        "dense": entry("retrieval", ham, launches["hamming_scores"],
+                       f"{(1, w)}x{(n, w)}", ham_err),
+        "ip_topk": {**entry("retrieval", ipk, launches["ip_topk"],
+                            f"{(1, d)}x{(n, d)}, k {RETR_K}", ip_err),
+                    "retrieval_splits": splits,
+                    "retrieval_library_call":
+                        f"torch.topk(torch.matmul(u, cand.T), {RETR_K}), "
+                        f"two calls"},
+    }
 
 
 def lm_path(seed: int, dev):
@@ -1524,6 +1899,10 @@ def main() -> int:
                              items, results)
     phase_done("serving")
 
+    # -- recsys serving at full width, counted; frees its tables -------------
+    rec_out = recsys_path(args.seed, dev)
+    phase_done("recsys")
+
     # -- LM serving path, counted ---------------------------------------------
     lm = lm_path(args.seed, dev)
     lm["flash_build"] = flash_build
@@ -1658,11 +2037,6 @@ def main() -> int:
     ipk_lib = device_ms(lambda: torch.topk(torch.matmul(users_fwd, items.T),
                                            K_FWD), 20)
 
-    def bound(nbytes, t_ops):
-        t_b = nbytes / HBM_BYTES_PER_S
-        return max(t_b, t_ops) * 1e3, ("bytes" if t_b >= t_ops
-                                       else "operations")
-
     c, w = ucodes.shape
     t = tile_codes.shape[0]
     ham_bound, ham_by = bound(4 * (c * w + t * w + c * t),
@@ -1758,7 +2132,8 @@ def main() -> int:
     profile_query(eng8, queries, 10, steps[10])
     phase_done("profiles")
     peak = max(lm["peak_before"], art_out["peak_before"],
-               serve_out["peak_before"], torch.cuda.max_memory_allocated())
+               serve_out["peak_before"], rec_out["peak_before"],
+               rec_out["peak"], torch.cuda.max_memory_allocated())
     print(f"peak device memory: {peak / 2**30:.2f} GiB")
 
     kernels = [
@@ -1776,7 +2151,7 @@ def main() -> int:
          "build_shape_max_abs_err": err_b,
          "launches_int8_path": launches8["srp_hash"],
          "launches_forward_path": launches_f["srp_hash"],
-         **serve_out["srp"]},
+         **serve_out["srp"], **rec_out["srp"]},
         {"name": "hamming_nearest", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hamming_scan.cu",
          "replaces": "src/repro/kernels/hamming_scan.py:36",
@@ -1797,7 +2172,8 @@ def main() -> int:
              + launches8["hamming_scores"] + launches_f["hamming_scores"],
              "max_abs_err": ham_err, "ms": ham_ms, "plain_ms": ham_plain,
              "bound_ms": ham_bound, "bound_by": ham_by, "call_ms": ham_call,
-             "library_ms": None, **serve_out["dense"]}},
+             "library_ms": None, **serve_out["dense"],
+             **rec_out["dense"]}},
         {"name": "fused_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_scan.cu",
          "replaces": "src/repro/kernels/fused_scan.py:113",
@@ -1817,7 +2193,7 @@ def main() -> int:
          "kernel_only_ms": ipk_pass, "no_fma_floor_ms": ipk_floor,
          "splits": splits, "call_ms": ipk_call,
          "shape": f"{tuple(users_fwd.shape)}x{tuple(items.shape)}, k "
-                  f"{K_FWD}"},
+                  f"{K_FWD}", **rec_out["ip_topk"]},
         flash_entry,
     ]
     print(f"phases (host s): {phases}; total "

@@ -1,12 +1,13 @@
-"""Architecture registry of the port: each LM arch the port runs is a
+"""Architecture registry of the port: each arch the port runs is a
 selectable config carrying its full config, a reduced smoke config and its
 shape cells.
 
 Twin of ``src/repro/configs/base.py``, copied so that the port imports
 nothing of the reference package. ``_ensure_loaded`` registers only the
 archs the port can build: the dense LMs qwen3-0.6b and qwen2-1.5b (its
-``qkv_bias`` takes the same code path). The MoE, recsys and GNN archs wait
-for their models (ROADMAP.md).
+``qkv_bias`` takes the same code path) and the four recsys archs
+(deepfm, xdeepfm, din, two-tower-retrieval; ``models/recsys.py``). The MoE
+and GNN archs wait for their models (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -63,7 +64,8 @@ def all_archs() -> list[str]:
 
 def _ensure_loaded():
     # Import side effects register every arch the port has.
-    from repro_torch.configs import qwen2_1_5b, qwen3_0_6b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        deepfm, din, qwen2_1_5b, qwen3_0_6b, two_tower_retrieval, xdeepfm)
 
 
 LM_SHAPES = (
@@ -78,4 +80,12 @@ LM_SHAPES = (
                    "with the cache sequence-sharded over the whole mesh "
                    "(DESIGN.md SS4). A 500k *prefill* would be quadratic and "
                    "is out of scope for these full-attention archs."),
+)
+
+RECSYS_SHAPES = (
+    ShapeSpec("train_batch", "train", {"batch": 65536}),
+    ShapeSpec("serve_p99", "serve", {"batch": 512}),
+    ShapeSpec("serve_bulk", "serve", {"batch": 262144}),
+    ShapeSpec("retrieval_cand", "retrieval",
+              {"batch": 1, "n_candidates": 1_000_000}),
 )

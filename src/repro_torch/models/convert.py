@@ -1,4 +1,4 @@
-"""The reference's LM parameters into the port's ``LM`` module.
+"""The reference's LM and recsys parameters into the port's modules.
 
 ``params_from_jax`` takes the pytree of ``repro.models.transformer.
 init_params`` (or a checkpoint of it) as numpy arrays, layer leaves with
@@ -6,6 +6,11 @@ their leading (L,) axis, and copies each leaf into exactly one parameter
 of an ``LM``: ``tree["layers"][name][i]`` into ``model.blocks[i].<name>``,
 and ``embed``, ``head`` and ``final_norm`` as they are. Both sides keep
 the (in, out) layout, so the copy is bitwise.
+
+``recsys_params_from_jax`` does the same for the pytrees of
+``repro.models.recsys``'s ``init_ctr_params``, ``init_din_params`` and
+``init_twotower_params``: leaf ``tree[a][i][b]`` lands on the parameter
+named ``a.i.b`` of the config's ``models/recsys.py`` model.
 
 It reads numpy only: a JAX array passes through ``np.asarray``, and a
 bf16 array arrives as numpy dtype ``bfloat16`` (``ml_dtypes``), which
@@ -16,7 +21,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
+from repro_torch.models import recsys
 from repro_torch.models.transformer import LM, LMConfig
 
 
@@ -41,6 +48,14 @@ def params_from_jax(tree: dict, cfg: LMConfig, device="cuda") -> LM:
                              f"config {cfg.n_layers}")
         for i in range(cfg.n_layers):
             leaves[f"blocks.{i}.{name}"] = stacked[i]
+    _copy_leaves(model, leaves)
+    return model
+
+
+def _copy_leaves(model: nn.Module, leaves: dict) -> None:
+    """Copy each named leaf bitwise into the parameter of that name;
+    raise unless leaves and parameters pair up one to one with equal
+    shapes and dtypes."""
     params = dict(model.named_parameters())
     if set(leaves) != set(params):
         raise ValueError(
@@ -56,4 +71,29 @@ def params_from_jax(tree: dict, cfg: LMConfig, device="cuda") -> LM:
                                  f"{tuple(t.shape)}, port {p.dtype} "
                                  f"{tuple(p.shape)}")
             p.copy_(t)
+
+
+def _named_leaves(tree, prefix: str = "") -> dict:
+    """A pytree of dicts and lists as {dotted path: leaf}."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for key, sub in items:
+        out.update(_named_leaves(sub, f"{prefix}.{key}" if prefix
+                                 else str(key)))
+    return out
+
+
+def recsys_params_from_jax(tree: dict, cfg, device="cuda") -> nn.Module:
+    """The reference's recsys parameter pytree (``init_ctr_params``,
+    ``init_din_params`` or ``init_twotower_params`` of ``cfg``, tables
+    unpadded) -> the config's model on ``device``. Raises unless every
+    leaf lands on exactly one parameter of the same shape and dtype, and
+    every parameter receives one leaf."""
+    model = recsys.model_for(cfg, device)
+    _copy_leaves(model, _named_leaves(tree))
     return model

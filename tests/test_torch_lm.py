@@ -135,7 +135,8 @@ def test_lm_config_fields_diff_only_by_the_dropped_jit_knobs():
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2-1.5b"])
 def test_arch_configs_are_the_references(arch):
-    assert base.all_archs() == ["qwen2-1.5b", "qwen3-0.6b"]
+    assert base.all_archs() == ["deepfm", "din", "qwen2-1.5b", "qwen3-0.6b",
+                                "two-tower-retrieval", "xdeepfm"]
     spec, jspec = base.get(arch), jbase.get(arch)
     assert ([dataclasses.asdict(s) for s in spec.shapes]
             == [dataclasses.asdict(s) for s in jspec.shapes])
