@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the port's seven paths through their entry points, each with every
+Drives the port's eight paths through their entry points, each with every
 launch count set to 0 just before it and read just after. The first five
 run at the paper's Netflix scale (n = 17,770 items, m = 480,189 users,
 d = 100, synthetic MF-like factors from ``--seed``):
@@ -52,7 +52,20 @@ d = 100, synthetic MF-like factors from ``--seed``):
   LM serving    qwen3-0.6b at full width and depth (28 layers, d 1024,
                 vocab 151,936, bf16, weights drawn from ``--seed``) with
                 ``attn_impl="flash"``: ``prefill`` of 4 prompts of 2,048
-                tokens, then 32 greedy ``decode_step``s.
+                tokens, then 32 greedy ``decode_step``s;
+  train         the trainer (``make_train_step`` + ``train_loop``,
+                chain(clip 1.0, adamw), deterministic algorithms on):
+                qwen3-0.6b at full width and depth in bf16 (remat,
+                chunked attention) on one repeated batch of 4 x 4,096
+                tokens, 4 micro-batches a step: the first micro-batch's
+                loss and gradient norm against float32, the loss falling,
+                a run crashed at step 2 and resumed from its checkpoint bit
+                for bit equal to the uninterrupted run, ``attn_impl=
+                "flash"`` refusing grad; two-tower, DeepFM, xDeepFM and DIN
+                at their ``train_batch`` (halved while it does not fit) and
+                gat-cora at ``full_graph_sm``, each first loss against
+                float64 and the loss falling. No hand-written kernel runs
+                there (the reference's training runs no Pallas kernel).
 
 It
 
@@ -68,7 +81,8 @@ It
      the port calls only for the exact forward answer, is counted around
      that one call; on the retrieval path exactly one ``srp_hash`` for the
      build and one a request, one dense ``hamming_scores`` a sketch
-     request, one ``ip_topk`` an exact request, and nothing else);
+     request, one ``ip_topk`` an exact request, and nothing else; in the
+     train phase no kernel at all);
   4. holds the reverse answers against the exact oracle (recall 1.0 but
      for misses within float32 rounding of their threshold), the int8
      answers against the f32 ones bit for bit, the "exact" forward ids
@@ -102,8 +116,8 @@ It
      ``srp_hash``, ``ip_topk`` and ``fused_scan``, and of the flash
      kernels with their shared memory and their ``HGMMA`` / ``UTMALDG``
      counts in the SASS;
-  7. splits a query batch into plan and execute, and profiles it and one
-     LM prefill for the device's busy share, their top kernels and the
+  7. splits a query batch into plan and execute, and profiles it, one
+     LM prefill and one LM train step for the device's busy share, their top kernels and the
      device launches per tile step (the f32 profile must hold no
      ``gatherTopK`` or ``radixSortKVInPlace`` row: the selection is in
      ``hamming_nearest``).
@@ -119,6 +133,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import os
 import subprocess
 import sys
 import time
@@ -704,6 +719,533 @@ def recsys_path(seed: int, dev) -> dict:
                         f"torch.topk(torch.matmul(u, cand.T), {RETR_K}), "
                         f"two calls"},
     }
+
+
+# -- the train phase -----------------------------------------------------------
+TRAIN_SEQ = 4096     # tokens a sequence: the train_4k shape
+TRAIN_MICRO = 1      # sequences a micro-batch
+TRAIN_ACCUM = 4      # micro-batches a step (global batch 256 cut to 4)
+TRAIN_STEPS = 3      # steps of a run, on one repeated batch
+TRAIN_CKPT_AT = 2    # the crashed run checkpoints at step 2, then fails there
+RECSYS_TRAIN_STEPS = 3
+GAT_TRAIN_STEPS = 5
+CORA_EDGES = 10556   # Cora's directed edges (padded to the shape's 16,384)
+CORA_TRAIN_NODES = 140
+# qwen3-0.6b in bf16 against the same weights in float32 on one micro-batch
+# of 4,096 tokens: bf16 rounds every activation to 8 significant bits
+# (2^-8 = 0.4% spacing) through 28 residual layers; rounding errors mostly
+# average out in the mean loss but less in the gradient's norm
+LM_LOSS_RTOL = 1e-2
+LM_GNORM_RTOL = 5e-2
+LM_LOSS_DROP = 0.5       # nats the LM loss must fall over TRAIN_STEPS
+# Adam's first steps move every weight by about the rate, whatever its
+# gradient: at qwen3-0.6b's init on one repeated batch, the launcher's
+# 1e-3 overshoots by the third step (12.23 -> 5.72 -> 24.60 nats on an
+# H100) and so does 1e-4 (12.23 -> 5.31 -> 11.76); the full-size LM
+# trains at 1e-5
+LM_LR = 1e-5
+# float32 training losses against float64 (TF32 off): RANKER_TOL's reason
+TRAIN_F64_RTOL = 1e-4
+TRAIN_DROP_REL = 1e-3    # recsys/GAT: the last loss below the first by this
+#                          share (not at every step: Adam at 1e-3 can step
+#                          over, as xDeepFM's 0.6017 -> 0.6074 did)
+
+
+def recorded(step, record: list):
+    """``step`` wrapped to append (loss, grad norm, host s) of each call,
+    the host clock taken from a device sync to the loss read."""
+    import torch
+
+    def run(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss = float(metrics["loss"])
+        record.append((loss, float(metrics["grad_norm"]),
+                       time.perf_counter() - t0))
+        return state, metrics
+    return run
+
+
+def loss_falls(name: str, record: list, drop: float | None = None) -> list:
+    """Fail unless the recorded losses are finite and the last lies below
+    the first: by ``drop`` nats, or (``drop`` None) by TRAIN_DROP_REL of
+    the first."""
+    losses = [r[0] for r in record]
+    if drop is None:
+        drop = losses[0] * TRAIN_DROP_REL
+    ok = all(x == x and abs(x) != float("inf") for x in losses) and \
+        losses[-1] <= losses[0] - drop
+    what = f"by {drop:.4g}"
+    if not ok:
+        fail(f"{name}: the loss did not fall {what} over {len(losses)} "
+             f"steps on one batch: {losses} (host s a step: "
+             f"{[round(r[2], 3) for r in record]})")
+    return losses
+
+
+def step_ms(record: list) -> float:
+    """Median host ms of the recorded steps after the first (warm-up)."""
+    import statistics
+    return statistics.median(r[2] for r in record[1:]) * 1e3
+
+
+def within(name: str, got: float, want: float, rtol: float) -> float:
+    rel = abs(got - want) / abs(want)
+    if not rel <= rtol:
+        fail(f"{name}: {got!r} is {rel:.3g} from {want!r} (rtol {rtol})")
+    return rel
+
+
+def lm_train(seed: int, dev) -> dict:
+    """qwen3-0.6b at full width and depth, trained on one repeated batch
+    of TRAIN_ACCUM x TRAIN_MICRO sequences of TRAIN_SEQ tokens by the
+    port's ``make_train_step`` + ``train_loop`` (chain(clip 1.0, adamw
+    LM_LR), the launcher's but for the rate). Checks (each fatal): the
+    first micro-batch's loss and gradient norm against float32, the loss
+    falling, a run crashed by ``fail_at_step`` and resumed from its
+    checkpoint equal bit for bit to the uninterrupted run, and flash
+    attention refusing grad.
+    Times the steps, one step's parts, and profiles one step."""
+    import copy
+    import dataclasses
+    import itertools
+    import shutil
+    import torch
+    from repro_torch.configs import base
+    from repro_torch.data import synthetic
+    from repro_torch.models import convert
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.trainer import (init_state, make_train_step,
+                                           train_loop)
+
+    cfg = base.get("qwen3-0.6b").make_config()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    model = tf.init_params(cfg, gen, dev)
+    params = dict(model.named_parameters())
+    start = {k: p.detach().clone() for k, p in params.items()}
+    n_seq = TRAIN_ACCUM * TRAIN_MICRO
+    batch = next(synthetic.lm_token_batches(gen, n_seq, TRAIN_SEQ,
+                                            cfg.vocab))
+    opt = opt_lib.chain(opt_lib.clip_by_global_norm(1.0),
+                        opt_lib.adamw(LM_LR))
+    step = make_train_step(lambda p, b: tf.lm_loss(model, b), opt,
+                           grad_accum=TRAIN_ACCUM)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.values())
+    print(f"train lm: {cfg.name} L={cfg.n_layers} d={cfg.d_model} vocab "
+          f"{cfg.vocab} {cfg.dtype} remat={cfg.remat} attn={cfg.attn_impl}, "
+          f"{n_params:,} parameters from seed {seed}; a step: "
+          f"{TRAIN_ACCUM} micro-batches x {TRAIN_MICRO} x {TRAIN_SEQ} "
+          f"tokens (Zipf-ish synthetic), chain(clip 1.0, adamw {LM_LR}); "
+          f"{time.perf_counter() - t0:.1f} s to set up")
+
+    # -- the first micro-batch against the same weights in float32 ---------
+    micro = {k: v[:TRAIN_MICRO] for k, v in batch.items()}
+
+    def loss_and_norm(m):
+        loss = tf.lm_loss(m, micro)
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        return (float(loss.detach()),
+                float(opt_lib.global_norm(dict(enumerate(grads)))))
+
+    loss16, norm16 = loss_and_norm(model)
+    model32 = copy.deepcopy(model).float()
+    model32.cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    loss32, norm32 = loss_and_norm(model32)
+    del model32
+    torch.cuda.empty_cache()
+    rel_loss = within("lm loss bf16 vs float32", loss16, loss32,
+                      LM_LOSS_RTOL)
+    rel_norm = within("lm grad norm bf16 vs float32", norm16, norm32,
+                      LM_GNORM_RTOL)
+    print(f"train lm: first micro-batch loss {loss16!r} (float32 "
+          f"{loss32!r}, rel {rel_loss:.3g} <= {LM_LOSS_RTOL}), grad norm "
+          f"{norm16!r} (float32 {norm32!r}, rel {rel_norm:.3g} <= "
+          f"{LM_GNORM_RTOL})")
+
+    quiet = dict(log_every=10 ** 9, log_fn=print)
+    run_a = []
+    state = train_loop(init_state(params, opt), recorded(step, run_a),
+                       itertools.repeat(batch), n_steps=TRAIN_STEPS, **quiet)
+    losses = loss_falls("lm", run_a, LM_LOSS_DROP)
+    final = {k: p.detach().clone() for k, p in params.items()}
+    del state
+
+    # -- crashed at TRAIN_CKPT_AT, restored from its checkpoint, resumed ---
+    def from_start():
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(start[k])
+        return init_state(params, opt)
+
+    ck_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    run_b, run_c = [], []
+    t0 = time.perf_counter()
+    try:
+        train_loop(from_start(), recorded(step, run_b),
+                   itertools.repeat(batch), n_steps=TRAIN_STEPS,
+                   ckpt_dir=str(ck_dir), ckpt_every=TRAIN_CKPT_AT,
+                   fail_at_step=TRAIN_CKPT_AT, **quiet)
+        fail("train lm: the simulated failure did not happen")
+    except RuntimeError as e:
+        if "simulated worker failure" not in str(e):
+            raise
+    save_s = time.perf_counter() - t0 - sum(r[2] for r in run_b)
+    last = ckpt.latest_step(str(ck_dir))
+    if last != TRAIN_CKPT_AT:
+        fail(f"train lm: latest checkpoint {last}, not {TRAIN_CKPT_AT}")
+    ck_bytes = sum(f.stat().st_size for f in ck_dir.rglob("*") if f.is_file())
+    state = from_start()          # the weights and moments the crash left
+    #                               go: back to the start, then restore
+    t0 = time.perf_counter()
+    tree, _ = ckpt.restore(str(ck_dir), last,
+                           convert.train_state_to_numpy(state))
+    state = convert.train_state_from_jax(tree, state)
+    del tree
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    state = train_loop(state, recorded(step, run_c), itertools.repeat(batch),
+                       n_steps=TRAIN_STEPS, **quiet)
+    differ = [k for k, p in params.items() if not torch.equal(p, final[k])]
+    if differ or int(state.step) != TRAIN_STEPS:
+        fail(f"train lm: the resumed run differs from the uninterrupted one "
+             f"in {len(differ)} of {len(params)} parameters ({differ[:3]})")
+    if [r[0] for r in run_c] != losses[last:]:
+        fail(f"train lm: resumed losses {[r[0] for r in run_c]} != "
+             f"{losses[last:]}")
+    print(f"train lm: losses {losses} over {TRAIN_STEPS} steps on one batch "
+          f"(must fall by {LM_LOSS_DROP}); crashed at step {last} and "
+          f"resumed from its checkpoint ({ck_bytes / 2**30:.2f} GiB, saved "
+          f"in {save_s:.1f} s, restored in {restore_s:.1f} s): all "
+          f"{len(params)} parameters bit for bit equal to the uninterrupted "
+          f"run (deterministic algorithms on)")
+    del final
+
+    # -- attn_impl="flash" under grad raises on the card -------------------
+    model.cfg = dataclasses.replace(cfg, attn_impl="flash")
+    try:
+        tf.lm_loss(model, {k: v[:1, :256] for k, v in batch.items()})
+        fail("train lm: attn_impl='flash' under grad did not raise")
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+    finally:
+        model.cfg = cfg
+    print("train lm: attn_impl='flash' under grad raises: the CUDA kernel "
+          "has no backward")
+
+    # -- one step's parts, host clock to a device sync ---------------------
+    def sync_s(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    loss, fwd_s = sync_s(lambda: tf.lm_loss(model, micro))
+    grads, bwd_s = sync_s(lambda: torch.autograd.grad(
+        loss, list(params.values())))
+    del loss
+    with torch.no_grad():
+        _, nograd_s = sync_s(lambda: tf.lm_loss(model, micro))
+
+    def optimizer_step():
+        updates, st = opt.update(dict(zip(params, grads)), state.opt_state,
+                                 params)
+        opt_lib.apply_updates(params, updates)
+    _, opt_s = sync_s(optimizer_step)
+    del grads
+    wall = []
+
+    def profiled_step():           # its wall, as device_profile takes it
+        t = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t)
+
+    rows = device_profile("lm train step", profiled_step)
+    profiled_s = wall[0]
+    busy = sum(r[0] for r in rows) / 1e6 if rows else None
+
+    tokens = n_seq * TRAIN_SEQ
+    t_step = step_ms(run_a + run_b + run_c) / 1e3
+    # model FLOPs a token: 6 x the matmul weights (embedding lookup: none)
+    # + causal attention's QK^T and PV at a mean context of (S + 1) / 2,
+    # forward and backward
+    mm = sum(p.numel() for k, p in params.items()
+             if p.dim() == 2 and k != "embed")
+    attn = 4 * cfg.n_layers * cfg.n_heads * cfg.head_dim * (TRAIN_SEQ + 1) / 2
+    flops_tok = 3 * (2 * mm + attn)
+    # the remat recompute runs every layer's forward once more (not the
+    # head's)
+    remat_tok = flops_tok + 2 * (mm - cfg.d_model * cfg.vocab) + attn
+    mfu = flops_tok * tokens / t_step / BF16_FLOP_PER_S
+    peak = torch.cuda.max_memory_allocated()
+    print(f"train lm: step {t_step * 1e3:.1f} ms (median of "
+          f"{len(run_a) + len(run_b) + len(run_c) - 1} steps after the "
+          f"first), {tokens / t_step:,.0f} tokens/s, "
+          f"{flops_tok / 1e9:.2f} GFLOP a token (model FLOPs, no remat; "
+          f"{remat_tok / 1e9:.2f} with the recompute) -> MFU {mfu:.2%} of "
+          f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16; peak device memory "
+          f"{peak / 2**30:.2f} GiB")
+    print(f"train lm: one micro-batch: forward {fwd_s * 1e3:.1f} ms, "
+          f"backward with its layer recompute {bwd_s * 1e3:.1f} ms (the "
+          f"forward without grad, about the recompute: "
+          f"{nograd_s * 1e3:.1f} ms); optimizer on {n_params:,} parameters "
+          f"{opt_s * 1e3:.1f} ms; so a step ~ {TRAIN_ACCUM} x "
+          f"{(fwd_s + bwd_s) * 1e3:.0f} + {opt_s * 1e3:.0f} ms")
+    del state, model, params, start, opt, step
+    torch.cuda.empty_cache()
+    return {"step_ms": t_step * 1e3, "tokens_per_s": tokens / t_step,
+            "mfu": mfu, "gflop_per_token": flops_tok / 1e9,
+            "losses": losses, "loss_f32": loss32, "loss_bf16": loss16,
+            "fwd_ms": fwd_s * 1e3, "bwd_ms": bwd_s * 1e3,
+            "nograd_fwd_ms": nograd_s * 1e3, "opt_ms": opt_s * 1e3,
+            "busy_s": busy, "profiled_s": profiled_s, "peak": peak,
+            "ckpt_gib": ck_bytes / 2**30,
+            "save_s": save_s, "restore_s": restore_s}
+
+
+def recsys_train_batch(arch: str, cfg, rows: int, gen, dev) -> dict:
+    """A training batch of ``rows``: the serving batch of ``ranker_batch``
+    with Bernoulli labels (0.3 CTR, 0.5 DIN, as the reference's launcher
+    draws them), or the two-tower user/item features with log_q 0."""
+    import torch
+    if arch == "two-tower-retrieval":
+        return {"user_feats": uniform_feats(
+                    gen, cfg.user_embedding.vocab_sizes, rows, dev),
+                "item_feats": uniform_feats(
+                    gen, cfg.item_embedding.vocab_sizes, rows, dev),
+                "log_q": torch.zeros(rows, device=dev)}
+    batch = ranker_batch(arch, cfg, rows, gen, dev)
+    p = 0.5 if arch == "din" else 0.3
+    batch["label"] = (torch.rand(rows, generator=gen, device=dev) < p).to(
+        torch.float32)
+    return batch
+
+
+def twotower_loss_f64(model, batch: dict, cfg, rows_a_chunk=4096) -> float:
+    """The in-batch sampled-softmax loss recomputed in float64 by row
+    chunks of the (B, B) logits (a float64 (B, B) at the train batch would
+    not fit beside the model)."""
+    import torch
+    from repro_torch.models import recsys as rec
+    u = rec.user_tower(model, batch["user_feats"], cfg)
+    v = rec.item_tower(model, batch["item_feats"], cfg)
+    log_q = batch["log_q"].double()
+    total = 0.0
+    for i in range(0, u.shape[0], rows_a_chunk):
+        logits = u[i:i + rows_a_chunk] @ v.T - log_q[None, :]
+        idx = torch.arange(i, i + logits.shape[0], device=u.device)
+        total += float((torch.logsumexp(logits, -1)
+                        - logits[idx - i, idx]).sum())
+    return total / u.shape[0]
+
+
+def bce_f64(logits, labels) -> float:
+    """The models' binary cross-entropy, all in float64 (their own
+    ``bce_loss`` casts the logits to float32 first)."""
+    import torch
+    z, y = logits.double(), labels.double()
+    return float(torch.mean(torch.clamp(z, min=0) - z * y
+                            + torch.log1p(torch.exp(-z.abs()))))
+
+
+def recsys_train(seed: int, dev) -> dict:
+    """Each recsys arch at full width, trained at its ``train_batch``
+    (halved while it does not fit, each cut printed) for
+    RECSYS_TRAIN_STEPS steps on one repeated batch: the first loss held
+    against the same model in float64, the loss falling. Each model is
+    freed before the next."""
+    import copy
+    import itertools
+    import torch
+    from repro_torch.configs import base
+    from repro_torch.models import recsys as rec
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.trainer import (init_state, make_train_step,
+                                           train_loop)
+    forward_of = {"deepfm": rec.ctr_forward, "xdeepfm": rec.ctr_forward,
+                  "din": rec.din_forward}
+    losses_of = {"deepfm": rec.ctr_loss, "xdeepfm": rec.ctr_loss,
+                 "din": rec.din_loss, "two-tower-retrieval": rec.twotower_loss}
+    init_of = {"deepfm": rec.init_ctr_params, "xdeepfm": rec.init_ctr_params,
+               "din": rec.init_din_params,
+               "two-tower-retrieval": rec.init_twotower_params}
+
+    def attempt(arch, cfg, rows):
+        """Train ``arch`` at batch ``rows``: (record, float64 first loss,
+        parameter count). Everything it made is freed when it returns or
+        raises."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        model = init_of[arch](gen, cfg, device=dev)
+        batch = recsys_train_batch(arch, cfg, rows, gen, dev)
+        with torch.no_grad():
+            m64 = copy.deepcopy(model).double()
+            loss64 = (twotower_loss_f64(m64, batch, cfg)
+                      if arch == "two-tower-retrieval"
+                      else bce_f64(forward_of[arch](m64, batch, cfg),
+                                   batch["label"]))
+            del m64
+        params = dict(model.named_parameters())
+        opt = opt_lib.chain(opt_lib.clip_by_global_norm(1.0),
+                            opt_lib.adamw(1e-3))
+        step = make_train_step(lambda p, b: losses_of[arch](model, b, cfg),
+                               opt)
+        record = []
+        train_loop(init_state(params, opt), recorded(step, record),
+                   itertools.repeat(batch), n_steps=RECSYS_TRAIN_STEPS,
+                   log_every=10 ** 9, log_fn=print)
+        return record, loss64, sum(p.numel() for p in params.values())
+
+    out = {}
+    for arch in ("two-tower-retrieval", "deepfm", "xdeepfm", "din"):
+        spec = base.get(arch)
+        cfg = spec.make_config()
+        rows = spec.shape("train_batch").dims["batch"]
+        cuts = []
+        while True:
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                record, loss64, n_params = attempt(arch, cfg, rows)
+                break
+            except torch.cuda.OutOfMemoryError:
+                pass
+            torch.cuda.empty_cache()    # the failed attempt's frame is gone
+            cuts.append(rows)
+            rows //= 2
+            if rows < 1024:
+                fail(f"train {arch}: does not fit at batch 1024")
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        rel = within(f"train {arch} first loss vs float64", record[0][0],
+                     loss64, TRAIN_F64_RTOL)
+        losses = loss_falls(f"train {arch}", record)
+        out[arch] = {"batch": rows, "cut_from": cuts,
+                     "step_ms": step_ms(record), "losses": losses,
+                     "f64_rel": rel, "peak": peak}
+        print(f"train {arch}: batch {rows:,}"
+              + (f" (halved from {cuts[0]:,}: did not fit)" if cuts else "")
+              + f", {n_params:,} parameters; first loss {record[0][0]!r} "
+              f"(float64 {loss64!r}, rel {rel:.3g} <= {TRAIN_F64_RTOL}); "
+              f"losses {losses}; step {out[arch]['step_ms']:.1f} ms; peak "
+              f"{peak / 2**30:.2f} GiB")
+    return out
+
+
+def gat_train(seed: int, dev) -> dict:
+    """gat-cora at ``full_graph_sm``: a Cora-sized graph (2,708 nodes,
+    10,556 edges of a power-law graph from ``--seed`` padded to 16,384,
+    1,433 features, 7 classes, 140 labelled nodes) trained full-batch for
+    GAT_TRAIN_STEPS steps: the first loss against float64, the loss
+    falling."""
+    import copy
+    import itertools
+    import numpy as np
+    import torch
+    from repro_torch.configs import base
+    from repro_torch.data import graph
+    from repro_torch.models import gat
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.trainer import (init_state, make_train_step,
+                                           train_loop)
+    spec = base.get("gat-cora")
+    cfg = spec.make_config()
+    dims = spec.shape("full_graph_sm").dims
+    n, e_pad = dims["n_nodes"], dims["n_edges"]
+    rng = np.random.default_rng(seed)
+    g = graph.random_power_law_graph(rng, n, 4, dims["d_feat"],
+                                     dims["n_classes"])
+    dst = np.repeat(np.arange(n), np.diff(g.indptr))
+    keep = np.sort(rng.choice(dst.shape[0], CORA_EDGES, replace=False))
+    src_p, dst_p = np.zeros(e_pad, np.int64), np.zeros(e_pad, np.int64)
+    src_p[:CORA_EDGES], dst_p[:CORA_EDGES] = g.indices[keep], dst[keep]
+    mask = np.zeros(n, bool)
+    mask[rng.choice(n, CORA_TRAIN_NODES, replace=False)] = True
+    batch = {"x": torch.from_numpy(g.features).to(dev),
+             "src": torch.from_numpy(src_p).to(dev),
+             "dst": torch.from_numpy(dst_p).to(dev),
+             "edge_mask": torch.arange(e_pad, device=dev) < CORA_EDGES,
+             "labels": torch.from_numpy(g.labels).to(dev),
+             "label_mask": torch.from_numpy(mask).to(dev)}
+    torch.cuda.reset_peak_memory_stats()
+    model = gat.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                            dev)
+    with torch.no_grad():            # the loss's own log-softmax is float32
+        logp = torch.log_softmax(gat.forward(
+            copy.deepcopy(model).double(),
+            {**batch, "x": batch["x"].double()}, cfg), dim=-1)
+        w = batch["label_mask"].double()
+        loss64 = float(-(logp.gather(1, batch["labels"][:, None])[:, 0]
+                         * w).sum() / w.sum())
+    params = dict(model.named_parameters())
+    opt = opt_lib.chain(opt_lib.clip_by_global_norm(1.0), opt_lib.adamw(1e-3))
+    record = []
+    train_loop(init_state(params, opt),
+               recorded(make_train_step(
+                   lambda p, b: gat.loss_fn(model, b, cfg), opt), record),
+               itertools.repeat(batch), n_steps=GAT_TRAIN_STEPS,
+               log_every=10 ** 9, log_fn=print)
+    rel = within("train gat-cora first loss vs float64", record[0][0], loss64,
+                 TRAIN_F64_RTOL)
+    losses = loss_falls("train gat-cora", record)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"train gat-cora: {n} nodes, {CORA_EDGES} edges padded to {e_pad}, "
+          f"{dims['d_feat']} features, {CORA_TRAIN_NODES} labelled nodes; "
+          f"first loss {record[0][0]!r} (float64 {loss64!r}, rel {rel:.3g} "
+          f"<= {TRAIN_F64_RTOL}); losses {losses}; step "
+          f"{step_ms(record):.2f} ms; peak {peak / 2**30:.2f} GiB")
+    return {"step_ms": step_ms(record), "losses": losses, "f64_rel": rel,
+            "peak": peak}
+
+
+def train_path(seed: int, dev, card: str) -> dict:
+    """The train phase: ``lm_train``, ``recsys_train`` and ``gat_train``
+    under deterministic algorithms (the resume check is bit for bit). No
+    hand-written kernel lies on this path, as no Pallas kernel lies on the
+    reference's: the phase fails if any launched. Returns the peak device
+    memory before the phase and the phase's numbers."""
+    import torch
+    from repro_torch.kernels import ops
+    peak_before = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # the ops used here have deterministic CUDA forms; filling every new
+    # buffer with NaN (the mode's default) would only slow the steps
+    torch.use_deterministic_algorithms(True)
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    ops.reset_launch_counts()
+    try:
+        out = {"lm": lm_train(seed, dev)}
+        out["recsys"] = recsys_train(seed, dev)
+        out["gat"] = gat_train(seed, dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+    launched = {k: v for k, v in ops.launch_counts.items() if v}
+    if launched:
+        fail(f"train phase launched hand-written kernels: {launched}")
+    peak = max([out["lm"]["peak"], out["gat"]["peak"]]
+               + [r["peak"] for r in out["recsys"].values()])
+    lm = out["lm"]
+    idle = ("not measured" if lm["busy_s"] is None else
+            f"{1 - lm['busy_s'] / lm['profiled_s']:.1%}")
+    print(f"train phase on {card}: {time.perf_counter() - t0:.1f} s host, "
+          f"no kernel launched (chunked attention, as the reference "
+          f"trains), peak device memory {peak / 2**30:.2f} GiB; qwen3-0.6b "
+          f"step {lm['step_ms']:.1f} ms, {lm['tokens_per_s']:,.0f} tokens/s, "
+          f"MFU {lm['mfu']:.2%}, device idle {idle} of a profiled step; "
+          + "; ".join(f"{a} step {r['step_ms']:.1f} ms at batch "
+                      f"{r['batch']:,}" for a, r in out["recsys"].items())
+          + f"; gat-cora step {out['gat']['step_ms']:.2f} ms")
+    return {"peak_before": peak_before, "peak": peak, **out}
 
 
 def lm_path(seed: int, dev):
@@ -1695,6 +2237,9 @@ def main() -> int:
                     help="seed of the synthetic data and the build's draws")
     args = ap.parse_args()
 
+    # the train phase runs under deterministic algorithms, whose cuBLAS
+    # check reads this once, at the process's first matrix product
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1900,7 +2445,8 @@ def main() -> int:
     phase_done("serving")
 
     # -- recsys serving at full width, counted; frees its tables -------------
-    rec_out = recsys_path(args.seed, dev)
+    with torch.no_grad():           # the towers' parameters are trainable
+        rec_out = recsys_path(args.seed, dev)
     phase_done("recsys")
 
     # -- LM serving path, counted ---------------------------------------------
@@ -2131,9 +2677,14 @@ def main() -> int:
     profile_query(eng, queries, 10, steps[10])
     profile_query(eng8, queries, 10, steps[10])
     phase_done("profiles")
+
+    # -- training: the LM, recsys and GAT through the trainer, no kernel ---
+    train_out = train_path(args.seed, dev, smi)
+    phase_done("train")
     peak = max(lm["peak_before"], art_out["peak_before"],
                serve_out["peak_before"], rec_out["peak_before"],
-               rec_out["peak"], torch.cuda.max_memory_allocated())
+               rec_out["peak"], train_out["peak_before"], train_out["peak"],
+               torch.cuda.max_memory_allocated())
     print(f"peak device memory: {peak / 2**30:.2f} GiB")
 
     kernels = [

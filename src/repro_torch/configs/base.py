@@ -5,9 +5,10 @@ shape cells.
 Twin of ``src/repro/configs/base.py``, copied so that the port imports
 nothing of the reference package. ``_ensure_loaded`` registers only the
 archs the port can build: the dense LMs qwen3-0.6b and qwen2-1.5b (its
-``qkv_bias`` takes the same code path) and the four recsys archs
-(deepfm, xdeepfm, din, two-tower-retrieval; ``models/recsys.py``). The MoE
-and GNN archs wait for their models (ROADMAP.md).
+``qkv_bias`` takes the same code path), the four recsys archs (deepfm,
+xdeepfm, din, two-tower-retrieval; ``models/recsys.py``) and the GNN
+gat-cora (``models/gat.py``). The MoE archs wait for their model
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -65,7 +66,8 @@ def all_archs() -> list[str]:
 def _ensure_loaded():
     # Import side effects register every arch the port has.
     from repro_torch.configs import (  # noqa: F401
-        deepfm, din, qwen2_1_5b, qwen3_0_6b, two_tower_retrieval, xdeepfm)
+        deepfm, din, gat_cora, qwen2_1_5b, qwen3_0_6b, two_tower_retrieval,
+        xdeepfm)
 
 
 LM_SHAPES = (

@@ -1,1 +1,2 @@
-"""Synthetic datasets on a ``torch.Generator`` (twin of ``repro.data``)."""
+"""Synthetic datasets on a ``torch.Generator`` and the numpy graph
+sampler (twin of ``repro.data``)."""

@@ -1,5 +1,5 @@
-"""Synthetic recommendation datasets (port of
-``src/repro/data/synthetic.py:19-81``).
+"""Synthetic recommendation datasets and an LM token stream (port of
+``src/repro/data/synthetic.py:19-93``).
 
 Non-negative low-rank factor products, which reproduce what the
 algorithms exploit: concentrated positive inner products and a
@@ -87,3 +87,21 @@ def queries_from_items(generator: torch.Generator, items: torch.Tensor,
     hi = max(nq, int(items.shape[0] * top_frac))
     pick = torch.randperm(hi, generator=generator)[:nq]
     return items[order[pick.to(items.device)]]
+
+
+def lm_token_batches(generator: torch.Generator, batch: int, seq: int,
+                     vocab: int, n_batches: int = 0):
+    """Zipf-ish synthetic token stream; yields {"tokens", "labels"}, each
+    (batch, seq) int64 on the generator's device, labels the tokens
+    shifted by one. The reference's transform (rank = u^-0.9 - 1 of a
+    uniform u in [1e-6, 1), clipped to the vocabulary) on torch's draws,
+    so the same distribution, not the same tokens."""
+    i = 0
+    while True:
+        u = torch.rand(batch, seq + 1, generator=generator,
+                       device=generator.device) * (1 - 1e-6) + 1e-6
+        ranks = torch.clamp(u ** -0.9 - 1.0, 0, vocab - 1).to(torch.int64)
+        yield {"tokens": ranks[:, :-1], "labels": ranks[:, 1:]}
+        i += 1
+        if n_batches and i >= n_batches:
+            return

@@ -102,7 +102,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     S, Dh <= 128, contiguous inputs; the route is picked by shape, see
     ``kernels/flash_attention.py``); on the CPU the O(S^2)-memory plain
     version, for smoke-scale shapes (the transformer's default
-    ``attn_impl`` stays ``"chunked"``)."""
+    ``attn_impl`` stays ``"chunked"``).
+
+    The kernel has no backward, as the reference's Pallas kernel has no
+    VJP: on CUDA a call that autograd would record (grad enabled and an
+    input requiring grad) raises rather than return an output cut off
+    from the graph. The plain version stays differentiable."""
     if _route(q, "flash_attention"):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            raise RuntimeError(
+                "flash_attention: the CUDA kernel has no backward; train "
+                "with attn_impl='chunked', or call it under torch.no_grad()")
         return _flash.flash_attention(q, k, v, causal=causal)
     return _ref.flash_attention(q, k, v, causal=causal)

@@ -16,7 +16,9 @@ candidate vectors.
 is its discrete part (the query's SRP code, the scan), so a test can feed
 it the reference's tower output. Meshes (the reference's sharded
 candidates) go with the multi-GPU slice; the dry-run ``Cell``
-(``build_sah_retrieval_cell``) waits for ``launch/cells.py``.
+(``build_sah_retrieval_cell``) waits for ``launch/cells.py``. Each entry
+point runs under ``torch.no_grad()``: the towers' parameters are
+trainable, and serving records nothing for autograd.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from repro_torch.models import recsys as rec_lib
 N_BITS = 256      # SRP sketch width for serving (W = 8 32-bit words)
 
 
+@torch.no_grad()
 def retrieve_for_user(u: torch.Tensor, cand_vecs: torch.Tensor,
                       cand_codes: torch.Tensor, proj: torch.Tensor,
                       policy=None, *, n_cand: int = 512, k: int = 100):
@@ -48,6 +51,7 @@ def retrieve_for_user(u: torch.Tensor, cand_vecs: torch.Tensor,
     return vals[0], ids[0]
 
 
+@torch.no_grad()
 def sah_retrieve_step(model, user_feats: torch.Tensor,
                       cand_vecs: torch.Tensor, cand_codes: torch.Tensor,
                       proj: torch.Tensor, cfg, policy=None, *,
@@ -63,6 +67,7 @@ def sah_retrieve_step(model, user_feats: torch.Tensor,
                              n_cand=n_cand, k=k)
 
 
+@torch.no_grad()
 def build_candidate_index(item_vecs, generator: torch.Generator | None = None,
                           *, n_bits: int = N_BITS, key=None, kmips_proj=None,
                           device=None) -> tuple[torch.Tensor, torch.Tensor]:

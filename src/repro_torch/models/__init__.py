@@ -1,2 +1,3 @@
-"""The LM model of the port (twin of ``repro.models``): attention,
-the dense transformer and the converter of the reference's parameters."""
+"""The models of the port (twin of ``repro.models``): attention, the
+dense transformer, the recsys models and their embedding bag, the GAT,
+and the converter of the reference's parameters and train states."""

@@ -12,28 +12,52 @@ the (in, out) layout, so the copy is bitwise.
 ``init_twotower_params``: leaf ``tree[a][i][b]`` lands on the parameter
 named ``a.i.b`` of the config's ``models/recsys.py`` model.
 
+``gat_params_from_jax`` does it for ``repro.models.gat.init_params``
+(``layers.i.w`` and so on).
+
+``train_state_to_numpy`` and ``train_state_from_jax`` carry a whole
+``TrainState`` (parameters, optimizer state, step) between the port's
+layout and the reference's pytree, so both packages take the same steps
+from the same state and each resumes the other's checkpoint. A
+parameter-keyed dict of the port (the parameters, and each moment of the
+optimizer state) maps onto the reference's nest: ``a.0.b`` onto
+``a/0/b`` (a list at ``a``), and the LM's per-layer ``blocks.i.name``
+onto row i of the stacked ``layers/name``.
+
 It reads numpy only: a JAX array passes through ``np.asarray``, and a
 bf16 array arrives as numpy dtype ``bfloat16`` (``ml_dtypes``), which
 ``torch.from_numpy`` rejects; it travels as its ``uint16`` bits instead.
+Going back, a bf16 leaf leaves as a CPU bfloat16 tensor (where there is no
+``ml_dtypes``, numpy has no bfloat16), every other leaf as numpy.
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.models import recsys
+from repro_torch.models import gat, recsys
 from repro_torch.models.transformer import LM, LMConfig
+
+_BLOCK = re.compile(r"blocks\.(\d+)\.(.+)")
 
 
 def _tensor_from_numpy(a) -> torch.Tensor:
     """A numpy (or numpy-convertible) array as a CPU tensor with the same
-    bits, bf16 included (copied: JAX's arrays are read-only)."""
+    bits, bf16 included, for copying into a parameter. It shares a
+    writeable array's memory; a read-only one (JAX's) is copied first,
+    since ``torch.from_numpy`` takes only writeable arrays."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu()
     a = np.asarray(a)
+    if not a.flags.writeable:
+        a = a.copy()
     if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(a.copy())
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def params_from_jax(tree: dict, cfg: LMConfig, device="cuda") -> LM:
@@ -97,3 +121,135 @@ def recsys_params_from_jax(tree: dict, cfg, device="cuda") -> nn.Module:
     model = recsys.model_for(cfg, device)
     _copy_leaves(model, _named_leaves(tree))
     return model
+
+
+def gat_params_from_jax(tree: dict, cfg: gat.GATConfig,
+                        device="cuda") -> gat.GATModel:
+    """The reference's GAT parameter pytree -> a ``GATModel`` on
+    ``device``, leaf ``tree["layers"][i][name]`` onto ``layers.i.name``."""
+    model = gat.GATModel(cfg, device)
+    _copy_leaves(model, _named_leaves(tree))
+    return model
+
+
+# -- train states ---------------------------------------------------------
+
+
+def _host(t):
+    """A device tensor as a host leaf: numpy, or a CPU bf16 tensor."""
+    t = t.detach().cpu()
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _leafwise(fn, *trees):
+    """``fn`` over the leaves of equally nested dicts."""
+    if isinstance(trees[0], dict):
+        return {k: _leafwise(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _as_lists(tree):
+    """Dicts keyed 0..n-1 (from ``a.0.b`` names) as lists, as the
+    reference nests an MLP's layers."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _as_lists(v) for k, v in tree.items()}
+    if out and all(isinstance(k, int) for k in out):
+        return [out[i] for i in range(len(out))]
+    return out
+
+
+def _ref_params(named: dict):
+    """A parameter-keyed dict of the port -> the reference's nest."""
+    out, stacked = {}, {}
+    for name, sub in named.items():
+        m = _BLOCK.fullmatch(name)
+        if m:
+            stacked.setdefault(m[2], {})[int(m[1])] = sub
+            continue
+        node, parts = out, [int(p) if p.isdigit() else p
+                            for p in name.split(".")]
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = _leafwise(_host, sub)
+    if stacked:
+        out["layers"] = {
+            name: _leafwise(lambda *rows: _host(torch.stack(rows)),
+                            *(rows[i] for i in range(len(rows))))
+            for name, rows in stacked.items()}
+    return _as_lists(out)
+
+
+def _to_ref(tree, names: set):
+    if isinstance(tree, dict) and names and set(tree) == names:
+        return _ref_params(tree)
+    if isinstance(tree, dict):
+        return {k: _to_ref(v, names) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_to_ref(v, names) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_ref(v, names) for v in tree)
+    return _host(tree)
+
+
+def train_state_to_numpy(state):
+    """A port ``TrainState`` -> the reference's (``TrainState`` of the
+    port's class, with the reference's nesting and numpy leaves; bf16
+    leaves as CPU tensors), ready for ``train/checkpoint.save`` or for
+    ``jax.tree.map(jnp.asarray, ...)``."""
+    return _to_ref(state, set(state.params))
+
+
+def _ref_leaf(tree, name: str):
+    """The reference's subtree for the port's parameter ``name``."""
+    m = _BLOCK.fullmatch(name)
+    if m:
+        return _leafwise(lambda a: a[int(m[1])], tree["layers"][m[2]])
+    for p in name.split("."):
+        tree = tree[int(p) if p.isdigit() else p]
+    return tree
+
+
+@torch.no_grad()
+def _fill(port, ref) -> None:
+    """Copy ``ref``'s leaves into the port's tensors of the same nest."""
+    if isinstance(port, dict):
+        for k in port:
+            _fill(port[k], ref[k])
+        return
+    t = _tensor_from_numpy(ref)
+    if t.shape != port.shape or t.dtype != port.dtype:
+        raise ValueError(f"reference leaf {t.dtype} {tuple(t.shape)} for "
+                         f"port {port.dtype} {tuple(port.shape)}")
+    port.copy_(t)
+
+
+def _from_ref(port, ref, names: set) -> None:
+    if isinstance(port, dict) and names and set(port) == names:
+        for name, sub in port.items():
+            _fill(sub, _ref_leaf(ref, name))
+    elif isinstance(port, dict):
+        if set(port) != set(ref):
+            raise ValueError(f"state keys {sorted(port)} != reference "
+                             f"{sorted(ref)}")
+        for k in port:
+            _from_ref(port[k], ref[k], names)
+    elif isinstance(port, (list, tuple)):
+        if len(port) != len(ref):
+            raise ValueError(f"{len(port)} state entries, reference "
+                             f"{len(ref)}")
+        for a, b in zip(port, ref):
+            _from_ref(a, b, names)
+    else:
+        _fill(port, ref)
+
+
+def train_state_from_jax(tree, state):
+    """Copy a reference ``TrainState`` (its params, opt_state and step as
+    numpy, e.g. ``jax.device_get`` of it or a restored checkpoint) into
+    the port's ``state`` in place: the model's parameters, the optimizer's
+    buffers and the step. ``state`` gives the port's layout (a model's
+    parameters and ``optimizer.init`` of them). Raises unless every leaf
+    lands on a tensor of the same shape and dtype. Returns ``state``."""
+    _from_ref(state, tree, set(state.params))
+    return state

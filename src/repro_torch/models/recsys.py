@@ -1,8 +1,7 @@
 """RecSys models: DeepFM, xDeepFM (CIN), DIN, and two-tower retrieval.
 
-Twin of ``src/repro/models/recsys.py`` for one device, serving only (no
-optimizer, no train step: recsys training waits for the training slice).
-Each model is an ``nn.Module`` made on an explicit device, holding the
+Twin of ``src/repro/models/recsys.py`` for one device. Each model is an
+``nn.Module`` made on an explicit device, holding the
 reference's pytree as parameters of the same names: a table, an MLP as a
 list of ``Dense`` layers with ``w`` in the reference's (in, out) layout
 and ``b``, and so on, so ``models/convert.py::recsys_params_from_jax``
@@ -28,15 +27,24 @@ does: a tower's output feeds SRP sign bits and an exact top-k.
 The CIN contracts each layer as (b, H_k * F, D) outer products times the
 (H, H_k * F) weight, over micro-chunks of the batch whose outer product
 holds at most ``CIN_CHUNK_ELEMS`` elements, so no (B, H_k, F, D) tensor
-larger than that is built at any batch (PORT.md, "Recsys").
+larger than that is built at any batch (PORT.md, "Recsys"). When autograd
+records, each micro-chunk runs under a checkpoint, so the backward too
+holds one chunk's outer products at a time.
+
+Parameters are trainable ``nn.Parameter``s and the losses (``ctr_loss``,
+``din_loss``, ``twotower_loss``) record for autograd; a table's gradient
+is dense, as the reference's ``jnp.take`` gives it. The serving entry
+points (``launch/serve.py``) run under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.engine.artifact import device_of
 from repro_torch.models import embedding as emb_lib
@@ -78,8 +86,7 @@ class TwoTowerConfig:
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
 class Dense(nn.Module):
@@ -107,7 +114,7 @@ def _on_device(device, who: str) -> torch.device:
 class CTRModel(nn.Module):
     """DeepFM / xDeepFM: ``table`` (R, D), ``linear`` (total_rows,),
     ``mlp``, and for CIN ``cin`` (one (H_{k+1}, H_k, F) weight a layer)
-    and ``cin_out`` (sum H_k,). Inference only."""
+    and ``cin_out`` (sum H_k,)."""
 
     def __init__(self, cfg: CTRConfig, device=None):
         super().__init__()
@@ -262,7 +269,11 @@ def _cin(x0: torch.Tensor, weights) -> torch.Tensor:
     b, f, d = x0.shape
     widest = max(w.shape[1] for w in weights)
     rows = max(1, CIN_CHUNK_ELEMS // (widest * f * d))
-    return torch.cat([_cin_rows(x0[i:i + rows], weights)
+    run = _cin_rows
+    if torch.is_grad_enabled():
+        run = functools.partial(checkpoint, _cin_rows, use_reentrant=False,
+                                preserve_rng_state=False)
+    return torch.cat([run(x0[i:i + rows], weights)
                       for i in range(0, b, rows)])
 
 

@@ -1,5 +1,5 @@
 """Decoder-only LM transformer (dense: GQA, RoPE, qk-norm, QKV bias,
-SwiGLU) with prefill and decode entry points.
+SwiGLU) with train (``lm_loss``), prefill and decode entry points.
 
 Twin of ``src/repro/models/transformer.py`` for one device. The reference
 keeps its parameters as a pytree with a leading (L,) layer axis and runs
@@ -10,9 +10,15 @@ reference's (in, out) layout and are used as ``x @ w``, so
 
 The functions take no ``ShardingPolicy``: on one device every
 ``policy.constrain`` of the reference is a no-op. ``LMConfig`` drops
-``scan_layers`` and ``remat``, which choose how JAX traces and
-rematerializes and mean nothing to eager PyTorch, and refuses ``moe``
-until ``models/moe.py`` is ported.
+``scan_layers``, which chooses how JAX traces the layer stack and means
+nothing to eager PyTorch, and refuses ``moe`` until ``models/moe.py`` is
+ported. ``remat="full"`` (the default, as in the reference) runs each
+layer under ``torch.utils.checkpoint`` when autograd records, so a layer
+keeps only its input for the backward and recomputes the rest.
+
+Parameters are trainable ``nn.Parameter``s; ``forward`` and ``lm_loss``
+record for autograd, while the serving entry points ``prefill``,
+``decode_step`` and ``full_logits`` run under ``torch.no_grad()``.
 
 Numerics follow the reference step for step: ``_rms_norm`` in float32,
 cast to the input's dtype, then times the scale; rotate-half RoPE with
@@ -30,11 +36,13 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 
 _ATTN_IMPLS = ("chunked", "flash")
+_REMATS = ("full", "none")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,7 +63,9 @@ class LMConfig:
     attn_chunk: int = 512
     attn_impl: str = "chunked"   # "chunked" (plain PyTorch) | "flash" (the
     #                              hand-written CUDA kernel on the card; the
-    #                              O(S^2) plain version on the CPU)
+    #                              O(S^2) plain version on the CPU; the
+    #                              kernel has no backward and refuses grad)
+    remat: str = "full"          # "full" (checkpoint each layer) | "none"
     max_seq: int = 4096          # decode cache length
     aux_loss_weight: float = 0.01
 
@@ -67,6 +77,9 @@ class LMConfig:
         if self.attn_impl not in _ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {_ATTN_IMPLS}, got "
                              f"{self.attn_impl!r}")
+        if self.remat not in _REMATS:
+            raise ValueError(f"remat must be one of {_REMATS}, got "
+                             f"{self.remat!r}")
         if self.n_heads % self.n_kv_heads:
             raise ValueError(f"n_heads {self.n_heads} is not a multiple of "
                              f"n_kv_heads {self.n_kv_heads}")
@@ -92,8 +105,7 @@ class LMConfig:
 
 
 def _empty(cfg: LMConfig, device, *shape) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=cfg.dtype, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.empty(shape, dtype=cfg.dtype, device=device))
 
 
 class Block(nn.Module):
@@ -117,8 +129,7 @@ class Block(nn.Module):
 
 class LM(nn.Module):
     """The model: ``embed`` (V, D), ``head`` (D, V), ``final_norm`` (D,)
-    and ``blocks``, one ``Block`` per layer. Inference only: parameters do
-    not require grad."""
+    and ``blocks``, one ``Block`` per layer."""
 
     def __init__(self, cfg: LMConfig, device=None):
         super().__init__()
@@ -230,20 +241,31 @@ def _layer(x: torch.Tensor, p: Block, cfg: LMConfig,
     return x, (k, v)
 
 
-@torch.no_grad()
+def _layer_out(x: torch.Tensor, p: Block, cfg: LMConfig,
+               positions: torch.Tensor) -> torch.Tensor:
+    return _layer(x, p, cfg, positions)[0]
+
+
 def forward(model: LM, tokens: torch.Tensor, *, return_cache: bool = False):
     """tokens (B, S) int -> (hidden (B, S, D) after the final norm, aux,
     cache). ``aux`` is the float32 zero a dense model's auxiliary loss is;
     ``cache`` is (k, v), each (L, B, Hkv, S, Dh), when ``return_cache``,
-    else None.
+    else None. Records for autograd when grad is enabled, each layer under
+    a checkpoint with ``remat="full"``.
 
     Returns hidden states, not logits: (B, S, V) float32 logits are GiBs
-    at vocab 152k; serving projects only the last position."""
+    at vocab 152k; the loss and serving project only what they need."""
     cfg = model.cfg
     x = model.embed[tokens]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
     ks, vs = [], []
     for blk in model.blocks:
+        if remat and not return_cache:
+            # no draws in a layer: nothing of the RNG state to keep
+            x = checkpoint(_layer_out, x, blk, cfg, positions,
+                           use_reentrant=False, preserve_rng_state=False)
+            continue
         x, (k, v) = _layer(x, blk, cfg, positions)
         if return_cache:
             ks.append(k)
@@ -258,6 +280,54 @@ def forward(model: LM, tokens: torch.Tensor, *, return_cache: bool = False):
 def full_logits(model: LM, hidden: torch.Tensor) -> torch.Tensor:
     """(B, S, D) -> (B, S, V) float32. Small-vocab / test use only."""
     return (hidden @ model.head).to(torch.float32)
+
+
+def _chunk_nll(h_c: torch.Tensor, y_c: torch.Tensor,
+               head: torch.Tensor) -> torch.Tensor:
+    """Summed cross-entropy of one chunk: logsumexp(h @ head) - <h,
+    head[:, y]>, from the model-dtype inputs with float32 logits. A bf16
+    product of two bf16 values is exact in float32, so upcasting the
+    operands and multiplying in float32 gives the reference's bf16-input,
+    float32-accumulated ``jnp.dot(..., preferred_element_type=float32)``
+    up to the order of the sums. The float32 copy of the head lives only
+    while the chunk runs."""
+    logits = torch.matmul(h_c.to(torch.float32), head.to(torch.float32))
+    lse = torch.logsumexp(logits, dim=-1)                      # (bc, S)
+    # the label columns of the (D, V) head, not a gather on the logits
+    w_y = head.index_select(1, y_c.reshape(-1)).reshape(
+        head.shape[0], *y_c.shape)                             # (D, bc, S)
+    correct = torch.einsum("bsd,dbs->bs", h_c.to(torch.float32),
+                           w_y.to(torch.float32))
+    return (lse - correct).sum()
+
+
+def lm_loss(model: LM, batch: dict, *, loss_chunk: int = 512
+            ) -> torch.Tensor:
+    """batch = {"tokens": (B, S), "labels": (B, S)} -> scalar float32
+    loss: the mean next-token cross-entropy plus ``aux_loss_weight`` times
+    the auxiliary loss.
+
+    The reference's steps: the cross-entropy runs over 8 batch chunks
+    when B is a multiple of 8 and ``loss_chunk < S * B``, else over one,
+    and with several chunks each runs under a checkpoint, so a chunk's
+    (bc, S, V) float32 logits never outlive it in either pass. The chunk
+    sums are added in order to a float32 total."""
+    cfg = model.cfg
+    hidden, aux, _ = forward(model, batch["tokens"])
+    b, s, _ = hidden.shape
+    labels = batch["labels"]
+    n_chunks = 8 if (b % 8 == 0 and loss_chunk < s * b) else 1
+    bc = b // n_chunks
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(n_chunks):
+        h_c, y_c = hidden[c * bc:(c + 1) * bc], labels[c * bc:(c + 1) * bc]
+        if n_chunks == 1:
+            total = total + _chunk_nll(h_c, y_c, model.head)
+        else:
+            total = total + checkpoint(_chunk_nll, h_c, y_c, model.head,
+                                       use_reentrant=False,
+                                       preserve_rng_state=False)
+    return total / (b * s) + cfg.aux_loss_weight * aux
 
 
 def init_cache(cfg: LMConfig, batch: int, dtype=None, device="cuda") -> dict:

@@ -1,2 +1,4 @@
-"""Training-side helpers of the port; so far the checkpoint layout that
-index artifacts are saved in (``checkpoint.py``)."""
+"""Training of the port (twin of ``repro.train``): the optimizers
+(``optimizer.py``), int8 error-feedback compression (``compression.py``),
+the train step and loop (``trainer.py``) and the checkpoint layout that
+train states and index artifacts are saved in (``checkpoint.py``)."""

@@ -8,15 +8,23 @@ disk, so each package reads what the other wrote:
                           dtype}, user metadata
         arrays_00000.npz  the leaves as numpy arrays
 
-A tree here is a flat ``dict[str, np.ndarray]``; its leaves are named
-``a00000``, ``a00001``, ... in sorted-key order, as the reference's
-``jax.tree_util`` flattens a dict. A write lands in ``<dir>/.tmp_step_N``
-and is renamed to ``step_N`` only after its manifest is fsynced, so a
-crash mid-write never leaves a directory ``latest_step`` would pick.
+A tree is a nest of dicts, lists, tuples and NamedTuples whose leaves
+are numpy arrays or torch tensors. It is flattened in JAX's leaf order (a
+NamedTuple by field, a dict by sorted key, a list or tuple by position;
+None holds no leaf), each leaf keyed by its path as the reference keys it
+(``.params/layers/wq`` for a NamedTuple field ``params``), and named
+``a00000``, ``a00001``, ... in that order. A write lands in
+``<dir>/.tmp_step_N`` and is renamed to ``step_N`` only after its manifest
+is fsynced, so a crash mid-write never leaves a directory ``latest_step``
+would pick.
 
-Left out: the reference stores ml_dtypes leaves (bfloat16, fp8) as their
-bytes; nothing the port saves has such a leaf, so ``save`` refuses one and
-``restore`` refuses a checkpoint that holds one.
+A bfloat16 leaf is stored as the reference stores an ml_dtypes leaf: its
+bytes as uint8 with a trailing axis of 2, the manifest naming the dtype
+``bfloat16``. The port reads and writes those bytes through
+``tensor.view(torch.uint8)``, with no ml_dtypes, and ``restore`` returns
+such a leaf as a CPU bfloat16 tensor (numpy has no bfloat16 of its own);
+every other leaf comes back as a numpy array. ``save`` takes a bfloat16
+leaf as a torch tensor; other ml_dtypes (fp8) are refused both ways.
 """
 
 from __future__ import annotations
@@ -28,15 +36,73 @@ import time
 from typing import Mapping
 
 import numpy as np
+import torch
 
 
 def _step_dir(ckpt_dir: str, step: int) -> str:
     return os.path.join(ckpt_dir, f"step_{step:08d}")
 
 
-def save(ckpt_dir: str, step: int, tree: Mapping[str, np.ndarray],
-         metadata: dict | None = None) -> str:
-    """Atomically save a flat tree of numpy arrays. Returns the final
+def _children(tree):
+    """(path entry, subtree) pairs in JAX's flattening order; None for a
+    leaf."""
+    if tree is None:
+        return []
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [(f".{name}", getattr(tree, name)) for name in tree._fields]
+    if isinstance(tree, Mapping):
+        return [(str(k), tree[k]) for k in sorted(tree)]
+    if isinstance(tree, (list, tuple)):
+        return [(str(i), sub) for i, sub in enumerate(tree)]
+    return None
+
+
+def flatten_with_paths(tree, prefix: str = "") -> list[tuple[str, object]]:
+    """[(path, leaf)] in JAX's leaf order, paths as the reference's
+    checkpoint keys them."""
+    kids = _children(tree)
+    if kids is None:
+        return [(prefix, tree)]
+    out = []
+    for entry, sub in kids:
+        out += flatten_with_paths(sub, f"{prefix}/{entry}" if prefix
+                                  else entry)
+    return out
+
+
+def _unflatten(like, leaves):
+    """A tree shaped as ``like`` holding the next leaves of the iterator
+    ``leaves``."""
+    if like is None:
+        return None
+    if isinstance(like, tuple) and hasattr(like, "_fields"):
+        return type(like)(*(_unflatten(getattr(like, f), leaves)
+                            for f in like._fields))
+    if isinstance(like, Mapping):
+        return {k: _unflatten(like[k], leaves) for k in sorted(like)}
+    if isinstance(like, (list, tuple)):
+        return type(like)(_unflatten(sub, leaves) for sub in like)
+    return next(leaves)
+
+
+def _stored(key: str, leaf) -> tuple[np.ndarray, str]:
+    """A leaf as the array written to disk and its logical dtype."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return (t.reshape(-1).view(torch.uint8).reshape(
+                *t.shape, 2).numpy(), "bfloat16")
+        return t.numpy(), str(t.numpy().dtype)
+    arr = np.asarray(leaf)
+    if arr.dtype.kind == "V":
+        raise ValueError(f"leaf {key!r} has numpy dtype {arr.dtype}; pass "
+                         f"a bfloat16 leaf as a torch tensor")
+    return arr, str(arr.dtype)
+
+
+def save(ckpt_dir: str, step: int, tree, metadata: dict | None = None
+         ) -> str:
+    """Atomically save a tree (module docstring). Returns the final
     directory path."""
     os.makedirs(ckpt_dir, exist_ok=True)
     final = _step_dir(ckpt_dir, step)
@@ -46,15 +112,12 @@ def save(ckpt_dir: str, step: int, tree: Mapping[str, np.ndarray],
     os.makedirs(tmp)
 
     index, arrays = {}, {}
-    for i, key in enumerate(sorted(tree)):
-        arr = np.asarray(tree[key])
-        if arr.dtype.kind == "V":
-            raise ValueError(f"leaf {key!r} has dtype {arr.dtype}; the "
-                             f"port saves no ml_dtypes leaf")
+    for i, (key, leaf) in enumerate(flatten_with_paths(tree)):
+        arr, dtype = _stored(key, leaf)
         name = f"a{i:05d}"
         arrays[name] = arr
         index[key] = {"file": name, "shape": list(arr.shape),
-                      "dtype": str(arr.dtype)}
+                      "dtype": dtype}
     np.savez(os.path.join(tmp, "arrays_00000.npz"), **arrays)
 
     manifest = {"step": step, "time": time.time(), "index": index,
@@ -96,29 +159,33 @@ def read_manifest(ckpt_dir: str, step: int) -> dict:
         return json.load(f)
 
 
-def restore(ckpt_dir: str, step: int, like: Mapping[str, np.ndarray]
-            ) -> tuple[dict, dict]:
-    """Restore the leaves named by ``like`` (values ignored; shapes
-    checked) as numpy arrays. Returns (tree, metadata)."""
+def restore(ckpt_dir: str, step: int, like) -> tuple[object, dict]:
+    """Restore a tree shaped as ``like`` (its leaves' values ignored,
+    their shapes checked): numpy arrays, bfloat16 leaves as CPU tensors.
+    Returns (tree, metadata)."""
     manifest = read_manifest(ckpt_dir, step)
     data = np.load(os.path.join(_step_dir(ckpt_dir, step),
                                 "arrays_00000.npz"))
-    tree = {}
-    for key in sorted(like):
+    leaves = []
+    for key, leaf_like in flatten_with_paths(like):
         entry = manifest["index"].get(key)
         if entry is None:
             raise KeyError(f"checkpoint missing leaf {key!r}")
         arr = data[entry["file"]]
-        if str(arr.dtype) != entry["dtype"]:
+        want = tuple(leaf_like.shape)
+        bits = entry["dtype"] == "bfloat16"
+        if str(arr.dtype) != ("uint8" if bits else entry["dtype"]):
             raise ValueError(f"leaf {key!r} is stored as {arr.dtype} for "
-                             f"dtype {entry['dtype']}; the port reads no "
-                             f"ml_dtypes leaf")
-        want = tuple(np.shape(like[key]))
-        if tuple(arr.shape) != want:
+                             f"dtype {entry['dtype']}; of the ml_dtypes "
+                             f"the port reads bfloat16 only")
+        if tuple(arr.shape) != (want + (2,) if bits else want):
             raise ValueError(f"leaf {key!r}: checkpoint shape {arr.shape} "
                              f"!= {want}")
-        tree[key] = arr
-    return tree, manifest["metadata"]
+        if bits:
+            arr = torch.from_numpy(np.ascontiguousarray(arr).reshape(-1)
+                                   ).view(torch.bfloat16).reshape(want)
+        leaves.append(arr)
+    return _unflatten(like, iter(leaves)), manifest["metadata"]
 
 
 def prune(ckpt_dir: str, keep: int = 3,

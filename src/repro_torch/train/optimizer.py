@@ -1,0 +1,238 @@
+"""Optimizers as plain functions (no ``torch.optim``): AdamW, Adafactor,
+SGD-momentum, global-norm clipping, and a composable transform interface.
+
+Twin of ``src/repro/train/optimizer.py``. Parameters, gradients and
+updates are flat ``dict[str, Tensor]``s keyed by parameter name (a
+model's ``named_parameters()``); a state is a dict (or, for ``chain``, a
+tuple) with the reference's key names (``m``, ``v``, ``step``, ``r``,
+``c``, ``full``, ``mom``), so ``models/convert.py`` maps it onto the
+reference's pytree. The update math is the reference's, op for op: moments
+in float32 whatever the parameter dtype, Adafactor's first moment in
+bfloat16, bias correction from an int32 step counter.
+
+``update(grads, state, params)`` returns ``(updates, state)``. It writes
+the new moments into the state's own buffers, so the state passed in is
+consumed: the reference's train loop donates its state the same way
+(``jax.jit(step, donate_argnums=0)``). ``torch.optim.AdamW`` is not used
+because it folds weight decay in as ``p *= 1 - lr * wd`` before the Adam
+step, where the reference adds ``wd * p`` to the Adam direction.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+
+class Optimizer(NamedTuple):
+    init: Callable[[dict], Any]
+    update: Callable[[dict, Any, dict], tuple[dict, Any]]  # (g, state, p)
+    #                                                        -> (updates,
+    #                                                            state)
+
+
+@torch.no_grad()
+def apply_updates(params: dict, updates: dict) -> dict:
+    """``p + u.to(p.dtype)`` written into each parameter in place (a
+    bfloat16 parameter adds the bfloat16-rounded update, as the reference
+    does). Returns ``params``."""
+    for name, p in params.items():
+        p.add_(updates[name].to(p.dtype))
+    return params
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def global_norm(tree: dict) -> torch.Tensor:
+    """sqrt of the float32 sum of squares, summed leaf by leaf in the
+    dict's order."""
+    total = 0
+    for x in tree.values():
+        total = total + _f32(x).square().sum()
+    return torch.sqrt(total)
+
+
+def _step_of(state) -> tuple[torch.Tensor, torch.Tensor]:
+    step = state["step"] + 1
+    return step, step.to(torch.float32)
+
+
+def clip_by_global_norm(max_norm: float) -> Optimizer:
+    def init(params):
+        del params
+        return ()
+
+    def update(grads, state, params=None):
+        del params
+        g = global_norm(grads)
+        scale = torch.clamp(max_norm / torch.clamp(g, min=1e-9), max=1.0)
+        # a bf16 gradient times the float32 scale is float32, as jnp
+        # promotes it
+        return {k: _f32(x) * scale for k, x in grads.items()}, state
+
+    return Optimizer(init, update)
+
+
+def adamw(lr: float | Callable[[torch.Tensor], torch.Tensor], *,
+          b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+          weight_decay: float = 0.0) -> Optimizer:
+    """AdamW (decoupled weight decay). ``lr`` may be a schedule of the
+    step (an int32 tensor)."""
+
+    def init(params):
+        zeros = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                 for k, p in params.items()}
+        return {"m": zeros,
+                "v": {k: torch.zeros_like(z) for k, z in zeros.items()},
+                "step": torch.zeros((), dtype=torch.int32,
+                                    device=_device(params))}
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        step, step_f = _step_of(state)
+        lr_t = lr(step) if callable(lr) else lr
+        b1t = 1.0 - b1 ** step_f
+        b2t = 1.0 - b2 ** step_f
+        updates = {}
+        for k, g in grads.items():
+            g = _f32(g)
+            m, v = state["m"][k], state["v"][k]
+            m.mul_(b1).add_((1 - b1) * g)
+            v.mul_(b2).add_((1 - b2) * g * g)
+            mh = m / b1t
+            vh = v / b2t
+            updates[k] = -lr_t * (mh / (torch.sqrt(vh) + eps)
+                                  + weight_decay * _f32(params[k]))
+        return updates, {"m": state["m"], "v": state["v"], "step": step}
+
+    return Optimizer(init, update)
+
+
+def _factored(p: torch.Tensor) -> bool:
+    return p.ndim >= 2 and p.shape[-1] >= 2 and p.shape[-2] >= 2
+
+
+def adafactor(lr: float | Callable = 1e-3, *, b1: float | None = 0.9,
+              decay: float = 0.999, eps: float = 1e-30,
+              clip_threshold: float = 1.0,
+              momentum_dtype=torch.bfloat16) -> Optimizer:
+    """Adafactor (Shazeer & Stern 2018): for a leaf of two or more axes
+    the second moment is kept as row and column means (``r``, ``c``);
+    other leaves keep it whole (``full``). The first moment is kept in
+    ``momentum_dtype`` (bfloat16; ``b1=None`` drops it). Statistics are
+    per leaf: on an LM the port's leaves are single layers, where the
+    reference's are (L, ...) stacks (PORT.md, "Training")."""
+
+    def init(params):
+        def v_init(p):
+            if _factored(p):
+                return {"r": torch.zeros(p.shape[:-1], dtype=torch.float32,
+                                         device=p.device),
+                        "c": torch.zeros(p.shape[:-2] + p.shape[-1:],
+                                         dtype=torch.float32,
+                                         device=p.device)}
+            return {"full": torch.zeros(p.shape, dtype=torch.float32,
+                                        device=p.device)}
+
+        state = {"v": {k: v_init(p) for k, p in params.items()},
+                 "step": torch.zeros((), dtype=torch.int32,
+                                     device=_device(params))}
+        if b1 is not None:
+            state["m"] = {k: torch.zeros(p.shape, dtype=momentum_dtype,
+                                         device=p.device)
+                          for k, p in params.items()}
+        return state
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        del params
+        step, step_f = _step_of(state)
+        lr_t = lr(step) if callable(lr) else lr
+        # the beta2 schedule, capped by the configured decay
+        beta2 = torch.clamp(1.0 - step_f ** -0.8, max=decay)
+        updates = {}
+        for k, g in grads.items():
+            g = _f32(g)
+            g2 = g * g + eps
+            v = state["v"][k]
+            if "r" in v:
+                v["r"].mul_(beta2).add_((1 - beta2) * g2.mean(dim=-1))
+                v["c"].mul_(beta2).add_((1 - beta2) * g2.mean(dim=-2))
+                denom = torch.clamp(v["r"].mean(dim=-1, keepdim=True),
+                                    min=eps)
+                vhat = (v["r"][..., None] * v["c"][..., None, :]
+                        ) / denom[..., None]
+            else:
+                vhat = v["full"].mul_(beta2).add_((1 - beta2) * g2)
+            u = g * torch.rsqrt(vhat + eps)
+            # relative update clipping
+            rms_u = torch.sqrt((u * u).mean() + 1e-12)
+            u = u / torch.clamp(rms_u / clip_threshold, min=1.0)
+            if b1 is not None:
+                m = state["m"][k]
+                m.copy_(b1 * m.to(torch.float32) + (1 - b1) * u)
+                u = m.to(torch.float32)
+            updates[k] = -lr_t * u
+        new_state = {"v": state["v"], "step": step}
+        if b1 is not None:
+            new_state["m"] = state["m"]
+        return updates, new_state
+
+    return Optimizer(init, update)
+
+
+def sgd(lr: float, momentum: float = 0.9) -> Optimizer:
+    def init(params):
+        return {"mom": {k: torch.zeros(p.shape, dtype=torch.float32,
+                                       device=p.device)
+                        for k, p in params.items()}}
+
+    @torch.no_grad()
+    def update(grads, state, params=None):
+        del params
+        mom = state["mom"]
+        for k, g in grads.items():
+            mom[k].mul_(momentum).add_(_f32(g))
+        return {k: -lr * m for k, m in mom.items()}, {"mom": mom}
+
+    return Optimizer(init, update)
+
+
+def chain(*opts: Optimizer) -> Optimizer:
+    """Sequentially-composed gradient transforms (clip -> adam, etc.)."""
+
+    def init(params):
+        return tuple(o.init(params) for o in opts)
+
+    def update(grads, state, params):
+        new_states = []
+        for o, s in zip(opts, state):
+            grads, s = o.update(grads, s, params)
+            new_states.append(s)
+        return grads, tuple(new_states)
+
+    return Optimizer(init, update)
+
+
+def cosine_schedule(peak_lr: float, warmup: int, total: int,
+                    floor: float = 0.1):
+    """Linear warmup to ``peak_lr``, then a cosine down to
+    ``floor * peak_lr`` at ``total``: a function of the int32 step."""
+    def lr(step):
+        step = step.to(torch.float32)
+        warm = peak_lr * step / max(warmup, 1)
+        t = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = peak_lr * (floor + (1 - floor) * 0.5
+                         * (1 + torch.cos(math.pi * t)))
+        return torch.where(step < warmup, warm, cos)
+    return lr
+
+
+def _device(params: dict) -> torch.device:
+    for p in params.values():
+        return p.device
+    return torch.device("cpu")

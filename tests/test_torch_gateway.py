@@ -210,8 +210,12 @@ def test_compaction_of_one_tenant_does_not_stall_another(flow):
         gw.insert_items("churny", q[:3])
         gw.request_compaction("churny")
         end = time.monotonic() + WAIT
-        while gw.runtime("churny").stats.compactions < 1:
+        # steady is served at least once after the request, however soon
+        # the compaction lands (it may land before a first check)
+        while True:
             gw.submit("steady", q[0]).result(timeout=WAIT)
+            if gw.runtime("churny").stats.compactions >= 1:
+                break
             assert time.monotonic() < end, "compaction never landed"
             time.sleep(0.01)
         st = gw.stats()

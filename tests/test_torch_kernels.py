@@ -43,6 +43,7 @@ import torch
 from repro_torch.core import sa_alsh
 from repro_torch.kernels import fused_scan, hamming_scan, ip_topk, ops, ref
 from repro_torch.kernels import flash_attention, srp_hash
+from repro_torch.models import attention
 
 
 @pytest.fixture
@@ -516,6 +517,22 @@ def test_ops_flash_attention_takes_the_plain_version_on_cpu():
         flash_attention.flash_attention(q, k, v)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_route_grad_matches_chunked(causal):
+    """On the CPU ``ops.flash_attention`` takes its plain version, which
+    stays differentiable (as the reference's CPU fallback is): its
+    gradients equal chunked attention's within float32 summation order."""
+    qkv = [torch.from_numpy(a).requires_grad_(True)
+           for a in _qkv(4, (2, 2, 40, 16))]
+    cot = torch.from_numpy(_qkv(5, (2, 2, 40, 16))[0])
+    got = torch.autograd.grad((ops.flash_attention(*qkv, causal=causal)
+                               * cot).sum(), qkv)
+    want = torch.autograd.grad((attention.chunked_attention(
+        *qkv, chunk=16, causal=causal) * cot).sum(), qkv)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=5e-5)
+
+
 @pytest.mark.parametrize("hkv,causal", [(1, True), (2, True), (2, False)])
 def test_flash_gqa_equals_repeated_kv_and_pallas(jx, hkv, causal):
     """k and v with Hkv < H heads: ops and ref equal, bit for bit, the same
@@ -810,6 +827,24 @@ def test_cuda_flash_attention_unaligned_takes_mma(cuda):
     want = ref.flash_attention(q, k, v).float()
     assert bool(((got.float() - want).abs()
                  <= 2.0 ** -6 * want.abs() + 1e-3).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_flash_attention_refuses_grad(cuda, dtype):
+    """The CUDA kernel has no backward (nor has the reference's Pallas
+    kernel): under grad it raises instead of returning an output cut off
+    from the graph, and launches nothing; under no_grad it runs."""
+    q, k, v = (torch.from_numpy(a).to(getattr(torch, dtype)).to(cuda)
+               for a in _qkv(6, (1, 2, 64, 64)))
+    before = dict(ops.launch_counts)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q.requires_grad_(True), k, v)
+    assert ops.launch_counts == before
+    with torch.no_grad():
+        out = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and not out.requires_grad
 
 
 def _refuse_hamming_srp(cuda):

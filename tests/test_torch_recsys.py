@@ -194,7 +194,8 @@ def test_forward_matches_reference(arch):
                      jrec.retrieval_scores(outs[0][1], outs[1][1])))
     for got, want in outs:
         assert got.dtype == torch.float32
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   **F32_TOL)
 
 
 @pytest.mark.parametrize("arch", RECSYS)
@@ -207,7 +208,8 @@ def test_loss_matches_reference(arch):
     got = loss(model, as_torch(batch), cfg)
     want = jloss(params, as_jax(batch), jcfg)
     assert got.shape == () and got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               **F32_TOL)
 
 
 def test_bce_loss_matches_reference():
@@ -228,8 +230,9 @@ def test_cin_micro_chunks_equal_one_chunk(monkeypatch):
     f, d = cfg.embedding.n_fields, cfg.embedding.dim
     monkeypatch.setattr(recsys, "CIN_CHUNK_ELEMS",
                         max(cfg.cin_layers + (f,)) * f * d)
-    np.testing.assert_allclose(recsys.ctr_forward(model, tb, cfg).numpy(),
-                               whole.numpy(), rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(
+        recsys.ctr_forward(model, tb, cfg).detach().numpy(),
+        whole.detach().numpy(), rtol=1e-6, atol=1e-7)
 
 
 def test_port_init_matches_the_references_scales():
@@ -424,7 +427,7 @@ def test_sah_retrieve_step_end_to_end_traced(retrieval):
             r["model"], torch.from_numpy(user[None]), cand, codes, proj,
             r["cfg"], n_cand=64, k=10)
         u = recsys.user_tower(r["model"], torch.from_numpy(user[None]),
-                              r["cfg"])[0].numpy()
+                              r["cfg"])[0].detach().numpy()
         u_ref = np.asarray(jrec.user_tower(
             r["params"], jnp.asarray(user[None]), r["jcfg"])[0])
         np.testing.assert_allclose(u, u_ref, **F32_TOL)
