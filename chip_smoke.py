@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the port's eight paths through their entry points, each with every
+Drives the port's ten paths through their entry points, each with every
 launch count set to 0 just before it and read just after. The first five
 run at the paper's Netflix scale (n = 17,770 items, m = 480,189 users,
 d = 100, synthetic MF-like factors from ``--seed``):
@@ -53,6 +53,15 @@ d = 100, synthetic MF-like factors from ``--seed``):
                 vocab 151,936, bf16, weights drawn from ``--seed``) with
                 ``attn_impl="flash"``: ``prefill`` of 4 prompts of 2,048
                 tokens, then 32 greedy ``decode_step``s;
+  MoE LM        olmoe-1b-7b at full width and depth (16 layers, d 2,048,
+                64 experts top-8, ``d_ff_expert`` 1,024, vocab 50,304,
+                bf16, 6.92 B parameters from ``--seed``), flash: the same
+                prefill and 32 steps, the share of assignments each layer
+                drops at capacity (from ``moe.route`` on each layer's
+                input, by forward pre-hooks), none in decode;
+  dense 12B     mistral-nemo-12b at full width and depth (40 layers, d
+                5,120, 32 heads over 8 KV heads, vocab 131,072, bf16),
+                flash: the same prefill and 8 steps (cut for time);
   train         the trainer (``make_train_step`` + ``train_loop``,
                 chain(clip 1.0, adamw), deterministic algorithms on):
                 qwen3-0.6b at full width and depth in bf16 (remat,
@@ -77,7 +86,8 @@ It
      never there but once per forward serving dispatch, and ``srp_hash``
      once per forward serving dispatch and per reverse chunk;
      ``flash_attention`` exactly once per layer in prefill, every
-     launch on its ``wgmma`` route, never in decode; ``ip_topk``, which
+     launch on its ``wgmma`` route, never in decode, and no other kernel
+     in an LM phase; ``ip_topk``, which
      the port calls only for the exact forward answer, is counted around
      that one call; on the retrieval path exactly one ``srp_hash`` for the
      build and one a request, one dense ``hamming_scores`` a sketch
@@ -94,7 +104,9 @@ It
      (``RANKER_TOL``, TF32 off), and the flash
      prefill's logits against the plain chunked prefill's and a decode step
      against a prefill one token longer, with the same model in float32 as
-     the arbiter of how far two bf16 paths may drift apart;
+     the arbiter of how far two bf16 paths may drift apart (olmoe's cache
+     check at capacity factor E / k, where nothing drops; mistral-nemo's
+     rule on its first 10 layers);
   5. holds each kernel against its plain PyTorch version on the inputs
      its path gives it (the dense Hamming matrix exactly;
      ``hamming_nearest`` and ``fused_scan`` exactly at the path's tile and
@@ -105,7 +117,8 @@ It
      Hamming matrix over 1M rows and ``ip_topk`` at k = 100, each exactly;
      flash attention
      within two bf16 ulps on layer 0's q/k/v, with its 8 KV heads read in
-     place, and on ``FLASH_CHECKS``, and within 5e-5 in float32);
+     place, and on ``FLASH_CHECKS``, and within 5e-5 in float32; also on
+     olmoe's and mistral-nemo's layer-0 q/k/v);
   6. times each kernel and its plain version on the device (launches
      replayed from a CUDA graph) and each wrapper call from Python
      (``ops.ip_topk`` with its merge against one library call, the
@@ -117,7 +130,8 @@ It
      kernels with their shared memory and their ``HGMMA`` / ``UTMALDG``
      counts in the SASS;
   7. splits a query batch into plan and execute, and profiles it, one
-     LM prefill and one LM train step for the device's busy share, their top kernels and the
+     LM prefill (qwen3 and olmoe), 4 decode steps, and one LM train step
+     for the device's busy share, their top kernels and the
      device launches per tile step (the f32 profile must hold no
      ``gatherTopK`` or ``radixSortKVInPlace`` row: the selection is in
      ``hamming_nearest``).
@@ -1248,6 +1262,180 @@ def train_path(seed: int, dev, card: str) -> dict:
     return {"peak_before": peak_before, "peak": peak, **out}
 
 
+def float32_copy(model, n_layers: int | None = None):
+    """The model's first ``n_layers`` blocks (all by default) with its
+    embed, head and final norm, upcast to float32 (exact from bf16), on
+    chunked attention: the arbiter of how far two bf16 paths may drift."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer as tf
+    cfg32 = dataclasses.replace(model.cfg, attn_impl="chunked",
+                                dtype=torch.float32,
+                                n_layers=n_layers or model.cfg.n_layers)
+    model32 = tf.LM(cfg32, model.embed.device)
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        for name, p in model32.named_parameters():
+            p.copy_(params[name])
+    return model32
+
+
+def cut_model(model, n_layers: int):
+    """A view of ``model`` with its first ``n_layers`` blocks: the same
+    parameter tensors, no copy."""
+    import dataclasses
+    from torch import nn
+    from repro_torch.models import transformer as tf
+    cut = tf.LM(dataclasses.replace(model.cfg, n_layers=n_layers), "meta")
+    cut.embed, cut.head = model.embed, model.head
+    cut.final_norm = model.final_norm
+    cut.blocks = nn.ModuleList(list(model.blocks)[:n_layers])
+    return cut
+
+
+def serve_lm(label: str, model, prompts, steps: int, mark=None) -> dict:
+    """One cold ``prefill`` of ``prompts``, then a timed one and ``steps``
+    greedy ``decode_step``s, each with the launch counts set to 0 just
+    before it and read just after. Fails unless ``flash_attention`` ran
+    once a layer in prefill, all on its ``wgmma`` route, no other
+    hand-written kernel ran, none ran in decode, and the outputs are
+    finite tokens of the vocabulary. ``mark(phase)`` is called with
+    "prefill" and "decode" just before each timed part and "done" after."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    cfg = model.cfg
+    mark = mark or (lambda phase: None)
+    # warm-up at full size: the first prefill at these shapes also pays
+    # cuBLAS's handles and heuristics and the caching allocator's first
+    # blocks (68.7 to 150.5 ms on one H100 after a 256-token warm-up)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tf.prefill(model, prompts)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+
+    peak_before = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mark("prefill")
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = tf.prefill(model, prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches_prefill = dict(ops.launch_counts)
+    mark("decode")
+    ops.reset_launch_counts()
+    nxt = logits.argmax(-1)
+    tokens_out = []
+    t0 = time.perf_counter()
+    for step in range(steps):
+        step_logits, cache = tf.decode_step(model, cache, nxt)
+        if step == 0:
+            first_step = step_logits
+        nxt = step_logits.argmax(-1)
+        tokens_out.append(nxt)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches_decode = dict(ops.launch_counts)
+    mark("done")
+    peak = torch.cuda.max_memory_allocated()
+    b, s = prompts.shape
+    print(f"{label} prefill: {prefill_s:.4f} s for {b} x {s} tokens = "
+          f"{b * s / prefill_s:,.0f} prompt tokens/s (the first, cold, "
+          f"{cold_s:.4f} s); launches {launches_prefill}")
+    print(f"{label} decode: {decode_s * 1e3 / steps:.3f} ms/step, "
+          f"{b * steps / decode_s:,.1f} generated tokens/s ({steps} steps, "
+          f"batch {b}); launches {launches_decode}")
+    print(f"{label} peak device memory (prefill + decode): "
+          f"{peak / 2**30:.2f} GiB")
+    for name, n in launches_prefill.items():
+        want = cfg.n_layers if name.startswith("flash_attention") else 0
+        if n != want:
+            fail(f"{label}: prefill launched {name} {n} times, not {want}")
+    launched = {k: v for k, v in launches_decode.items() if v}
+    if launched:
+        fail(f"{label}: decode launched hand-written kernels: {launched}")
+    out = torch.stack(tokens_out, 1)
+    if (logits.shape != (b, cfg.vocab) or cache["length"] != s + steps
+            or out.shape != (b, steps)
+            or not bool(torch.isfinite(logits).all())
+            or not bool(torch.isfinite(step_logits).all())
+            or bool(((out < 0) | (out >= cfg.vocab)).any())):
+        fail(f"{label}: bad prefill or decode output")
+    return dict(logits=logits, first_step=first_step, prefill_s=prefill_s,
+                decode_s=decode_s, cold_s=cold_s, steps=steps,
+                launches=launches_prefill, launches_decode=launches_decode,
+                peak=peak, peak_before=peak_before)
+
+
+def flash_rule(label: str, model, prompts, logits, model32=None) -> float:
+    """Flash against the plain chunked attention on the same weights and
+    prompts. Through many bf16 layers of random weights both drift from
+    the exact function by rounding, so a fixed tolerance says little; the
+    arbiter is the same model in float32 (``float32_copy``, chunked
+    attention; ``model32`` if given). The flash prefill's last ``logits``
+    must be no further from it than the chunked prefill's (1.25x margin,
+    max and mean), and flash and chunked must agree within twice the
+    chunked prefill's distance to it, which is returned as the tolerance
+    of the other bf16 checks."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer as tf
+    cfg = model.cfg
+    model.cfg = dataclasses.replace(cfg, attn_impl="chunked")
+    chunked, _ = tf.prefill(model, prompts)
+    model.cfg = cfg
+    if model32 is None:
+        model32 = float32_copy(model)
+    exact, _ = tf.prefill(model32, prompts)
+    del model32
+    err_f, err_c = (logits - exact).abs(), (chunked - exact).abs()
+    tol = 2 * float(err_c.max())
+    diff = float((logits - chunked).abs().max())
+    ties = greedy_ties(chunked, logits, tol)
+    ties32 = greedy_ties(exact, logits, tol)
+    print(f"{label} check prefill last logits (|logit| <= "
+          f"{float(exact.abs().max()):.3f}) against the float32 model: "
+          f"flash max {float(err_f.max()):.6f} mean "
+          f"{float(err_f.mean()):.6f}, chunked max {float(err_c.max()):.6f} "
+          f"mean {float(err_c.mean()):.6f}; flash vs chunked max {diff:.6f} "
+          f"(tolerance {tol:.6f}); greedy tokens differ from chunked in "
+          f"{ties} and from float32 in {ties32} of {logits.shape[0]} rows, "
+          f"all traced near-ties")
+    if (float(err_f.max()) > 1.25 * float(err_c.max())
+            or float(err_f.mean()) > 1.25 * float(err_c.mean())):
+        fail(f"{label}: the flash prefill is further from the float32 model "
+             f"than the chunked prefill")
+    if diff > tol:
+        fail(f"{label}: flash and chunked prefill logits differ by {diff}, "
+             f"more than {tol}")
+    return tol
+
+
+def cache_check(label: str, model, prompts, tol: float) -> None:
+    """The cache: ``decode_step`` at position S after a prefill of S
+    tokens equals the last logits of a prefill of the S + 1 tokens (two
+    bf16 paths: held within ``tol``)."""
+    import torch
+    from repro_torch.models import transformer as tf
+    s = prompts.shape[1]
+    logits, cache = tf.prefill(model, prompts)
+    nxt = logits.argmax(-1)
+    stepped, _ = tf.decode_step(model, cache, nxt)
+    del cache
+    whole, _ = tf.prefill(model, torch.cat([prompts, nxt[:, None]], 1))
+    cerr = float((stepped - whole).abs().max())
+    cties = greedy_ties(whole, stepped, tol)
+    print(f"{label} check cache: decode_step at {s} vs prefill of {s + 1} "
+          f"tokens (flash, ragged S): max abs err {cerr:.6f} (tolerance "
+          f"{tol:.6f}); greedy ties {cties}")
+    if cerr > tol:
+        fail(f"{label}: decode logits differ from the longer prefill's by "
+             f"{cerr}")
+
+
 def lm_path(seed: int, dev):
     """The LM serving path: qwen3-0.6b at full width and depth in bf16,
     ``attn_impl="flash"``, weights drawn from ``seed``; prefill of
@@ -1257,7 +1445,6 @@ def lm_path(seed: int, dev):
     import dataclasses
     import torch
     from repro_torch.configs import base
-    from repro_torch.kernels import ops
     from repro_torch.models import transformer as tf
 
     cfg = dataclasses.replace(base.get("qwen3-0.6b").make_config(),
@@ -1277,120 +1464,22 @@ def lm_path(seed: int, dev):
           f"weights from seed {seed} in {time.perf_counter() - t0:.2f} s; "
           f"{LM_BATCH} prompts x {LM_PROMPT} tokens, {LM_STEPS} greedy "
           f"steps, max_seq {cfg.max_seq}")
-    # warm-up at full size: the first prefill at these shapes also pays
-    # cuBLAS's handles and heuristics and the caching allocator's first
-    # blocks (68.7 to 150.5 ms on one H100 after a 256-token warm-up)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tf.prefill(model, prompts)
-    torch.cuda.synchronize()
-    cold_s = time.perf_counter() - t0
-
-    peak_before = torch.cuda.max_memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, cache = tf.prefill(model, prompts)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    launches_prefill = dict(ops.launch_counts)
-    ops.reset_launch_counts()
-    nxt = logits.argmax(-1)
-    tokens_out = []
-    t0 = time.perf_counter()
-    for step in range(LM_STEPS):
-        step_logits, cache = tf.decode_step(model, cache, nxt)
-        if step == 0:
-            first_step = step_logits
-        nxt = step_logits.argmax(-1)
-        tokens_out.append(nxt)
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t0
-    launches_decode = dict(ops.launch_counts)
-    peak = torch.cuda.max_memory_allocated()
-    print(f"lm prefill: {prefill_s:.4f} s for {LM_BATCH} x {LM_PROMPT} "
-          f"tokens = {LM_BATCH * LM_PROMPT / prefill_s:,.0f} prompt "
-          f"tokens/s (the first, cold, {cold_s:.4f} s); launches "
-          f"{launches_prefill}")
-    print(f"lm decode: {decode_s * 1e3 / LM_STEPS:.3f} ms/step, "
-          f"{LM_BATCH * LM_STEPS / decode_s:,.1f} generated tokens/s "
-          f"({LM_STEPS} steps, batch {LM_BATCH}); launches "
-          f"{launches_decode}")
-    print(f"lm peak device memory (prefill + decode): {peak / 2**30:.2f} GiB")
-    for name in ("flash_attention", "flash_attention_wgmma"):
-        if launches_prefill[name] != cfg.n_layers:
-            fail(f"prefill launched {name} {launches_prefill[name]} times, "
-                 f"not {cfg.n_layers}")
-        if launches_decode[name] != 0:
-            fail(f"decode launched {name}")
-    out = torch.stack(tokens_out, 1)
-    if (logits.shape != (LM_BATCH, cfg.vocab) or cache["length"] !=
-            LM_PROMPT + LM_STEPS or out.shape != (LM_BATCH, LM_STEPS)
-            or not bool(torch.isfinite(logits).all())
-            or not bool(torch.isfinite(step_logits).all())
-            or bool(((out < 0) | (out >= cfg.vocab)).any())):
-        fail("lm: bad prefill or decode output")
-
-    # flash against the plain chunked attention on the same weights and
-    # prompts. Through 28 bf16 layers of random weights both drift from the
-    # exact function by rounding, so a fixed tolerance says little; the
-    # arbiter is the same model in float32 (the bf16 weights upcast exactly,
-    # chunked attention). The flash model must be no further from it than
-    # the plain bf16 model is (1.25x margin, max and mean), and flash and
-    # chunked must agree within twice the plain model's distance to it.
-    model.cfg = dataclasses.replace(cfg, attn_impl="chunked")
-    chunked, _ = tf.prefill(model, prompts)
-    model32 = copy.deepcopy(model).float()
-    model32.cfg = dataclasses.replace(cfg, attn_impl="chunked",
-                                      dtype=torch.float32)
-    exact, _ = tf.prefill(model32, prompts)
-    del model32
-    model.cfg = cfg
-    err_f, err_c = (logits - exact).abs(), (chunked - exact).abs()
-    tol = 2 * float(err_c.max())
-    diff = float((logits - chunked).abs().max())
-    ties = greedy_ties(chunked, logits, tol)
-    ties32 = greedy_ties(exact, logits, tol)
-    print(f"lm check prefill last logits (|logit| <= "
-          f"{float(exact.abs().max()):.3f}) against the float32 model: "
-          f"flash max {float(err_f.max()):.6f} mean "
-          f"{float(err_f.mean()):.6f}, chunked max {float(err_c.max()):.6f} "
-          f"mean {float(err_c.mean()):.6f}; flash vs chunked max {diff:.6f} "
-          f"(tolerance {tol:.6f}); greedy tokens differ from chunked in "
-          f"{ties} and from float32 in {ties32} of {LM_BATCH} rows, all "
-          f"traced near-ties")
-    if (float(err_f.max()) > 1.25 * float(err_c.max())
-            or float(err_f.mean()) > 1.25 * float(err_c.mean())):
-        fail("lm: the flash prefill is further from the float32 model than "
-             "the chunked prefill")
-    if diff > tol:
-        fail(f"lm: flash and chunked prefill logits differ by {diff}, more "
-             f"than {tol}")
-
-    # the cache: decoding position S equals prefilling S + 1 tokens (two
-    # bf16 paths again: held within the same tolerance)
-    longer = torch.cat([prompts, logits.argmax(-1)[:, None]], 1)
-    whole, _ = tf.prefill(model, longer)
-    cerr = float((first_step - whole).abs().max())
-    cties = greedy_ties(whole, first_step, tol)
-    print(f"lm check cache: decode_step at {LM_PROMPT} vs prefill of "
-          f"{LM_PROMPT + 1} tokens (flash, ragged S): max abs err "
-          f"{cerr:.6f} (tolerance {tol:.6f}); greedy ties {cties}")
-    if cerr > tol:
-        fail(f"lm: decode logits differ from the longer prefill's by {cerr}")
+    run = serve_lm("lm", model, prompts, LM_STEPS)
+    tol = flash_rule("lm", model, prompts, run["logits"])
+    cache_check("lm", model, prompts, tol)
 
     device_profile("lm prefill", lambda: tf.prefill(model, prompts))
     _, cache = tf.prefill(model, prompts)
-    nxt = logits.argmax(-1)
+    nxt = run["logits"].argmax(-1)
 
     def steps():
         for _ in range(4):
             tf.decode_step(model, cache, nxt)
 
     device_profile("lm 4 decode steps", steps)
-    return dict(cfg=cfg, model=model, prompts=prompts, prefill_s=prefill_s,
-                launches=launches_prefill, peak_before=peak_before)
+    return dict(cfg=cfg, model=model, prompts=prompts,
+                prefill_s=run["prefill_s"], launches=run["launches"],
+                peak_before=run["peak_before"])
 
 
 def flash_build_report() -> dict:
@@ -1544,6 +1633,258 @@ def flash_kernel_entry(lm: dict, seed: int, dev) -> dict:
             "f32_ms": f32_ms, "f32_shape": str(tuple(f32_args[0].shape)),
             "shape": f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal",
             "build": lm["flash_build"]}
+
+
+NEMO_STEPS = 8           # mistral-nemo decode steps, cut from LM_STEPS
+NEMO_CHECK_LAYERS = 10   # its float32 arbiter's depth: 40 layers in
+#                          float32 (49 GB) do not fit beside the bf16 model
+
+
+class RouteRecorder:
+    """Forward pre-hooks on every MoE layer of a model that re-run the
+    port's own routing (``moe.route``) on the layer's input and keep, per
+    call, the dropped assignments (a device count, read later: no sync in
+    the timed runs) and layer 0's chosen experts, under the phase name
+    last given to ``mark``."""
+
+    def __init__(self, model):
+        from repro_torch.models import moe
+        self.phase, self.drops, self.top_e0 = None, {}, {}
+
+        def pre(i):
+            def hook(module, args):
+                if self.phase is None:
+                    return
+                x, cfg = args
+                t = x.shape[0] * x.shape[1]
+                _, top_e, _, _, keep = moe.route(
+                    x.reshape(t, -1), module.router, cfg,
+                    moe.expert_capacity(cfg, t))
+                self.drops.setdefault(self.phase, []).append(
+                    (i, (~keep).sum(), keep.numel()))
+                if i == 0:
+                    self.top_e0[self.phase] = top_e
+            return hook
+
+        self.handles = [blk.moe.register_forward_pre_hook(pre(i))
+                        for i, blk in enumerate(model.blocks)]
+
+    def mark(self, phase):
+        self.phase = None if phase == "done" else phase
+
+    def dropped(self, phase) -> tuple[list, int, int]:
+        """(per-layer dropped shares of the phase's first call, dropped
+        and assignments over all its calls)."""
+        recs = self.drops.get(phase, [])
+        first = {}
+        for i, d, n in recs:
+            first.setdefault(i, int(d) / n)
+        return ([first[i] for i in sorted(first)],
+                sum(int(d) for _, d, _ in recs), sum(n for _, _, n in recs))
+
+    def remove(self):
+        for h in self.handles:
+            h.remove()
+
+
+def flash_shape_entry(arch: str, model, prompts, launches: dict) -> dict:
+    """Hold the flash kernel against its plain version on layer 0's own
+    q/k/v of ``model``'s prefill of ``prompts`` (within two bf16 ulps, as
+    for qwen3), time it (CUDA-graph replay), its plain version and SDPA,
+    and return its kernels-line entry with the operations bound."""
+    import torch
+    from repro_torch.kernels import flash_attention, ops, ref
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as tf
+    cfg = model.cfg
+    blk = model.blocks[0]
+    with torch.no_grad():
+        h = tf._rms_norm(model.embed[prompts], blk.ln1)
+        pos = torch.arange(prompts.shape[1], device=prompts.device)
+        q, k, v = (t.contiguous() for t in tf._project_qkv(h, blk, cfg, pos))
+    if flash_attention.route(q, k, v) != "wgmma":
+        fail(f"{arch}: layer 0's q/k/v do not take the wgmma route")
+    err = flash_close(ops.flash_attention(q, k, v),
+                      ref.flash_attention(q, k, v),
+                      lambda a: 2.0 ** -6 * a + 1e-3)
+    ms = device_ms(lambda: ops.flash_attention(q, k, v), 20, replays=3)
+    plain = device_ms(lambda: ref.flash_attention(q, k, v), 2, replays=3)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    kr = attention.repeat_kv(k, rep).contiguous()
+    vr = attention.repeat_kv(v, rep).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = device_ms(lambda: sdpa(q, kr, vr, is_causal=True), 20, replays=3)
+    b, hh, s, dh = q.shape
+    flops = 4 * dh * b * hh * s * (s + 1) // 2
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    bnd, by = bound(nbytes, flops / BF16_FLOP_PER_S)
+    print(f"check flash_attention {arch} layer 0 q {tuple(q.shape)} k/v "
+          f"{tuple(k.shape)} bf16 causal: max abs err {err:.6f}, every "
+          f"value within 2**-6 |plain| + 1e-3")
+    print(f"time flash_attention {arch} q {tuple(q.shape)} k/v "
+          f"{tuple(k.shape)}: wgmma kernel {ms:.5f} ms (device); plain "
+          f"{plain:.5f} ms; bound {bnd:.6f} ms ({by}: {flops / 1e9:.2f} "
+          f"GFLOP at 989 TFLOP/s bf16); library "
+          f"scaled_dot_product_attention(is_causal=True) on repeated KV "
+          f"{lib:.5f} ms; {flops / ms / 1e9:.1f} TFLOP/s")
+    return {"name": f"flash_attention/{arch}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:81",
+            "launches": launches["flash_attention"],
+            "launches_wgmma": launches["flash_attention_wgmma"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bnd, "bound_by": by, "library_ms": lib,
+            "library_call": "torch.nn.functional."
+                            "scaled_dot_product_attention(is_causal=True), "
+                            "KV repeated",
+            "tflops": flops / ms / 1e9,
+            "shape": f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal"}
+
+
+def lm_setup(arch: str, seed: int, dev, steps: int, label: str):
+    """``arch``'s full config with flash attention and room for ``steps``
+    decode steps, its weights drawn from ``seed`` on the card, and
+    LM_BATCH prompts of LM_PROMPT tokens."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import base
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(base.get(arch).make_config(),
+                              attn_impl="flash", max_seq=LM_PROMPT + steps)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    model = tf.init_params(cfg, gen, dev)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                            generator=gen, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    moe = cfg.moe
+    print(f"{label}: {cfg.name} L={cfg.n_layers} d={cfg.d_model} heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} d_head={cfg.head_dim} "
+          + (f"{moe.n_experts} experts top-{moe.top_k} d_ff_expert="
+             f"{moe.d_ff_expert} capacity factor {moe.capacity_factor} "
+             if moe else f"d_ff={cfg.d_ff} ")
+          + f"vocab={cfg.vocab} {cfg.dtype}, {n_params:,} parameters "
+          f"(n_params {cfg.n_params:,}, {n_params * 2 / 1e9:.1f} GB), "
+          f"weights from seed {seed} in {time.perf_counter() - t0:.2f} s; "
+          f"{LM_BATCH} prompts x {LM_PROMPT} tokens, {steps} greedy steps")
+    return cfg, model, prompts
+
+
+def moe_path(seed: int, dev) -> dict:
+    """MoE LM serving: olmoe-1b-7b at full width and depth in bf16
+    (16 layers, 64 experts top-8), flash prefill of LM_BATCH x LM_PROMPT
+    tokens and LM_STEPS greedy decode steps, the dropped share of each
+    layer, the flash/chunked/float32 rule, the cache at a capacity that
+    drops nothing, profiles; returns the kernels-line entry."""
+    import dataclasses
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    cfg, model, prompts = lm_setup("olmoe-1b-7b", seed, dev, LM_STEPS,
+                                   "moe")
+    routes = RouteRecorder(model)
+    run = serve_lm("moe", model, prompts, LM_STEPS, mark=routes.mark)
+    shares, dropped, assigned = routes.dropped("prefill")
+    _, d_dropped, d_assigned = routes.dropped("decode")
+    with torch.no_grad():
+        _, aux, _ = tf.forward(model, prompts)
+    print(f"moe routing in the timed prefill (T = {LM_BATCH * LM_PROMPT} "
+          f"tokens, capacity "
+          f"{moe.expert_capacity(cfg.moe, LM_BATCH * LM_PROMPT)} a expert): "
+          f"dropped {dropped} of {assigned} assignments "
+          f"({dropped / assigned:.4%}); by layer "
+          + ", ".join(f"{x:.4%}" for x in shares)
+          + f"; aux loss (mean over layers) {float(aux):.6f}; decode "
+          f"dropped {d_dropped} of {d_assigned} (capacity "
+          f"{moe.expert_capacity(cfg.moe, LM_BATCH)} >= batch {LM_BATCH})")
+    if len(shares) != cfg.n_layers or d_dropped != 0:
+        fail(f"moe: {len(shares)} layers routed, {d_dropped} decode drops")
+
+    routes.mark("chunked")
+    tol = flash_rule("moe", model, prompts, run["logits"])
+    routes.mark("done")
+    a, b = (torch.sort(routes.top_e0[p], -1).values
+            for p in ("prefill", "chunked"))
+    print(f"moe layer-0 router choices, flash vs chunked prefill: "
+          f"{int((a != b).sum())} of {a.numel()} differ, in "
+          f"{int((a != b).any(-1).sum())} of {a.shape[0]} tokens (routing "
+          f"is discrete: a rounding difference flips an expert near a "
+          f"tie; the logits rule above decides)")
+
+    # at the config's capacity factor decode and a longer prefill differ by
+    # design: capacity grows with T = B * S and the stable sort drops the
+    # last assignments first; at n_experts / top_k the capacity is T and
+    # nothing drops
+    no_drop = cfg.moe.n_experts / cfg.moe.top_k
+    model.cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=no_drop))
+    routes.mark("cache")
+    print(f"moe cache check at capacity factor {no_drop} (capacity = T, "
+          f"nothing dropped; at {cfg.moe.capacity_factor} a decode step "
+          f"and a prefill one token longer route with other capacities and "
+          f"differ by design)")
+    cache_check("moe", model, prompts, tol)
+    routes.mark("done")
+    _, c_dropped, _ = routes.dropped("cache")
+    if c_dropped:
+        fail(f"moe: {c_dropped} assignments dropped at capacity factor "
+             f"{no_drop}")
+    model.cfg = cfg
+    routes.remove()
+
+    device_profile("moe prefill", lambda: tf.prefill(model, prompts))
+    _, cache = tf.prefill(model, prompts)
+    nxt = run["logits"].argmax(-1)
+
+    def steps():
+        for _ in range(4):
+            tf.decode_step(model, cache, nxt)
+
+    device_profile("moe 4 decode steps", steps)
+    del cache
+    entry = flash_shape_entry(cfg.name, model, prompts, run["launches"])
+    peak = torch.cuda.max_memory_allocated()
+    print(f"moe phase peak device memory (the float32 arbiter and the "
+          f"no-drop cache check included): {peak / 2**30:.2f} GiB")
+    out = dict(entry=entry, peak=peak, peak_before=run["peak_before"])
+    del model, run
+    torch.cuda.empty_cache()
+    return out
+
+
+def nemo_path(seed: int, dev) -> dict:
+    """Dense LM serving at 12B: mistral-nemo-12b at full width and depth
+    in bf16 (40 layers, 32 heads over 8 KV heads, d_model 5,120 against
+    32 x 128 = 4,096 attention width), flash prefill of LM_BATCH x
+    LM_PROMPT tokens and NEMO_STEPS greedy decode steps; the
+    flash/chunked/float32 rule on its first NEMO_CHECK_LAYERS layers;
+    returns the kernels-line entry."""
+    import torch
+    from repro_torch.models import transformer as tf
+    cfg, model, prompts = lm_setup("mistral-nemo-12b", seed, dev,
+                                   NEMO_STEPS, "nemo")
+    print(f"nemo: {NEMO_STEPS} decode steps (cut from {LM_STEPS} for the "
+          f"smoke's time)")
+    run = serve_lm("nemo", model, prompts, NEMO_STEPS)
+    cut = cut_model(model, NEMO_CHECK_LAYERS)
+    print(f"nemo accuracy check on a depth cut: the first "
+          f"{NEMO_CHECK_LAYERS} of {cfg.n_layers} blocks with the same "
+          f"embed and head (a float32 copy of all {cfg.n_layers} layers, "
+          f"{cfg.n_params * 4 / 1e9:.0f} GB, does not fit beside the bf16 "
+          f"model)")
+    logits, _ = tf.prefill(cut, prompts)
+    flash_rule("nemo", cut, prompts, logits,
+               float32_copy(model, NEMO_CHECK_LAYERS))
+    del cut, logits
+    entry = flash_shape_entry(cfg.name, model, prompts, run["launches"])
+    peak = torch.cuda.max_memory_allocated()
+    print(f"nemo phase peak device memory (the float32 arbiter included): "
+          f"{peak / 2**30:.2f} GiB")
+    out = dict(entry=entry, peak=peak, peak_before=run["peak_before"])
+    del model, run
+    torch.cuda.empty_cache()
+    return out
 
 
 def catalogue_change(seed: int, items, n_top: int):
@@ -2454,6 +2795,12 @@ def main() -> int:
     lm["flash_build"] = flash_build
     phase_done("lm path")
 
+    # -- MoE LM serving (olmoe-1b-7b), then mistral-nemo-12b, counted -------
+    moe_out = moe_path(args.seed, dev)
+    phase_done("moe lm")
+    nemo_out = nemo_path(args.seed, dev)
+    phase_done("nemo lm")
+
     # -- kernels against their plain versions, at main-path inputs -----------
     n_top = cfg.n_top or 2 * cfg.k_max
     split = sah.split_items_by_norm(items, n_top)
@@ -2682,6 +3029,8 @@ def main() -> int:
     train_out = train_path(args.seed, dev, smi)
     phase_done("train")
     peak = max(lm["peak_before"], art_out["peak_before"],
+               moe_out["peak_before"], moe_out["peak"],
+               nemo_out["peak_before"], nemo_out["peak"],
                serve_out["peak_before"], rec_out["peak_before"],
                rec_out["peak"], train_out["peak_before"], train_out["peak"],
                torch.cuda.max_memory_allocated())
@@ -2745,7 +3094,7 @@ def main() -> int:
          "splits": splits, "call_ms": ipk_call,
          "shape": f"{tuple(users_fwd.shape)}x{tuple(items.shape)}, k "
                   f"{K_FWD}", **rec_out["ip_topk"]},
-        flash_entry,
+        flash_entry, moe_out["entry"], nemo_out["entry"],
     ]
     print(f"phases (host s): {phases}; total "
           f"{time.perf_counter() - T_START:.1f} s since start")

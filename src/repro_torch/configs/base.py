@@ -3,12 +3,12 @@ selectable config carrying its full config, a reduced smoke config and its
 shape cells.
 
 Twin of ``src/repro/configs/base.py``, copied so that the port imports
-nothing of the reference package. ``_ensure_loaded`` registers only the
-archs the port can build: the dense LMs qwen3-0.6b and qwen2-1.5b (its
-``qkv_bias`` takes the same code path), the four recsys archs (deepfm,
+nothing of the reference package. ``_ensure_loaded`` registers every arch
+of the reference: the dense LMs qwen3-0.6b, qwen2-1.5b (its ``qkv_bias``
+takes the same code path) and mistral-nemo-12b, the MoE LMs olmoe-1b-7b
+and dbrx-132b (``models/moe.py``), the four recsys archs (deepfm,
 xdeepfm, din, two-tower-retrieval; ``models/recsys.py``) and the GNN
-gat-cora (``models/gat.py``). The MoE archs wait for their model
-(ROADMAP.md).
+gat-cora (``models/gat.py``).
 """
 
 from __future__ import annotations
@@ -66,8 +66,8 @@ def all_archs() -> list[str]:
 def _ensure_loaded():
     # Import side effects register every arch the port has.
     from repro_torch.configs import (  # noqa: F401
-        deepfm, din, gat_cora, qwen2_1_5b, qwen3_0_6b, two_tower_retrieval,
-        xdeepfm)
+        dbrx_132b, deepfm, din, gat_cora, mistral_nemo_12b, olmoe_1b_7b,
+        qwen2_1_5b, qwen3_0_6b, two_tower_retrieval, xdeepfm)
 
 
 LM_SHAPES = (

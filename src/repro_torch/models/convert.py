@@ -21,8 +21,12 @@ layout and the reference's pytree, so both packages take the same steps
 from the same state and each resumes the other's checkpoint. A
 parameter-keyed dict of the port (the parameters, and each moment of the
 optimizer state) maps onto the reference's nest: ``a.0.b`` onto
-``a/0/b`` (a list at ``a``), and the LM's per-layer ``blocks.i.name``
-onto row i of the stacked ``layers/name``.
+``a/0/b`` (a list at ``a``), and the LM's per-layer ``blocks.i.a.b`` onto
+row i of the stacked ``layers/a/b`` (``blocks.i.moe.router`` onto
+``layers/moe/router``). A state tensor that every layer's entry holds as
+the same object is the stack's one leaf, not a row of it: Adafactor's
+``c`` of a 1-D stack (the norm scales), shared by the layers as the
+reference shares it (``train/optimizer.py``).
 
 It reads numpy only: a JAX array passes through ``np.asarray``, and a
 bf16 array arrives as numpy dtype ``bfloat16`` (``ml_dtypes``), which
@@ -33,16 +37,13 @@ Going back, a bf16 leaf leaves as a CPU bfloat16 tensor (where there is no
 
 from __future__ import annotations
 
-import re
-
 import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.models import gat, recsys
 from repro_torch.models.transformer import LM, LMConfig
-
-_BLOCK = re.compile(r"blocks\.(\d+)\.(.+)")
+from repro_torch.train.optimizer import LAYER_LEAF as _BLOCK
 
 
 def _tensor_from_numpy(a) -> torch.Tensor:
@@ -66,7 +67,7 @@ def params_from_jax(tree: dict, cfg: LMConfig, device="cuda") -> LM:
     shape and dtype, and every parameter receives one leaf."""
     model = LM(cfg, device)
     leaves = {name: tree[name] for name in ("embed", "head", "final_norm")}
-    for name, stacked in tree["layers"].items():
+    for name, stacked in _named_leaves(tree["layers"]).items():
         if len(stacked) != cfg.n_layers:
             raise ValueError(f"layers/{name} has {len(stacked)} layers, the "
                              f"config {cfg.n_layers}")
@@ -159,6 +160,23 @@ def _as_lists(tree):
     return out
 
 
+def _put(out: dict, name: str, leaf) -> None:
+    """``out[a][b]... = leaf`` for the dotted ``name`` ``a.b...``."""
+    node, parts = out, [int(p) if p.isdigit() else p
+                        for p in name.split(".")]
+    for p in parts[:-1]:
+        node = node.setdefault(p, {})
+    node[parts[-1]] = leaf
+
+
+def _stack_rows(*rows):
+    """The layers' rows as the reference's stacked leaf; one tensor held
+    by every layer is the stack's leaf as it is."""
+    if len(rows) > 1 and all(r is rows[0] for r in rows):
+        return _host(rows[0])
+    return _host(torch.stack(rows))
+
+
 def _ref_params(named: dict):
     """A parameter-keyed dict of the port -> the reference's nest."""
     out, stacked = {}, {}
@@ -167,16 +185,12 @@ def _ref_params(named: dict):
         if m:
             stacked.setdefault(m[2], {})[int(m[1])] = sub
             continue
-        node, parts = out, [int(p) if p.isdigit() else p
-                            for p in name.split(".")]
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = _leafwise(_host, sub)
+        _put(out, name, _leafwise(_host, sub))
     if stacked:
-        out["layers"] = {
-            name: _leafwise(lambda *rows: _host(torch.stack(rows)),
-                            *(rows[i] for i in range(len(rows))))
-            for name, rows in stacked.items()}
+        layers = out["layers"] = {}
+        for name, rows in stacked.items():
+            _put(layers, name, _leafwise(
+                _stack_rows, *(rows[i] for i in range(len(rows)))))
     return _as_lists(out)
 
 
@@ -200,14 +214,23 @@ def train_state_to_numpy(state):
     return _to_ref(state, set(state.params))
 
 
-def _ref_leaf(tree, name: str):
-    """The reference's subtree for the port's parameter ``name``."""
-    m = _BLOCK.fullmatch(name)
-    if m:
-        return _leafwise(lambda a: a[int(m[1])], tree["layers"][m[2]])
+def _walk(tree, name: str):
     for p in name.split("."):
         tree = tree[int(p) if p.isdigit() else p]
     return tree
+
+
+def _ref_leaf(tree, name: str, port):
+    """The reference's subtree for the port's parameter ``name``, whose
+    port subtree is ``port``: row i of a stacked leaf for layer i, or the
+    whole leaf where the port's tensor has the stack's own rank (a tensor
+    the layers share)."""
+    m = _BLOCK.fullmatch(name)
+    if not m:
+        return _walk(tree, name)
+    i = int(m[1])
+    return _leafwise(lambda a, p: a if len(a.shape) == p.ndim else a[i],
+                     _walk(tree["layers"], m[2]), port)
 
 
 @torch.no_grad()
@@ -227,7 +250,7 @@ def _fill(port, ref) -> None:
 def _from_ref(port, ref, names: set) -> None:
     if isinstance(port, dict) and names and set(port) == names:
         for name, sub in port.items():
-            _fill(sub, _ref_leaf(ref, name))
+            _fill(sub, _ref_leaf(ref, name, sub))
     elif isinstance(port, dict):
         if set(port) != set(ref):
             raise ValueError(f"state keys {sorted(port)} != reference "

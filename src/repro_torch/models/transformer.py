@@ -1,5 +1,5 @@
 """Decoder-only LM transformer (dense: GQA, RoPE, qk-norm, QKV bias,
-SwiGLU) with train (``lm_loss``), prefill and decode entry points.
+SwiGLU; and MoE) with train (``lm_loss``), prefill and decode entry points.
 
 Twin of ``src/repro/models/transformer.py`` for one device. The reference
 keeps its parameters as a pytree with a leading (L,) layer axis and runs
@@ -11,10 +11,12 @@ reference's (in, out) layout and are used as ``x @ w``, so
 The functions take no ``ShardingPolicy``: on one device every
 ``policy.constrain`` of the reference is a no-op. ``LMConfig`` drops
 ``scan_layers``, which chooses how JAX traces the layer stack and means
-nothing to eager PyTorch, and refuses ``moe`` until ``models/moe.py`` is
-ported. ``remat="full"`` (the default, as in the reference) runs each
-layer under ``torch.utils.checkpoint`` when autograd records, so a layer
-keeps only its input for the backward and recomputes the rest.
+nothing to eager PyTorch. With ``moe`` set each layer's FFN is
+``models/moe.py``'s (the reference's mesh-less path) and ``forward``'s aux
+is the mean of the layers' load-balance losses. ``remat="full"`` (the
+default, as in the reference) runs each layer under
+``torch.utils.checkpoint`` when autograd records, so a layer keeps only
+its input for the backward and recomputes the rest.
 
 Parameters are trainable ``nn.Parameter``s; ``forward`` and ``lm_loss``
 record for autograd, while the serving entry points ``prefill``,
@@ -32,7 +34,6 @@ kernel on the card (``kernels/ops.flash_attention``); the default
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
 
 import torch
 from torch import nn
@@ -40,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 
 _ATTN_IMPLS = ("chunked", "flash")
 _REMATS = ("full", "none")
@@ -58,7 +60,7 @@ class LMConfig:
     qk_norm: bool = False
     qkv_bias: bool = False
     rope_theta: float = 10000.0
-    moe: Any = None              # refused until models/moe.py is ported
+    moe: moe_lib.MoEConfig | None = None
     dtype: torch.dtype = torch.bfloat16
     attn_chunk: int = 512
     attn_impl: str = "chunked"   # "chunked" (plain PyTorch) | "flash" (the
@@ -70,10 +72,10 @@ class LMConfig:
     aux_loss_weight: float = 0.01
 
     def __post_init__(self):
-        if self.moe is not None:
-            raise NotImplementedError(
-                f"{self.name}: MoE layers are not ported yet (models/moe.py, "
-                "ROADMAP.md); the port runs dense LMs only")
+        if self.moe is not None and not isinstance(self.moe,
+                                                   moe_lib.MoEConfig):
+            raise TypeError(f"{self.name}: moe must be a MoEConfig or None, "
+                            f"got {type(self.moe).__name__}")
         if self.attn_impl not in _ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {_ATTN_IMPLS}, got "
                              f"{self.attn_impl!r}")
@@ -95,13 +97,23 @@ class LMConfig:
         reference's arithmetic (biases and qk-norm scales not counted)."""
         d, hd = self.d_model, self.head_dim
         attn_p = d * self.n_heads * hd * 2 + d * self.n_kv_heads * hd * 2
-        per_layer = attn_p + 3 * d * self.d_ff + 2 * d
+        if self.moe is not None:
+            ffn = (d * self.moe.n_experts
+                   + 3 * self.moe.n_experts * d * self.moe.d_ff_expert)
+        else:
+            ffn = 3 * d * self.d_ff
+        per_layer = attn_p + ffn + 2 * d
         return self.n_layers * per_layer + 2 * self.vocab * d + d
 
     @property
     def n_active_params(self) -> int:
-        """Active parameters per token: all of them in a dense model."""
-        return self.n_params
+        """Active parameters per token (MoE: the top_k experts only)."""
+        if self.moe is None:
+            return self.n_params
+        d, m = self.d_model, self.moe
+        dense = self.n_params - self.n_layers * (
+            3 * m.n_experts * d * m.d_ff_expert)
+        return dense + self.n_layers * 3 * m.top_k * d * m.d_ff_expert
 
 
 def _empty(cfg: LMConfig, device, *shape) -> nn.Parameter:
@@ -109,7 +121,9 @@ def _empty(cfg: LMConfig, device, *shape) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One layer's parameters, named as the reference's layer pytree."""
+    """One layer's parameters, named as the reference's layer pytree: the
+    FFN is ``w_in``/``w_gate``/``w_out`` or, with ``cfg.moe``, the ``moe``
+    submodule."""
 
     def __init__(self, cfg: LMConfig, device=None):
         super().__init__()
@@ -124,7 +138,10 @@ class Block(nn.Module):
             self.bq, self.bk, self.bv = p(nh * hd), p(nkv * hd), p(nkv * hd)
         if cfg.qk_norm:
             self.q_norm, self.k_norm = p(hd), p(hd)
-        self.w_in, self.w_gate, self.w_out = p(d, f), p(d, f), p(f, d)
+        if cfg.moe is not None:
+            self.moe = moe_lib.MoE(d, cfg.moe, cfg.dtype, device)
+        else:
+            self.w_in, self.w_gate, self.w_out = p(d, f), p(d, f), p(f, d)
 
 
 class LM(nn.Module):
@@ -146,9 +163,10 @@ def init_params(cfg: LMConfig, generator: torch.Generator,
     """An ``LM`` on ``device`` with weights drawn at the reference's
     scales: each matrix N(0, 1) * fan_in^-0.5 (the embedding N(0, 1)),
     drawn in float32 on the generator's device and cast to ``cfg.dtype``;
-    norm scales 1, biases 0. The draws are torch's, not JAX's: to hold the
-    port against the reference, convert the reference's own arrays
-    (``models/convert.py``)."""
+    norm scales 1, biases 0; an MoE layer's experts by
+    ``models/moe.py::draw_moe_params_`` (router in float32). The draws are
+    torch's, not JAX's: to hold the port against the reference, convert
+    the reference's own arrays (``models/convert.py``)."""
     model = LM(cfg, device)
     d, f = cfg.d_model, cfg.d_ff
     nhd = cfg.n_heads * cfg.head_dim
@@ -164,7 +182,10 @@ def init_params(cfg: LMConfig, generator: torch.Generator,
                                 ("wv", d ** -0.5), ("wo", nhd ** -0.5),
                                 ("w_in", d ** -0.5), ("w_gate", d ** -0.5),
                                 ("w_out", f ** -0.5)):
-                normal(getattr(blk, name), scale)
+                if hasattr(blk, name):
+                    normal(getattr(blk, name), scale)
+            if cfg.moe is not None:
+                moe_lib.draw_moe_params_(blk.moe, generator)
             for name in ("ln1", "ln2", "q_norm", "k_norm"):
                 if hasattr(blk, name):
                     getattr(blk, name).fill_(1)
@@ -216,13 +237,19 @@ def _project_qkv(x: torch.Tensor, p: Block, cfg: LMConfig,
     return q, k, v
 
 
-def _ffn(h: torch.Tensor, p: Block) -> torch.Tensor:
-    return (torch.nn.functional.silu(h @ p.w_gate) * (h @ p.w_in)) @ p.w_out
+def _ffn(h: torch.Tensor, p: Block, cfg: LMConfig):
+    """The block's FFN on h (B, S, D) -> (out, aux): the dense SwiGLU with a
+    None aux, or the MoE FFN and its load-balance loss."""
+    if cfg.moe is not None:
+        return p.moe(h, cfg.moe)
+    return (torch.nn.functional.silu(h @ p.w_gate) * (h @ p.w_in)
+            ) @ p.w_out, None
 
 
 def _layer(x: torch.Tensor, p: Block, cfg: LMConfig,
            positions: torch.Tensor):
-    """One transformer block. x (B, S, D) -> (x', (k, v))."""
+    """One transformer block. x (B, S, D) -> (x', aux, (k, v)); aux is
+    None in a dense block."""
     h = _rms_norm(x, p.ln1)
     q, k, v = _project_qkv(h, p, cfg, positions)
     if cfg.attn_impl == "flash":
@@ -237,20 +264,21 @@ def _layer(x: torch.Tensor, p: Block, cfg: LMConfig,
     b, s, _ = x.shape
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
     x = x + (o @ p.wo).to(x.dtype)
-    x = x + _ffn(_rms_norm(x, p.ln2), p).to(x.dtype)
-    return x, (k, v)
+    f, aux = _ffn(_rms_norm(x, p.ln2), p, cfg)
+    x = x + f.to(x.dtype)
+    return x, aux, (k, v)
 
 
 def _layer_out(x: torch.Tensor, p: Block, cfg: LMConfig,
-               positions: torch.Tensor) -> torch.Tensor:
-    return _layer(x, p, cfg, positions)[0]
+               positions: torch.Tensor):
+    return _layer(x, p, cfg, positions)[:2]
 
 
 def forward(model: LM, tokens: torch.Tensor, *, return_cache: bool = False):
     """tokens (B, S) int -> (hidden (B, S, D) after the final norm, aux,
-    cache). ``aux`` is the float32 zero a dense model's auxiliary loss is;
-    ``cache`` is (k, v), each (L, B, Hkv, S, Dh), when ``return_cache``,
-    else None. Records for autograd when grad is enabled, each layer under
+    cache). ``aux`` is the float32 mean over layers of the MoE
+    load-balance loss (a dense model's is 0); ``cache`` is (k, v), each
+    (L, B, Hkv, S, Dh), when ``return_cache``, else None. Records for autograd when grad is enabled, each layer under
     a checkpoint with ``remat="full"``.
 
     Returns hidden states, not logits: (B, S, V) float32 logits are GiBs
@@ -259,19 +287,21 @@ def forward(model: LM, tokens: torch.Tensor, *, return_cache: bool = False):
     x = model.embed[tokens]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     remat = cfg.remat == "full" and torch.is_grad_enabled()
-    ks, vs = [], []
+    ks, vs, auxes = [], [], []
     for blk in model.blocks:
         if remat and not return_cache:
             # no draws in a layer: nothing of the RNG state to keep
-            x = checkpoint(_layer_out, x, blk, cfg, positions,
-                           use_reentrant=False, preserve_rng_state=False)
-            continue
-        x, (k, v) = _layer(x, blk, cfg, positions)
-        if return_cache:
-            ks.append(k)
-            vs.append(v)
+            x, aux = checkpoint(_layer_out, x, blk, cfg, positions,
+                                use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, aux, (k, v) = _layer(x, blk, cfg, positions)
+            if return_cache:
+                ks.append(k)
+                vs.append(v)
+        auxes.append(aux)
     x = _rms_norm(x, model.final_norm)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = (torch.stack(auxes).mean() if cfg.moe is not None else
+           torch.zeros((), dtype=torch.float32, device=x.device))
     cache = (torch.stack(ks), torch.stack(vs)) if return_cache else None
     return x, aux, cache
 
@@ -367,7 +397,8 @@ def decode_step(model: LM, cache: dict, tokens: torch.Tensor):
         o = attn.decode_attention(q[:, :, 0, :], attn.repeat_kv(kc, rep),
                                   attn.repeat_kv(vc, rep), pos + 1)
         x = x + (o.reshape(b, 1, -1) @ blk.wo).to(x.dtype)
-        x = x + _ffn(_rms_norm(x, blk.ln2), blk).to(x.dtype)
+        f, _ = _ffn(_rms_norm(x, blk.ln2), blk, cfg)     # the aux is dropped
+        x = x + f.to(x.dtype)
     x = _rms_norm(x[:, 0, :], model.final_norm)
     logits = (x @ model.head).to(torch.float32)
     cache["length"] = pos + 1

@@ -3,9 +3,11 @@ trick).
 
 Twin of ``src/repro/train/compression.py:24-78``. Wrapping an optimizer,
 each gradient leaf is quantized to int8 with a per-leaf scale before the
-update; the quantization error is kept in a residual buffer and added back
-the next step, which keeps the compressed optimizer convergent (Seide et
-al. 2014, Tang et al. 2021).
+update (a leaf as the reference has it: an LM's per-layer gradients share
+the one scale of their (L, ...) stack, ``optimizer.layer_stacks``); the
+quantization error is kept in a residual buffer and added back the next
+step, which keeps the compressed optimizer convergent (Seide et al. 2014,
+Tang et al. 2021).
 
 The reference's ``compressed_psum`` (quantize, psum in int32 over a mesh
 axis, dequantize) is a collective; it waits for the multi-GPU slice of
@@ -16,16 +18,22 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.train.optimizer import Optimizer
+from repro_torch.train.optimizer import Optimizer, layer_stacks
+
+
+def _scale_of(amax: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(amax, min=1e-12) / 127.0
+
+
+def _quantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
 
 
 def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x float32 -> (q int8, scale float32 scalar); the scale maps 127 to
     max|x|. Rounds half to even, as ``jnp.round``."""
-    amax = x.abs().max()
-    scale = torch.clamp(amax, min=1e-12) / 127.0
-    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
-    return q, scale
+    scale = _scale_of(x.abs().max())
+    return _quantize(x, scale), scale
 
 
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -34,7 +42,9 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 def error_feedback(inner: Optimizer) -> Optimizer:
     """Error-feedback int8 compression around an optimizer's gradient
-    input. State: ``residual`` (float32, one per leaf) and ``inner``."""
+    input. State: ``residual`` (float32, one per parameter) and ``inner``.
+    The scale is ``max|g + residual|`` over the reference's leaf: over
+    every layer of an LM's stack."""
 
     def init(params):
         return {"residual": {k: torch.zeros(p.shape, dtype=torch.float32,
@@ -45,11 +55,14 @@ def error_feedback(inner: Optimizer) -> Optimizer:
     @torch.no_grad()
     def update(grads, state, params):
         comp, resid = {}, state["residual"]
-        for k, g in grads.items():
-            g = g.to(torch.float32) + resid[k]
-            deq = dequantize_int8(*quantize_int8(g))
-            comp[k] = deq
-            resid[k] = g - deq
+        for group in layer_stacks(grads):
+            gs = [grads[k].to(torch.float32) + resid[k] for k in group]
+            scale = _scale_of(torch.stack([g.abs().max() for g in gs]).max())
+            for k, g in zip(group, gs):
+                deq = dequantize_int8(_quantize(g, scale), scale)
+                comp[k] = deq
+                resid[k] = g - deq
+        comp = {k: comp[k] for k in grads}
         updates, inner_state = inner.update(comp, state["inner"], params)
         return updates, {"residual": resid, "inner": inner_state}
 

@@ -10,6 +10,13 @@ reference's pytree. The update math is the reference's, op for op: moments
 in float32 whatever the parameter dtype, Adafactor's first moment in
 bfloat16, bias correction from an int32 step counter.
 
+An LM's parameters are per layer (``blocks.{i}.{path}``) where the
+reference's are (L, ...) stacks (``layers/{path}``). Where a statistic
+spans a whole leaf (Adafactor's factoring and update-RMS clip,
+``train/compression.py``'s int8 scale) it spans the stack: the names are
+grouped by ``layer_stacks``, the rule ``models/convert.py`` stacks them by
+for checkpoints.
+
 ``update(grads, state, params)`` returns ``(updates, state)``. It writes
 the new moments into the state's own buffers, so the state passed in is
 consumed: the reference's train loop donates its state the same way
@@ -21,9 +28,27 @@ step, where the reference adds ``wd * p`` to the Adam direction.
 from __future__ import annotations
 
 import math
+import re
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+
+# an LM's per-layer parameter: row int(m[1]) of the reference's stacked
+# leaf layers/m[2] (m[2] dotted where the leaf is nested: "moe.router")
+LAYER_LEAF = re.compile(r"blocks\.(\d+)\.(.+)")
+
+
+def layer_stacks(names) -> list[list[str]]:
+    """``names`` grouped as the reference's leaves: the ``blocks.{i}.{path}``
+    of one path form one group, in layer order; any other name is a group
+    of its own. Groups come in the order of their first name."""
+    groups: dict[tuple[str, str], list[tuple[int, str]]] = {}
+    for name in names:
+        m = LAYER_LEAF.fullmatch(name)
+        key = ("layers", m[2]) if m else ("", name)
+        groups.setdefault(key, []).append((int(m[1]) if m else 0, name))
+    return [[n for _, n in sorted(g)] for g in groups.values()]
 
 
 class Optimizer(NamedTuple):
@@ -112,8 +137,8 @@ def adamw(lr: float | Callable[[torch.Tensor], torch.Tensor], *,
     return Optimizer(init, update)
 
 
-def _factored(p: torch.Tensor) -> bool:
-    return p.ndim >= 2 and p.shape[-1] >= 2 and p.shape[-2] >= 2
+def _factored(shape) -> bool:
+    return len(shape) >= 2 and shape[-1] >= 2 and shape[-2] >= 2
 
 
 def adafactor(lr: float | Callable = 1e-3, *, b1: float | None = 0.9,
@@ -123,22 +148,38 @@ def adafactor(lr: float | Callable = 1e-3, *, b1: float | None = 0.9,
     """Adafactor (Shazeer & Stern 2018): for a leaf of two or more axes
     the second moment is kept as row and column means (``r``, ``c``);
     other leaves keep it whole (``full``). The first moment is kept in
-    ``momentum_dtype`` (bfloat16; ``b1=None`` drops it). Statistics are
-    per leaf: on an LM the port's leaves are single layers, where the
-    reference's are (L, ...) stacks (PORT.md, "Training")."""
+    ``momentum_dtype`` (bfloat16; ``b1=None`` drops it).
+
+    Statistics span the reference's leaves: an LM's per-layer parameters
+    are taken as their (L, ...) stack (``layer_stacks``). The update-RMS
+    clip is one mean over the stack. A stack of 2-D+ layers factors only
+    its last two axes, so each layer keeps its own ``r`` and ``c``; a
+    stack of 1-D layers (norm scales, biases) is factored as (L, d): layer
+    i keeps ``r`` as a 0-d tensor (row i of the reference's (L,)) and
+    every layer holds the one ``c`` (d,) tensor."""
+
+    def zeros(shape, device):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
 
     def init(params):
-        def v_init(p):
-            if _factored(p):
-                return {"r": torch.zeros(p.shape[:-1], dtype=torch.float32,
-                                         device=p.device),
-                        "c": torch.zeros(p.shape[:-2] + p.shape[-1:],
-                                         dtype=torch.float32,
-                                         device=p.device)}
-            return {"full": torch.zeros(p.shape, dtype=torch.float32,
-                                        device=p.device)}
-
-        state = {"v": {k: v_init(p) for k, p in params.items()},
+        v = {}
+        for group in layer_stacks(params):
+            p = params[group[0]]
+            # the reference's leaf: (L,) + the layer's shape for a stack
+            shape = ((len(group),) if LAYER_LEAF.fullmatch(group[0])
+                     else ()) + tuple(p.shape)
+            if len(group) > 1 and p.ndim == 1 and _factored(shape):
+                c = zeros(p.shape, p.device)          # shared by the layers
+                v.update({k: {"r": zeros((), p.device), "c": c}
+                          for k in group})
+                continue
+            for k in group:
+                p = params[k]
+                v[k] = ({"r": zeros(p.shape[:-1], p.device),
+                         "c": zeros(p.shape[:-2] + p.shape[-1:], p.device)}
+                        if _factored(shape) else
+                        {"full": zeros(p.shape, p.device)})
+        state = {"v": {k: v[k] for k in params},
                  "step": torch.zeros((), dtype=torch.int32,
                                      device=_device(params))}
         if b1 is not None:
@@ -154,29 +195,49 @@ def adafactor(lr: float | Callable = 1e-3, *, b1: float | None = 0.9,
         lr_t = lr(step) if callable(lr) else lr
         # the beta2 schedule, capped by the configured decay
         beta2 = torch.clamp(1.0 - step_f ** -0.8, max=decay)
-        updates = {}
-        for k, g in grads.items():
-            g = _f32(g)
-            g2 = g * g + eps
-            v = state["v"][k]
+
+        def second_moment(v, g2):
+            """Update v in place from g2; returns vhat."""
             if "r" in v:
                 v["r"].mul_(beta2).add_((1 - beta2) * g2.mean(dim=-1))
                 v["c"].mul_(beta2).add_((1 - beta2) * g2.mean(dim=-2))
                 denom = torch.clamp(v["r"].mean(dim=-1, keepdim=True),
                                     min=eps)
-                vhat = (v["r"][..., None] * v["c"][..., None, :]
+                return (v["r"][..., None] * v["c"][..., None, :]
                         ) / denom[..., None]
+            return v["full"].mul_(beta2).add_((1 - beta2) * g2)
+
+        updates = {}
+        for group in layer_stacks(grads):
+            gs = [_f32(grads[k]) for k in group]
+            vs = [state["v"][k] for k in group]
+            if len(group) > 1 and gs[0].ndim == 1 and "r" in vs[0]:
+                # a 1-D stack, factored as the reference's (L, d) leaf
+                g = torch.stack(gs)
+                v = {"r": torch.stack([v["r"] for v in vs]),
+                     "c": vs[0]["c"]}
+                u = g * torch.rsqrt(second_moment(v, g * g + eps) + eps)
+                for vi, r in zip(vs, v["r"]):
+                    vi["r"].copy_(r)
+                us = list(u)
             else:
-                vhat = v["full"].mul_(beta2).add_((1 - beta2) * g2)
-            u = g * torch.rsqrt(vhat + eps)
-            # relative update clipping
-            rms_u = torch.sqrt((u * u).mean() + 1e-12)
-            u = u / torch.clamp(rms_u / clip_threshold, min=1.0)
-            if b1 is not None:
-                m = state["m"][k]
-                m.copy_(b1 * m.to(torch.float32) + (1 - b1) * u)
-                u = m.to(torch.float32)
-            updates[k] = -lr_t * u
+                us = [g * torch.rsqrt(second_moment(v, g * g + eps) + eps)
+                      for g, v in zip(gs, vs)]
+            # relative update clipping, by the RMS over the whole leaf
+            if len(us) == 1:
+                ms = (us[0] * us[0]).mean()
+            else:
+                ms = torch.stack([(u * u).sum() for u in us]).sum() / sum(
+                    u.numel() for u in us)
+            rms_u = torch.sqrt(ms + 1e-12)
+            for k, u in zip(group, us):
+                u = u / torch.clamp(rms_u / clip_threshold, min=1.0)
+                if b1 is not None:
+                    m = state["m"][k]
+                    m.copy_(b1 * m.to(torch.float32) + (1 - b1) * u)
+                    u = m.to(torch.float32)
+                updates[k] = -lr_t * u
+        updates = {k: updates[k] for k in grads}
         new_state = {"v": state["v"], "step": step}
         if b1 is not None:
             new_state["m"] = state["m"]

@@ -931,7 +931,8 @@ def test_cuda_engine_refuses_a_tile_past_the_kernel_limit(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2-1.5b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2-1.5b", "olmoe-1b-7b",
+                                  "dbrx-132b", "mistral-nemo-12b"])
 def test_cuda_lm_flash_prefill_matches_cpu_chunked(cuda, arch):
     """The smoke LM on the card through the kernel (float32) against the
     same weights on the CPU through plain chunked attention."""

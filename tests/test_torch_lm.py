@@ -1,5 +1,6 @@
 """The LM serving path of the PyTorch port (``repro_torch.models``,
-``repro_torch.configs``) held against the JAX reference on the CPU.
+``repro_torch.configs``), dense and MoE, held against the JAX reference on
+the CPU.
 
 Inputs are made with numpy from a seed; the weights are the reference's
 own ``init_params`` arrays, copied into the port by
@@ -10,9 +11,10 @@ own ``init_params`` arrays, copied into the port by
   differ by ~2e-6 on values of order 1 (measured at these shapes).
 - attention alone, float32: atol 5e-5, as the reference's own flash tests
   (``tests/test_kernels.py``).
-- bf16 (qwen3-smoke in bf16): rtol 2^-5, atol 2^-4. The two frameworks
-  round to bf16 at different points (XLA may keep float32 between fused
-  ops); the results differ by up to 2 bf16 ulps (0.03 on values near 3).
+- bf16 (qwen3-smoke and olmoe-smoke in bf16): rtol 2^-5, atol 2^-4. The
+  two frameworks round to bf16 at different points (XLA may keep float32
+  between fused ops); the results differ by up to 2 bf16 ulps (0.03 on
+  values near 3). The MoE router is float32 on both sides.
 - Greedy tokens are equal except where the reference's two largest logits
   lie within that tolerance of each other (a traced near-tie).
 
@@ -133,16 +135,22 @@ def test_lm_config_fields_diff_only_by_the_dropped_jit_knobs():
                 f.name].default, f.name
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2-1.5b"])
+LM_ARCHS = ["dbrx-132b", "mistral-nemo-12b", "olmoe-1b-7b", "qwen2-1.5b",
+            "qwen3-0.6b"]
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
 def test_arch_configs_are_the_references(arch):
-    assert base.all_archs() == ["deepfm", "din", "gat-cora", "qwen2-1.5b",
-                                "qwen3-0.6b", "two-tower-retrieval",
-                                "xdeepfm"]
+    assert base.all_archs() == jbase.all_archs() == [
+        "dbrx-132b", "deepfm", "din", "gat-cora", "mistral-nemo-12b",
+        "olmoe-1b-7b", "qwen2-1.5b", "qwen3-0.6b", "two-tower-retrieval",
+        "xdeepfm"]
     spec, jspec = base.get(arch), jbase.get(arch)
     assert ([dataclasses.asdict(s) for s in spec.shapes]
             == [dataclasses.asdict(s) for s in jspec.shapes])
-    assert (spec.family, spec.source, spec.tp_heads) == (
-        jspec.family, jspec.source, jspec.tp_heads)
+    for f in ("family", "source", "notes", "tp_heads", "pure_dp_train",
+              "train_grad_accum"):
+        assert getattr(spec, f) == getattr(jspec, f), f
     for make in ("make_config", "make_smoke_config"):
         cfg, jcfg = getattr(spec, make)(), getattr(jspec, make)()
         for f in dataclasses.fields(cfg):
@@ -151,9 +159,12 @@ def test_arch_configs_are_the_references(arch):
             if f.name == "dtype":
                 assert str(got).removeprefix("torch.") == jnp.dtype(
                     want).name
+            elif f.name == "moe" and want is not None:
+                assert dataclasses.asdict(got) == dataclasses.asdict(want)
             else:
                 assert got == want, (make, f.name)
         assert cfg.n_params == jcfg.n_params
+        assert cfg.n_active_params == jcfg.n_active_params
         assert cfg.head_dim == jcfg.head_dim
 
 
@@ -162,7 +173,12 @@ def test_n_params_is_the_references_and_counts_the_weights():
     assert full.n_params == jbase.get("qwen3-0.6b").make_config().n_params
     assert full.n_active_params == full.n_params
     assert (full.n_layers, full.d_model, full.vocab) == (28, 1024, 151936)
-    for arch in ("qwen3-0.6b", "qwen2-1.5b"):
+    # the sizes the port runs at full width on one card, and dbrx's
+    for arch, billions in (("olmoe-1b-7b", 6.92), ("dbrx-132b", 131.60),
+                           ("mistral-nemo-12b", 12.25)):
+        assert round(base.get(arch).make_config().n_params / 1e9,
+                     2) == billions
+    for arch in LM_ARCHS:
         cfg = base.get(arch).make_smoke_config()
         model = tf.LM(cfg, device="meta")
         numel = sum(p.numel() for p in model.parameters())
@@ -172,7 +188,7 @@ def test_n_params_is_the_references_and_counts_the_weights():
                     if n.split(".")[-1] in ("q_norm", "k_norm", "bq", "bk",
                                             "bv"))
         assert cfg.n_params == numel - extra
-        assert extra > 0
+        assert (extra > 0) == (cfg.qk_norm or cfg.qkv_bias)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -223,9 +239,12 @@ def test_init_params_draws_at_the_references_scales():
 
 
 def test_lm_config_refuses_moe_and_unknown_attention():
+    """``moe`` takes a ``MoEConfig`` (or None) and nothing else."""
     cfg = base.get("qwen3-0.6b").make_smoke_config()
-    with pytest.raises(NotImplementedError, match="moe"):
+    with pytest.raises(TypeError, match="moe"):
         dataclasses.replace(cfg, moe=object())
+    moe_cfg = base.get("olmoe-1b-7b").make_smoke_config().moe
+    assert dataclasses.replace(cfg, moe=moe_cfg).moe is moe_cfg
     with pytest.raises(ValueError, match="attn_impl"):
         dataclasses.replace(cfg, attn_impl="paged")
 
@@ -253,7 +272,11 @@ def _run_slice(jcfg, cfg, tol, seed):
     hidden, aux, _ = jtf.forward(params, jnp.asarray(toks), jcfg)
     hidden_t, aux_t, _ = tf.forward(model, ttoks)
     np.testing.assert_allclose(_np(hidden_t), _np(hidden), **tol)
-    assert float(aux_t) == float(aux) == 0.0
+    if cfg.moe is None:
+        assert float(aux_t) == float(aux) == 0.0
+    else:                   # the layers' mean load-balance loss, >= 1
+        np.testing.assert_allclose(float(aux_t), float(aux), **tol)
+        assert float(aux) >= 1.0
 
     logits, cache = jtf.prefill(params, jnp.asarray(toks), jcfg)
     logits_t, cache_t = tf.prefill(model, ttoks)
@@ -279,8 +302,11 @@ def _run_slice(jcfg, cfg, tol, seed):
     return ties
 
 
-@pytest.mark.parametrize("impl", ["chunked", "flash"])
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2-1.5b"])
+@pytest.mark.parametrize("arch,impl", [
+    ("qwen3-0.6b", "chunked"), ("qwen3-0.6b", "flash"),
+    ("qwen2-1.5b", "chunked"), ("qwen2-1.5b", "flash"),
+    ("olmoe-1b-7b", "chunked"), ("olmoe-1b-7b", "flash"),
+    ("dbrx-132b", "chunked"), ("mistral-nemo-12b", "chunked")])
 def test_prefill_and_decode_match_reference(arch, impl, monkeypatch):
     monkeypatch.setenv("REPRO_FORCE_INTERPRET", "1")
     jcfg, cfg = _configs(arch, attn_impl=impl)
@@ -291,6 +317,13 @@ def test_prefill_and_decode_match_reference(arch, impl, monkeypatch):
 def test_prefill_and_decode_match_reference_bf16(impl, monkeypatch):
     monkeypatch.setenv("REPRO_FORCE_INTERPRET", "1")
     jcfg, cfg = _configs("qwen3-0.6b", attn_impl=impl, dtype="bfloat16")
+    _run_slice(jcfg, cfg, BF16_TOL, seed=2)
+
+
+def test_moe_prefill_and_decode_match_reference_bf16(monkeypatch):
+    """olmoe-smoke in bf16: the router stays float32 on both sides."""
+    monkeypatch.setenv("REPRO_FORCE_INTERPRET", "1")
+    jcfg, cfg = _configs("olmoe-1b-7b", dtype="bfloat16")
     _run_slice(jcfg, cfg, BF16_TOL, seed=2)
 
 

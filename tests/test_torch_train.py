@@ -21,6 +21,15 @@ Inputs are made with numpy from a seed; weights are the reference's own
   neighbouring bfloat16 values.
 - int8 quantization: the int8 codes and scales exactly (one float32
   division, round half to even, on both sides).
+- Adafactor and ``error_feedback`` over an LM's layer stacks (the port's
+  per-layer leaves against the reference's (L, ...) leaves), each step
+  from the reference's state: updates within 1e-6 of the step's largest
+  |update|, plus, under Adafactor's bfloat16 momentum (the update is
+  -lr times it), one bfloat16 ulp of the update (2^-7 relative: a
+  bfloat16 ulp is 2^-8 to 2^-7 of the value); the optimizer state as
+  after one step above, its bfloat16 momentum within one ulp (2^-7) plus
+  1e-6 of the leaf's largest |momentum| (a momentum that nearly cancels
+  to 0 keeps the float32 differences of the update that made it).
 - Three train steps of the smoke LM (chain(clip, adamw(1e-3, eps=1e-6))):
   losses and gradient norms within rtol 1e-5; parameters and moments
   within 1e-5 absolute. Adam moves a component by lr * g / (|g| + eps),
@@ -118,6 +127,16 @@ def lm():
     return jcfg, cfg, jparams, jax.tree.map(np.asarray, jparams)
 
 
+def _lm_pair(arch: str, seed: int = 0):
+    """An arch's smoke LM of both packages (float32): the reference's
+    config and parameters as numpy, the port's config and model."""
+    jcfg = jbase.get(arch).make_smoke_config()
+    cfg = base.get(arch).make_smoke_config()
+    tree = jax.tree.map(np.asarray, jtf.init_params(
+        jax.random.PRNGKey(seed), jcfg))
+    return jcfg, cfg, tree, convert.params_from_jax(tree, cfg, device="cpu")
+
+
 def _ref_grads_tree(params: dict, grads) -> dict:
     """The port's per-parameter gradients in the reference's nest."""
     grads = dict(zip(params, grads))
@@ -146,6 +165,29 @@ def test_lm_loss_and_grads_match_reference(lm, b, s, remat):
                                rtol=1e-5)
     _close_to_leaf_max(_ref_grads_tree(params, grads),
                        jax.tree.map(np.asarray, jgrads), "lm grads")
+
+
+@pytest.mark.parametrize("remat", ["full", "none"])
+def test_moe_lm_loss_and_grads_match_reference(remat):
+    """olmoe-smoke: the loss with its aux term (weight 0.01), and every
+    gradient, the router's and the experts' included; 8 x 80 tokens, so 8
+    checkpointed batch chunks."""
+    jcfg, cfg, tree, _ = _lm_pair("olmoe-1b-7b", seed=1)
+    batch = _lm_batches(11, 1, 8, 80, cfg.vocab)[0]
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jtf.lm_loss(p, _jax_batch(batch), jcfg)))(
+            jax.tree.map(jnp.asarray, tree))
+    model = convert.params_from_jax(
+        tree, dataclasses.replace(cfg, remat=remat), device="cpu")
+    params = dict(model.named_parameters())
+    loss = tf.lm_loss(model, _torch_batch(batch))
+    grads = torch.autograd.grad(loss, list(params.values()))
+    np.testing.assert_allclose(float(loss.detach()), float(jloss),
+                               rtol=1e-5)
+    got = _ref_grads_tree(params, grads)
+    assert set(got["layers"]["moe"]) == {"router", "w_in", "w_gate",
+                                         "w_out"}
+    _close_to_leaf_max(got, jax.tree.map(np.asarray, jgrads), "moe grads")
 
 
 def test_remat_full_equals_none(lm):
@@ -222,6 +264,156 @@ def test_optimizer_matches_reference(name):
         else:
             np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
                                        atol=1e-6, err_msg=path)
+
+
+STACKED_OPTIMIZERS = {
+    "adafactor": lambda o, c: o.adafactor(0.05),
+    "adafactor_no_momentum": lambda o, c: o.adafactor(0.05, b1=None),
+    "error_feedback": lambda o, c: c.error_feedback(o.adamw(0.1)),
+}
+
+
+def _port_leaves(tree: dict, names) -> dict:
+    """The port's per-parameter tensors of a reference LM nest: row i of
+    ``layers/a/b`` for ``blocks.i.a.b``."""
+    out = {}
+    for name in names:
+        m = opt_lib.LAYER_LEAF.fullmatch(name)
+        node = tree["layers"] if m else tree
+        for part in (m[2] if m else name).split("."):
+            node = node[part]
+        out[name] = torch.from_numpy(np.array(node[int(m[1])] if m
+                                              else node))
+    return out
+
+
+def _step_close(tp, tu, ts, ju, js, bf16_update: bool):
+    """One step's updates and optimizer state, the port's (per-layer, in
+    the reference's layout through ``convert``) against the reference's,
+    at the tolerances of the module docstring."""
+    want = jax.tree.map(np.asarray, ju)
+    scale = max(float(np.abs(u).max()) for u in jax.tree.leaves(want))
+    got = ckpt.flatten_with_paths(_ref_grads_tree(tp, tu.values()))
+    assert len(got) == len(jax.tree.leaves(want))
+    for (path, u), w in zip(got, jax.tree.leaves(want)):
+        np.testing.assert_allclose(_np(u), w, atol=1e-6 * scale,
+                                   rtol=2.0 ** -7 if bf16_update else 0,
+                                   err_msg=path)
+    step = torch.zeros((), dtype=torch.int32)
+    got = ckpt.flatten_with_paths(
+        convert.train_state_to_numpy(TrainState(tp, ts, step)).opt_state)
+    want = jckpt._flatten_with_paths(jax.tree.map(np.asarray, js))
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, g), (_, w) in zip(got, want):
+        assert tuple(g.shape) == tuple(np.shape(w)), path
+        if isinstance(g, torch.Tensor) and g.dtype == torch.bfloat16:
+            w = _np(w)
+            np.testing.assert_allclose(
+                _np(g), w, rtol=2.0 ** -7,
+                atol=1e-6 * float(np.abs(w).max()), err_msg=path)
+        else:
+            np.testing.assert_allclose(_np(g), _np(w), rtol=1e-5,
+                                       atol=1e-6, err_msg=path)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "olmoe-1b-7b"])
+@pytest.mark.parametrize("name", sorted(STACKED_OPTIMIZERS))
+def test_optimizer_over_layer_stacks_matches_reference(arch, name):
+    """Three steps on an LM's parameters: the port's per-layer leaves
+    against the reference's (L, ...) stacks, the port restarted each step
+    from the reference's state (``train_state_from_jax``), so that each
+    step is held at one step's tolerance. Layer i's gradients are scaled
+    by 10**i, so a statistic taken per layer instead of over the stack
+    (the update-RMS clip, the factored norm scales, the int8 scale)
+    shows."""
+    _, cfg, tree, model = _lm_pair(arch)
+    rng = np.random.default_rng(5)
+    layer_scale = 10.0 ** np.arange(cfg.n_layers)
+
+    def grads_like(t):
+        g = jax.tree.map(lambda a: rng.standard_normal(a.shape).astype(
+            np.float32), t)
+        g["layers"] = jax.tree.map(
+            lambda a: a * layer_scale.reshape((-1,) + (1,) * (a.ndim - 1))
+            .astype(np.float32), g["layers"])
+        return g
+
+    jo = STACKED_OPTIMIZERS[name](jopt, jcomp)
+    to = STACKED_OPTIMIZERS[name](opt_lib, comp)
+    jp = jax.tree.map(jnp.asarray, tree)
+    js = jo.init(jp)
+    # jit only saves time; but under jit XLA may turn the quantizer's
+    # x / scale into x * (1 / scale) and move a code by one level at a
+    # rounding boundary, so error_feedback runs eagerly, op for op
+    jupdate = jo.update if name == "error_feedback" else jax.jit(jo.update)
+    state = init_state(dict(model.named_parameters()), to)
+    for i in range(3):
+        convert.train_state_from_jax(jax.tree.map(np.asarray,
+                                                  jtrainer.TrainState(
+                                                      jp, js, np.int32(i))),
+                                     state)
+        tp = state.params
+        g = grads_like(tree)
+        ju, js = jupdate(jax.tree.map(jnp.asarray, g), js, jp)
+        tu, ts = to.update(_port_leaves(g, tp), state.opt_state, tp)
+        _step_close(tp, tu, ts, ju, js, name == "adafactor")
+        jp = jopt.apply_updates(jp, ju)
+        state = state._replace(opt_state=ts)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "olmoe-1b-7b"])
+def test_adafactor_train_state_crosses_packages(arch, tmp_path):
+    """A reference Adafactor ``TrainState`` (two steps taken) restores into
+    the port through ``convert`` bit for bit, and through a checkpoint each
+    way; from it, one more step of each package gives the same state."""
+    _, cfg, tree, model = _lm_pair(arch, seed=2)
+    rng = np.random.default_rng(6)
+    jo, to = jopt.adafactor(0.05), opt_lib.adafactor(0.05)
+    jp = jax.tree.map(jnp.asarray, tree)
+    js = jo.init(jp)
+    jupdate = jax.jit(jo.update)
+    grads = [jax.tree.map(lambda a: rng.standard_normal(a.shape).astype(
+        np.float32), tree) for _ in range(3)]
+    for g in grads[:2]:
+        ju, js = jupdate(jax.tree.map(jnp.asarray, g), js, jp)
+        jp = jopt.apply_updates(jp, ju)
+    jstate = jax.tree.map(np.asarray,
+                          jtrainer.TrainState(jp, js, np.int32(2)))
+    state = init_state(dict(model.named_parameters()), to)
+    convert.train_state_from_jax(jstate, state)
+    assert int(state.step) == 2
+    if cfg.n_layers > 1:        # a 1-D stack shares its column statistic
+        v = state.opt_state["v"]
+        assert v["blocks.0.ln1"]["c"] is v["blocks.1.ln1"]["c"]
+        assert v["blocks.0.ln1"]["r"].shape == ()
+    for (path, a), (_, b) in zip(
+            ckpt.flatten_with_paths(convert.train_state_to_numpy(state)),
+            jckpt._flatten_with_paths(jstate)):
+        assert _np(a).tobytes() == _np(b).tobytes(), path
+
+    port_dir, ref_dir = str(tmp_path / "port"), str(tmp_path / "ref")
+    ckpt.save(port_dir, 2, convert.train_state_to_numpy(state))
+    jckpt.save(ref_dir, 2, jax.tree.map(jnp.asarray, jstate))
+    assert (ckpt.read_manifest(port_dir, 2)["index"]
+            == jckpt.read_manifest(ref_dir, 2)["index"])
+    from_port, _ = jckpt.restore(port_dir, 2,
+                                 jax.tree.map(jnp.asarray, jstate))
+    for a, b in zip(jax.tree.leaves(from_port), jax.tree.leaves(jstate)):
+        assert np.asarray(a).tobytes() == np.asarray(b).tobytes()
+    fresh = init_state(dict(convert.params_from_jax(
+        tree, cfg, device="cpu").named_parameters()), to)
+    restored, _ = ckpt.restore(ref_dir, 2,
+                               convert.train_state_to_numpy(fresh))
+    convert.train_state_from_jax(restored, fresh)
+    for (path, a), (_, b) in zip(
+            ckpt.flatten_with_paths(convert.train_state_to_numpy(fresh)),
+            jckpt._flatten_with_paths(jstate)):
+        assert _np(a).tobytes() == _np(b).tobytes(), path
+
+    ju, js = jupdate(jax.tree.map(jnp.asarray, grads[2]), js, jp)
+    tu, ts = to.update(_port_leaves(grads[2], fresh.params),
+                       fresh.opt_state, fresh.params)
+    _step_close(fresh.params, tu, ts, ju, js, bf16_update=True)
 
 
 def test_quantize_int8_matches_reference_exactly():
@@ -577,8 +769,8 @@ def test_recsys_loss_grads_match_reference(arch):
 
 # ---- the launcher, data and imports ----------------------------------------
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gat-cora", "deepfm",
-                                  "two-tower-retrieval"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "olmoe-1b-7b", "gat-cora",
+                                  "deepfm", "two-tower-retrieval"])
 def test_launcher_smoke_recovers_from_a_failure(arch, tmp_path, capsys):
     rc = launch_train.main(["--arch", arch, "--smoke", "--device", "cpu",
                             "--steps", "8", "--ckpt-dir",
