@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the port's ten paths through their entry points, each with every
-launch count set to 0 just before it and read just after. The first five
-run at the paper's Netflix scale (n = 17,770 items, m = 480,189 users,
+Drives the port's twelve paths through their entry points, each with
+every launch count set to 0 just before it and read just after. The first
+six run at the paper's Netflix scale (n = 17,770 items, m = 480,189 users,
 d = 100, synthetic MF-like factors from ``--seed``):
 
   f32 reverse   ``RkMIPSEngine("sah").build(...)`` on the card, then
@@ -13,6 +13,11 @@ d = 100, synthetic MF-like factors from ``--seed``):
                 from the top 2% of items by norm (the titles a service
                 would promote; from the top 20% no user at this scale has
                 a query in its top 50, and the item scan never runs);
+  mapped        ``query_batch_mapped`` (the legacy per-query driver) on
+                the same engine and queries at k = 10 (k = 50 cut for
+                time): predictions and plan counters bitwise
+                ``query_batch``'s; its ms per query and ``query_batch``'s,
+                medians of three runs each, alternated on the warm engine;
   int8 reverse  the same build and queries with ``scan_precision="int8"``
                 (the fused int8 screen);
   forward       ``kmips(users, 10)`` for 4,096 users drawn with
@@ -74,7 +79,20 @@ d = 100, synthetic MF-like factors from ``--seed``):
                 at their ``train_batch`` (halved while it does not fit) and
                 gat-cora at ``full_graph_sm``, each first loss against
                 float64 and the loss falling. No hand-written kernel runs
-                there (the reference's training runs no Pallas kernel).
+                there (the reference's training runs no Pallas kernel);
+  cells         the reference's cell catalogue at full width through
+                ``launch/dryrun.py::run_cell(..., measure_it=True)``:
+                each cell reckoned on the meta device, then one warm and
+                one timed step on the card (``cell_cuts`` lists every
+                cell, its cut and why: qwen3-0.6b ``prefill_32k``,
+                ``decode_32k`` and ``long_500k``, olmoe-1b-7b
+                ``train_4k`` under Adafactor, the four recsys archs'
+                ``serve_bulk`` and ``retrieval_cand``, the SAH sketch
+                retrieval cell, gat-cora's ``molecule``, ``minibatch_lg``
+                and ``ogb_products``), each held to its check; flash at
+                seq 32,768 against its plain version at the cell's
+                shape, one (batch, head) pair at a time, and timed
+                beside SDPA.
 
 It
 
@@ -92,7 +110,10 @@ It
      that one call; on the retrieval path exactly one ``srp_hash`` for the
      build and one a request, one dense ``hamming_scores`` a sketch
      request, one ``ip_topk`` an exact request, and nothing else; in the
-     train phase no kernel at all);
+     train phase no kernel at all; in the cells phase ``flash_attention``
+     once a layer in each of the 32k prefill's two steps, all ``wgmma``,
+     one ``srp_hash`` and one dense ``hamming_scores`` in each step of the
+     SAH retrieval cell, and no kernel in any other cell);
   4. holds the reverse answers against the exact oracle (recall 1.0 but
      for misses within float32 rounding of their threshold), the int8
      answers against the f32 ones bit for bit, the "exact" forward ids
@@ -129,7 +150,14 @@ It
      ``srp_hash``, ``ip_topk`` and ``fused_scan``, and of the flash
      kernels with their shared memory and their ``HGMMA`` / ``UTMALDG``
      counts in the SASS;
-  7. splits a query batch into plan and execute, and profiles it, one
+  7. for each cell prints its cut, reckoned and measured bytes, step ms,
+     model FLOPs, bound by its dominant term and step/bound, and holds
+     its outputs (finite, the abstract outputs' shapes), the rankers'
+     bulk scores against float64 and the unchunked forward, two-tower's
+     exact ids against ``torch.topk(torch.matmul(...))`` but for traced
+     ties, and the train cells' first loss against float32 (olmoe) or
+     float64 (GAT) where that copy fits;
+  8. splits a query batch into plan and execute, and profiles it, one
      LM prefill (qwen3 and olmoe), 4 decode steps, and one LM train step
      for the device's busy share, their top kernels and the
      device launches per tile step (the f32 profile must hold no
@@ -148,6 +176,7 @@ import argparse
 import copy
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -1887,6 +1916,339 @@ def nemo_path(seed: int, dev) -> dict:
     return out
 
 
+# -- the cells phase -------------------------------------------------------
+
+RECSYS_ARCHS = ("two-tower-retrieval", "deepfm", "xdeepfm", "din")
+CHECK_ROWS = 4096        # rows of a bulk forward held against float64
+
+
+def cell_cuts():
+    """The cells the cells phase runs, at full width: (arch, shape, cut,
+    why). Every cut is a scale cut, decided before the run by the dry
+    run's reckoning (``dryrun.FIT``: the largest value that fits one card
+    with ``dryrun.FIT_MARGIN`` spare), never by catching an out-of-memory
+    error. The reckonings quoted are the dry run's on this tree."""
+    from repro_torch.launch import dryrun
+    fit = dryrun.FIT
+    return (
+        ("qwen3-0.6b", "prefill_32k", {"global_batch": 4},
+         "global batch 32 -> 4: the KV of 32 prompts is 120 GB; of 4, 15.0 "
+         "GB, held twice (forward's k/v stacks and the padded cache)"),
+        ("qwen3-0.6b", "decode_32k", {"global_batch": 8},
+         "global batch 128 -> 8: a 481 GB cache -> 30.1 GB"),
+        ("qwen3-0.6b", "long_500k", {}, "nothing cut"),
+        ("olmoe-1b-7b", "train_4k", {"global_batch": 1, "n_layers": fit},
+         "global batch 256 -> one sequence of 4,096 tokens; depth to what "
+         "fits: bf16 weights and gradients, float32 clipped gradients and "
+         "updates and Adafactor's bf16 momentum, ~14 B a parameter"),
+        *((arch, shape, {}, "nothing cut") for arch in RECSYS_ARCHS
+          for shape in ("serve_bulk", "retrieval_cand")),
+        ("two-tower-retrieval", "retrieval_cand_sah", {}, "nothing cut"),
+        ("gat-cora", "molecule", {}, "nothing cut"),
+        ("gat-cora", "minibatch_lg", {}, "nothing cut"),
+        ("gat-cora", "ogb_products", {"n_edges": fit},
+         "edges to what fits: each layer gathers (E, heads, dim) float32 "
+         "messages and keeps them for the backward, 84.6 GiB reckoned at "
+         "the 61.9M published edges"),
+    )
+
+
+def all_finite(t) -> bool:
+    """``torch.isfinite(t).all()`` a slab of 2**28 elements at a time, so
+    that a cache of tens of GB needs no mask of its size."""
+    import torch
+    if not t.is_floating_point():
+        return True
+    flat = t.reshape(-1)
+    return all(bool(torch.isfinite(c).all()) for c in flat.split(1 << 28))
+
+
+def cell_loss_reference(run_args, arch: str, cut: dict) -> tuple[float, str]:
+    """The first loss of a train cell in a wider dtype, on its inputs
+    before any step: the LM in float32 (``float32_copy``), GAT in float64;
+    (nan, why) where that copy does not fit beside the cell."""
+    import copy
+    import torch
+    from repro_torch.models import gat
+    from repro_torch.models import transformer as tf
+    model, _, batch = run_args
+    if arch == "gat-cora":
+        if cut:
+            return float("nan"), ("left out: the float64 copy of the graph "
+                                  "and its activations do not fit beside "
+                                  "the cut cell")
+        cfg = model.cfg
+        with torch.no_grad():
+            m64 = copy.deepcopy(model).double()
+            loss = float(gat.loss_fn(m64, {**batch, "x": batch["x"].double()},
+                                     cfg))
+        return loss, "float64 (the loss's own log-softmax is float32)"
+    with torch.no_grad():
+        m32 = float32_copy(model)
+        loss = float(tf.lm_loss(m32, batch, loss_chunk=512))
+    del m32
+    torch.cuda.empty_cache()
+    return loss, "float32"
+
+
+def cells_path(seed: int, dev, out_dir: Path) -> dict:
+    """Every cell of ``cell_cuts`` through ``launch/dryrun.py::run_cell``
+    with ``measure_it=True``: reckoned on the meta device, drawn on the
+    card from ``seed`` and run one warm and one timed step, the launch
+    counts set to 0 after the inputs are drawn and read after the steps.
+    Holds each cell's outputs (finite, the abstract outputs' shapes) and
+    its own check; returns the phase's numbers and the flash entry at
+    seq 32,768."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, roofline
+    gib = 2 ** 30
+    t0 = time.perf_counter()
+    peak_before = torch.cuda.max_memory_allocated()
+    out, flash, peak_phase = {}, None, 0
+    resident = torch.cuda.memory_allocated()
+    print(f"cells phase: {resident / gib:.2f} GiB held by the process "
+          f"before it; each cell is reckoned to fit beside it")
+    for arch, shape, cut, why in cell_cuts():
+        sah = shape.endswith("_sah")
+        torch.cuda.empty_cache()
+        t_cell = time.perf_counter()
+        cut = dryrun.fit_cut(arch, shape, cut, resident) if not sah else {}
+        extra = {}
+
+        def on_args(args, arch=arch, shape=shape, cut=cut, extra=extra):
+            if shape == "train_4k" or arch == "gat-cora":
+                extra["ref_loss"] = cell_loss_reference(args, arch, cut)
+            ops.reset_launch_counts()
+
+        run = dryrun.run_cell(arch, shape.replace("_sah", ""), str(out_dir),
+                              sah_variant=sah, measure_it=True, cut=cut,
+                              seed=seed, on_args=on_args)
+        launches = {k: v for k, v in ops.launch_counts.items() if v}
+        rec = run.record
+        tag = f"cell {arch} x {rec['shape']}"
+        if "measured" not in rec:
+            fail(f"{tag}: the reckoning says it does not fit "
+                 f"({rec['memory']['per_device_total'] / gib:.2f} GiB)")
+        m = rec["measured"]
+        if not m["outputs_match_abstract"]:
+            fail(f"{tag}: output shapes differ from the cell's abstract "
+                 f"outputs")
+        if not all(all_finite(t) for t in roofline.tensors_of(run.out)):
+            fail(f"{tag}: a non-finite output")
+        kind = run.cell.kind
+        want = {}
+        if shape == "prefill_32k":
+            n = run.cell.abstract_args[0].cfg.n_layers
+            want = {"flash_attention": 2 * n, "flash_attention_wgmma": 2 * n}
+        elif sah:
+            want = {"srp_hash": 2, "hamming_scores": 2}
+        if launches != want:
+            fail(f"{tag}: launches {launches}, expected {want} over its two "
+                 f"steps")
+        check = cell_check(arch, shape, run, extra)
+        if shape == "prefill_32k":
+            flash = flash_32k_entry(seed, dev, launches)
+        peak = m["peak_bytes"]
+        peak_phase = max(peak_phase, peak + m["resident_bytes"])
+        mf = rec["model_flops_global"]
+        ratio = rec.get("useful_flops_ratio")
+        print(f"{tag}: cut {rec['reduced'] or 'none'} ({why}); reckoned "
+              f"{rec['memory']['per_device_total'] / gib:.2f} GiB, measured "
+              f"peak {peak / gib:.2f} GiB; step {m['step_ms']:.3f} ms (warm "
+              f"{m['warm_step_ms']:.1f}); model FLOPs "
+              f"{'n/a' if mf is None else f'{mf:.4g}'}; bound "
+              f"{rec['bound_s'] * 1e3:.3f} ms "
+              f"({rec['roofline']['dominant']}); step/bound "
+              f"{m['step_over_bound']:.2f}; useful/counted FLOPs "
+              f"{'n/a' if ratio is None else f'{ratio:.4f}'}; launches "
+              f"{launches or 'none'}; {check}; "
+              f"{time.perf_counter() - t_cell:.1f} s host")
+        out[f"{arch}/{rec['shape']}"] = {
+            "reduced": rec["reduced"], "why": why,
+            "reckoned_bytes": rec["memory"]["per_device_total"],
+            "peak_bytes": peak, "step_ms": m["step_ms"],
+            "model_flops": mf, "bound_ms": rec["bound_s"] * 1e3,
+            "dominant": rec["roofline"]["dominant"],
+            "useful_flops_ratio": ratio, "launches": launches,
+            "kind": kind}
+        del run
+    torch.cuda.empty_cache()
+    print(f"cells phase: {len(out)} cells in "
+          f"{time.perf_counter() - t0:.1f} s host; records under "
+          f"{out_dir.name}/")
+    return {"cells": out, "flash": flash, "peak_before": peak_before,
+            "peak": peak_phase}
+
+
+def check_rows(n: int, parts: int, dev):
+    """``CHECK_ROWS`` row ids of a bulk forward over ``n`` rows run in
+    ``parts`` equal chunks: the first and the last ``CHECK_ROWS // parts
+    // 2`` of each chunk, so a chunk's offset, length or place in the
+    concatenation shows."""
+    import torch
+    per, half = n // parts, CHECK_ROWS // parts // 2
+    return torch.cat([torch.arange(lo, lo + half, device=dev)
+                      for i in range(parts)
+                      for lo in (i * per, (i + 1) * per - half)])
+
+
+def cell_check(arch: str, shape: str, run, extra: dict) -> str:
+    """The cell's own check on its measured run; returns what held."""
+    import torch
+    from repro_torch.configs import base
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import cells as cells_lib
+    from repro_torch.models import recsys as rec_lib
+    rec = run.record
+    if "ref_loss" in extra:
+        want, how = extra["ref_loss"]
+        got = rec["measured"]["first_loss"]
+        if want != want:
+            return f"first loss {got!r}; its wide-dtype check {how}"
+        rtol = LM_LOSS_RTOL if arch != "gat-cora" else TRAIN_F64_RTOL
+        rel = within(f"cell {arch} x {shape} first loss", got, want, rtol)
+        return (f"first loss {got!r} within {rel:.3g} of {how} {want!r} "
+                f"(rtol {rtol})")
+    if shape == "retrieval_cand_sah":
+        model, feats, cand, codes, proj = run.args
+        vals, ids = run.out
+        u = rec_lib.user_tower(model, feats, model.cfg)[0].detach()
+        ux = u[None].contiguous()
+        qcode = ops.srp_hash(ux, proj)
+        if not torch.equal(qcode, ref.srp_hash(ux, proj)):
+            fail("cell retrieval_cand_sah: srp_hash's query code differs "
+                 "from its plain version's")
+        dist = ops.hamming_scores(qcode, codes)
+        if not torch.equal(dist, ref.hamming_scores(qcode, codes)):
+            fail(f"cell retrieval_cand_sah: hamming_scores over the "
+                 f"{codes.shape[0]} candidates differs from its plain "
+                 f"version's")
+        if not torch.allclose(vals, cand[ids.long()].float() @ u, rtol=1e-5,
+                              atol=1e-5):
+            fail("cell retrieval_cand_sah: values are not the ids' inner "
+                 "products")
+        exact = torch.topk(cand.float() @ u, cells_lib.N_RETRIEVE).indices
+        recall = float(torch.isin(ids.long(), exact).float().mean())
+        return (f"query code and its {codes.shape[0]} Hamming distances "
+                f"equal the plain versions'; values are the ids' inner "
+                f"products; recall@100 of the "
+                f"sketch against the exact top-100 {recall:.3f} (random "
+                f"towers, no limit)")
+    if arch == "two-tower-retrieval" and shape == "retrieval_cand":
+        model, feats, cand = run.args
+        vals, ids = run.out
+        with torch.no_grad():
+            u = rec_lib.user_tower(model, feats, model.cfg)[0]
+            want = torch.topk(torch.matmul(cand, u), cells_lib.N_RETRIEVE)
+        ties = ip_tie_check(u[None], cand, ids[None], want.indices[None])
+        return (f"ids equal torch.topk(torch.matmul(cand, u))'s but for "
+                f"{ties} positions, all float ties")
+    if run.cell.kind in ("serve", "retrieval"):
+        model, batch = run.args
+        parts = (cells_lib.RETRIEVAL_CHUNKS if shape == "retrieval_cand"
+                 else 1)
+        idx = check_rows(run.out.shape[0], parts, run.out.device)
+        rows = {k: v[idx] for k, v in batch.items()}
+        got = run.out[idx]
+        if arch == "two-tower-retrieval":
+            def fwd():
+                u = rec_lib.user_tower(model, rows["user_feats"], model.cfg)
+                v = rec_lib.item_tower(model, rows["item_feats"], model.cfg)
+                return (u * v).sum(-1)
+        else:
+            _, _, forward = cells_lib.recsys_fns(base.get(arch), model.cfg)
+
+            def fwd():
+                return forward(model, rows)
+        note = ""
+        with torch.no_grad():
+            if shape == "retrieval_cand":
+                whole = fwd()
+                err = (got - whole).abs()
+                if not bool((err <= RANKER_TOL["atol"] + RANKER_TOL["rtol"]
+                             * whole.abs()).all()):
+                    fail(f"cell {arch} x {shape}: chunked scoring is "
+                         f"{float(err.max()):.3g} from the unchunked "
+                         f"forward")
+                note = (f"chunked within {float(err.max()):.3g} of the "
+                        f"unchunked forward on {CHECK_ROWS} rows, the "
+                        f"first and last {CHECK_ROWS // parts // 2} of "
+                        f"each of its {parts} chunks; ")
+            err64 = held_in_float64(f"cell {arch} x {shape}", model, fwd,
+                                    got)
+        return (f"{note}float32 within {err64:.3g} of float64 on "
+                f"{CHECK_ROWS} rows")
+    return "outputs finite, shapes as the abstract outputs"
+
+
+def flash_32k_entry(seed: int, dev, launches: dict,
+                    shape=(4, 16, 8, 32768, 128)) -> dict:
+    """The flash kernel at the 32k prefill's ``shape``, q (4, 16, 32768,
+    128) over 8 KV heads, bf16 causal, on unit-scale inputs from ``seed``, as
+    the cell launches it: its whole output held against its plain version
+    within two bf16 ulps, the plain version run one (batch, head) pair at
+    a time on that head's KV head (its float32 scores are 4.3 GB a pair,
+    275 GB for the whole), and timed so; the kernel timed (CUDA-graph
+    replay) beside SDPA on repeated KV; its kernels-line entry."""
+    import torch
+    from repro_torch.kernels import flash_attention, ops, ref
+    from repro_torch.models import attention
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, h, hkv, s, dh = shape           # (batch, heads, KV heads, seq, Dh)
+    q = torch.randn((b, h, s, dh), generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((b, hkv, s, dh), generator=gen, device=dev)
+            .bfloat16() for _ in range(2))
+    if flash_attention.route(q, k, v) != "wgmma":
+        fail(f"flash at seq {s}: the inputs do not take the wgmma route")
+    got = ops.flash_attention(q, k, v)
+    want = torch.empty_like(q)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for bi in range(b):
+        for hi in range(h):
+            kv = hi // (h // hkv)
+            want[bi, hi] = ref.flash_attention(
+                q[bi:bi + 1, hi:hi + 1], k[bi:bi + 1, kv:kv + 1],
+                v[bi:bi + 1, kv:kv + 1])[0, 0]
+    end.record()
+    end.synchronize()
+    plain = start.elapsed_time(end)
+    err = flash_close(got, want, lambda a: 2.0 ** -6 * a + 1e-3)
+    del got, want
+    ms = device_ms(lambda: ops.flash_attention(q, k, v), 2, replays=2)
+    kr = attention.repeat_kv(k, h // hkv).contiguous()
+    vr = attention.repeat_kv(v, h // hkv).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = device_ms(lambda: sdpa(q, kr, vr, is_causal=True), 2, replays=2)
+    flops = 4 * dh * b * h * s * (s + 1) // 2
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    bnd, by = bound(nbytes, flops / BF16_FLOP_PER_S)
+    print(f"check flash_attention at seq {s}: q {tuple(q.shape)} k/v "
+          f"{tuple(k.shape)}, all {b * h} (batch, head) pairs, max abs err "
+          f"{err:.6f}, every value within 2**-6 |plain| + 1e-3")
+    print(f"time flash_attention q {tuple(q.shape)} k/v {tuple(k.shape)} "
+          f"bf16 causal: wgmma kernel {ms:.4f} ms (device); bound "
+          f"{bnd:.4f} ms ({by}: {flops / 1e12:.2f} TFLOP at 989 TFLOP/s "
+          f"bf16); library scaled_dot_product_attention(is_causal=True) on "
+          f"repeated KV {lib:.4f} ms; {flops / ms / 1e9:.1f} TFLOP/s; plain "
+          f"version, pair by pair, {plain:.3f} ms")
+    return {"name": "flash_attention/prefill_32k", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:81",
+            "launches": launches["flash_attention"],
+            "launches_wgmma": launches["flash_attention_wgmma"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "plain_how": f"{b * h} calls, one (batch, head) pair each",
+            "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib,
+            "library_call": "torch.nn.functional."
+                            "scaled_dot_product_attention(is_causal=True), "
+                            "KV repeated",
+            "tflops": flops / ms / 1e9,
+            "shape": f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal"}
+
+
 def catalogue_change(seed: int, items, n_top: int):
     """The same catalogue change every run from ``seed``: the ids of
     ``N_DEL_TOP`` members of P' (the top ``n_top`` by norm) and of
@@ -2681,6 +3043,43 @@ def main() -> int:
 
     phase_done("oracle")
 
+    # -- the mapped baseline (the legacy per-query driver), counted ---------
+    ops.reset_launch_counts()
+    mapped = eng.query_batch_mapped(queries, 10)
+    launches_m = dict(ops.launch_counts)
+    batched = results[10]
+    if not torch.equal(mapped.predictions, batched.predictions):
+        n_diff = int((mapped.predictions != batched.predictions).sum())
+        fail(f"query_batch_mapped k=10: {n_diff} predictions differ from "
+             f"query_batch")
+    for f in PLAN_COUNTERS + ("truncated",):
+        if not torch.equal(getattr(mapped.stats, f),
+                           getattr(batched.stats, f)):
+            fail(f"query_batch_mapped k=10: {f} differs from query_batch")
+    for name in ("srp_hash", "hamming_nearest"):
+        if launches_m[name] <= 0:
+            fail(f"kernel {name} was not launched on the mapped path")
+    # both drivers on the warm engine, alternated (b m m b b m), so that
+    # neither gains from running first
+    secs = {"batched": [], "mapped": []}
+    for name in ("batched", "mapped", "mapped", "batched", "batched",
+                 "mapped"):
+        call = (eng.query_batch if name == "batched"
+                else eng.query_batch_mapped)
+        secs[name].append(call(queries, 10).seconds)
+    med = {n: statistics.median(v) * 1e3 / NQ for n, v in secs.items()}
+    print(f"query mapped f32 k=10, warm engine, median of 3 alternated "
+          f"runs each: mapped {med['mapped']:.3f} ms/query, query_batch "
+          f"{med['batched']:.3f} ms/query (mapped/batched "
+          f"{med['mapped'] / med['batched']:.3f}; host seconds mapped "
+          f"{secs['mapped']}, batched {secs['batched']}); the counted run "
+          f"{mapped.seconds:.3f} s for {NQ}; predictions and plan counters "
+          f"bitwise query_batch's; per-query packing {mapped.funnel.chunks} "
+          f"chunks, {mapped.funnel.tiles_scanned} tile visits (batched "
+          f"{batched.funnel.chunks}, {batched.funnel.tiles_scanned}); "
+          f"launch_counts {launches_m}")
+    phase_done("mapped baseline")
+
     # -- int8 reverse path, counted ------------------------------------------
     cfg8 = cfg.replace(scan_precision="int8")
     eng8 = RkMIPSEngine(cfg8).build(items, users,
@@ -3028,7 +3427,16 @@ def main() -> int:
     # -- training: the LM, recsys and GAT through the trainer, no kernel ---
     train_out = train_path(args.seed, dev, smi)
     phase_done("train")
-    peak = max(lm["peak_before"], art_out["peak_before"],
+
+    # -- the cell catalogue through the dry run, counted -----------------
+    # the cells are reckoned for the card less what the process holds:
+    # let the engines, the Netflix users and the LM go first
+    del eng, eng8, eng_ex, idx, idx8, a8, users, lm["model"]
+    torch.cuda.empty_cache()
+    cells_out = cells_path(args.seed, dev, ROOT / "build" / "cells")
+    phase_done("cells")
+    peak = max(cells_out["peak_before"], cells_out["peak"],
+               lm["peak_before"], art_out["peak_before"],
                moe_out["peak_before"], moe_out["peak"],
                nemo_out["peak_before"], nemo_out["peak"],
                serve_out["peak_before"], rec_out["peak_before"],
@@ -3051,6 +3459,10 @@ def main() -> int:
          "build_shape_max_abs_err": err_b,
          "launches_int8_path": launches8["srp_hash"],
          "launches_forward_path": launches_f["srp_hash"],
+         "launches_mapped_path": launches_m["srp_hash"],
+         "launches_cells_path": cells_out["cells"][
+             "two-tower-retrieval/retrieval_cand_sah"]["launches"][
+             "srp_hash"],
          **serve_out["srp"], **rec_out["srp"]},
         {"name": "hamming_nearest", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hamming_scan.cu",
@@ -3066,10 +3478,14 @@ def main() -> int:
                            "ref.nearest_rows, several calls",
          "rows_4096_ms": near4k_ms, "rows_4096_bound_ms": near4k_bound,
          "launches_forward_path": launches_f["hamming_nearest"],
+         "launches_mapped_path": launches_m["hamming_nearest"],
          "dense_hamming_scores": {
              "launches": serve_out["dense"]["serving_launches"],
              "launches_reverse_and_kmips_paths": launches["hamming_scores"]
              + launches8["hamming_scores"] + launches_f["hamming_scores"],
+             "launches_cells_path": cells_out["cells"][
+                 "two-tower-retrieval/retrieval_cand_sah"]["launches"][
+                 "hamming_scores"],
              "max_abs_err": ham_err, "ms": ham_ms, "plain_ms": ham_plain,
              "bound_ms": ham_bound, "bound_by": ham_by, "call_ms": ham_call,
              "library_ms": None, **serve_out["dense"],
@@ -3095,6 +3511,7 @@ def main() -> int:
          "shape": f"{tuple(users_fwd.shape)}x{tuple(items.shape)}, k "
                   f"{K_FWD}", **rec_out["ip_topk"]},
         flash_entry, moe_out["entry"], nemo_out["entry"],
+        cells_out["flash"],
     ]
     print(f"phases (host s): {phases}; total "
           f"{time.perf_counter() - T_START:.1f} s since start")

@@ -510,6 +510,37 @@ def rkmips_batch(index: SAHIndex, queries: torch.Tensor, k: int, *,
                           scan_budget=scan_budget)
 
 
+def rkmips_batch_mapped(index: SAHIndex, queries: torch.Tensor, k: int, *,
+                        n_cand: int = 64, scan: str = "sketch",
+                        chunk: int = 256, tie_eps: float = 0.0,
+                        scan_precision: str = "f32",
+                        delta_items: torch.Tensor | None = None,
+                        delta_mask: torch.Tensor | None = None):
+    """The legacy batch driver (``sah.py:688-711``): the per-query
+    ``rkmips`` run for each query in turn, as the reference's ``lax.map``
+    runs its while-loops, the predictions stacked to (nq, m_pad) and each
+    counter to an (nq,) int32 tensor. It is the second reference the
+    batched driver is held against (predictions and plan counters
+    bitwise; ``tiles_scanned`` and ``chunks`` are packing counts, equal
+    for nq = 1) and the baseline the batched driver's time is compared
+    with. Always unbudgeted.
+
+    The reference also takes ``delta_qitems``/``delta_qscale``, the int8
+    twin of the staged rows its int8 screen reads; the port counts staged
+    rows in f32 under both precisions (PORT.md, "Index artifacts"), so the
+    mapped driver takes ``delta_items``/``delta_mask`` alone, each query
+    counting them as ``rkmips`` does."""
+    per = [rkmips(index, q, k, n_cand=n_cand, scan=scan, chunk=chunk,
+                  tie_eps=tie_eps, scan_precision=scan_precision,
+                  delta_items=delta_items, delta_mask=delta_mask)
+           for q in queries]
+    pred = torch.stack([p for p, _ in per])
+    stats = QueryStats(*(
+        torch.tensor([getattr(s, f) for _, s in per], dtype=torch.int32,
+                     device=queries.device) for f in QueryStats._fields))
+    return pred, stats
+
+
 def predictions_to_original(index: SAHIndex, pred: torch.Tensor,
                             n_users: int) -> torch.Tensor:
     """Leaf-order predictions (..., m_pad) -> original rows (..., m).

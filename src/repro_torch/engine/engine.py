@@ -34,7 +34,9 @@ Online serving rides on the engine: ``server()`` and
 and ``warmup``. ``rkmips_compile_count`` counts the distinct reverse
 dispatch signatures (batch shape, k, delta buffer, index shapes) run
 through this engine's dispatch, shared with every engine made with
-``share_dispatch=`` it (PORT.md, "Serving").
+``share_dispatch=`` it (PORT.md, "Serving"); ``query_batch_mapped``, the
+legacy per-query driver, counts its own in
+``rkmips_mapped_compile_count``.
 
 Not here yet (a later slice of the port): meshes.
 """
@@ -172,6 +174,7 @@ class RkMIPSEngine:
         self._items: torch.Tensor | None = None
         self._users_unit: torch.Tensor | None = None
         self._delta: tuple = (None, None)
+        self._mapped_sigs: set = set()
         if share_dispatch is None:
             self._sigs: set = set()
             return
@@ -196,6 +199,13 @@ class RkMIPSEngine:
         """Distinct reverse dispatch signatures run, shared with every
         engine in this engine's ``share_dispatch`` group."""
         return len(self._sigs)
+
+    @property
+    def rkmips_mapped_compile_count(self) -> int:
+        """Distinct signatures run through ``query_batch_mapped`` (batch
+        shape, k, delta buffer, index shapes), where the reference counts
+        the traces of its mapped dispatch; this engine's own."""
+        return len(self._mapped_sigs)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -347,6 +357,36 @@ class RkMIPSEngine:
         queries = as_rows(queries, "queries", self.device)
         t0 = time.perf_counter()
         pred, stats = self._dispatch(queries, k, self._delta)
+        po = _sah.predictions_to_original(index, pred, self.n_users)
+        self._sync()
+        return QueryResult(po, stats, time.perf_counter() - t0, k,
+                           self._funnel(stats, queries.shape[0]))
+
+    def query_batch_mapped(self, queries, k: int) -> QueryResult:
+        """The legacy batch driver (``core.sah.rkmips_batch_mapped``: the
+        per-query driver run for each query in turn), with the attached
+        version's staged changes; predictions and plan counters bitwise
+        ``query_batch``'s. Retained as the baseline the batched pipeline
+        is compared with and as a second reference for equivalence tests.
+
+        The reference refuses it under a mesh policy (``policy.mesh``); a
+        port engine has no policy: it lives on the one device it was made
+        for (``self.device``), which takes that check's place, so it
+        always runs."""
+        index = self.index
+        self._check_k(k)
+        queries = as_rows(queries, "queries", self.device)
+        d_items, d_mask = self._delta
+        self._mapped_sigs.add((tuple(queries.shape), k,
+                               None if d_items is None
+                               else tuple(d_items.shape), self._index_sig))
+        t0 = time.perf_counter()
+        pred, stats = _sah.rkmips_batch_mapped(
+            index, queries, k, n_cand=self.config.n_cand,
+            scan=self.config.scan, chunk=self.config.chunk,
+            tie_eps=self.config.tie_eps,
+            scan_precision=self.config.scan_precision, delta_items=d_items,
+            delta_mask=d_mask)
         po = _sah.predictions_to_original(index, pred, self.n_users)
         self._sync()
         return QueryResult(po, stats, time.perf_counter() - t0, k,

@@ -2,8 +2,13 @@
 
 Twin of ``src/repro/kernels/ops.py:30-116``. A CUDA tensor launches the
 hand-written kernel (or the call raises); a CPU tensor takes the plain
-PyTorch version in ``ref.py``. There is no fallback between the two and
-no switch: the device of the input decides.
+PyTorch version in ``ref.py``; a tensor on the meta device, where the dry
+run traces a cell's step with no memory (``launch/dryrun.py``), takes the
+kernel's op ``torch.ops.repro_torch.<name>``: one op that allocates the
+kernel's outputs and nothing else, whose FLOPs (``torch.utils.
+flop_counter``'s registry) are the kernel's own work. There is no
+fallback between the routes and no switch: the device of the input
+decides.
 
 ``launch_counts`` maps each kernel to the number of launches its wrapper
 made in this process; ``reset_launch_counts`` zeroes it.
@@ -12,6 +17,7 @@ made in this process; ``reset_launch_counts`` zeroes it.
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import fused_scan as _fused
@@ -26,13 +32,71 @@ __all__ = ["flash_attention", "fused_scan", "hamming_nearest",
            "reset_launch_counts", "srp_hash"]
 
 
+# -- the kernels as ops of the meta device ---------------------------------
+
+_LIB = torch.library.Library("repro_torch", "DEF")
+
+
+def _meta_op(schema: str, outputs, flops=None) -> None:
+    """Define ``torch.ops.repro_torch.<name>`` by ``schema`` with
+    ``outputs`` (the kernel's outputs, empty) as its only implementation,
+    on the Meta key, and ``flops`` (of the arguments' shapes) as its
+    FLOPs."""
+    name = schema.split("(", 1)[0]
+    _LIB.define(schema)
+    _LIB.impl(name, outputs, "Meta")
+    if flops is not None:
+        register_flop_formula(getattr(torch.ops.repro_torch, name))(flops)
+
+
+def _int32(t: torch.Tensor, *shape: int) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.int32, device=t.device)
+
+
+_meta_op("hamming_scores(Tensor query_codes, Tensor item_codes) -> Tensor",
+         lambda q, n: _int32(q, q.shape[0], n.shape[0]))
+_meta_op("hamming_nearest(Tensor ucodes, Tensor item_codes, "
+         "Tensor item_mask, int n_cand) -> Tensor",
+         lambda u, n, m, c: _int32(u, u.shape[0], c))
+_meta_op("srp_hash(Tensor x, Tensor proj) -> Tensor",
+         lambda x, p: _int32(x, x.shape[0], p.shape[1] // 32),
+         lambda x, p, out_shape=None: 2 * x[0] * x[1] * p[1])
+_meta_op("fused_scan(Tensor ucodes, Tensor item_codes, Tensor item_mask, "
+         "Tensor qitems, Tensor qscale, Tensor users, int n_cand) "
+         "-> (Tensor, Tensor)",
+         lambda u, n, m, qi, qs, us, c: (
+             _int32(u, u.shape[0], c),
+             torch.empty(u.shape[0], c, device=u.device)),
+         # the dequantized inner products of the candidates
+         lambda u, n, m, qi, qs, us, c, out_shape=None: 2 * us[0] * c * qi[1])
+_meta_op("ip_topk(Tensor queries, Tensor items, int k) -> (Tensor, Tensor)",
+         lambda q, n, k: (torch.empty(q.shape[0], k, device=q.device),
+                          _int32(q, q.shape[0], k)),
+         lambda q, n, k, out_shape=None: 2 * q[0] * n[0] * q[1])
+_meta_op("flash_attention(Tensor q, Tensor k, Tensor v, bool causal=True) "
+         "-> Tensor",
+         lambda q, k, v, causal=True: torch.empty_like(q),
+         # QK^T and PV over the (query, key) pairs the kernel visits: below
+         # the diagonal when causal
+         lambda q, k, v, causal=True, out_shape=None: (
+             4 * q[0] * q[1] * q[3]
+             * (q[2] * (q[2] + 1) // 2 if causal else q[2] * k[2])))
+
+
 def _route(t: torch.Tensor, op: str) -> bool:
-    """True for the CUDA kernel, False for the plain version."""
+    """True for the CUDA kernel, False for the plain version (CPU) and
+    the kernel's op (meta)."""
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"{op}: no kernel for device {t.device}")
+
+
+def _plain(t: torch.Tensor, name: str):
+    """Kernel ``name`` off the card, for ``t``'s device: ``ref.py``'s plain
+    version on the CPU, the kernel's op on the meta device."""
+    return getattr(torch.ops.repro_torch if t.is_meta else _ref, name)
 
 
 def hamming_scores(query_codes: torch.Tensor,
@@ -40,7 +104,7 @@ def hamming_scores(query_codes: torch.Tensor,
     """(q, W) x (n, W) int32 codes -> (q, n) int32 Hamming distances."""
     if _route(query_codes, "hamming_scores"):
         return _hamming.hamming_scores(query_codes, item_codes)
-    return _ref.hamming_scores(query_codes, item_codes)
+    return _plain(query_codes, "hamming_scores")(query_codes, item_codes)
 
 
 def hamming_nearest(ucodes: torch.Tensor, item_codes: torch.Tensor,
@@ -51,7 +115,8 @@ def hamming_nearest(ucodes: torch.Tensor, item_codes: torch.Tensor,
     ties. Kernel and plain version agree exactly."""
     if _route(ucodes, "hamming_nearest"):
         return _hamming.hamming_nearest(ucodes, item_codes, item_mask, n_cand)
-    return _ref.hamming_nearest(ucodes, item_codes, item_mask, n_cand)
+    return _plain(ucodes, "hamming_nearest")(ucodes, item_codes, item_mask,
+                                             n_cand)
 
 
 def srp_hash(x: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
@@ -59,7 +124,7 @@ def srp_hash(x: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
     Kernel and plain version agree bit for bit."""
     if _route(x, "srp_hash"):
         return _srp.srp_hash(x, proj)
-    return _ref.srp_hash(x, proj)
+    return _plain(x, "srp_hash")(x, proj)
 
 
 def fused_scan(ucodes: torch.Tensor, item_codes: torch.Tensor,
@@ -73,8 +138,8 @@ def fused_scan(ucodes: torch.Tensor, item_codes: torch.Tensor,
     if _route(users, "fused_scan"):
         return _fused.fused_scan(ucodes, item_codes, item_mask, qitems,
                                  qscale, users, n_cand=n_cand)
-    return _ref.fused_scan(ucodes, item_codes, item_mask, qitems, qscale,
-                           users, n_cand)
+    return _plain(users, "fused_scan")(ucodes, item_codes, item_mask,
+                                       qitems, qscale, users, n_cand)
 
 
 def ip_topk(queries: torch.Tensor, items: torch.Tensor,
@@ -90,7 +155,7 @@ def ip_topk(queries: torch.Tensor, items: torch.Tensor,
     tile itself."""
     if _route(queries, "ip_topk"):
         return _ref.merge_topk(*_ip_topk.ip_topk_tiles(queries, items, k), k)
-    return _ref.ip_topk(queries, items, k)
+    return _plain(queries, "ip_topk")(queries, items, k)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -115,4 +180,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 "flash_attention: the CUDA kernel has no backward; train "
                 "with attn_impl='chunked', or call it under torch.no_grad()")
         return _flash.flash_attention(q, k, v, causal=causal)
-    return _ref.flash_attention(q, k, v, causal=causal)
+    return _plain(q, "flash_attention")(q, k, v, causal=causal)

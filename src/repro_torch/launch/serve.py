@@ -15,23 +15,27 @@ candidate vectors.
 ``sah_retrieve_step`` is split at the user vector: ``retrieve_for_user``
 is its discrete part (the query's SRP code, the scan), so a test can feed
 it the reference's tower output. Meshes (the reference's sharded
-candidates) go with the multi-GPU slice; the dry-run ``Cell``
-(``build_sah_retrieval_cell``) waits for ``launch/cells.py``. Each entry
-point runs under ``torch.no_grad()``: the towers' parameters are
-trainable, and serving records nothing for autograd.
+candidates) go with the multi-GPU slice. ``build_sah_retrieval_cell``
+returns the dry-run ``Cell`` of this path (two-tower-retrieval x
+retrieval_cand, variant "sah"; ``launch/cells.py``). Each entry point
+runs under ``torch.no_grad()``: the towers' parameters are trainable,
+and serving records nothing for autograd.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.configs import base as cfg_base
 from repro_torch.engine import sharding as eng_sharding
 from repro_torch.engine.artifact import IndexArtifact
 from repro_torch.engine.config import get_config
 from repro_torch.kernels import ops as kops
+from repro_torch.launch import cells as cells_lib
 from repro_torch.models import recsys as rec_lib
 
 N_BITS = 256      # SRP sketch width for serving (W = 8 32-bit words)
+SAH_CELL_CANDIDATES = 1 << 16   # the reference cell's size without a mesh
 
 
 @torch.no_grad()
@@ -65,6 +69,46 @@ def sah_retrieve_step(model, user_feats: torch.Tensor,
     u = rec_lib.user_tower(model, user_feats, cfg, policy)[0]    # (D,)
     return retrieve_for_user(u, cand_vecs, cand_codes, proj, policy,
                              n_cand=n_cand, k=k)
+
+
+def build_sah_retrieval_cell(cand_dtype=torch.float32) -> cells_lib.Cell:
+    """The dry-run ``Cell`` of the sketch path (``serve.py:56-112``) on
+    one device: one user's features through ``sah_retrieve_step`` against
+    ``SAH_CELL_CANDIDATES`` candidates of ``cand_dtype`` (float32, or
+    bfloat16 to halve the re-rank's bytes) with ``N_BITS``-bit codes and
+    the (out_dim, N_BITS) query projection. ``materialize`` draws the
+    towers and N(0, 1) candidate vectors and indexes them with
+    ``build_candidate_index`` (from their float32 values), so the codes
+    are the candidates' own."""
+    arch = cfg_base.get("two-tower-retrieval")
+    cfg = arch.make_config()
+    init, _, _ = cells_lib.recsys_fns(arch, cfg)
+    n, w = SAH_CELL_CANDIDATES, N_BITS // 32
+
+    def step(model, user_feats, cand_vecs, cand_codes, proj):
+        return sah_retrieve_step(model, user_feats, cand_vecs, cand_codes,
+                                 proj, cfg)
+
+    def make(dev, gen):
+        model = init(gen, dev)
+        feats = cells_lib._fields(gen, cfg.user_embedding.vocab_sizes, 1, dev)
+        cand = torch.randn(n, cfg.out_dim, generator=gen, device=dev)
+        seed = int(torch.randint(2 ** 62, (1,), generator=gen, device=dev))
+        codes, proj = build_candidate_index(
+            cand, torch.Generator().manual_seed(seed), device=dev)
+        return model, feats, cand.to(cand_dtype), codes, proj
+
+    meta = cells_lib._meta
+    abstract = (rec_lib.model_for(cfg, cells_lib.META),
+                meta((1, cfg.user_embedding.n_fields), torch.int32),
+                meta((n, cfg.out_dim), cand_dtype),
+                meta((n, w), torch.int32),
+                meta((cfg.out_dim, N_BITS), torch.float32))
+    return cells_lib.Cell(
+        "two-tower-retrieval", "retrieval_cand_sah", "retrieval", step,
+        abstract, make,
+        note="paper technique in serving: SAT+SRP sketch scan (hamming "
+             "kernel) + exact rerank, on one device")
 
 
 @torch.no_grad()

@@ -169,41 +169,43 @@ def _put(out: dict, name: str, leaf) -> None:
     node[parts[-1]] = leaf
 
 
-def _stack_rows(*rows):
+def _stack_rows(*rows, leaf=_host):
     """The layers' rows as the reference's stacked leaf; one tensor held
     by every layer is the stack's leaf as it is."""
     if len(rows) > 1 and all(r is rows[0] for r in rows):
-        return _host(rows[0])
-    return _host(torch.stack(rows))
+        return leaf(rows[0])
+    return leaf(torch.stack(rows))
 
 
-def _ref_params(named: dict):
-    """A parameter-keyed dict of the port -> the reference's nest."""
+def _ref_params(named: dict, leaf=_host):
+    """A parameter-keyed dict of the port -> the reference's nest, each
+    leaf through ``leaf``."""
     out, stacked = {}, {}
     for name, sub in named.items():
         m = _BLOCK.fullmatch(name)
         if m:
             stacked.setdefault(m[2], {})[int(m[1])] = sub
             continue
-        _put(out, name, _leafwise(_host, sub))
+        _put(out, name, _leafwise(leaf, sub))
     if stacked:
         layers = out["layers"] = {}
         for name, rows in stacked.items():
             _put(layers, name, _leafwise(
-                _stack_rows, *(rows[i] for i in range(len(rows)))))
+                lambda *r: _stack_rows(*r, leaf=leaf),
+                *(rows[i] for i in range(len(rows)))))
     return _as_lists(out)
 
 
-def _to_ref(tree, names: set):
+def _to_ref(tree, names: set, leaf=_host):
     if isinstance(tree, dict) and names and set(tree) == names:
-        return _ref_params(tree)
+        return _ref_params(tree, leaf)
     if isinstance(tree, dict):
-        return {k: _to_ref(v, names) for k, v in tree.items()}
+        return {k: _to_ref(v, names, leaf) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_to_ref(v, names) for v in tree))
+        return type(tree)(*(_to_ref(v, names, leaf) for v in tree))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_ref(v, names) for v in tree)
-    return _host(tree)
+        return type(tree)(_to_ref(v, names, leaf) for v in tree)
+    return leaf(tree)
 
 
 def train_state_to_numpy(state):
@@ -212,6 +214,14 @@ def train_state_to_numpy(state):
     leaves as CPU tensors), ready for ``train/checkpoint.save`` or for
     ``jax.tree.map(jnp.asarray, ...)``."""
     return _to_ref(state, set(state.params))
+
+
+def reference_layout(tree, names: set):
+    """``tree`` (a ``TrainState``, a parameter-keyed dict or a nest holding
+    one) in the reference's nesting with the port's tensors as they are
+    (a layer stack as one stacked tensor): on the meta device, the
+    reference's abstract pytree of a cell (``launch/cells.py``)."""
+    return _to_ref(tree, names, leaf=lambda t: t)
 
 
 def _walk(tree, name: str):

@@ -442,14 +442,19 @@ def test_ops_dispatch_by_device():
         assert torch.equal(got, want)
     for got, want in zip(ops.ip_topk(x, x, 2), ref.ip_topk(x, x, 2)):
         assert torch.equal(got, want)
+    # the meta device (the dry run's trace) takes the plain versions too
+    meta = ops.hamming_scores(q.to("meta"), n.to("meta"))
+    assert meta.device.type == "meta" and meta.shape == (4, 9)
+    vals, ids = ops.ip_topk(x.to("meta"), x.to("meta"), 2)
+    assert vals.shape == ids.shape == (3, 2) and ids.dtype == torch.int32
+    rows = ops.hamming_nearest(q.to("meta"), n.to("meta"),
+                               torch.ones(9, dtype=torch.bool, device="meta"),
+                               3)
+    assert rows.device.type == "meta" and rows.shape == (4, 3)
     assert ops.launch_counts == before          # the plain path launches none
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        ops.hamming_scores(q.to("meta"), n.to("meta"))
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        ops.ip_topk(x.to("meta"), x.to("meta"), 2)
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        ops.hamming_nearest(q.to("meta"), n.to("meta"),
-                            torch.ones(9, dtype=torch.bool, device="meta"), 3)
+    with pytest.raises(ValueError, match="no kernel for device xpu"):
+        ops._route(types.SimpleNamespace(device=torch.device("xpu")),
+                   "hamming_scores")
 
 
 def test_wrappers_refuse_cpu_tensors():
@@ -510,9 +515,9 @@ def test_ops_flash_attention_takes_the_plain_version_on_cpu():
     for causal in (True, False):
         assert torch.equal(ops.flash_attention(q, k, v, causal=causal),
                            ref.flash_attention(q, k, v, causal=causal))
+    meta = ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    assert meta.device.type == "meta" and meta.shape == q.shape
     assert ops.launch_counts == before          # the plain path launches none
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        ops.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         flash_attention.flash_attention(q, k, v)
 
