@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the port's twelve paths through their entry points, each with
+Drives the port's thirteen paths through their entry points, each with
 every launch count set to 0 just before it and read just after. The first
-six run at the paper's Netflix scale (n = 17,770 items, m = 480,189 users,
+seven run at the paper's Netflix scale (n = 17,770 items, m = 480,189 users,
 d = 100, synthetic MF-like factors from ``--seed``):
 
   f32 reverse   ``RkMIPSEngine("sah").build(...)`` on the card, then
@@ -24,6 +24,20 @@ d = 100, synthetic MF-like factors from ``--seed``):
                 ``--seed`` (a service recomputing its users' top-10
                 items), under the "sah" and the "exact" presets, and the
                 exact answer from ``ops.ip_topk``;
+  mesh          gloo worlds of 2 and 3 ranks, every rank a process on the
+                one card (``torch.multiprocessing.spawn``, a ``file://``
+                rendezvous, the kernels this process built): each rank
+                rebuilds the index from ``--seed`` under a 1-D
+                ``DeviceMesh`` (the row-parallel build stages), answers the
+                16 queries at k = 10 in f32 and int8 on its shard of the
+                users and the first 256 forward users by the sharded
+                single-pass scan with ``n_cand`` a shard's rows; its
+                fingerprint, index digest, predictions and per-user
+                counters must equal this process's single-device ones bit
+                for bit, its forward ids ``ip_topk``'s but for float ties,
+                and its launches its own chunks and tile steps. Its
+                ms/query is of ranks that share one card, with collectives
+                staged through the host: not a multi-GPU speed;
   artifact      on the f32 engine's build: ``save`` and
                 ``IndexArtifact.load`` (fingerprint and predictions
                 equal); a catalogue change from ``--seed`` (64 deletes, 8
@@ -113,7 +127,12 @@ It
      train phase no kernel at all; in the cells phase ``flash_attention``
      once a layer in each of the 32k prefill's two steps, all ``wgmma``,
      one ``srp_hash`` and one dense ``hamming_scores`` in each step of the
-     SAH retrieval cell, and no kernel in any other cell);
+     SAH retrieval cell, and no kernel in any other cell; on each rank of
+     the mesh phase one ``srp_hash`` in the build (its slice of the item
+     rows), one a chunk of its shard's queue, ``hamming_nearest`` (f32)
+     and ``fused_scan`` (int8) the same number of times, once a tile step
+     of its shard, and in the forward scan one ``srp_hash`` (the queries)
+     and one dense ``hamming_scores``);
   4. holds the reverse answers against the exact oracle (recall 1.0 but
      for misses within float32 rounding of their threshold), the int8
      answers against the f32 ones bit for bit, the "exact" forward ids
@@ -2484,6 +2503,218 @@ def artifact_path(seed: int, eng, eng_ex, build_state, items, users,
     return {"peak_before": peak_before}
 
 
+MESH_WORLDS = (2, 3)  # gloo worlds of the mesh phase, every rank on cuda:0
+MESH_K = 10
+MESH_FWD = 256       # forward users of the mesh phase: n_cand covers a
+                     # shard's rows, so a lane re-ranks (256, ~9k, 100)
+MESH_LABEL = ("ranks share one card; collectives staged through the host: "
+              "not a multi-GPU speed")
+MESH_COUNTERS = ("blocks_alive", "users_alive", "n_no_lb", "n_yes_norm",
+                 "n_scan", "truncated")
+
+
+def index_digest(index) -> str:
+    """sha256 over every leaf of a SAHIndex (name, dtype, shape, bytes):
+    equal digests are equal indexes bit for bit."""
+    import hashlib
+    h = hashlib.sha256()
+    leaves = dict(index._asdict())
+    leaves.update({f"alsh/{k}": v
+                   for k, v in leaves.pop("alsh")._asdict().items()})
+    for name in sorted(leaves):
+        a = leaves[name].detach().cpu().numpy()
+        h.update(f"{name}|{a.dtype}|{a.shape}|".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def counted(fn):
+    """(fn(), the kernel launches it made in this process)."""
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    out = fn()
+    return out, {k: v for k, v in ops.launch_counts.items() if v}
+
+
+def mesh_rank(rank: int, world: int, seed: int, workdir: str,
+              parent: str) -> None:
+    """One rank of a mesh-phase world (``torch.multiprocessing.spawn``):
+    gloo over CUDA tensors, every rank on cuda:0. Rebuilds the Netflix
+    index from ``seed`` under the mesh (the row-parallel stages), answers
+    the parent's 16 queries at k = 10 in f32 and int8 and 256 forward
+    users, and holds each against the parent's single-device answers
+    (the file ``parent``) and its own launch counts against its chunks and
+    tile steps; writes what it saw to ``rank<r>.json`` in ``workdir``. A mismatch raises, and
+    the spawn fails the smoke."""
+    import math
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(workdir, 'rendezvous')}",
+        rank=rank, world_size=world)
+    try:
+        from repro_torch import RkMIPSEngine, get_config
+        from repro_torch.core import sah
+        from repro_torch.data import synthetic
+        from repro_torch.dist import ShardingPolicy
+        want = torch.load(parent)
+        policy = ShardingPolicy(mesh=init_device_mesh(
+            "cuda", (world,), mesh_dim_names=("data",)))
+        dev = torch.device("cuda", 0)
+        ds = synthetic.PAPER_DATASETS["netflix"]
+        cfg = get_config("sah")
+        gen = torch.Generator().manual_seed(seed)
+        items, users = synthetic.recommendation_data(
+            gen, ds.n_items, ds.m_users, ds.d, device=dev)
+        queries = synthetic.queries_from_items(gen, items, NQ,
+                                               top_frac=TOP_FRAC)
+        out = {"rank": rank}
+
+        torch.cuda.synchronize()
+        dist.barrier()
+        eng, out["launches_build"] = counted(
+            lambda: RkMIPSEngine(cfg, policy=policy).build(items, users,
+                                                           gen))
+        out["build_s"] = eng.build_seconds
+        if eng.artifact.fingerprint != want["fingerprint"]:
+            fail(f"mesh rank {rank}/{world}: artifact fingerprint differs")
+        if index_digest(eng.artifact.index) != want["digest"]:
+            fail(f"mesh rank {rank}/{world}: the mesh build's index differs "
+                 f"from the single-device build")
+        if (not eng.build_timings.sharded
+                or out["launches_build"] != {"srp_hash": 1}):
+            fail(f"mesh rank {rank}/{world}: the build was not row-parallel "
+                 f"({out['launches_build']})")
+        shard = eng._shard
+        out["m_local"], out["n_blocks_local"] = shard.n_users, shard.n_blocks
+        plan = sah.rkmips_plan(shard, queries, MESH_K, tie_eps=cfg.tie_eps)
+        chunks = math.ceil(plan.n_work / min(cfg.chunk,
+                                             NQ * shard.n_users))
+        out["chunks"] = chunks
+        eng8 = RkMIPSEngine(cfg.replace(scan_precision="int8"),
+                            policy=policy).attach(eng.artifact)
+        steps = None
+        for prec, e in (("f32", eng), ("int8", eng8)):
+            res, n = counted(lambda: e.query_batch(queries, MESH_K))
+            out[f"launches_{prec}"] = n
+            out[f"ms_query_{prec}"] = res.seconds * 1e3 / NQ
+            pred = res.predictions.cpu()
+            if not torch.equal(pred, want["pred"]):
+                fail(f"mesh rank {rank}/{world} {prec}: "
+                     f"{int((pred != want['pred']).sum())} predictions "
+                     f"differ from the single-device f32 engine")
+            for f in MESH_COUNTERS:
+                if not torch.equal(getattr(res.stats, f).cpu(), want[f]):
+                    fail(f"mesh rank {rank}/{world} {prec}: {f} differs "
+                         f"from the single-device engine")
+            scan = n.get("hamming_nearest" if prec == "f32"
+                         else "fused_scan", 0)
+            other = ("fused_scan" if prec == "f32" else "hamming_nearest",
+                     "hamming_scores")
+            steps = scan if steps is None else steps
+            if (n.get("srp_hash", 0) != chunks or scan != steps
+                    or any(n.get(o, 0) for o in other)):
+                fail(f"mesh rank {rank}/{world} {prec}: launches {n} for "
+                     f"{chunks} chunks and {steps} f32 tile steps")
+            out[f"tiles_scanned_{prec}"] = int(res.stats.tiles_scanned.sum())
+            out[f"chunks_{prec}"] = int(res.stats.chunks.sum())
+        out["tile_steps"] = steps
+
+        kidx = eng.kmips_index
+        per = -(-kidx.items.shape[0] // world)
+        fwd_users = want["users_fwd"].to(dev)
+        fw, n = counted(lambda: eng.kmips(fwd_users, MESH_K, n_cand=per))
+        out["launches_fwd"], out["fwd_n_cand"] = n, per
+        out["fwd_ms"] = fw.seconds * 1e3
+        # (the forward index was built above, by ``kmips_index``) one
+        # srp_hash for the queries and one dense hamming_scores a shard
+        if n != {"srp_hash": 1, "hamming_scores": 1}:
+            fail(f"mesh rank {rank}/{world} forward: launches {n}")
+        out["fwd_ties"] = ip_tie_check(fwd_users, items, fw.ids,
+                                       want["exact_ids"].to(dev))
+        if not torch.allclose(fw.values.cpu(), want["exact_vals"],
+                              rtol=1e-5, atol=1e-6):
+            fail(f"mesh rank {rank}/{world} forward: values differ from "
+                 f"ip_topk's")
+        torch.cuda.synchronize()
+        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as fh:
+            json.dump(out, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_path(seed: int, eng, results, users_fwd, exact_vals,
+              exact_ids) -> dict:
+    """The mesh phase: ``MESH_WORLDS`` gloo worlds on the one card, each
+    rank held against this process's single-device answers."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    res = results[MESH_K]
+    worlds, launches = {}, {}
+    with tempfile.TemporaryDirectory() as workdir:
+        want = {"fingerprint": eng.artifact.fingerprint,
+                "digest": index_digest(eng.artifact.index),
+                "pred": res.predictions.cpu(),
+                "users_fwd": users_fwd[:MESH_FWD].cpu(),
+                "exact_vals": exact_vals[:MESH_FWD].cpu(),
+                "exact_ids": exact_ids[:MESH_FWD].cpu()}
+        want.update({f: getattr(res.stats, f).cpu() for f in MESH_COUNTERS})
+        parent = os.path.join(workdir, "parent.pt")
+        torch.save(want, parent)
+        for world in MESH_WORLDS:
+            wdir = os.path.join(workdir, f"world{world}")
+            os.makedirs(wdir)
+            t0 = time.perf_counter()
+            mp.spawn(mesh_rank, args=(world, seed, wdir, parent),
+                     nprocs=world, join=True)
+            ranks = []
+            for r in range(world):
+                with open(os.path.join(wdir, f"rank{r}.json")) as fh:
+                    ranks.append(json.load(fh))
+            worlds[world] = ranks
+            for r in ranks:
+                for part in ("build", "f32", "int8", "fwd"):
+                    for name, n in r[f"launches_{part}"].items():
+                        launches[name] = launches.get(name, 0) + n
+
+            def each(key):
+                return [r[key] for r in ranks]
+
+            print(f"mesh world={world}: backend gloo, {world} ranks on "
+                  f"cuda:0 (torch.multiprocessing.spawn, file:// "
+                  f"rendezvous), {time.perf_counter() - t0:.1f} s in all; "
+                  f"m_local {each('m_local')} and n_blocks "
+                  f"{each('n_blocks_local')} after padding "
+                  f"(single-device m_pad {eng.index.n_users}, "
+                  f"{eng.index.n_blocks} blocks); build s "
+                  f"{[round(x, 3) for x in each('build_s')]}; f32 k="
+                  f"{MESH_K} ms/query "
+                  f"{[round(x, 3) for x in each('ms_query_f32')]}, int8 "
+                  f"{[round(x, 3) for x in each('ms_query_int8')]} "
+                  f"({MESH_LABEL}); single-device f32 "
+                  f"{res.seconds * 1e3 / NQ:.3f} ms/query")
+            print(f"  mesh world={world} checks: artifact fingerprint and "
+                  f"index digest equal the single-device build's on every "
+                  f"rank; predictions and {', '.join(MESH_COUNTERS)} "
+                  f"bitwise in f32 and int8; summed packing counts "
+                  f"tiles_scanned {ranks[0]['tiles_scanned_f32']} and chunks "
+                  f"{ranks[0]['chunks_f32']} (single-device "
+                  f"{int(res.stats.tiles_scanned.sum())} and "
+                  f"{int(res.stats.chunks.sum())}); per rank: chunks "
+                  f"{each('chunks')} = srp_hash launches, tile steps "
+                  f"{each('tile_steps')} = hamming_nearest (f32) = "
+                  f"fused_scan (int8) launches, no dense hamming_scores; "
+                  f"forward {MESH_FWD} users with n_cand "
+                  f"{ranks[0]['fwd_n_cand']} (a shard's rows): ids equal "
+                  f"ip_topk's but for {each('fwd_ties')} float ties, "
+                  f"{[round(x, 2) for x in each('fwd_ms')]} ms; build "
+                  f"launches {each('launches_build')}")
+    return {"worlds": worlds, "launches": launches}
+
+
 SERVE_WAIT = 300     # seconds any one wait of the serving phase may take
 PLAN_COUNTERS = ("blocks_alive", "users_alive", "n_no_lb", "n_yes_norm",
                  "n_scan", "truncated")
@@ -3174,6 +3405,11 @@ def main() -> int:
 
     phase_done("forward path")
 
+    # -- the mesh phase: gloo worlds of 2 and 3 ranks on the card, counted ---
+    mesh_out = mesh_path(args.seed, eng, results, users_fwd, exact_vals,
+                         exact_ids)
+    phase_done("mesh")
+
     # -- artifact: save/load, a catalogue change, compact, counted -----------
     art_out = artifact_path(args.seed, eng, eng_ex, build_state, items, users,
                             queries, users_fwd, results, results8)
@@ -3460,6 +3696,7 @@ def main() -> int:
          "launches_int8_path": launches8["srp_hash"],
          "launches_forward_path": launches_f["srp_hash"],
          "launches_mapped_path": launches_m["srp_hash"],
+         "launches_mesh_path": mesh_out["launches"].get("srp_hash", 0),
          "launches_cells_path": cells_out["cells"][
              "two-tower-retrieval/retrieval_cand_sah"]["launches"][
              "srp_hash"],
@@ -3478,11 +3715,15 @@ def main() -> int:
                            "ref.nearest_rows, several calls",
          "rows_4096_ms": near4k_ms, "rows_4096_bound_ms": near4k_bound,
          "launches_forward_path": launches_f["hamming_nearest"],
+         "launches_mesh_path": mesh_out["launches"].get("hamming_nearest",
+                                                        0),
          "launches_mapped_path": launches_m["hamming_nearest"],
          "dense_hamming_scores": {
              "launches": serve_out["dense"]["serving_launches"],
              "launches_reverse_and_kmips_paths": launches["hamming_scores"]
              + launches8["hamming_scores"] + launches_f["hamming_scores"],
+             "launches_mesh_path": mesh_out["launches"].get(
+                 "hamming_scores", 0),
              "launches_cells_path": cells_out["cells"][
                  "two-tower-retrieval/retrieval_cand_sah"]["launches"][
                  "hamming_scores"],
@@ -3497,7 +3738,8 @@ def main() -> int:
          "ms": fused_ms, "plain_ms": fused_plain, "bound_ms": fused_bound,
          "bound_by": fused_by, "library_ms": None, "call_ms": fused_call,
          "shape": f"{tuple(chunk_users.shape)}x{t} rows, n_cand {nc}",
-         "rows_4096_ms": fused4k_ms, "rows_4096_bound_ms": fused4k_bound},
+         "rows_4096_ms": fused4k_ms, "rows_4096_bound_ms": fused4k_bound,
+         "launches_mesh_path": mesh_out["launches"].get("fused_scan", 0)},
         {"name": "ip_topk", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ip_topk.cu",
          "replaces": "src/repro/kernels/ip_topk.py:55",

@@ -18,6 +18,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.rows import by_rows
+
 
 class ConeBlocks(NamedTuple):
     """Flat cone-leaf structure. n_blocks * leaf_size == m_pad.
@@ -134,10 +136,16 @@ def norm_blocks(users_unit: torch.Tensor, leaf_size: int = 32
 def node_upper_bound(q: torch.Tensor, blocks: ConeBlocks
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Lemma 2: max_{u in B} <u, q> <= ||q|| cos({phi - omega}_+).
-    q (d,) -> (bound (n_blocks,), phi (n_blocks,))."""
+    q (d,) -> (bound (n_blocks,), phi (n_blocks,)). The cosine is taken
+    by fixed-shape row chunks (``core/rows.py``), so a block's bound has
+    the same bits in a shard's slice of the blocks as in all of them."""
     qn = torch.linalg.norm(q)
-    cnorm = torch.linalg.norm(blocks.center, dim=-1)
-    cos_phi = (blocks.center @ q) / torch.clamp(cnorm * qn, min=1e-12)
+
+    def cosine(center):
+        cnorm = torch.linalg.norm(center, dim=-1)
+        return (center @ q) / torch.clamp(cnorm * qn, min=1e-12)
+
+    cos_phi = by_rows(cosine, blocks.center)
     phi = torch.arccos(torch.clamp(cos_phi, -1.0, 1.0))
     return qn * torch.cos(torch.clamp(phi - blocks.omega, min=0.0)), phi
 

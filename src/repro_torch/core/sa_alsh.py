@@ -196,11 +196,14 @@ def assemble_index(prep: PreparedItems, codes: torch.Tensor,
 def build_index(items: torch.Tensor, generator: torch.Generator | None = None,
                 *, proj: torch.Tensor | None = None, b: float = 0.5,
                 n_bits: int = 128, max_partitions: int = 64,
-                tile: int = 512, transform: str = "sat") -> SAALSHIndex:
+                tile: int = 512, transform: str = "sat",
+                hash_rows=None) -> SAALSHIndex:
     """Build an SA-ALSH (``transform="sat"``) or H2-ALSH-style (``"qnf"``)
     index. ``proj`` (d+1, n_bits) replaces the projection drawn from
     ``generator`` (the reference draws it from a JAX key, ``srp.py:33``).
-    The item codes are one ``srp_hash`` call over all rows."""
+    The item codes are one ``srp_hash`` call over all rows;
+    ``hash_rows(rows, proj) -> codes`` replaces it (the staged build's
+    row-parallel hashing, ``sa_alsh.py:269-282``)."""
     prep = prepare_items(items, b=b, max_partitions=max_partitions,
                          tile=tile, transform=transform)
     if proj is None:
@@ -208,7 +211,7 @@ def build_index(items: torch.Tensor, generator: torch.Generator | None = None,
             raise ValueError("build_index needs a generator or a proj")
         proj = _srp.make_projection(generator, items.shape[1] + 1, n_bits,
                                     items.device)
-    codes = kops.srp_hash(prep.transformed.contiguous(), proj)
+    codes = (hash_rows or kops.srp_hash)(prep.transformed.contiguous(), proj)
     return assemble_index(prep, codes, proj)
 
 

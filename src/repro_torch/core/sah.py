@@ -8,8 +8,10 @@ and Simpfer lower bounds (``simpfer.py``) the users.
 Query, batched in two phases (the reference's DESIGN.md SS9):
 
   plan -- per query: Lemma 2 kills blocks, Lemma 3 kills users, dense
-  tau = users @ q (one matvec per query, as the reference maps it: a
-  single (nq, m) GEMM would round differently), the O(1) "no"/"yes"
+  tau = users @ q (one product per query, as the reference maps it: a
+  single (nq, m) GEMM would round differently; by fixed-shape row chunks,
+  ``core/rows.py``, so a user's tau is the same bits in a shard's slice
+  of the users as in all of them), the O(1) "no"/"yes"
   decisions; then the undecided (query, user) lanes of the whole batch
   are compacted by a stable sort into one flat query-major work queue.
 
@@ -33,6 +35,7 @@ import torch
 from repro_torch.core import cone as _cone
 from repro_torch.core import sa_alsh as _alsh
 from repro_torch.core import simpfer as _simpfer
+from repro_torch.core.rows import rows_matmul
 
 
 class SAHIndex(NamedTuple):
@@ -176,11 +179,19 @@ def block_users(users: torch.Tensor, *,
 
 def lower_bounds(users_leaf: torch.Tensor, user_mask: torch.Tensor,
                  top_items: torch.Tensor, k_max: int, n_blocks: int, *,
-                 mask: torch.Tensor | None = None
+                 mask: torch.Tensor | None = None, lb_rows=None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Simpfer per-user and per-block lower bounds over P' (over the
-    members ``mask`` keeps, when given: an artifact's delete view)."""
-    lb = _simpfer.user_lower_bounds(users_leaf, top_items, k_max, mask=mask)
+    members ``mask`` keeps, when given: an artifact's delete view).
+
+    ``lb_rows(users, top_items, k_max) -> (m, k_max)`` replaces the
+    per-user bounds (``sah.py:180-195``): the staged build passes a
+    row-parallel ``simpfer.user_lower_bounds`` here."""
+    if lb_rows is None:
+        lb = _simpfer.user_lower_bounds(users_leaf, top_items, k_max,
+                                        mask=mask)
+    else:
+        lb = lb_rows(users_leaf, top_items, k_max)
     block_lb = _simpfer.block_lower_bounds(
         torch.where(user_mask[:, None], lb, float("inf")), n_blocks)
     block_lb = torch.where(torch.isfinite(block_lb), block_lb,
@@ -263,7 +274,9 @@ class PlanLanes(NamedTuple):
 class DeltaCounts:
     """The staged rows' share of every lane's initial count, for one
     dispatch (``sah.py:308-326``). The (m_pad, cap) product ``users @
-    d_items.T`` is made once per dispatch, never per query, and dropped
+    d_items.T`` (by fixed-shape row chunks, ``core/rows.py``, so a shard's
+    users get the single-device bits) is made once per dispatch, never per
+    query, and dropped
     with it; a lane counts the live rows with ``ip > tau + eps``, the main
     scan's strict rule.
 
@@ -277,7 +290,7 @@ class DeltaCounts:
     def __init__(self, users: torch.Tensor, d_items: torch.Tensor,
                  d_mask: torch.Tensor):
         self.mask = d_mask
-        self.ip = users @ d_items.T
+        self.ip = rows_matmul(users, d_items.T)
 
     def count(self, thr: torch.Tensor) -> torch.Tensor:
         """(m_pad,) int32 live staged rows beating ``thr`` = tau + eps."""
@@ -308,7 +321,7 @@ def _plan_one(index: SAHIndex, q: torch.Tensor, k: int, tie_eps: float,
                   & torch.repeat_interleave(block_alive, leaf)
                   & (vec_ub >= index.user_lb[:, k - 1] - slack))
 
-    tau = torch.mv(index.users, q)
+    tau = rows_matmul(index.users, q)
     no_lb = index.user_lb[:, k - 1] > tau + eps
     yes_norm = tau >= index.top_norms[k - 1]
     undecided = user_alive & ~no_lb & ~yes_norm

@@ -11,14 +11,18 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.rows import rows_matmul
+
 
 def user_lower_bounds(users_unit: torch.Tensor, top_items: torch.Tensor,
                       kmax: int, *, mask: torch.Tensor | None = None
                       ) -> torch.Tensor:
     """L (m, kmax) descending: the top-kmax IPs of each user over P'.
-    ``mask`` (n_top,) retires P' members (their IPs become -inf). A plain
-    float32 GEMM: every row is independent of the others."""
-    ips = users_unit @ top_items.T
+    ``mask`` (n_top,) retires P' members (their IPs become -inf). A float32
+    GEMM by fixed-shape row chunks (``core/rows.py``), so a user's bounds
+    are the same bits whatever slice of the users the call is given (a
+    shard's, in the mesh build and ``row_parallel``)."""
+    ips = rows_matmul(users_unit, top_items.T)
     if mask is not None:
         ips = torch.where(mask[None, :], ips, float("-inf"))
     return torch.topk(ips, kmax, dim=-1, sorted=True).values

@@ -49,6 +49,7 @@ import torch
 from repro_torch.core import sa_alsh as _alsh
 from repro_torch.core import sah as _sah
 from repro_torch.core import srp as _srp
+from repro_torch.dist.policy import NO_SHARDING, ShardingPolicy
 from repro_torch.engine import build as _build
 from repro_torch.engine.config import EngineConfig, get_config
 from repro_torch.train import checkpoint as _ckpt
@@ -181,7 +182,8 @@ class IndexArtifact:
               *, config: EngineConfig | str = "sah",
               delta_capacity: int | None = None, key=None, proj=None,
               cone_order=None, blocking: _sah.UserBlocking | None = None,
-              kmips_proj=None, device=None) -> "IndexArtifact":
+              kmips_proj=None, device=None,
+              policy: ShardingPolicy = NO_SHARDING) -> "IndexArtifact":
         """Build a fresh artifact through the staged pipeline
         (``engine/build.py``). items (n, d), users (m, d) or None, on
         ``device`` (None means "cuda").
@@ -194,7 +196,10 @@ class IndexArtifact:
         3's output), as ``compact`` passes. ``users=None`` builds only the
         forward index, at once; with users it is built at first use.
         ``delta_capacity`` (default ``config.delta_capacity``) sizes the
-        staged-insert buffer.
+        staged-insert buffer. ``policy``: run the build's row-parallel
+        stages over its mesh (every rank calls, with the same inputs and
+        draws); the artifact is bitwise the single-device one, whole on
+        every rank.
         """
         if isinstance(config, str):
             config = get_config(config)
@@ -229,7 +234,7 @@ class IndexArtifact:
         if users is not None:
             index, timings = _build.build_sah_index(
                 items, users, generator, config=config, proj=proj,
-                cone_order=cone_order, blocking=blocking)
+                cone_order=cone_order, blocking=blocking, policy=policy)
         if kmips_proj is None:
             kmips_proj = _srp.make_projection(generator, d + 1,
                                               config.n_bits, dev)
@@ -516,7 +521,8 @@ class IndexArtifact:
                                    device=dev)] = False
         return self._evolve(deleted=deleted, delta_mask=delta_mask)
 
-    def compact(self) -> "IndexArtifact":
+    def compact(self, *, policy: ShardingPolicy = NO_SHARDING
+                ) -> "IndexArtifact":
         """Fold every staged change into a fresh build over the effective
         corpus, with an empty buffer of the same capacity. Returns self
         when nothing is staged.
@@ -527,7 +533,8 @@ class IndexArtifact:
         redraws exactly what this artifact holds. This reuses them: the
         item-side and forward projections and the stored user blocking;
         the norm split, the item codes and the Simpfer bounds are
-        recomputed.
+        recomputed, row-parallel over ``policy``'s mesh when it has one
+        (the same artifact bit for bit).
         """
         if self.delta_used == 0 and not bool(self.deleted.any()):
             return self
@@ -543,7 +550,7 @@ class IndexArtifact:
             self.effective_items(), self.users, config=self.config,
             delta_capacity=self.delta_capacity, key=self.key, proj=proj,
             blocking=blocking, kmips_proj=self.kmips_proj,
-            device=self.device)
+            device=self.device, policy=policy)
 
     # -- serving surface ---------------------------------------------------
 

@@ -1,6 +1,6 @@
 """RkMIPSEngine: the front door for reverse k-MIPS (RkMIPS) in the port.
 
-A twin of ``src/repro/engine/engine.py`` on one device: build an index
+A twin of ``src/repro/engine/engine.py``: build an index
 from one ``EngineConfig``, answer reverse queries in original user-id
 space, check them against the exact oracle with the same ``tie_eps``, and
 answer forward top-k MIPS over the items:
@@ -38,7 +38,14 @@ through this engine's dispatch, shared with every engine made with
 legacy per-query driver, counts its own in
 ``rkmips_mapped_compile_count``.
 
-Not here yet (a later slice of the port): meshes.
+Under a mesh policy (``dist.ShardingPolicy`` over a ``DeviceMesh``; one
+process per rank, SPMD) the engine lives on the rank's own device, builds
+with the row-parallel stages, keeps the padded index (``index``) and its
+rank's shard of the user rows, and answers ``query_batch``, ``query`` and
+``kmips`` through ``engine/sharding.py``: every rank makes each call with
+the same arguments and gets the whole answer, bitwise the single-device
+one (``kmips``: the single-pass sharded scan, as in the reference). The
+servers under a mesh wait for slice 15 of the port's multi-GPU work.
 """
 
 from __future__ import annotations
@@ -52,7 +59,10 @@ import torch
 from repro_torch.core import exact as _exact
 from repro_torch.core import sa_alsh as _alsh
 from repro_torch.core import sah as _sah
+from repro_torch.dist import collectives as _coll
+from repro_torch.dist.policy import NO_SHARDING, ShardingPolicy, rank_device
 from repro_torch.engine import artifact as _artifact
+from repro_torch.engine import sharding as _sharding
 from repro_torch.engine.artifact import as_rows, device_of
 from repro_torch.engine.config import EngineConfig, get_config
 from repro_torch.kernels.hamming_scan import SELECT_MAX_ROWS, SELECT_MAX_WORDS
@@ -143,25 +153,39 @@ def check_kernel_limits(config: EngineConfig, device_type: str) -> None:
 
 
 class RkMIPSEngine:
-    """Config-driven RkMIPS engine on one device, serving one attached
-    ``IndexArtifact`` version at a time.
+    """Config-driven RkMIPS engine, serving one attached ``IndexArtifact``
+    version at a time.
 
     config: an ``EngineConfig`` or a registry name ("sah", "simpfer", ...).
-    device: where the index lives and the queries run; None means "cuda".
+    policy: ``NO_SHARDING``, or a mesh policy: then the user rows (reverse)
+            and item rows (forward) shard over every mesh axis.
+    device: where the index lives and the queries run; None means "cuda",
+            or under a mesh the rank's own device (``rank_device``), which
+            a given device must equal.
     share_dispatch: another engine whose dispatch signature set this one
             adopts (the gateway's shared trace cache, DESIGN.md §15): the
             configs must agree in every field but ``scan_budget``, on the
-            same device.
+            same device and mesh.
     """
 
-    def __init__(self, config: EngineConfig | str = "sah", *, device=None,
+    def __init__(self, config: EngineConfig | str = "sah", *,
+                 policy: ShardingPolicy = NO_SHARDING, device=None,
                  share_dispatch: "RkMIPSEngine | None" = None):
         if isinstance(config, str):
             config = get_config(config)
         if not isinstance(config, EngineConfig):
             raise TypeError(f"config must be an EngineConfig or a registry "
                             f"name, got {type(config).__name__}")
-        self.device = device_of(device, "RkMIPSEngine")
+        if policy.mesh is None:
+            self.device = device_of(device, "RkMIPSEngine")
+        else:
+            _coll.check_mesh(policy)
+            self.device = rank_device(policy)
+            if device is not None and torch.device(device) != self.device:
+                raise ValueError(f"under a mesh the engine runs on the "
+                                 f"rank's device {self.device}, not "
+                                 f"{torch.device(device)}")
+        self.policy = policy
         check_kernel_limits(config, self.device.type)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -170,6 +194,8 @@ class RkMIPSEngine:
         self.build_seconds: float | None = None
         self.n_users: int | None = None
         self._index: _sah.SAHIndex | None = None
+        self._shard: _sah.SAHIndex | None = None
+        self._n_blocks = 0
         self._index_sig: tuple = ()
         self._items: torch.Tensor | None = None
         self._users_unit: torch.Tensor | None = None
@@ -192,6 +218,9 @@ class RkMIPSEngine:
         if donor.device != self.device:
             raise ValueError("share_dispatch requires an engine on the same "
                              "device")
+        if donor.policy.mesh is not policy.mesh:
+            raise ValueError("share_dispatch requires the same sharding "
+                             "policy mesh")
         self._sigs = donor._sigs
 
     @property
@@ -224,12 +253,15 @@ class RkMIPSEngine:
         and whatever is not injected come from ``generator`` (a CPU
         generator, seeded 0 when None), the key first and the forward
         projection last. ``users=None`` builds only the forward index, at
-        once; otherwise it is built at the first ``kmips``.
+        once; otherwise it is built at the first ``kmips``. Under a mesh
+        the row-parallel stages shard over it (``config.build_sharding``),
+        the same artifact bit for bit.
         """
         t0 = time.perf_counter()
         art = _artifact.IndexArtifact.build(
             items, users, generator, config=self.config, proj=proj,
-            cone_order=cone_order, kmips_proj=kmips_proj, device=self.device)
+            cone_order=cone_order, kmips_proj=kmips_proj, device=self.device,
+            policy=self.policy)
         self.attach(art)
         self._sync()
         self.build_seconds = time.perf_counter() - t0
@@ -237,10 +269,15 @@ class RkMIPSEngine:
 
     @classmethod
     def from_artifact(cls, artifact: "_artifact.IndexArtifact", *,
+                      policy: ShardingPolicy = NO_SHARDING,
                       device=None) -> "RkMIPSEngine":
-        """An engine with the artifact's own config serving ``artifact``;
-        ``device`` (None means "cuda") must be the artifact's."""
-        return cls(artifact.config, device=device).attach(artifact)
+        """An engine with the artifact's own config serving ``artifact``
+        under ``policy``; ``device`` (None means "cuda", or the rank's
+        device under a mesh) must be the artifact's. The artifact is
+        mesh-agnostic: one saved from any mesh, or from one device,
+        attaches."""
+        return cls(artifact.config, policy=policy,
+                   device=device).attach(artifact)
 
     def attach(self, artifact: "_artifact.IndexArtifact") -> "RkMIPSEngine":
         """Make ``artifact`` the engine's live version. Returns self.
@@ -248,8 +285,10 @@ class RkMIPSEngine:
         The configs must agree but for the knobs that change no answer
         (``delta_capacity``, ``build_sharding``, ``scan_precision``,
         ``scan_budget``), as the reference requires (``engine.py:
-        325-342``). Wires up the delta buffer (and its int8 twin) when a
-        staged row is live."""
+        325-342``). Wires up the delta buffer when a staged row is live.
+        Under a mesh, pads the block axis to the rank count and keeps this
+        rank's shard of the user rows (``sharding.shard_index``); the
+        artifact itself stays whole."""
         if not isinstance(artifact, _artifact.IndexArtifact):
             raise TypeError(f"attach expects an IndexArtifact, got "
                             f"{type(artifact).__name__}")
@@ -268,7 +307,7 @@ class RkMIPSEngine:
                              f"it with device={str(self.device)!r}")
         self.artifact = artifact
         self._items = artifact.effective_items()
-        self._index = self._users_unit = self.n_users = None
+        self._index = self._shard = self._users_unit = self.n_users = None
         self._index_sig = ()
         if artifact.users is None:
             # no reverse index, but live staged rows still join kmips
@@ -279,8 +318,11 @@ class RkMIPSEngine:
         # one its top_norms covers
         view, d_items, d_mask = artifact.query_view()
         self._delta = (d_items, d_mask)
-        self._index = view
-        self._index_sig = _shapes(view)
+        self._n_blocks = view.n_blocks
+        self._index = _sharding.pad_index(view,
+                                          _sharding.n_shards(self.policy))
+        self._shard = _sharding.shard_index(self._index, self.policy)
+        self._index_sig = _shapes(self._shard)
         self.n_users = artifact.n_users
         self._users_unit = artifact.users_unit()
         return self
@@ -293,7 +335,8 @@ class RkMIPSEngine:
 
     @property
     def index(self) -> _sah.SAHIndex:
-        """The attached reverse query view (read-only by convention)."""
+        """The attached reverse query view (read-only by convention); under
+        a mesh, padded to the rank count (``sharding.pad_index``)."""
         if self._index is None:
             raise RuntimeError("engine not built for reverse queries: call "
                                "build(items, users, generator) first")
@@ -321,7 +364,7 @@ class RkMIPSEngine:
         def tot(x):
             return int(torch.as_tensor(x).sum())
         return PruningFunnel(
-            queries=nq, blocks_total=nq * self.index.n_blocks,
+            queries=nq, blocks_total=nq * self._n_blocks,
             blocks_alive=tot(stats.blocks_alive),
             users_total=nq * self.n_users,
             users_alive=tot(stats.users_alive),
@@ -334,14 +377,15 @@ class RkMIPSEngine:
 
     def _dispatch(self, queries: torch.Tensor, k: int, delta: tuple):
         """The reverse dispatch: one batched plan/execute over the
-        attached view with ``delta`` = (d_items, d_mask) or (None, None),
-        noting its signature."""
+        attached view (under a mesh: over this rank's shard, then gathered,
+        ``sharding.rkmips_batch``) with ``delta`` = (d_items, d_mask) or
+        (None, None), noting its signature."""
         d_items, d_mask = delta
         self._sigs.add((tuple(queries.shape), k,
                         None if d_items is None else tuple(d_items.shape),
                         self._index_sig))
-        return _sah.rkmips_batch(
-            self.index, queries, k, n_cand=self.config.n_cand,
+        return _sharding.rkmips_batch(
+            self._shard, queries, k, self.policy, n_cand=self.config.n_cand,
             scan=self.config.scan, chunk=self.config.chunk,
             tie_eps=self.config.tie_eps,
             scan_precision=self.config.scan_precision,
@@ -368,13 +412,14 @@ class RkMIPSEngine:
         version's staged changes; predictions and plan counters bitwise
         ``query_batch``'s. Retained as the baseline the batched pipeline
         is compared with and as a second reference for equivalence tests.
-
-        The reference refuses it under a mesh policy (``policy.mesh``); a
-        port engine has no policy: it lives on the one device it was made
-        for (``self.device``), which takes that check's place, so it
-        always runs."""
+        Single-device only, as in the reference: the sharded path is the
+        batched pipeline's."""
         index = self.index
         self._check_k(k)
+        if self.policy.mesh is not None:
+            raise RuntimeError("query_batch_mapped is the single-device "
+                               "reference driver; use query_batch under a "
+                               "mesh policy")
         queries = as_rows(queries, "queries", self.device)
         d_items, d_mask = self._delta
         self._mapped_sigs.add((tuple(queries.shape), k,
@@ -398,7 +443,9 @@ class RkMIPSEngine:
         on zero queries per cell, for the live delta buffer and, when the
         artifact has none live, for its empty buffer too (the signature
         its first staged insert brings). ``batch_sizes`` defaults to the
-        config's ``bucket_ladder()``. Zero queries give tau = 0: the plan
+        config's ``bucket_ladder()``; under a mesh every rank runs every
+        cell, as the reference's eager mesh dispatch does (``engine.py:
+        531``). Zero queries give tau = 0: the plan
         decides "no" every lane whose k-th lower bound is positive (on
         MF data, every lane), so a warmup scans little. Returns the
         number of cells."""
@@ -434,7 +481,11 @@ class RkMIPSEngine:
         live staged rows are merged in (``sa_alsh.merge_delta_topk``, the
         same answers under every ``scan_precision``) with ids
         ``n_base + slot``. ``n_cand`` overrides
-        the config's re-rank depth and is clamped to the tile."""
+        the config's re-rank depth and is clamped to the tile.
+
+        Under a mesh: the single-pass scan sharded over item rows
+        (``sharding.kmips_flat``, ``n_cand`` per shard and not clamped),
+        which covers every row, so ``tiles_visited`` is the tile count."""
         art = self._require_artifact()
         index = art.kmips_query_view()
         if not 1 <= k <= self._items.shape[0]:
@@ -445,9 +496,15 @@ class RkMIPSEngine:
         single = q.dim() == 1
         queries = as_rows(q[None] if single else q, "queries", self.device)
         t0 = time.perf_counter()
-        vals, ids, tiles = _alsh.kmips_topk(
-            index, queries, k, n_cand=min(n_cand, index.tile),
-            scan=self.config.scan)
+        if self.policy.mesh is not None:
+            vals, ids = _sharding.kmips_flat(index, queries, k, self.policy,
+                                             n_cand=n_cand,
+                                             scan=self.config.scan)
+            tiles = index.tile_max_norm.shape[0]
+        else:
+            vals, ids, tiles = _alsh.kmips_topk(
+                index, queries, k, n_cand=min(n_cand, index.tile),
+                scan=self.config.scan)
         d_items, d_mask = self._delta
         if d_items is not None:
             vals, ids = _alsh.merge_delta_topk(
@@ -463,14 +520,19 @@ class RkMIPSEngine:
     def server(self):
         """A ``RetrievalServer`` over the attached artifact (its config,
         this engine's device), seeded from the artifact's forward index
-        when it is built (``engine/serving.py``)."""
+        when it is built (``engine/serving.py``). Under a mesh it raises:
+        the servers there wait for slice 15 (a controller rank admitting
+        tickets and broadcasting each dispatch)."""
+        _sharding.check_policy(self.policy, "RkMIPSEngine.server")
         from repro_torch.engine import serving as _serving
         return _serving.RetrievalServer.from_artifact(
             self._require_artifact())
 
     def reverse_server(self):
         """A ``ReverseServer`` over this engine: a ticket queue over
-        ``query_batch``. Requires a user-side build."""
+        ``query_batch``. Requires a user-side build; refused under a mesh
+        (``server``)."""
+        _sharding.check_policy(self.policy, "RkMIPSEngine.reverse_server")
         from repro_torch.engine import serving as _serving
         return _serving.ReverseServer(self)
 

@@ -1,25 +1,47 @@
-"""The single-device flat kMIPS scan of the serving stack (port of the
-``mesh=None`` branch of ``src/repro/engine/sharding.py:112-342``).
+"""Mesh-sharded execution paths of the RkMIPS engine and the flat kMIPS
+scan of the serving stack (port of ``src/repro/engine/sharding.py``,
+DESIGN.md SS7-SS8).
 
-``kmips_flat_arrays`` answers a micro-batch of queries over a whole row
-slab in one pass: under ``scan="sketch"`` one launch of the dense
-``hamming_scores`` kernel gives the (Q, N) Hamming distances of the batch,
-masked rows get ``BIG_HAMMING``, each query keeps its ``n_c`` nearest rows
-(``ref.nearest_rows``: the lower row first on ties, the order of the
-reference's ``lax.top_k(-dist)``) and re-ranks them exactly; under
-``scan="exact"`` every row is scored, one ``torch.mv`` per query.
+Both heavy loops shard along one axis, one process per rank (SPMD):
 
-Each query's floats are computed by an expression whose result for a row
-does not depend on how many rows share the call (``sa_alsh.lane_ips``, a
-per-pair product and row sum, and one matrix-vector product per query), so
-a bucket-padded dispatch answers bitwise as the full batch does
-(DESIGN.md §14). The reference keeps the same contract by mapping its
-float work over queries (``lax.map``); the integer distances and the
-integer selection do not depend on Q, so the port runs them once per
-dispatch.
+  * RkMIPS is independent **per user**. The user side of the ``SAHIndex``
+    (leaf-ordered users, angles, lower bounds, cone blocks:
+    ``_USER_AXIS_FIELDS``, ``_BLOCK_AXIS_FIELDS``) is row-sharded over
+    every mesh axis, the item side (SA-ALSH index, top-norm prefix) and a
+    staged delta buffer are replicated. Each rank runs the port's batched
+    plan/execute (``core/sah.py::rkmips_batch``) on its shard
+    (``shard_index``) for the whole query batch; one all-gather along the
+    user axis, in mesh order, reassembles the (nq, m_pad) predictions and
+    one all-reduce sums the counters. A scan budget caps each shard's own
+    tile count and ``truncated`` is summed.
+  * kMIPS shards along **items**: each rank Hamming-scans its slice of
+    the rows, re-ranks its own top-``n_cand`` exactly, keeps a local
+    top-k, and one all-gather and a stable top-k merge the winners (ties
+    to the lower shard, then the lower local rank: ``lax.top_k`` on the
+    concatenation).
 
-Meshes go with the multi-GPU slice of the port: a policy that carries a
-mesh raises (``check_policy``).
+Any count shards over any mesh: cone blocks are padded to a multiple of
+the rank count with dead leaves (cyclic duplicates whose ``user_mask`` is
+False and whose block lower bound is +inf, so Lemma 2 kills them before
+any work), item rows with dead rows (zero, id -1, masked). A user's or a
+block's floats do not depend on the rows that share its call
+(``core/rows.py``), so the predictions and the per-user counters equal the
+single-device run bit for bit; ``tiles_scanned`` and ``chunks`` count each
+shard's own packing and are summed.
+
+Every rank makes each call with the same queries and k
+(``dist.collectives.check_same_call`` holds it), and every rank gets the
+whole answer (the reference's ``out_specs=P()``).
+
+``kmips_flat_arrays`` on one device answers a micro-batch over a whole
+row slab in one pass: under ``scan="sketch"`` one launch of the dense
+``hamming_scores`` kernel gives the (Q, N) distances, masked rows get
+``BIG_HAMMING``, each query keeps its ``n_c`` nearest rows
+(``ref.nearest_rows``, the lower row first on ties) and re-ranks them
+exactly; under ``scan="exact"`` every row is scored. Each query's floats
+do not depend on Q (``sa_alsh.lane_ips``; one fixed-chunk product per
+query), so a bucket-padded dispatch answers bitwise as the full batch
+does (DESIGN.md SS14).
 """
 
 from __future__ import annotations
@@ -27,17 +49,134 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import sa_alsh as _alsh
+from repro_torch.core import sah as _sah
+from repro_torch.core.rows import rows_matmul
+from repro_torch.dist import collectives as _coll
+from repro_torch.dist.policy import SERVING_SLICE, shard_rank
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 
+# SAHIndex fields whose leading axis is the (padded, leaf-ordered) user
+# axis or the cone-block axis; everything else is replicated.
+_USER_AXIS_FIELDS = ("users", "user_ids", "user_mask", "theta", "user_lb")
+_BLOCK_AXIS_FIELDS = ("center", "omega", "block_lb")
 
-def check_policy(policy, who: str) -> None:
-    """Raise ``NotImplementedError`` unless ``policy`` is single-device:
-    None, or an object whose ``mesh`` is None."""
+
+def check_policy(policy, who: str, waits: str = SERVING_SLICE) -> None:
+    """Raise ``NotImplementedError`` unless ``policy`` is single-device
+    (None, or an object whose ``mesh`` is None): for the paths whose mesh
+    branch waits for a later slice, named by ``waits``."""
     if policy is not None and getattr(policy, "mesh", policy) is not None:
         raise NotImplementedError(
-            f"{who}: sharding over a device mesh is not ported yet (the "
-            f"multi-GPU slice of the port); pass policy=None")
+            f"{who}: sharding over a device mesh waits for {waits}; pass "
+            f"policy=None")
+
+
+def _meshed(policy) -> bool:
+    """Whether ``policy`` carries a mesh; a mesh that is not a
+    ``DeviceMesh`` over the whole world raises."""
+    if policy is None or policy.mesh is None:
+        return False
+    _coll.check_mesh(policy)
+    return True
+
+
+def n_shards(policy) -> int:
+    """Total rank count of the policy's mesh (1 without a mesh)."""
+    return 1 if policy is None else policy.device_count
+
+
+def pad_index(index: _sah.SAHIndex, shards: int) -> _sah.SAHIndex:
+    """Pad the cone-block axis to a multiple of ``shards`` with dead leaves
+    (``sharding.py:73-109``): cyclic duplicates of real leaves (valid unit
+    vectors, so every bound stays finite) with ``user_mask`` False and
+    ``block_lb`` +inf, so Lemma 2 kills the block before any per-user work
+    and no counter, prediction or scan sees them. The index itself when
+    ``n_blocks`` already divides."""
+    nb = index.n_blocks
+    nb_pad = -(-nb // shards) * shards
+    if nb_pad == nb:
+        return index
+    leaf = index.n_users // nb
+    dev = index.users.device
+    pad_blocks = torch.arange(nb, nb_pad, device=dev) % nb
+    pad_rows = (pad_blocks[:, None] * leaf
+                + torch.arange(leaf, device=dev)[None, :]).reshape(-1)
+
+    def dup(x, rows):
+        return torch.cat([x, x[rows]])
+
+    return index._replace(
+        users=dup(index.users, pad_rows),
+        user_ids=dup(index.user_ids, pad_rows),
+        user_mask=torch.cat([index.user_mask, torch.zeros(
+            pad_rows.shape[0], dtype=torch.bool, device=dev)]),
+        theta=dup(index.theta, pad_rows),
+        user_lb=dup(index.user_lb, pad_rows),
+        center=dup(index.center, pad_blocks),
+        omega=dup(index.omega, pad_blocks),
+        block_lb=torch.cat([index.block_lb, torch.full(
+            (nb_pad - nb, index.kmax), float("inf"),
+            dtype=index.block_lb.dtype, device=dev)]))
+
+
+def shard_slice(index: _sah.SAHIndex, shards: int, s: int
+                ) -> _sah.SAHIndex:
+    """Shard ``s`` of ``shards`` of an index padded by ``pad_index``: its
+    slice of the user and block rows (fresh tensors), the item side as it
+    is."""
+    nb = index.n_blocks
+    if nb % shards:
+        raise ValueError(f"{nb} blocks do not divide into {shards} shards: "
+                         f"pad_index first")
+    b = nb // shards
+    u = b * (index.n_users // nb)
+    rows = {f: getattr(index, f)[s * u:(s + 1) * u].clone()
+            for f in _USER_AXIS_FIELDS}
+    rows.update({f: getattr(index, f)[s * b:(s + 1) * b].clone()
+                 for f in _BLOCK_AXIS_FIELDS})
+    return index._replace(**rows)
+
+
+def shard_index(index: _sah.SAHIndex, policy) -> _sah.SAHIndex:
+    """This rank's shard of ``index`` under ``policy``: the block axis
+    padded to the rank count (``pad_index``), then the rank's slice of the
+    user and block rows (``sharding.py:148-159``). The index itself
+    without a mesh."""
+    if not _meshed(policy):
+        return index
+    s = n_shards(policy)
+    return shard_slice(pad_index(index, s), s, shard_rank(policy))
+
+
+def rkmips_batch(index: _sah.SAHIndex, queries: torch.Tensor, k: int,
+                 policy=None, *, n_cand: int = 64, scan: str = "sketch",
+                 chunk: int = 256, tie_eps: float = 0.0,
+                 scan_precision: str = "f32",
+                 delta_items: torch.Tensor | None = None,
+                 delta_mask: torch.Tensor | None = None,
+                 scan_budget: int = 0):
+    """Sharded Algorithm 5 over a query batch (``sharding.py:162-246``).
+
+    Without a mesh, exactly ``core/sah.py::rkmips_batch`` on ``index``.
+    Under a mesh, ``index`` is this rank's shard (``shard_index``): the
+    rank runs the batched plan/execute on it, with the replicated delta
+    buffer counted into its own lanes and ``scan_budget`` held against its
+    own charged tiles; then the predictions are gathered along the user
+    axis in mesh order and the counters summed. Returns (pred (nq, m_pad)
+    bool in the global leaf order of the padded index, QueryStats of
+    (nq,) int32 counters), the same on every rank.
+    """
+    kw = dict(n_cand=n_cand, scan=scan, chunk=chunk, tie_eps=tie_eps,
+              scan_precision=scan_precision, scan_budget=scan_budget,
+              delta_items=delta_items, delta_mask=delta_mask)
+    if not _meshed(policy):
+        return _sah.rkmips_batch(index, queries, k, **kw)
+    _coll.check_same_call(queries, k, "rkmips_batch")
+    pred_l, stats_l = _sah.rkmips_batch(index, queries, k, **kw)
+    pred = _coll.all_gather_cat(pred_l, policy, dim=1)
+    stats = _coll.all_reduce_sum(torch.stack(tuple(stats_l)))
+    return pred, _sah.QueryStats(*stats.unbind(0))
 
 
 def pad_item_rows(items: torch.Tensor, item_ids: torch.Tensor,
@@ -46,11 +185,7 @@ def pad_item_rows(items: torch.Tensor, item_ids: torch.Tensor,
     """Pad the item-axis arrays so that ``shards`` shards each hold at
     least ``k`` rows and the rows divide evenly (``sharding.py:112``).
     Padding rows are dead: zero vectors, id -1, mask False, zero codes.
-    Returns the inputs themselves when nothing needs padding.
-
-    No path of the port calls it yet: in the reference only the mesh
-    branch does, so it is kept for parity until the multi-GPU slice
-    brings that branch and its caller."""
+    Returns the inputs themselves when nothing needs padding."""
     n = items.shape[0]
     rows_per = max(-(-n // shards), k)
     pad = rows_per * shards - n
@@ -73,7 +208,7 @@ def _flat_candidates(items, item_ids, item_mask, codes, ucodes, queries,
     ids (Q, k) original item rows)."""
     neg = float("-inf")
     if scan == "exact":
-        ips = torch.stack([torch.where(item_mask, torch.mv(items, q), neg)
+        ips = torch.stack([torch.where(item_mask, rows_matmul(items, q), neg)
                            for q in queries])
         vals, pos = kref.topk_stable(ips, k)
         return vals, item_ids[pos]
@@ -91,25 +226,44 @@ def kmips_flat_arrays(items: torch.Tensor, item_ids: torch.Tensor,
                       ucodes: torch.Tensor | None, queries: torch.Tensor,
                       k: int, policy=None, *, n_cand: int = 64,
                       scan: str = "sketch"):
-    """Single-pass kMIPS over raw row arrays, the serving stack's scan
-    (``sharding.py:288-323``). items (N, d) f32, item_ids (N,) int32
-    (-1 padding), item_mask (N,) bool, codes (N, W) int32, ucodes (Q, W)
-    int32 query codes (None under ``scan="exact"``), queries (Q, d) ->
-    (vals (Q, k) descending, ids (Q, k)). ``n_cand`` is raised to k and
-    capped at N. A query's answer does not depend on the rest of the
+    """Single-pass kMIPS over raw row arrays (``sharding.py:288-323``).
+    items (N, d) f32, item_ids (N,) int32 (-1 padding), item_mask (N,)
+    bool, codes (N, W) int32, ucodes (Q, W) int32 query codes (None under
+    ``scan="exact"``), queries (Q, d) -> (vals (Q, k) descending, ids
+    (Q, k)). ``n_cand`` is raised to k and capped at the rows scanned.
+
+    Under a mesh the rows are padded with dead rows (``pad_item_rows``),
+    each rank scans its slice with ``n_cand`` per shard, and the local
+    winners are gathered and merged by a stable top-k; every rank gets
+    the answer. A query's answer does not depend on the rest of the
     batch (module docstring)."""
-    check_policy(policy, "kmips_flat_arrays")
-    n_c = min(max(n_cand, k), items.shape[0])
-    return _flat_candidates(items, item_ids, item_mask, codes, ucodes,
-                            queries, k, n_c, scan)
+    if not _meshed(policy):
+        n_c = min(max(n_cand, k), items.shape[0])
+        return _flat_candidates(items, item_ids, item_mask, codes, ucodes,
+                                queries, k, n_c, scan)
+    _coll.check_same_call(queries, k, "kmips_flat_arrays")
+    s = n_shards(policy)
+    items, item_ids, item_mask, codes = pad_item_rows(
+        items, item_ids, item_mask, codes, s, k)
+    per = items.shape[0] // s
+    lo = shard_rank(policy) * per
+    vals_l, ids_l = _flat_candidates(
+        items[lo:lo + per], item_ids[lo:lo + per], item_mask[lo:lo + per],
+        codes[lo:lo + per], ucodes, queries, k, min(max(n_cand, k), per),
+        scan)
+    vals = _coll.all_gather_cat(vals_l, policy, dim=1)
+    ids = _coll.all_gather_cat(ids_l, policy, dim=1)
+    best, pos = kref.topk_stable(vals, k)
+    return best, ids.gather(1, pos)
 
 
 def kmips_flat(index: _alsh.SAALSHIndex, queries: torch.Tensor, k: int,
                policy=None, *, n_cand: int = 64, scan: str = "sketch"):
     """Single-pass kMIPS over a forward index (``sharding.py:326-342``):
     queries (Q, d) -> (vals (Q, k) descending, ids (Q, k) original item
-    rows). ``n_cand`` at least the live row count makes the sketch exact.
-    The engine's ``kmips`` takes the tiled, early-terminating
+    rows). ``n_cand`` at least the rows a shard scans makes the sketch
+    exact. Under a mesh the rows shard as ``kmips_flat_arrays`` says; the
+    engine's single-device ``kmips`` takes the tiled, early-terminating
     ``sa_alsh.kmips_topk`` instead."""
     ucodes = _alsh.user_codes(index, queries) if scan == "sketch" else None
     return kmips_flat_arrays(index.items, index.item_ids, index.item_mask,

@@ -1,4 +1,5 @@
 """Entry points of the port (twin of ``repro.launch``): ``serve.py``,
-two-tower retrieval through the SAH sketch index, and ``train.py``, the
-train launcher with failure recovery. The dry-run cells, the mesh and
-roofline tools wait for their slice (ROADMAP.md)."""
+two-tower retrieval through the SAH sketch index; ``train.py``, the
+train launcher with failure recovery; ``cells.py``, ``dryrun.py``,
+``roofline.py`` and ``perf.py``, the cell catalogue on one device; and
+``mesh.py``, the production and test meshes over an initialized world."""

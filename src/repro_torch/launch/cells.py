@@ -11,8 +11,8 @@ What differs from the reference:
 
 * No mesh: a cell is for one device. The sharding specs
   (``_shardings``, ``opt_state_specs``, ``_lm_rules``,
-  ``_zero1_opt_specs``, ``_recsys_param_specs``) wait for the multi-GPU
-  slice, and so does the ``zero1`` variant.
+  ``_zero1_opt_specs``, ``_recsys_param_specs``) wait for slice 16 of
+  the port's multi-GPU work, and so does the ``zero1`` variant.
 * A step takes the model first: the port's models are modules where the
   reference passes a params pytree. ``abstract_args`` are meta tensors
   and a meta model; a train cell's args are (model, ``TrainState`` of the

@@ -14,8 +14,10 @@ candidate vectors.
 
 ``sah_retrieve_step`` is split at the user vector: ``retrieve_for_user``
 is its discrete part (the query's SRP code, the scan), so a test can feed
-it the reference's tower output. Meshes (the reference's sharded
-candidates) go with the multi-GPU slice. ``build_sah_retrieval_cell``
+it the reference's tower output. Under a mesh policy the candidate scan
+shards over its rows (``engine/sharding.py::kmips_flat_arrays``); the
+towers' sharded tables wait for slice 16 of the port's multi-GPU work.
+``build_sah_retrieval_cell``
 returns the dry-run ``Cell`` of this path (two-tower-retrieval x
 retrieval_cand, variant "sah"; ``launch/cells.py``). Each entry point
 runs under ``torch.no_grad()``: the towers' parameters are trainable,

@@ -6,9 +6,9 @@ one (total_rows, dim) table; a field's ids become global rows by adding
 its offset (``flatten_ids``), and a lookup is a plain gather
 (``embedding_bag``), optionally times per-id weights (EmbeddingBag sum
 weights). The reference's mod-row sharding over a 'model' mesh axis (its
-``shard_map`` branch) goes with the multi-GPU slice of the port: a policy
-that carries a mesh raises, through the check the flat scan uses
-(``engine/sharding.py::check_policy``).
+``shard_map`` branch) goes with slice 16 of the port's multi-GPU work
+(model parallelism): a policy that carries a mesh raises, through
+``engine/sharding.py::check_policy``.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.dist.policy import MODEL_SLICE
 from repro_torch.engine.sharding import check_policy
 
 
@@ -63,7 +64,7 @@ def embedding_bag(table: torch.Tensor, rows: torch.Tensor, policy=None,
                   weights: torch.Tensor | None = None) -> torch.Tensor:
     """Gather rows (any leading shape, integer global row ids) from the
     (R, D) table -> (..., D); ``weights`` (...,) multiplies each row."""
-    check_policy(policy, "embedding_bag")
+    check_policy(policy, "embedding_bag", MODEL_SLICE)
     out = torch.index_select(table, 0, rows.reshape(-1)).reshape(
         *rows.shape, table.shape[1])
     if weights is not None:

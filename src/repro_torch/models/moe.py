@@ -26,8 +26,8 @@ Contracts kept from the reference, op for op:
   assignment in ``frac_tokens``, dropped ones included.
 
 Expert parallelism (the reference's ``shard_map`` + ``all_to_all`` path)
-waits for the port's multi-GPU slice. ``moe_ffn`` takes no sharding
-policy, as the port's transformer functions take none.
+waits for slice 16 of the port's multi-GPU work. ``moe_ffn`` takes no
+sharding policy, as the port's transformer functions take none.
 """
 
 from __future__ import annotations

@@ -196,7 +196,7 @@ def init_ctr_params(generator: torch.Generator, cfg: CTRConfig, *,
     (``recsys.py:init_ctr_params``), drawn in float32 on the generator's
     device in the order table, linear, mlp, cin, cin_out. Tables are not
     padded: the reference's ``table_pad`` serves its mod-row sharding,
-    which waits for the multi-GPU slice."""
+    which waits for slice 16 of the port's multi-GPU work."""
     model = CTRModel(cfg, device)
     model.table.copy_(emb_lib.init_table(generator, cfg.embedding))
     _normal(model.linear, generator, 0.01)

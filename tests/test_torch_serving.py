@@ -185,10 +185,12 @@ def test_pad_item_rows_is_invisible(n, shards, k):
 
 
 def test_flat_scan_refuses_a_mesh(flow):
+    """The flat scan shards over a torch ``DeviceMesh`` (tests/
+    test_torch_dist.py); any other mesh object is refused."""
     class Policy:
         mesh = object()
     idx = flow["tart"].kmips_index
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         sharding.kmips_flat(idx, torch.from_numpy(flow["queries"]), 3,
                             Policy())
 
