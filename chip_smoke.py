@@ -35,9 +35,20 @@ d = 100, synthetic MF-like factors from ``--seed``):
                 fingerprint, index digest, predictions and per-user
                 counters must equal this process's single-device ones bit
                 for bit, its forward ids ``ip_topk``'s but for float ties,
-                and its launches its own chunks and tile steps. Its
-                ms/query is of ranks that share one card, with collectives
-                staged through the host: not a multi-GPU speed;
+                and its launches its own chunks and tile steps. Then the
+                serving stack under the mesh, with ``serve_batch_size=8,
+                serve_buckets=(1, 2, 4)``: the reverse server (f32, int8)
+                bitwise those answers, the forward server for the 256
+                users (bitwise the mesh ``kmips``; ``ip_topk``'s ids at
+                ``n_cand`` a shard's rows; rungs 1, 2 and 4 bitwise the
+                full batch), two runtimes under the controller rank (rank
+                0 submits from 4 threads, the others replay; every ticket
+                bitwise the synchronous flush; then the artifact phase's
+                change and a compaction, landed on every rank with the
+                single-device ``compact``'s digest) and a gateway of three
+                tenants on one pool. Its ms/query and tickets/s are of
+                ranks that share one card, with collectives staged through
+                the host: not a multi-GPU speed;
   artifact      on the f32 engine's build: ``save`` and
                 ``IndexArtifact.load`` (fingerprint and predictions
                 equal); a catalogue change from ``--seed`` (64 deletes, 8
@@ -132,7 +143,11 @@ It
      rows), one a chunk of its shard's queue, ``hamming_nearest`` (f32)
      and ``fused_scan`` (int8) the same number of times, once a tile step
      of its shard, and in the forward scan one ``srp_hash`` (the queries)
-     and one dense ``hamming_scores``);
+     and one dense ``hamming_scores``; its servers one ``srp_hash`` and
+     one dense ``hamming_scores`` a forward dispatch, and for the reverse
+     server's two dispatches of 8 ``srp_hash`` once a chunk of its shard's
+     queues and ``hamming_nearest`` (f32) as often as ``fused_scan``
+     (int8));
   4. holds the reverse answers against the exact oracle (recall 1.0 but
      for misses within float32 rounding of their threshold), the int8
      answers against the f32 ones bit for bit, the "exact" forward ids
@@ -2511,6 +2526,10 @@ MESH_LABEL = ("ranks share one card; collectives staged through the host: "
               "not a multi-GPU speed")
 MESH_COUNTERS = ("blocks_alive", "users_alive", "n_no_lb", "n_yes_norm",
                  "n_scan", "truncated")
+MESH_SERVE = dict(serve_batch_size=8, serve_buckets=(1, 2, 4))
+MESH_RUNG_USERS = 64     # forward users each rung is held over
+MESH_TIMEOUT = 120       # seconds a collective of a mesh world may wait
+MESH_WAIT = 120          # seconds any one wait of its serving checks may take
 
 
 def index_digest(index) -> str:
@@ -2546,6 +2565,7 @@ def mesh_rank(rank: int, world: int, seed: int, workdir: str,
     (the file ``parent``) and its own launch counts against its chunks and
     tile steps; writes what it saw to ``rank<r>.json`` in ``workdir``. A mismatch raises, and
     the spawn fails the smoke."""
+    import datetime
     import math
     import torch
     import torch.distributed as dist
@@ -2553,7 +2573,8 @@ def mesh_rank(rank: int, world: int, seed: int, workdir: str,
     torch.cuda.set_device(0)
     dist.init_process_group(
         "gloo", init_method=f"file://{os.path.join(workdir, 'rendezvous')}",
-        rank=rank, world_size=world)
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT))
     try:
         from repro_torch import RkMIPSEngine, get_config
         from repro_torch.core import sah
@@ -2638,11 +2659,209 @@ def mesh_rank(rank: int, world: int, seed: int, workdir: str,
                               rtol=1e-5, atol=1e-6):
             fail(f"mesh rank {rank}/{world} forward: values differ from "
                  f"ip_topk's")
+        t0 = time.perf_counter()
+        out.update(mesh_serving(rank, world, policy, eng, want, queries,
+                                items))
+        out["serve_s"] = time.perf_counter() - t0
         torch.cuda.synchronize()
         with open(os.path.join(workdir, f"rank{rank}.json"), "w") as fh:
             json.dump(out, fh)
     finally:
         dist.destroy_process_group()
+
+
+def mesh_serving(rank: int, world: int, policy, eng, want, queries,
+                 items) -> dict:
+    """The serving stack under the mesh, on every rank of a mesh-phase
+    world after its engine checks (the serving phase's config): the
+    reverse server (f32, int8) and the forward server held bitwise against
+    the parent's answers and the mesh engine, with their launches; two
+    runtimes under the controller rank (rank 0 submits from 4 threads, the
+    others replay) held against the servers, then a catalogue change and a
+    compaction landed with the parent's digest; a gateway of three
+    tenants. Fails on any miss; returns what it measured."""
+    import math
+    from types import SimpleNamespace
+    import torch
+    from repro_torch import RkMIPSEngine
+    from repro_torch.core import sah
+    from repro_torch.engine import (ServingGateway, ServingRuntime,
+                                    TenantPolicy, controller)
+    who = f"mesh rank {rank}/{world}"
+    lead = rank == 0
+    cfg = eng.config.replace(**MESH_SERVE)
+    art = eng.artifact.with_config(cfg)
+    k, b = MESH_K, cfg.serve_batch_size
+    users = want["users_fwd"].to(queries.device)
+    rows, urows = list(queries.unbind(0)), list(users.unbind(0))
+    out = {}
+
+    # -- the reverse server, f32 and int8: 2 dispatches of 8, counted ------
+    shard = eng._shard
+    chunks = sum(math.ceil(
+        sah.rkmips_plan(shard, queries[i:i + b], k,
+                        tie_eps=cfg.tie_eps).n_work
+        / min(cfg.chunk, b * shard.n_users)) for i in range(0, NQ, b))
+    served, steps = {}, None
+    for prec in ("f32", "int8"):
+        srv = RkMIPSEngine(cfg.replace(scan_precision=prec),
+                           policy=policy).attach(art).reverse_server()
+        srv.submit(queries)
+        served[prec], n = counted(lambda: srv.flush(k))
+        out[f"serve_launches_rev_{prec}"] = n
+        for i, r in enumerate(served[prec]):
+            same_reverse(f"{who} reverse server {prec} ticket {i}",
+                         SimpleNamespace(predictions=r.predictions.cpu(),
+                                         stats=SimpleNamespace(**{
+                                             f: getattr(r.stats, f).cpu()
+                                             for f in PLAN_COUNTERS})),
+                         want["pred"][i], SimpleNamespace(
+                             **{f: want[f] for f in PLAN_COUNTERS}), i)
+        scan = n.get("hamming_nearest" if prec == "f32" else "fused_scan",
+                     0)
+        steps = scan if steps is None else steps
+        if (n.get("srp_hash", 0) != chunks or scan != steps
+                or n.get("hamming_scores", 0)):
+            fail(f"{who} reverse server {prec}: launches {n} for {chunks} "
+                 f"chunks and {steps} f32 tile steps")
+    out["serve_chunks"], out["serve_tile_steps"] = chunks, steps
+
+    # -- the forward server: 32 dispatches a flush, counted ----------------
+    feng = RkMIPSEngine.from_artifact(art, policy=policy)
+    per = -(-feng.kmips_index.items.shape[0] // world)  # built: no rebuild
+    fsrv = feng.server()
+    dispatches = -(-MESH_FWD // b)
+    fsrv.submit(users)
+    exact, n_exact = counted(lambda: fsrv.flush(k, n_cand=per))
+    fsrv.submit(users)
+    fwd, n_fwd = counted(lambda: fsrv.flush(k))
+    for name, n in (("n_cand a shard", n_exact), ("config n_cand", n_fwd)):
+        if n != {"srp_hash": dispatches, "hamming_scores": dispatches}:
+            fail(f"{who} forward server at {name}: launches {n} for "
+                 f"{dispatches} dispatches")
+    out["serve_launches_fwd"] = {name: n_exact[name] + n_fwd[name]
+                                 for name in n_fwd}
+    ids = torch.stack([r.ids for r in exact])
+    out["serve_fwd_ties"] = ip_tie_check(users, items, ids,
+                                         want["exact_ids"].to(ids.device))
+    if not torch.allclose(torch.stack([r.values for r in exact]).cpu(),
+                          want["exact_vals"], rtol=1e-5, atol=1e-6):
+        fail(f"{who} forward server: values differ from ip_topk's")
+    km = feng.kmips(users, k)
+    same_forward(f"{who} forward server against the mesh kmips", fwd,
+                 [SimpleNamespace(ids=i, values=v)
+                  for i, v in zip(km.ids, km.values)])
+    for rung in (1, 2, 4):
+        for lo in range(0, MESH_RUNG_USERS, rung):
+            same_forward(f"{who} forward rung {rung} at user {lo}",
+                         fsrv._flush_batch(urows[lo:lo + rung], k,
+                                           pad_to=rung), fwd[lo:lo + rung])
+
+    # -- two runtimes under the controller, a change, a compaction ---------
+    stream = controller.stream_for(policy)
+    before = stream.stats()
+    rt_r = ServingRuntime(RkMIPSEngine.from_artifact(
+        art, policy=policy).reverse_server(), k=k, warmup=True, workers=2,
+        compaction=True, compact_fill=1.0)
+    rt_f = ServingRuntime(RkMIPSEngine.from_artifact(
+        art, policy=policy).server(), k=k, warmup=True, workers=2)
+    try:
+        t0 = time.perf_counter()
+        if lead:
+            jobs = [(rt_r.submit, r) for r in rows] + [(rt_f.submit, u)
+                                                       for u in urows]
+            tickets = submit_from_threads(lambda j: j[0](j[1]), jobs, 4,
+                                          f"{who} runtimes")
+            got = answers(tickets, f"{who} runtimes")
+            for i, r in enumerate(got[:NQ]):
+                same_reverse(f"{who} reverse runtime ticket {i}", r,
+                             served["f32"][i].predictions,
+                             served["f32"][i].stats)
+            same_forward(f"{who} forward runtime", got[NQ:], fwd)
+            out["serve_latency"] = latency_ms(tickets)
+        drained = [rt_r.drain(MESH_WAIT), rt_f.drain(MESH_WAIT)]
+        span = time.perf_counter() - t0
+        st = (rt_r.stats, rt_f.stats)
+        if not all(drained) or [s.completed for s in st] != [NQ, MESH_FWD] \
+                or any(s.traces_after_warmup for s in st):
+            fail(f"{who} runtimes: drained {drained}, stats {st}")
+        out["serve_tickets_per_s"] = (NQ + MESH_FWD) / span
+        t0 = time.perf_counter()
+        rt_r.delete_items(want["dels"].numpy())
+        rt_r.insert_items(want["new_rows"].to(queries.device))
+        rt_r.request_compaction()            # a no-op on a follower
+        if lead:
+            end = time.monotonic() + MESH_WAIT
+            while rt_r.stats.compactions < 1:
+                if time.monotonic() > end:
+                    fail(f"{who}: the compaction never landed")
+                time.sleep(0.01)
+        if not rt_r.drain(MESH_WAIT):
+            fail(f"{who}: the drain after the compaction timed out")
+        out["serve_compact_s"] = time.perf_counter() - t0
+        landed = rt_r.artifact
+        if rt_r.stats.compactions != 1 or landed.has_pending \
+                or landed.fingerprint != want["compact_fingerprint"] \
+                or index_digest(landed.index) != want["compact_digest"]:
+            fail(f"{who}: the landed compaction differs from the "
+                 f"single-device compact of the same change")
+        after = stream.stats()
+        out["serve_stream"] = {
+            part: {op: after[part][op] - before[part][op]
+                   for op in controller.OPS} for part in after}
+    finally:
+        rt_r.close(timeout=MESH_WAIT)
+        rt_f.close(timeout=MESH_WAIT)
+
+    # -- a gateway of three tenants on one pool ----------------------------
+    gw = ServingGateway(pool_workers=2)
+    try:
+        gw.register("reverse", art, k=k, sharding=policy)
+        gw.register("budgeted", art, k=k, sharding=policy,
+                    policy=TenantPolicy(scan_budget=1))
+        gw.register("forward", art, k=k, sharding=policy, mode="forward")
+        if gw.runtime("budgeted").server.engine._sigs is not \
+                gw.runtime("reverse").server.engine._sigs:
+            fail(f"{who} gateway: the budgeted tenant did not adopt the "
+                 f"reverse tenant's dispatch")
+        gw.warmup()
+        if lead:
+            jobs = ([("reverse", r) for r in rows]
+                    + [("budgeted", r) for r in rows]
+                    + [("forward", u) for u in urows])
+            got = answers(submit_from_threads(
+                lambda j: gw.submit(*j), jobs, 4, f"{who} gateway"),
+                f"{who} gateway")
+            for i, r in enumerate(got[:NQ]):
+                same_reverse(f"{who} gateway reverse ticket {i}", r,
+                             served["f32"][i].predictions,
+                             served["f32"][i].stats)
+            flagged = 0
+            for i, r in enumerate(got[NQ:2 * NQ]):
+                full = served["f32"][i].predictions
+                if bool((r.predictions & ~full).any()) or (
+                        not r.truncated
+                        and not torch.equal(r.predictions, full)):
+                    fail(f"{who} gateway budgeted ticket {i}: not a "
+                         f"conservative answer")
+                flagged += int(r.truncated)
+            out["serve_gw_truncated"] = flagged
+            same_forward(f"{who} gateway forward", got[2 * NQ:], fwd)
+        if not gw.drain(MESH_WAIT):
+            fail(f"{who} gateway: drain timed out")
+        st = gw.stats()
+        if st.traces_after_warmup or [t.completed for t in
+                                      st.tenants.values()] != [NQ, NQ,
+                                                               MESH_FWD]:
+            fail(f"{who} gateway stats: {st}")
+    finally:
+        gw.close(timeout=MESH_WAIT)
+    end = time.monotonic() + MESH_WAIT
+    while stream.active:
+        if time.monotonic() > end:
+            fail(f"{who}: the dispatch stream's thread outlived close")
+        time.sleep(0.01)
+    return out
 
 
 def mesh_path(seed: int, eng, results, users_fwd, exact_vals,
@@ -2653,14 +2872,24 @@ def mesh_path(seed: int, eng, results, users_fwd, exact_vals,
     import torch
     import torch.multiprocessing as mp
     res = results[MESH_K]
-    worlds, launches = {}, {}
+    worlds, launches, serve_launches = {}, {}, {}
     with tempfile.TemporaryDirectory() as workdir:
+        # the serving checks' change and its single-device compaction
+        dels, new_rows = catalogue_change(seed, eng.artifact.items,
+                                          eng.index.top_ids.numel())
+        compacted = eng.artifact.with_config(eng.config.replace(
+            **MESH_SERVE)).delete_items(dels).insert_items(
+                new_rows).compact()
         want = {"fingerprint": eng.artifact.fingerprint,
                 "digest": index_digest(eng.artifact.index),
                 "pred": res.predictions.cpu(),
                 "users_fwd": users_fwd[:MESH_FWD].cpu(),
                 "exact_vals": exact_vals[:MESH_FWD].cpu(),
-                "exact_ids": exact_ids[:MESH_FWD].cpu()}
+                "exact_ids": exact_ids[:MESH_FWD].cpu(),
+                "dels": torch.as_tensor(dels), "new_rows": new_rows.cpu(),
+                "compact_fingerprint": compacted.fingerprint,
+                "compact_digest": index_digest(compacted.index)}
+        del compacted
         want.update({f: getattr(res.stats, f).cpu() for f in MESH_COUNTERS})
         parent = os.path.join(workdir, "parent.pt")
         torch.save(want, parent)
@@ -2679,6 +2908,10 @@ def mesh_path(seed: int, eng, results, users_fwd, exact_vals,
                 for part in ("build", "f32", "int8", "fwd"):
                     for name, n in r[f"launches_{part}"].items():
                         launches[name] = launches.get(name, 0) + n
+                for part in ("rev_f32", "rev_int8", "fwd"):
+                    for name, n in r[f"serve_launches_{part}"].items():
+                        serve_launches[name] = serve_launches.get(name,
+                                                                  0) + n
 
             def each(key):
                 return [r[key] for r in ranks]
@@ -2712,7 +2945,41 @@ def mesh_path(seed: int, eng, results, users_fwd, exact_vals,
                   f"ip_topk's but for {each('fwd_ties')} float ties, "
                   f"{[round(x, 2) for x in each('fwd_ms')]} ms; build "
                   f"launches {each('launches_build')}")
-    return {"worlds": worlds, "launches": launches}
+            lead = ranks[0]
+            stream = lead["serve_stream"]
+            n_disp = stream["ops"]["dispatch"]
+            print(f"  mesh world={world} serving (serve_batch_size 8, "
+                  f"buckets 1, 2, 4), {[round(x, 1) for x in each('serve_s')]}"
+                  f" s a rank: reverse server f32 and int8 bitwise the "
+                  f"single-device predictions and plan counters, per rank "
+                  f"srp_hash = {each('serve_chunks')} chunks of 2 dispatches, "
+                  f"hamming_nearest = fused_scan = "
+                  f"{each('serve_tile_steps')} tile steps; forward server "
+                  f"{MESH_FWD} users: bitwise the mesh kmips, ids equal "
+                  f"ip_topk's at n_cand a shard but for "
+                  f"{each('serve_fwd_ties')} float ties, rungs 1, 2, 4 "
+                  f"bitwise the full batch, per rank srp_hash = dense "
+                  f"hamming_scores = {2 * -(-MESH_FWD // 8)} dispatches; "
+                  f"runtimes under the controller ({NQ} reverse + "
+                  f"{MESH_FWD} forward tickets from 4 threads on rank 0, "
+                  f"bitwise the synchronous flush): "
+                  f"{lead['serve_latency']} on rank 0, tickets/s a rank "
+                  f"{[round(x, 1) for x in each('serve_tickets_per_s')]} "
+                  f"({MESH_LABEL}); stream {n_disp} dispatches, "
+                  f"{stream['broadcasts']['dispatch'] / max(n_disp, 1):.2f} "
+                  f"broadcasts a dispatch, ops {stream['ops']}; "
+                  f"{len(want['dels'])} deletes + {len(want['new_rows'])} "
+                  f"inserts and a compaction in "
+                  f"{[round(x, 2) for x in each('serve_compact_s')]} s, "
+                  f"landed on every rank with the single-device compact's "
+                  f"digest; gateway of 3 tenants bitwise the dedicated "
+                  f"runtimes ({lead['serve_gw_truncated']} of {NQ} "
+                  f"scan_budget=1 tickets truncated, each a subset of the "
+                  f"full answer)")
+    print(f"mesh serving launches, all ranks of both worlds: "
+          f"{serve_launches}")
+    return {"worlds": worlds, "launches": launches,
+            "serve_launches": serve_launches}
 
 
 SERVE_WAIT = 300     # seconds any one wait of the serving phase may take
@@ -3697,6 +3964,8 @@ def main() -> int:
          "launches_forward_path": launches_f["srp_hash"],
          "launches_mapped_path": launches_m["srp_hash"],
          "launches_mesh_path": mesh_out["launches"].get("srp_hash", 0),
+         "launches_mesh_serving": mesh_out["serve_launches"].get(
+             "srp_hash", 0),
          "launches_cells_path": cells_out["cells"][
              "two-tower-retrieval/retrieval_cand_sah"]["launches"][
              "srp_hash"],
@@ -3717,12 +3986,16 @@ def main() -> int:
          "launches_forward_path": launches_f["hamming_nearest"],
          "launches_mesh_path": mesh_out["launches"].get("hamming_nearest",
                                                         0),
+         "launches_mesh_serving": mesh_out["serve_launches"].get(
+             "hamming_nearest", 0),
          "launches_mapped_path": launches_m["hamming_nearest"],
          "dense_hamming_scores": {
              "launches": serve_out["dense"]["serving_launches"],
              "launches_reverse_and_kmips_paths": launches["hamming_scores"]
              + launches8["hamming_scores"] + launches_f["hamming_scores"],
              "launches_mesh_path": mesh_out["launches"].get(
+                 "hamming_scores", 0),
+             "launches_mesh_serving": mesh_out["serve_launches"].get(
                  "hamming_scores", 0),
              "launches_cells_path": cells_out["cells"][
                  "two-tower-retrieval/retrieval_cand_sah"]["launches"][
@@ -3739,7 +4012,9 @@ def main() -> int:
          "bound_by": fused_by, "library_ms": None, "call_ms": fused_call,
          "shape": f"{tuple(chunk_users.shape)}x{t} rows, n_cand {nc}",
          "rows_4096_ms": fused4k_ms, "rows_4096_bound_ms": fused4k_bound,
-         "launches_mesh_path": mesh_out["launches"].get("fused_scan", 0)},
+         "launches_mesh_path": mesh_out["launches"].get("fused_scan", 0),
+         "launches_mesh_serving": mesh_out["serve_launches"].get(
+             "fused_scan", 0)},
         {"name": "ip_topk", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ip_topk.cu",
          "replaces": "src/repro/kernels/ip_topk.py:55",

@@ -39,8 +39,6 @@ DP_AXIS_NAMES = ("pod", "data")
 TP_AXIS_NAME = "model"
 
 # the mesh work still to port, named in the NotImplementedError it raises
-SERVING_SLICE = ("the multi-GPU slice 15 of the port (the serving stack "
-                 "under a mesh)")
 MODEL_SLICE = ("the multi-GPU slice 16 of the port (model parallelism "
                "under a mesh)")
 
@@ -48,10 +46,15 @@ MODEL_SLICE = ("the multi-GPU slice 16 of the port (model parallelism "
 @dataclasses.dataclass(frozen=True)
 class ShardingPolicy:
     """A ``DeviceMesh`` + named layout rules; the unit of sharding
-    injection. ``mesh=None`` makes every method the no-op or identity."""
+    injection. ``mesh=None`` makes every method the no-op or identity.
+    ``group`` is the process group the mesh paths' collectives run on:
+    None for the default group, or a group over the same ranks (the
+    serving runtime gives its off-thread compaction one of its own, so
+    that it never interleaves with the dispatches)."""
 
     mesh: Any = None          # torch.distributed.device_mesh.DeviceMesh
     rules: Mapping[str, tuple] = dataclasses.field(default_factory=dict)
+    group: Any = None         # torch.distributed.ProcessGroup or None
 
     # -- rule lookup -------------------------------------------------------
 

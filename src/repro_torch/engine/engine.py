@@ -45,7 +45,9 @@ rank's shard of the user rows, and answers ``query_batch``, ``query`` and
 ``kmips`` through ``engine/sharding.py``: every rank makes each call with
 the same arguments and gets the whole answer, bitwise the single-device
 one (``kmips``: the single-pass sharded scan, as in the reference). The
-servers under a mesh wait for slice 15 of the port's multi-GPU work.
+servers ride on the same mesh: ``server()`` shards its item rows, and a
+``ServingRuntime`` over a mesh server orders every dispatch through the
+mesh's dispatch stream (``engine/controller.py``).
 """
 
 from __future__ import annotations
@@ -59,11 +61,10 @@ import torch
 from repro_torch.core import exact as _exact
 from repro_torch.core import sa_alsh as _alsh
 from repro_torch.core import sah as _sah
-from repro_torch.dist import collectives as _coll
-from repro_torch.dist.policy import NO_SHARDING, ShardingPolicy, rank_device
+from repro_torch.dist.policy import NO_SHARDING, ShardingPolicy
 from repro_torch.engine import artifact as _artifact
 from repro_torch.engine import sharding as _sharding
-from repro_torch.engine.artifact import as_rows, device_of
+from repro_torch.engine.artifact import as_rows
 from repro_torch.engine.config import EngineConfig, get_config
 from repro_torch.kernels.hamming_scan import SELECT_MAX_ROWS, SELECT_MAX_WORDS
 
@@ -176,15 +177,8 @@ class RkMIPSEngine:
         if not isinstance(config, EngineConfig):
             raise TypeError(f"config must be an EngineConfig or a registry "
                             f"name, got {type(config).__name__}")
-        if policy.mesh is None:
-            self.device = device_of(device, "RkMIPSEngine")
-        else:
-            _coll.check_mesh(policy)
-            self.device = rank_device(policy)
-            if device is not None and torch.device(device) != self.device:
-                raise ValueError(f"under a mesh the engine runs on the "
-                                 f"rank's device {self.device}, not "
-                                 f"{torch.device(device)}")
+        self.device = _sharding.policy_device(policy, device,
+                                              "RkMIPSEngine")
         self.policy = policy
         check_kernel_limits(config, self.device.type)
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -519,20 +513,16 @@ class RkMIPSEngine:
 
     def server(self):
         """A ``RetrievalServer`` over the attached artifact (its config,
-        this engine's device), seeded from the artifact's forward index
-        when it is built (``engine/serving.py``). Under a mesh it raises:
-        the servers there wait for slice 15 (a controller rank admitting
-        tickets and broadcasting each dispatch)."""
-        _sharding.check_policy(self.policy, "RkMIPSEngine.server")
+        this engine's device and policy), seeded from the artifact's
+        forward index when it is built (``engine/serving.py``)."""
         from repro_torch.engine import serving as _serving
         return _serving.RetrievalServer.from_artifact(
-            self._require_artifact())
+            self._require_artifact(), policy=self.policy)
 
     def reverse_server(self):
         """A ``ReverseServer`` over this engine: a ticket queue over
-        ``query_batch``. Requires a user-side build; refused under a mesh
-        (``server``)."""
-        _sharding.check_policy(self.policy, "RkMIPSEngine.reverse_server")
+        ``query_batch`` (sharded under a mesh). Requires a user-side
+        build."""
         from repro_torch.engine import serving as _serving
         return _serving.ReverseServer(self)
 

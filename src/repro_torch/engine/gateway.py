@@ -22,6 +22,12 @@ bitwise those of a dedicated runtime.
   * Budgets are visible: a budget-truncated reverse ticket comes back
     ``truncated=True`` with its dispatch's funnel, and the tenant's
     ``RuntimeStats.truncated`` counts it.
+  * Under a mesh (``register(..., sharding=policy)``, one process per
+    rank, every rank registering the same tenants in the same order) the
+    tenants dispatch through the mesh's one dispatch stream
+    (``engine/controller.py``): the pool's threads on the controller rank
+    never interleave two tenants' collectives, and the followers replay
+    every tenant's operations in the controller's order.
 """
 
 from __future__ import annotations
@@ -29,9 +35,9 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
+from repro_torch.dist.policy import NO_SHARDING, ShardingPolicy
 from repro_torch.engine import runtime as _runtime
 from repro_torch.engine import serving as _serving
-from repro_torch.engine import sharding as _sharding
 from repro_torch.engine.artifact import IndexArtifact
 from repro_torch.engine.engine import RkMIPSEngine
 
@@ -98,16 +104,18 @@ class ServingGateway:
 
     # -- registration ------------------------------------------------------
 
-    def _share_donor(self, config, device, mode: str):
+    def _share_donor(self, config, device, sharding: ShardingPolicy,
+                     mode: str):
         """The first tenant this one can adopt a dispatch from: the same
-        mode and device and, for reverse tenants, a config equal in every
-        field but ``scan_budget``."""
+        mode, device and mesh (``gateway.py:135-155``) and, for reverse
+        tenants, a config equal in every field but ``scan_budget``."""
         for t in self._tenants.values():
             if t.mode != mode:
                 continue
             donor = (t.runtime.server.engine if mode == "reverse"
                      else t.runtime.server)
-            if donor.device != device:
+            if donor.device != device or donor.policy.mesh is not \
+                    sharding.mesh:
                 continue
             if mode == "reverse" and donor.config.replace(
                     scan_budget=config.scan_budget) != config:
@@ -117,19 +125,21 @@ class ServingGateway:
 
     def register(self, name: str, artifact: IndexArtifact, *,
                  policy: TenantPolicy | None = None, k: int | None = None,
-                 sharding=None, mode: str = "auto", **runtime_kwargs):
+                 sharding: ShardingPolicy | None = None, mode: str = "auto",
+                 **runtime_kwargs):
         """Bind ``name`` to an artifact version and a policy; returns the
         tenant's ``ServingRuntime``. ``mode`` is "reverse", "forward" or
         "auto" (reverse iff the artifact has users). Keyword args go to
         ``ServingRuntime``, which the gateway pools: never pass ``pool``,
-        ``workers`` or ``deadline``. ``sharding`` must be single-device
-        (None)."""
+        ``workers`` or ``deadline``. ``sharding``: the ``ShardingPolicy``
+        the tenant serves under (None: single-device); under a mesh the
+        artifact must be on the rank's device."""
         if self._closed:
             raise RuntimeError("gateway is closed: no new tenants")
         if name in self._tenants:
             raise ValueError(f"tenant {name!r} is already registered; "
                              f"swap(name, artifact) replaces its version")
-        _sharding.check_policy(sharding, "ServingGateway.register")
+        sharding = NO_SHARDING if sharding is None else sharding
         policy = TenantPolicy() if policy is None else policy
         if mode == "auto":
             mode = "reverse" if artifact.users is not None else "forward"
@@ -147,9 +157,9 @@ class ServingGateway:
                                  f"comes from TenantPolicy")
 
         cfg = artifact.config.replace(scan_budget=policy.scan_budget)
-        donor = self._share_donor(cfg, artifact.device, mode)
+        donor = self._share_donor(cfg, artifact.device, sharding, mode)
         if mode == "reverse":
-            engine = RkMIPSEngine(cfg, device=artifact.device,
+            engine = RkMIPSEngine(cfg, policy=sharding, device=artifact.device,
                                   share_dispatch=donor).attach(artifact)
             server = _serving.ReverseServer(engine)
             traces = engine._sigs
@@ -159,7 +169,7 @@ class ServingGateway:
                     f"tenant {name!r}: scan_budget is a reverse-pipeline "
                     f"knob (the forward scan has no execute loop to cap)")
             server = _serving.RetrievalServer.from_artifact(
-                artifact, share_dispatch=donor)
+                artifact, policy=sharding, share_dispatch=donor)
             traces = server._sigs
         rt = _runtime.ServingRuntime(server, k=k, pool=self.pool,
                                      deadline=policy.deadline,

@@ -42,19 +42,37 @@ ticket fails with ``TicketExpired`` before dispatch (a dispatch in flight
 is never interrupted). ``drain()`` waits until every admitted ticket has
 resolved; ``close()`` drains (optionally), stops the threads and fails
 whatever is left.
+
+Under a mesh (a server over a mesh policy; one process per rank) every
+rank constructs the same runtime with the same arguments, and the mesh's
+dispatch stream (``engine/controller.py``) orders its work. On the
+controller rank the runtime works as above, and each dispatch, mutation,
+swap, compaction start and landing, warmup, drain and close is broadcast
+before it runs. A follower starts no workers and no maintenance thread:
+the stream's replay thread runs each operation on the follower's copy,
+``submit`` raises, and ``insert_items``, ``delete_items``, ``swap``,
+``warmup``, ``drain`` and ``close`` wait for the controller's same call
+in the stream and return its outcome on this rank. The compaction runs
+off-thread on every rank at once, on a process group of the runtime's own
+(``compact_policy.group``), while the dispatches go on; a follower lands
+it only after its own compaction has joined.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import queue as _queue
 import threading
 import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from repro_torch.dist import collectives as _coll
 from repro_torch.engine import artifact as _artifact
+from repro_torch.engine import controller as _ctl
 from repro_torch.engine import serving as _serving
 
 _UNSET = object()
@@ -266,9 +284,13 @@ class ServingRuntime:
     warmup_ks     the ks to warm (default: ``k``).
     compaction    start the maintenance thread (artifact-backed servers).
     compact_fill  delta-buffer fill fraction that starts a compaction.
-    artifact_dir  save each compacted version here (``save(step=n)``).
     keep          keep the newest ``keep`` saved versions (the just-saved
                   one always).
+    compact_policy the ``ShardingPolicy`` compaction builds under
+                  (default: the server's, or its engine's); under a mesh
+                  the runtime gives it a process group of its own.
+    artifact_dir  save each compacted version here (``save(step=n)``;
+                  under a mesh the controller saves).
     poll_interval idle wakeup period of the threads (seconds).
     pool          a shared ``WorkerPool`` to dispatch through instead of
                   workers of this runtime's own (``workers`` is ignored).
@@ -278,7 +300,7 @@ class ServingRuntime:
                  deadline: float | None = None, batch_linger: float = 0.002,
                  warmup: bool = False, warmup_ks=None,
                  compaction: bool = False, compact_fill: float = 0.5,
-                 artifact_dir: str | None = None,
+                 compact_policy=None, artifact_dir: str | None = None,
                  keep: int | None = None, poll_interval: float = 0.05,
                  pool: WorkerPool | None = None):
         if workers < 1:
@@ -324,19 +346,59 @@ class ServingRuntime:
         self._pool = pool
         self._linger_until: float | None = None   # pooled-linger deadline
         self.last_compaction_seconds: float | None = None
+        self._trace_base = server.compile_count
+        if warmup:
+            warm_ks = tuple(warmup_ks if warmup_ks is not None
+                            else [] if k is None else [k])
+            if not warm_ks:
+                raise ValueError("warmup=True needs warmup_ks= (or a "
+                                 "default k= to warm for)")
+
+        # the mesh: the dispatch stream, and compaction on its own group
+        policy = self._engine.policy if self._is_reverse else server.policy
+        compact_policy = policy if compact_policy is None else compact_policy
+        self._stream: _ctl.DispatchStream | None = None
+        self._compact_group = None
+        if policy.mesh is not None:
+            if compact_policy.mesh is not None \
+                    and compact_policy.mesh is not policy.mesh:
+                raise ValueError("compact_policy must be single-device or "
+                                 "on the server's own mesh")
+            self._stream = _ctl.stream_for(policy)
+            if compaction and compact_policy.mesh is not None:
+                self._compact_group = _coll.spare_group()
+                compact_policy = dataclasses.replace(
+                    compact_policy, group=self._compact_group)
+        elif compact_policy.mesh is not None:
+            raise ValueError(
+                "compact_policy over a mesh needs a runtime over that mesh "
+                "(a server on its policy): otherwise the ranks' own timing "
+                "would start their compactions")
+        self._compact_policy = compact_policy
+        self._follower = self._stream is not None \
+            and not self._stream.is_controller
+        # a follower's calls wait for the controller's in the stream
+        self._mail_cond = threading.Condition()
+        self._mail: dict[int, tuple] = {}
+        self._mail_posted = self._mail_taken = 0
+        self._mail_skip: set[int] = set()
+        self._swap_inbox: collections.deque = collections.deque()
+        self._following = None        # a follower's compaction in flight
+        self._fault: BaseException | None = None
+        self._rid = None if self._stream is None \
+            else self._stream.register(self)
 
         # warmup runs before any worker exists, so no ticket races it;
         # without it the baseline is construction time
         if warmup:
-            ks = warmup_ks if warmup_ks is not None else \
-                ([] if k is None else [k])
-            if not ks:
-                raise ValueError("warmup=True needs warmup_ks= (or a "
-                                 "default k= to warm for)")
-            server.warmup(tuple(ks))
-        self._trace_base = server.compile_count
+            try:
+                self.warmup(warm_ks)
+            except BaseException:
+                if self._stream is not None:     # every rank raises here
+                    self._leave_stream(None)
+                raise
 
-        self._threads = [] if pool is not None else [
+        self._threads = [] if pool is not None or self._follower else [
             threading.Thread(target=self._worker_loop,
                              name=f"serve-worker-{i}", daemon=True)
             for i in range(workers)]
@@ -346,7 +408,7 @@ class ServingRuntime:
         self._compact_wake = threading.Event()
         self._compact_forced = threading.Event()
         self._compactor = None
-        if compaction:
+        if compaction and not self._follower:
             self._compactor = threading.Thread(
                 target=self._maintenance_loop, name="serve-compactor",
                 daemon=True)
@@ -355,7 +417,7 @@ class ServingRuntime:
             t.start()
         if self._compactor is not None:
             self._compactor.start()
-        if pool is not None:
+        if pool is not None and not self._follower:
             pool.register(self)
 
     # -- admission ---------------------------------------------------------
@@ -365,7 +427,13 @@ class ServingRuntime:
         """Admit a query (d,) -> its ``ServeTicket``; a block (nq, d) ->
         one ticket per row. Validation happens here, before the queue;
         ``n_cand``/``scan`` are forward-server knobs; raises
-        ``RuntimeError`` once the runtime is closed."""
+        ``RuntimeError`` once the runtime is closed, and on a follower
+        rank of a mesh (the controller admits every ticket)."""
+        if self._follower:
+            raise RuntimeError(
+                f"runtime.submit on rank {self._stream.rank}: under a mesh "
+                f"the controller rank {self._stream.controller_rank} admits "
+                f"every ticket and the followers replay its dispatches")
         q = _serving.validate_query_rows(q, self.server._dim,
                                          "runtime.submit",
                                          self.server.device)
@@ -485,8 +553,18 @@ class ServingRuntime:
             pad_to = self.server.bucket_for(len(group))
             kw = {} if self._is_reverse else dict(n_cand=first.n_cand,
                                                   scan=first.scan)
-            results = self.server._flush_batch(group, first.k,
-                                               pad_to=pad_to, **kw)
+
+            def flush():
+                return self.server._flush_batch(group, first.k,
+                                                pad_to=pad_to, **kw)
+
+            if self._stream is None:
+                results = flush()
+            else:
+                results = self._stream.run(
+                    _ctl.DISPATCH, self._rid, flush, k=first.k,
+                    n_cand=first.n_cand, scan=first.scan, pad_to=pad_to,
+                    floats=torch.stack(group))
             ready = _ready_event(self.server.device)
         except BaseException as e:  # noqa: BLE001 -- routed to futures
             self._completion.put((batch, None, e, None, None))
@@ -514,22 +592,30 @@ class ServingRuntime:
                     t._resolve(value=results[i])
                 else:
                     t._resolve(error=error)
-            with self._admit:
-                c = self._counts
-                self._unfinished -= len(batch)
-                if error is None:
-                    c["completed"] += len(batch)
-                    c["batches"] += 1
-                    c["truncated"] += sum(
-                        1 for r in results if getattr(r, "truncated", False))
-                    if pad_to < self.server.batch_size:
-                        c["bucket_hits"] += 1
-                    c["bucket_pad_rows"] += pad_to - len(batch)
-                elif isinstance(error, TicketExpired):
-                    c["expired"] += len(batch)
-                else:
-                    c["failed"] += len(batch)
-                self._admit.notify_all()
+            self._tally(len(batch), results, error, pad_to)
+
+    def _tally(self, n: int, results, error, pad_to) -> None:
+        """Count a resolved run of ``n`` tickets (a dispatch, an expiry or
+        a failure), or on a follower a replayed dispatch."""
+        with self._admit:
+            c = self._counts
+            if self._follower:
+                c["submitted"] += n
+            else:
+                self._unfinished -= n
+            if error is None:
+                c["completed"] += n
+                c["batches"] += 1
+                c["truncated"] += sum(
+                    1 for r in results if getattr(r, "truncated", False))
+                if pad_to < self.server.batch_size:
+                    c["bucket_hits"] += 1
+                c["bucket_pad_rows"] += pad_to - n
+            elif isinstance(error, TicketExpired):
+                c["expired"] += n
+            else:
+                c["failed"] += n
+            self._admit.notify_all()
 
     # -- artifact lifecycle ------------------------------------------------
 
@@ -539,43 +625,80 @@ class ServingRuntime:
                                "from an IndexArtifact to stream mutations")
         return self.artifact
 
-    def _swap_live(self, artifact) -> None:
-        # the caller holds _mutate_lock; the dispatch lock lands the swap
-        # between flushes
+    def _publish(self, artifact) -> _artifact.IndexArtifact:
+        """Make ``artifact`` live on the server (the caller holds the
+        dispatch lock, so it lands between flushes)."""
+        self.server.swap(artifact)
+        self.artifact = artifact
+        with self._admit:
+            self._counts["swaps"] += 1
+        return artifact
+
+    def _mutate(self, code: int, change, **fields):
+        """Make ``change()``'s version live between flushes; under a mesh
+        the operation goes through the stream first, so every rank makes
+        the same change at the same place among its dispatches. The caller
+        holds ``_mutate_lock``."""
         with self._dispatch_lock:
-            self.server.swap(artifact)
-            self.artifact = artifact
-            with self._admit:
-                self._counts["swaps"] += 1
+            def apply():
+                return self._publish(change())
+            art = apply() if self._stream is None else self._stream.run(
+                code, self._rid, apply, **fields)
         self._wake_pool()
+        return art
 
     def swap(self, artifact) -> None:
         """Make an externally built version live, between flushes;
-        pending tickets survive and are answered against it."""
+        pending tickets survive and are answered against it. Under a mesh
+        every rank passes its copy of the same version."""
+        if self._stream is None:
+            with self._mutate_lock:
+                self._mutate(_ctl.SWAP, lambda: artifact)
+            return
+        fp = artifact.fingerprint
+        if self._follower:
+            with self._mail_cond:
+                self._swap_inbox.append(artifact)
+                self._mail_cond.notify_all()
+            self._await(_ctl.SWAP)
+            return
         with self._mutate_lock:
-            self._swap_live(artifact)
+            self._mutate(_ctl.SWAP, lambda: artifact, obj=fp)
 
     def insert_items(self, rows) -> _artifact.IndexArtifact:
         """Stage rows on the live version and swap the new version in
         (between flushes). Returns the new version."""
+        if self._stream is not None:
+            rows = _staged_rows(rows, self.server.device)
+        if self._follower:
+            return self._await(_ctl.INSERT)
         with self._mutate_lock:
-            art = self._require_artifact().insert_items(rows)
-            self._swap_live(art)
+            art = self._mutate(
+                _ctl.INSERT,
+                lambda: self._require_artifact().insert_items(rows),
+                floats=rows if self._stream is not None else None)
         self._compact_wake.set()
         return art
 
     def delete_items(self, ids) -> _artifact.IndexArtifact:
         """Retire rows on the live version and swap the new version in
         (between flushes). Returns the new version."""
+        if self._stream is not None:
+            ids = np.atleast_1d(np.asarray(ids, np.int64))
+        if self._follower:
+            return self._await(_ctl.DELETE)
         with self._mutate_lock:
-            art = self._require_artifact().delete_items(ids)
-            self._swap_live(art)
+            art = self._mutate(
+                _ctl.DELETE,
+                lambda: self._require_artifact().delete_items(ids),
+                ints=ids if self._stream is not None else None)
         self._compact_wake.set()
         return art
 
     def request_compaction(self) -> None:
         """Ask the maintenance thread for a compaction now, whatever the
-        fill (no-op without ``compaction=True`` or pending changes)."""
+        fill (no-op without ``compaction=True`` or pending changes, and on
+        a follower: the controller starts every compaction)."""
         self._compact_forced.set()
         self._compact_wake.set()
 
@@ -595,13 +718,17 @@ class ServingRuntime:
                 continue
             self._compact_forced.clear()
             t0 = time.perf_counter()
+            with self._mutate_lock:
+                snapshot = self.artifact
+                if self._stream is not None:     # the followers' snapshot
+                    self._stream.run(_ctl.COMPACT_START, self._rid)
             # unlocked: traffic keeps flushing and mutations keep staging
             # onto descendants of the snapshot while the rebuild runs
-            compacted = snapshot.compact()
+            compacted = snapshot.compact(policy=self._compact_policy)
             with self._mutate_lock:
                 merged = _artifact.reconcile_compaction(
                     snapshot, self.artifact, compacted)
-                self._swap_live(merged)
+                self._mutate(_ctl.COMPACT_LAND, lambda: merged)
                 with self._admit:
                     self._counts["compactions"] += 1
             self.last_compaction_seconds = time.perf_counter() - t0
@@ -609,6 +736,150 @@ class ServingRuntime:
                 step = self._save_step
                 self._save_step += 1
                 merged.save(self._artifact_dir, step=step, keep=self._keep)
+
+    # -- a follower of the dispatch stream ---------------------------------
+
+    def _post(self, code: int, value, error) -> None:
+        """Hand the outcome of a replayed caller-visible operation to the
+        follower's matching call (``_await``)."""
+        with self._mail_cond:
+            seq = self._mail_posted
+            self._mail_posted += 1
+            if seq in self._mail_skip:          # its call timed out
+                self._mail_skip.discard(seq)
+            else:
+                self._mail[seq] = (code, value, error)
+            self._mail_cond.notify_all()
+
+    def _await(self, code: int, timeout: float | None = None,
+               timed_out=_UNSET):
+        """Follower: the outcome of the controller's next caller-visible
+        operation on this runtime, which must be ``code``; on timeout,
+        ``timed_out`` (or ``TimeoutError`` when unset)."""
+        end = None if timeout is None else time.monotonic() + timeout
+        with self._mail_cond:
+            seq = self._mail_taken
+            self._mail_taken += 1
+            while seq not in self._mail:
+                fault = self._fault or self._stream.broken
+                if fault is not None:
+                    raise RuntimeError(
+                        f"rank {self._stream.rank}: the runtime fell out of "
+                        f"its dispatch stream before its "
+                        f"{_ctl.OPS[code]}") from fault
+                left = None if end is None else end - time.monotonic()
+                if left is not None and left <= 0:
+                    self._mail_skip.add(seq)
+                    if timed_out is _UNSET:
+                        raise TimeoutError(f"{_ctl.OPS[code]} not replayed "
+                                           f"within {timeout}s")
+                    return timed_out
+                self._mail_cond.wait(self._poll if left is None
+                                     else min(left, self._poll))
+            got, value, error = self._mail.pop(seq)
+        if got != code:
+            raise RuntimeError(
+                f"rank {self._stream.rank}: this rank called "
+                f"{_ctl.OPS[code]} where the controller's call was "
+                f"{_ctl.OPS[got]}; every rank must make the same runtime "
+                f"calls in the same order")
+        if error is not None:
+            raise error
+        return value
+
+    def _stream_broke(self) -> None:
+        with self._mail_cond:
+            self._mail_cond.notify_all()
+
+    def _follow(self, op: _ctl.Op) -> None:
+        """Follower: run one operation of the stream on this rank's copy
+        (the stream's replay thread). A dispatch's error is counted as the
+        controller's goes to its tickets; a caller-visible operation's
+        goes to the matching call."""
+        with self._dispatch_lock:
+            if op.code == _ctl.DISPATCH:
+                group = list(op.floats.view(op.rows, -1).unbind(0))
+                kw = {} if self._is_reverse else dict(n_cand=op.n_cand,
+                                                      scan=op.scan)
+                try:
+                    results, error = self.server._flush_batch(
+                        group, op.k, pad_to=op.pad_to, **kw), None
+                except Exception as e:  # noqa: BLE001 -- as the controller
+                    results, error = None, e
+                self._tally(len(group), results, error, op.pad_to)
+            elif op.code == _ctl.COMPACT_START:
+                self._follow_compaction()
+            elif op.code == _ctl.COMPACT_LAND:
+                try:
+                    self._land_compaction()
+                except BaseException as e:  # noqa: BLE001 -- out of step
+                    self._fault = e
+                    self._stream_broke()
+            else:
+                try:
+                    value, error = self._follow_call(op), None
+                except BaseException as e:  # noqa: BLE001 -- to the caller
+                    value, error = None, e
+                self._post(op.code, value, error)
+
+    def _follow_call(self, op: _ctl.Op):
+        code = op.code
+        if code == _ctl.INSERT:
+            return self._publish(self._require_artifact().insert_items(
+                op.floats.view(op.rows, -1)))
+        if code == _ctl.DELETE:
+            ids = np.zeros(0, np.int64) if op.ints is None \
+                else op.ints.cpu().numpy()
+            return self._publish(self._require_artifact().delete_items(ids))
+        if code == _ctl.SWAP:
+            with self._mail_cond:
+                while not self._swap_inbox:
+                    self._mail_cond.wait(self._poll)
+                artifact = self._swap_inbox.popleft()
+            if artifact.fingerprint != op.obj:
+                raise ValueError("swap: this rank's version differs from the "
+                                 "controller's (fingerprints differ); every "
+                                 "rank must swap in the same version")
+            return self._publish(artifact)
+        if code == _ctl.WARMUP:
+            ks, kw = op.obj
+            cells = self.server.warmup(tuple(ks), **kw)
+            self._trace_base = self.server.compile_count
+            return cells
+        if code == _ctl.DRAIN:
+            return bool(op.aux)
+        return None                                       # close
+
+    def _follow_compaction(self) -> None:
+        """Compact the live version off-thread, as the controller does with
+        the same version at the same place in the stream."""
+        snapshot, box = self.artifact, {}
+
+        def run():
+            if self.server.device.type == "cuda":
+                torch.cuda.set_device(self.server.device)
+            try:
+                box["compacted"] = snapshot.compact(
+                    policy=self._compact_policy)
+            except BaseException as e:  # noqa: BLE001 -- raised at landing
+                box["error"] = e
+
+        thread = threading.Thread(target=run, name="serve-follow-compactor",
+                                  daemon=True)
+        self._following = (snapshot, thread, box, time.perf_counter())
+        thread.start()
+
+    def _land_compaction(self) -> None:
+        snapshot, thread, box, t0 = self._following
+        self._following = None
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        self._publish(_artifact.reconcile_compaction(
+            snapshot, self.artifact, box["compacted"]))
+        with self._admit:
+            self._counts["compactions"] += 1
+        self.last_compaction_seconds = time.perf_counter() - t0
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -621,9 +892,18 @@ class ServingRuntime:
         if not ks:
             raise ValueError("warmup needs ks= (or a default k= on the "
                              "runtime)")
-        with self._dispatch_lock:
+        if self._follower:
+            return self._await(_ctl.WARMUP)
+
+        def run():
             cells = self.server.warmup(tuple(ks), **server_kwargs)
             self._trace_base = self.server.compile_count
+            return cells
+
+        with self._dispatch_lock:
+            cells = run() if self._stream is None else self._stream.run(
+                _ctl.WARMUP, self._rid, run,
+                obj=[[int(k) for k in ks], server_kwargs])
         self._wake_pool()
         return cells
 
@@ -650,7 +930,16 @@ class ServingRuntime:
 
     def drain(self, timeout: float | None = None) -> bool:
         """Block until every admitted ticket has resolved; False on
-        timeout."""
+        timeout. Under a mesh every rank calls it: a follower returns what
+        the controller's drain returned, once its replay has caught up."""
+        if self._follower:
+            return self._await(_ctl.DRAIN, timeout, timed_out=False)
+        ok = self._wait_resolved(timeout)
+        if self._stream is not None:
+            self._stream.run(_ctl.DRAIN, self._rid, aux=int(ok))
+        return ok
+
+    def _wait_resolved(self, timeout: float | None) -> bool:
         end = None if timeout is None else time.monotonic() + timeout
         with self._admit:
             while self._unfinished > 0:
@@ -664,7 +953,9 @@ class ServingRuntime:
     def close(self, *, drain: bool = True,
               timeout: float | None = None) -> None:
         """Refuse new tickets, optionally drain, stop and join every
-        thread, and fail whatever is left undispatched. Idempotent."""
+        thread, and fail whatever is left undispatched. Idempotent. Under
+        a mesh every rank calls it; the controller's close ends this
+        runtime's part of every follower's replay."""
         with self._admit:
             already = self._closed
             self._closed = True
@@ -691,12 +982,43 @@ class ServingRuntime:
             self._completion.put((leftover, None, RuntimeError(
                 "runtime closed before these tickets were dispatched"),
                 None, None))
+        if not already and self._stream is not None:
+            self._leave_stream(timeout)
         if self._completer.is_alive():
             self._completion.put(_SHUTDOWN)
             self._completer.join(timeout=30)
+
+    def _leave_stream(self, timeout: float | None) -> None:
+        """The close operation: sent by the controller after its last
+        dispatch and landing, awaited by a follower; then the compaction
+        group goes."""
+        if self._follower:
+            self._await(_ctl.CLOSE, timeout, timed_out=None)
+            if self._following is not None:
+                self._following[1].join(timeout)
+        else:
+            self._stream.run(_ctl.CLOSE, self._rid)
+        if self._compact_group is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group(self._compact_group)
+            self._compact_group = None
 
     def __enter__(self) -> "ServingRuntime":
         return self
 
     def __exit__(self, *exc) -> None:
         self.close(drain=exc == (None, None, None))
+
+
+def _staged_rows(rows, device: torch.device) -> torch.Tensor:
+    """Rows to stage as the float32 (r, d) block the stream carries; the
+    artifact checks the rest (its dimensionality, the free slots) on every
+    rank alike."""
+    t = torch.as_tensor(rows)
+    if t.dim() == 1:
+        t = t[None]
+    if t.dim() != 2 or not t.is_floating_point():
+        raise ValueError(f"rows must be a floating (r, d) block, got "
+                         f"{str(t.dtype).removeprefix('torch.')} of shape "
+                         f"{tuple(t.shape)}")
+    return t.to(device=device, dtype=torch.float32)

@@ -33,6 +33,15 @@ Warmup and ``compile_count`` are restated for eager PyTorch (PORT.md):
 each server counts the distinct dispatch signatures it has run, in a set
 that ``share_dispatch`` shares; ``warmup`` runs one dispatch on zero
 queries for each cell the reference's warmup compiles.
+
+Under a mesh policy (one process per rank, SPMD) a forward state's item
+rows are padded once, at build, to the shard multiple
+(``sharding.pad_item_rows``; padding rows are dead), and every dispatch
+scans this rank's slice and merges the ranks' winners
+(``sharding.kmips_flat_arrays``); the reverse server rides on the mesh
+engine's sharded ``query_batch``. Every rank makes the same calls in the
+same order; the threaded runtime keeps that order for its dispatches
+through the mesh's dispatch stream (``engine/controller.py``).
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ import torch
 from repro_torch.core import sa_alsh as _alsh
 from repro_torch.core import sah as _sah
 from repro_torch.core import srp as _srp
+from repro_torch.dist.policy import NO_SHARDING, ShardingPolicy
 from repro_torch.engine import sharding as _sharding
 from repro_torch.engine.artifact import (IndexArtifact, as_key, as_rows,
                                          corpus_fingerprint, device_of)
@@ -81,29 +91,38 @@ def _config(config) -> EngineConfig:
 
 
 def state_from_index(index: _alsh.SAALSHIndex,
-                     config: EngineConfig | str = "sah") -> ServingState:
-    """A serving state over an already built forward index, no rebuild."""
-    return ServingState(index.items, index.item_ids, index.item_mask,
-                        index.codes, index.proj[:-1], _config(config),
+                     config: EngineConfig | str = "sah", *,
+                     policy: ShardingPolicy = NO_SHARDING) -> ServingState:
+    """A serving state over an already built forward index, no rebuild.
+    Under a mesh policy the item rows are padded with dead rows to the
+    shard multiple (``serving.py:104-124``); every rank holds them all and
+    scans its slice."""
+    arrays = (index.items, index.item_ids, index.item_mask, index.codes)
+    if policy.mesh is not None:
+        arrays = _sharding.pad_item_rows(*arrays,
+                                         _sharding.n_shards(policy))
+    return ServingState(*arrays, index.proj[:-1], _config(config),
                         int(index.item_mask.sum()))
 
 
 def build_serving_state(items, config: EngineConfig | str = "sah", *,
                         proj=None, generator: torch.Generator | None = None,
-                        device=None) -> ServingState:
+                        device=None,
+                        policy: ShardingPolicy = NO_SHARDING) -> ServingState:
     """Build the forward index of ``items`` (n, d) as serving arrays on
     ``device`` (None means "cuda"). The SRP projection is ``proj``
     ((d+1, n_bits)) or drawn from ``generator``, as
     ``sa_alsh.build_index`` takes them (the reference derives it from its
     key): a server and an engine given the same projection and config
-    scan identical codes."""
+    scan identical codes. ``policy``: pad the rows for its mesh
+    (``state_from_index``); the build itself is the same on every rank."""
     config = _config(config)
     items = as_rows(items, "items", device_of(device, "build_serving_state"))
     idx = _alsh.build_index(items, generator,
                             proj=None if proj is None
                             else as_rows(proj, "proj", items.device),
                             **config.kmips_build_kwargs(items.shape[0]))
-    return state_from_index(idx, config)
+    return state_from_index(idx, config, policy=policy)
 
 
 def validate_query_rows(q, dim: int | None, what: str,
@@ -146,16 +165,18 @@ class ServingCache:
     cache's projection when it fits the recipe's ``n_bits``, else with a
     projection drawn from a generator in the state ``generator`` had when
     the cache was made, so that a rebuild of an evicted recipe gives the
-    same codes.
+    same codes. States are built under ``policy`` (``state_from_index``);
+    the key does not name the mesh, as in the reference.
     """
 
     def __init__(self, items, key, *, proj=None,
                  generator: torch.Generator | None = None,
                  capacity: int = 4, fingerprint: str | None = None,
-                 device=None):
+                 device=None, policy: ShardingPolicy = NO_SHARDING):
         if capacity < 1:
             raise ValueError(f"cache capacity must be >= 1, got {capacity}")
-        self.device = device_of(device, "ServingCache")
+        self.device = _sharding.policy_device(policy, device, "ServingCache")
+        self.policy = policy
         self.capacity = capacity
         self._states: OrderedDict[tuple, ServingState] = OrderedDict()
         self.builds = 0
@@ -226,7 +247,7 @@ class ServingCache:
             return state
         state = build_serving_state(self._items, config,
                                     proj=self._projection(config),
-                                    device=self.device)
+                                    device=self.device, policy=self.policy)
         self.builds += 1
         self._insert(recipe, state)
         return state
@@ -314,16 +335,21 @@ class RetrievalServer(_TicketQueue):
     through this server's dispatch, shared with every server made with
     ``share_dispatch=`` it: one per (rung, k, n_cand, scan) and state
     shape, and one per (rung, k, n_base) delta merge.
+
+    ``policy``: a mesh policy shards the scan over item rows (module
+    docstring); the server then lives on the rank's device, and a
+    ``share_dispatch`` donor must be on the same mesh.
     """
 
     def __init__(self, items, key, *, config: EngineConfig | str = "sah",
                  proj=None, generator: torch.Generator | None = None,
                  fingerprint: str | None = None,
                  share_dispatch: "RetrievalServer | None" = None,
-                 device=None):
-        dev = device_of(device, "RetrievalServer")
+                 device=None, policy: ShardingPolicy = NO_SHARDING):
+        dev = _sharding.policy_device(policy, device, "RetrievalServer")
         items = as_rows(items, "items", dev)
         super().__init__(items.shape[1], dev)
+        self.policy = policy
         self.config = _config(config)
         self.artifact: IndexArtifact | None = None
         self._n_items: int | None = None
@@ -332,7 +358,8 @@ class RetrievalServer(_TicketQueue):
         self._mask_memo = None
         self.cache = ServingCache(items, key, proj=proj, generator=generator,
                                   capacity=self.config.serve_cache_capacity,
-                                  fingerprint=fingerprint, device=dev)
+                                  fingerprint=fingerprint, device=dev,
+                                  policy=policy)
         if share_dispatch is None:
             self._sigs: set = set()
             return
@@ -342,6 +369,9 @@ class RetrievalServer(_TicketQueue):
         if share_dispatch.device != dev:
             raise ValueError("share_dispatch requires a server on the same "
                              "device")
+        if share_dispatch.policy.mesh is not policy.mesh:
+            raise ValueError("share_dispatch requires the same sharding "
+                             "policy mesh")
         self._sigs = share_dispatch._sigs
 
     @property
@@ -351,16 +381,18 @@ class RetrievalServer(_TicketQueue):
 
     @classmethod
     def from_artifact(cls, artifact: IndexArtifact, *,
+                      policy: ShardingPolicy = NO_SHARDING,
                       share_dispatch: "RetrievalServer | None" = None
                       ) -> "RetrievalServer":
-        """A server over an artifact's corpus, on the artifact's device:
+        """A server over an artifact's corpus, on the artifact's device
+        (under a mesh, the rank's device, which the artifact's must be):
         base items, forward projection and base fingerprint
         (``serving_base``), seeded from the artifact's forward index when
         it is built; answers in artifact id space."""
         items, proj, fp = artifact.serving_base()
         srv = cls(items, artifact.key, config=artifact.config, proj=proj,
-                  fingerprint=fp,
-                  share_dispatch=share_dispatch, device=artifact.device)
+                  fingerprint=fp, share_dispatch=share_dispatch,
+                  device=artifact.device, policy=policy)
         srv._bind_artifact(artifact)
         return srv
 
@@ -377,11 +409,13 @@ class RetrievalServer(_TicketQueue):
         if artifact.kmips_index is not None \
                 and artifact.config not in self.cache:
             self.cache.put(artifact.config, state_from_index(
-                artifact.kmips_index, artifact.config))
+                artifact.kmips_index, artifact.config, policy=self.policy))
 
     def _masked_item_mask(self, state: ServingState) -> torch.Tensor:
         """The state's scan mask with the bound version's deleted base
-        rows retired, memoized per (state, bound version)."""
+        rows retired, memoized per (state, bound version). Padding rows
+        (id -1, under a mesh too) stay dead: their mask is already
+        False."""
         if self._deleted is None:
             return state.item_mask
         if self._mask_memo is not None and self._mask_memo[0] is state:
@@ -424,7 +458,7 @@ class RetrievalServer(_TicketQueue):
             else None
         return _sharding.kmips_flat_arrays(
             state.items, state.item_ids, mask, state.codes, ucodes, qs, k,
-            n_cand=n_cand, scan=scan)
+            self.policy, n_cand=n_cand, scan=scan)
 
     def _merge(self, vals, ids, qs, d_items, d_mask, k: int, n_base: int):
         self._sigs.add(("merge", qs.shape[0], k, n_base,
@@ -525,7 +559,8 @@ class ReverseServer(_TicketQueue):
     """Online RkMIPS serving: a ticket queue over
     ``RkMIPSEngine.query_batch`` (``serving.py:684-813``). A partial group
     is padded by repeating its first query (a real vector; its rows are
-    computed and dropped). ``compile_count`` is the engine's
+    computed and dropped), the same on every rank of a mesh engine, whose
+    ``query_batch`` is sharded. ``compile_count`` is the engine's
     ``rkmips_compile_count``. Needs a user-side build."""
 
     def __init__(self, engine):

@@ -52,7 +52,8 @@ from repro_torch.core import sa_alsh as _alsh
 from repro_torch.core import sah as _sah
 from repro_torch.core.rows import rows_matmul
 from repro_torch.dist import collectives as _coll
-from repro_torch.dist.policy import SERVING_SLICE, shard_rank
+from repro_torch.dist.policy import rank_device, shard_rank
+from repro_torch.engine.artifact import device_of
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 
@@ -62,7 +63,7 @@ _USER_AXIS_FIELDS = ("users", "user_ids", "user_mask", "theta", "user_lb")
 _BLOCK_AXIS_FIELDS = ("center", "omega", "block_lb")
 
 
-def check_policy(policy, who: str, waits: str = SERVING_SLICE) -> None:
+def check_policy(policy, who: str, waits: str) -> None:
     """Raise ``NotImplementedError`` unless ``policy`` is single-device
     (None, or an object whose ``mesh`` is None): for the paths whose mesh
     branch waits for a later slice, named by ``waits``."""
@@ -70,6 +71,20 @@ def check_policy(policy, who: str, waits: str = SERVING_SLICE) -> None:
         raise NotImplementedError(
             f"{who}: sharding over a device mesh waits for {waits}; pass "
             f"policy=None")
+
+
+def policy_device(policy, device, who: str) -> torch.device:
+    """Where ``who`` computes under ``policy``: ``device`` without a mesh
+    (None means "cuda", ``artifact.device_of``); under a mesh the rank's
+    own device (``rank_device``), which a given ``device`` must equal."""
+    if policy is None or policy.mesh is None:
+        return device_of(device, who)
+    _coll.check_mesh(policy)
+    dev = rank_device(policy)
+    if device is not None and torch.device(device) != dev:
+        raise ValueError(f"{who}: under a mesh it runs on the rank's "
+                         f"device {dev}, not {torch.device(device)}")
+    return dev
 
 
 def _meshed(policy) -> bool:
@@ -172,10 +187,10 @@ def rkmips_batch(index: _sah.SAHIndex, queries: torch.Tensor, k: int,
               delta_items=delta_items, delta_mask=delta_mask)
     if not _meshed(policy):
         return _sah.rkmips_batch(index, queries, k, **kw)
-    _coll.check_same_call(queries, k, "rkmips_batch")
+    _coll.check_same_call(queries, k, "rkmips_batch", policy.group)
     pred_l, stats_l = _sah.rkmips_batch(index, queries, k, **kw)
     pred = _coll.all_gather_cat(pred_l, policy, dim=1)
-    stats = _coll.all_reduce_sum(torch.stack(tuple(stats_l)))
+    stats = _coll.all_reduce_sum(torch.stack(tuple(stats_l)), policy.group)
     return pred, _sah.QueryStats(*stats.unbind(0))
 
 
@@ -232,8 +247,9 @@ def kmips_flat_arrays(items: torch.Tensor, item_ids: torch.Tensor,
     ``scan="exact"``), queries (Q, d) -> (vals (Q, k) descending, ids
     (Q, k)). ``n_cand`` is raised to k and capped at the rows scanned.
 
-    Under a mesh the rows are padded with dead rows (``pad_item_rows``),
-    each rank scans its slice with ``n_cand`` per shard, and the local
+    Under a mesh the rows are padded with dead rows (``pad_item_rows``;
+    a serving state padded at build has nothing left to add), each rank
+    scans its slice with ``n_cand`` per shard, and the local
     winners are gathered and merged by a stable top-k; every rank gets
     the answer. A query's answer does not depend on the rest of the
     batch (module docstring)."""
@@ -241,7 +257,7 @@ def kmips_flat_arrays(items: torch.Tensor, item_ids: torch.Tensor,
         n_c = min(max(n_cand, k), items.shape[0])
         return _flat_candidates(items, item_ids, item_mask, codes, ucodes,
                                 queries, k, n_c, scan)
-    _coll.check_same_call(queries, k, "kmips_flat_arrays")
+    _coll.check_same_call(queries, k, "kmips_flat_arrays", policy.group)
     s = n_shards(policy)
     items, item_ids, item_mask, codes = pad_item_rows(
         items, item_ids, item_mask, codes, s, k)

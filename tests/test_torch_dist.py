@@ -1,6 +1,6 @@
 """The port's mesh paths (``repro_torch.dist``, ``launch/mesh.py``, the
-sharded build and the sharded reverse and forward queries) in gloo worlds
-on the CPU.
+sharded build, the sharded reverse and forward queries, and the serving
+stack under a mesh) in gloo worlds on the CPU.
 
 Each world is spawned once (2 ranks over "data", make_test_mesh's (2, 2),
 3 ranks over "data"; ``tests/torch_mesh_worker.py`` is the rank body, free
@@ -17,8 +17,14 @@ over the same corpus. Held:
   equals its per-slice composition and, at an ``n_cand`` covering a
   shard, the exact top-k; every rank holds the same answer;
 * one signature per batch shape; the SPMD call contract, the refusals
-  (serving: slice 15; ``query_batch_mapped``), and ``make_production_mesh``
-  on a small world;
+  (``query_batch_mapped``; a ``share_dispatch`` donor on another mesh or
+  none), and ``make_production_mesh`` on a small world;
+* the serving stack: the forward server bitwise the mesh ``kmips`` (at
+  every rung, on a staged version), the reverse server bitwise the
+  single-device port, runtimes under the controller rank (threads with a
+  linger, warmup, a compaction held open while tickets flow and changes
+  stage) bitwise the synchronous mesh flush, every rank landing the same
+  version, and a three-tenant gateway bitwise the dedicated servers;
 * against the reference's sharded semantics, composed from its own
   single-device pieces (its ``shard_map`` fails on jax 0.9.0): integers
   equal, every reverse mismatch traced to a float tie.
@@ -279,17 +285,175 @@ def test_mesh_signatures_contract_and_refusals(world):
         # signature a batch shape
         assert got["signatures"].tolist() == [2, 2, 2, 3]
         assert "different queries" in str(got["spmd_error"])
-        assert "slice 15" in str(got["server_error"])
+        for refusal in ("share_other_mesh", "share_no_mesh"):
+            assert "same sharding policy mesh" in str(got[refusal])
+        assert bool(got["share_same_mesh"])
         assert "single-device" in str(got["mapped_error"])
         assert f"has {shards}" in str(got["production_error"])
         assert "256 ranks" in str(got["production_error"])
     m_local = {int(g["m_local"]) for g in ranks}
     assert len(m_local) == 1
-    # every rank holds the same answers
+    # every rank holds the same answers (rank 0 alone holds the
+    # controller's comparisons, the followers their refusal)
     for got in ranks[1:]:
         for name, arr in ranks[0].items():
-            if name not in ("shard_rank", "production_error"):
-                np.testing.assert_array_equal(got[name], arr, name)
+            if name in ("shard_rank", "production_error") + W.LEAD_ONLY:
+                continue
+            np.testing.assert_array_equal(got[name], arr, name)
+
+
+# -- the serving stack under the mesh ----------------------------------------
+
+
+def test_mesh_forward_server_is_bitwise(world):
+    """The forward server under the mesh: bitwise the mesh engine's
+    ``kmips`` at the config's ``n_cand``, at ``n_cand`` covering a shard
+    the exact top-k (but for float ties) and bitwise the engine's exact
+    scan, every rung bitwise the full batch, no rebuild of the artifact's
+    forward index, and a server over a staged version (row 0 deleted,
+    rows inserted) bitwise ``kmips`` on that version."""
+    _, _, ranks = world
+    items, _, _, fwd, _, _ = W.corpus()
+    exact_vals, exact_ids = kref.ip_topk(torch.from_numpy(fwd),
+                                         torch.from_numpy(items), W.K)
+    for got in ranks:
+        for prefix in ("srv/", "srv_staged/"):
+            np.testing.assert_array_equal(got[prefix + "ids"],
+                                          got[prefix + "kmips_ids"])
+            np.testing.assert_array_equal(got[prefix + "vals"],
+                                          got[prefix + "kmips_vals"])
+        np.testing.assert_array_equal(got["srv_exact/ids"], got["fwd/ids"])
+        np.testing.assert_array_equal(got["srv_exact/vals"],
+                                      got["fwd/vals"])
+        np.testing.assert_allclose(got["srv_exact/vals"],
+                                   exact_vals.numpy(), rtol=1e-6, atol=1e-6)
+        assert (got["srv_exact/ids"] != exact_ids.numpy()).sum() <= 2
+        assert bool(got["srv/rungs"]) and int(got["srv/builds"]) == 0
+        assert 0 not in got["srv_staged/ids"]          # the deleted row 0
+        assert not np.array_equal(got["srv_staged/ids"], got["srv/ids"])
+
+
+def test_mesh_forward_server_matches_the_reference_composition(world,
+                                                               reference):
+    """The reference's mesh serving state composed from its own pieces:
+    ``state_from_index`` of its forward index, padded by ``pad_item_rows``,
+    each slice answered by ``kmips_flat_arrays`` without a mesh at the
+    config's ``n_cand``, the winners merged by ``lax.top_k``."""
+    import jax
+    import jax.numpy as jnp
+    from repro.core import sa_alsh as jalsh
+    from repro.dist.policy import NO_SHARDING as JAX_NO_SHARDING
+    from repro.engine import serving as jserving
+    from repro.engine import sharding as jsharding
+    _, shards, ranks = world
+    art = reference[1]
+    state = jserving.state_from_index(art.ensure_kmips_index(), art.config)
+    rows = jsharding.pad_item_rows(state.items, state.item_ids,
+                                   state.item_mask, state.codes, shards)
+    per = rows[0].shape[0] // shards
+    fwd = jnp.asarray(W.corpus()[3])
+    ucodes = jalsh.user_codes(art.ensure_kmips_index(), fwd)
+    parts = [jsharding.kmips_flat_arrays(
+        *(r[s * per:(s + 1) * per] for r in rows), ucodes, fwd, W.K,
+        JAX_NO_SHARDING, n_cand=art.config.n_cand) for s in range(shards)]
+    best, pos = jax.lax.top_k(
+        jnp.concatenate([v for v, _ in parts], axis=1), W.K)
+    ids = np.asarray(jnp.take_along_axis(
+        jnp.concatenate([i for _, i in parts], axis=1), pos, axis=1))
+    best = np.asarray(best)
+    for got in ranks:
+        np.testing.assert_allclose(got["srv/vals"], best, rtol=1e-5)
+        moved = got["srv/ids"] != ids
+        # an id may move only between inner products within rounding
+        assert np.all(np.abs(got["srv/vals"][moved] - best[moved])
+                      <= 1e-5), moved.sum()
+        assert moved.sum() <= 2, moved.sum()
+
+
+@pytest.mark.parametrize("precision", ["f32", "int8"])
+def test_mesh_reverse_server_is_bitwise(world, single, precision):
+    """The reverse server under the mesh, its 4 tickets one dispatch:
+    predictions and plan counters bitwise the single-device port, packing
+    the per-slice composition."""
+    _, shards, ranks = world
+    composed = per_slice(single["art"], single["q"], shards,
+                         scan_precision=precision)
+    for got in ranks:
+        assert_same_reverse(got, f"rsrv_{precision}/", single["f32"],
+                            composed)
+
+
+def test_mesh_runtimes_under_the_controller(world):
+    """Two runtimes on one stream, tickets submitted on the controller
+    from two threads with a linger, warmed: every ticket bitwise the
+    synchronous mesh flush, no signature after warmup on any rank, the
+    followers' counters the controller's; a bad k fails its ticket and is
+    counted failed on every rank; ``submit`` on a follower raises;
+    ``close`` ends every rank's stream thread, after the same operations
+    on every rank."""
+    _, _, ranks = world
+    lead = ranks[0]
+    assert bool(lead["rt/reverse_same"]) and bool(lead["rt/forward_same"])
+    assert "outside [1," in str(lead["rt/bad_k_error"])
+    for r, got in enumerate(ranks):
+        assert got["rt/drained"].tolist() == [True, True]
+        assert got["rt/server_types"].tolist() == ["ReverseServer",
+                                                  "RetrievalServer"]
+        # (completed, failed, traces after warmup) of each runtime
+        assert got["rt/stats"].tolist() == [[4, 0, 0], [6, 1, 0]]
+        if r:
+            assert "controller rank 0 admits" in str(got["rt/submit_error"])
+        np.testing.assert_array_equal(got["stream/ops"], lead["stream/ops"])
+    ops = dict(zip(("dispatch", "insert", "delete", "swap", "compact_start",
+                    "compact_land"), lead["stream/ops"].tolist()))
+    # the gated runtime's inserts, its delete and one that raised on
+    # every rank; the gateway's swap
+    assert ops["insert"] == 2 and ops["delete"] == 2 and ops["swap"] == 1
+    assert ops["compact_start"] == ops["compact_land"] == 1
+
+
+def test_mesh_compaction_interleaves_with_dispatches(world, single):
+    """An insert, a delete and a compaction held open by a gate on the
+    controller while tickets flow and more rows stage: the compaction
+    lands on every rank (row-parallel on the runtime's own group), every
+    rank's live version has the same fingerprint and index, equal to the
+    single-device port's reconcile of the same changes, and the answers
+    after the landing are a synchronous server's on it."""
+    from repro_torch.engine import reconcile_compaction
+    _, _, ranks = world
+    _, _, _, _, inserts, deletes = W.corpus()
+    sart = single["art"].with_config(
+        single["art"].config.replace(**W.SERVE))
+    snap = sart.insert_items(inserts).delete_items(deletes)
+    merged = reconcile_compaction(
+        snap, snap.insert_items((0.9 * inserts[:2]).astype(np.float32)),
+        snap.compact())
+    want = W.index_arrays(merged.index, "gated/")
+    assert bool(ranks[0]["gated/held"]) and bool(ranks[0]["gated/after_same"])
+    for got in ranks:
+        assert "item ids must be in" in str(got["gated/bad_delete"])
+        assert str(got["gated/fingerprint"]) == merged.fingerprint
+        assert bool(got["gated/sharded"]) and bool(got["gated/drained"])
+        assert got["gated/pending"].tolist() == [merged.n_base,
+                                                 merged.delta_used]
+        # 1 compaction; 4 versions: insert, delete, insert, the landing
+        assert got["gated/counts"].tolist() == [1, 4, 8]
+        for name, arr in want.items():
+            np.testing.assert_array_equal(got[name], arr, name)
+
+
+def test_mesh_gateway_is_bitwise(world):
+    """Three tenants on one pool under the mesh (two reverse, one with a
+    scan budget, and one forward): answers bitwise the dedicated
+    synchronous mesh servers, the reverse tenants on one signature set,
+    none added after warmup, a swap served on every rank."""
+    _, _, ranks = world
+    assert ranks[0]["gw/same"].tolist() == [True, True, True]
+    assert bool(ranks[0]["gw/swapped_same"])
+    for got in ranks:
+        assert bool(got["gw/shared"]) and bool(got["gw/drained"])
+        # traces after warmup, then each tenant's completed tickets
+        assert got["gw/stats"].tolist() == [0, 4, 4, 12]
 
 
 # -- against the reference's sharded semantics --------------------------------

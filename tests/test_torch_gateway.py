@@ -266,7 +266,9 @@ def test_register_validation(flow):
             gw.register("p", art, k=K, pool=None)
         with pytest.raises(ValueError, match="mode must be"):
             gw.register("m", art, k=K, mode="sideways")
-        with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+        # a mesh must be a torch DeviceMesh over the world (the mesh
+        # tenants themselves run in tests/test_torch_dist.py's worlds)
+        with pytest.raises(TypeError, match="needs a torch DeviceMesh"):
             gw.register("s", art, k=K, sharding=Policy())
     with pytest.raises(RuntimeError, match="gateway is closed"):
         gw.register("late", art, k=K)

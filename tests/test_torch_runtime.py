@@ -250,10 +250,10 @@ def test_compaction_races_mutations(data, artifact, monkeypatch, tmp_path,
     started, release = threading.Event(), threading.Event()
     orig = IndexArtifact.compact
 
-    def gated(self):
+    def gated(self, **kw):
         started.set()
         assert release.wait(WAIT)
-        return orig(self)
+        return orig(self, **kw)
 
     monkeypatch.setattr(IndexArtifact, "compact", gated)
     adir = str(tmp_path / "versions")

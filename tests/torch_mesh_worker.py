@@ -2,15 +2,22 @@
 
 JAX-free on purpose: ``torch.multiprocessing.spawn`` re-imports this module
 in every rank, and a rank runs the port alone. Each world is spawned once
-(``spawn_world``); every rank runs ``rank_checks`` under its mesh and
-writes what it saw to ``rank<r>.npz``, which the tests hold against the
-single-device port and the reference.
+(``spawn_world``); every rank runs ``rank_checks`` under its mesh (the
+engine) and ``serving_checks`` (the servers, the runtime under the
+controller rank, a gateway) and writes what it saw to ``rank<r>.npz``,
+which the tests hold against the single-device port and the reference.
+The group's timeout is short and every wait takes one, so a stream that
+falls out of step fails the test instead of hanging it.
 """
 
 from __future__ import annotations
 
+import datetime
 import math
 import os
+import threading
+import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -25,6 +32,16 @@ BUDGET = 1
 SEED = 7
 STATS = ("blocks_alive", "users_alive", "n_no_lb", "n_yes_norm", "n_scan",
          "tiles_scanned", "chunks", "truncated")
+PLAN = ("blocks_alive", "users_alive", "n_no_lb", "n_yes_norm", "n_scan",
+        "truncated")
+# the serving checks' config: 4 reverse queries are one dispatch, the 6
+# forward users two (4, then 2 at rung 2)
+SERVE = dict(serve_batch_size=4, serve_buckets=(1, 2))
+# what rank 0 alone writes: the controller's comparisons of its tickets
+LEAD_ONLY = ("rt/reverse_same", "rt/forward_same", "rt/bad_k_error",
+             "gated/held", "gated/after_same", "gw/same", "gw/swapped_same")
+GROUP_TIMEOUT = 60       # seconds a collective may wait
+WAIT = 30                # seconds any one wait of the serving checks may take
 
 
 def mf_rows(rng, r, d, h, rank=8):
@@ -148,9 +165,262 @@ def rank_checks(shape: tuple, art_dir: str) -> dict:
     mine = q if dist.get_rank() else 2 * q
     out["spmd_error"] = np.array(raises(
         ValueError, lambda: sig.query_batch(mine, K)))
-    out["server_error"] = np.array(raises(NotImplementedError, eng.server))
     out["mapped_error"] = np.array(raises(
         RuntimeError, lambda: eng.query_batch_mapped(q, K)))
+    out.update(serving_checks(policy, art))
+    return out
+
+
+def served_arrays(res, prefix: str) -> dict:
+    """A reverse server's tickets as ``result_arrays`` of one batch."""
+    from repro_torch.core.sah import QueryStats
+    stats = QueryStats(*(torch.stack([getattr(r.stats, f) for r in res])
+                         for f in QueryStats._fields))
+    return result_arrays(SimpleNamespace(
+        predictions=torch.stack([r.predictions for r in res]), stats=stats,
+        funnel=res[0].funnel), prefix)
+
+
+def forward_arrays(res, prefix: str) -> dict:
+    return {prefix + "ids": torch.stack([r.ids for r in res]).numpy(),
+            prefix + "vals": torch.stack([r.values for r in res]).numpy()}
+
+
+def same_forward(got, want) -> bool:
+    return all(torch.equal(g.ids, w.ids) and torch.equal(g.values, w.values)
+               for g, w in zip(got, want, strict=True))
+
+
+def same_reverse(got, want) -> bool:
+    """Predictions and the plan counters bitwise (the packing counters
+    belong to a ticket's dispatch, not to the query)."""
+    return all(torch.equal(g.predictions, w.predictions)
+               and all(torch.equal(getattr(g.stats, f), getattr(w.stats, f))
+                       for f in PLAN)
+               for g, w in zip(got, want, strict=True))
+
+
+def answers(tickets) -> list:
+    return [t.result(timeout=WAIT) for t in tickets]
+
+
+def submit_from_threads(jobs) -> list:
+    """Run each (submit, rows) job in a thread of its own, one ticket a
+    row; each job's tickets in row order."""
+    out = [[None] * len(rows) for _, rows in jobs]
+
+    def send(j):
+        submit, rows = jobs[j]
+        for i, row in enumerate(rows):
+            out[j][i] = submit(row)
+
+    threads = [threading.Thread(target=send, args=(j,))
+               for j in range(len(jobs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(WAIT)
+        assert not t.is_alive(), "a submitter thread hung"
+    return out
+
+
+def wait_until(cond, what: str) -> None:
+    end = time.monotonic() + WAIT
+    while not cond():
+        assert time.monotonic() < end, what
+        time.sleep(0.01)
+
+
+def serving_checks(policy, art) -> dict:
+    """The serving stack under the mesh, on every rank: the forward and
+    reverse servers (against the mesh engine, at every rung, on a staged
+    version, the refusals), runtimes under the controller rank (threads
+    with a linger, warmup, an insert, a delete and a compaction held open
+    by a gate while tickets flow, the followers' refusal), and a gateway
+    of three tenants on one pool. Flags are the controller's comparisons;
+    arrays are every rank's, for the tests to hold."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.dist import ShardingPolicy
+    from repro_torch.engine import (IndexArtifact, RetrievalServer,
+                                    RkMIPSEngine, ServingGateway,
+                                    ServingRuntime, TenantPolicy)
+    from repro_torch.engine import controller
+
+    _, _, queries, fwd, inserts, deletes = corpus()
+    q, u = torch.from_numpy(queries), torch.from_numpy(fwd)
+    users = list(u.unbind(0))
+    sart = art.with_config(art.config.replace(**SERVE))
+    eng = RkMIPSEngine.from_artifact(sart, policy=policy)
+    lead = dist.get_rank() == int(policy.mesh.mesh.flatten()[0])
+    out = {}
+
+    # -- the forward server ------------------------------------------------
+    srv = eng.server()
+    srv.submit(u)
+    sync_fwd = srv.flush(K)
+    out.update(forward_arrays(sync_fwd, "srv/"))
+    km = eng.kmips(u, K)
+    out.update({"srv/kmips_ids": km.ids.numpy(),
+                "srv/kmips_vals": km.values.numpy()})
+    srv.submit(u)
+    out.update(forward_arrays(srv.flush(K, n_cand=N), "srv_exact/"))
+    out["srv/rungs"] = np.array(all(
+        same_forward(srv._flush_batch(users[lo:lo + rung], K, pad_to=rung),
+                     sync_fwd[lo:lo + rung])
+        for rung in (1, 2) for lo in range(0, len(users), rung)))
+    out["srv/builds"] = np.array(srv.cache.builds)
+    staged = sart.delete_items(np.r_[0, deletes]).insert_items(inserts)
+    s2 = RetrievalServer.from_artifact(staged, policy=policy)
+    s2.submit(u)
+    sync_staged = s2.flush(K)
+    out.update(forward_arrays(sync_staged, "srv_staged/"))
+    k2 = RkMIPSEngine.from_artifact(staged, policy=policy).kmips(u, K)
+    out.update({"srv_staged/kmips_ids": k2.ids.numpy(),
+                "srv_staged/kmips_vals": k2.values.numpy()})
+    other = ShardingPolicy(mesh=init_device_mesh(
+        "cpu", (policy.device_count,), mesh_dim_names=("data",)))
+    out["share_other_mesh"] = np.array(raises(
+        ValueError, lambda: RetrievalServer.from_artifact(
+            sart, policy=other, share_dispatch=srv)))
+    out["share_no_mesh"] = np.array(raises(
+        ValueError, lambda: RetrievalServer.from_artifact(
+            sart, share_dispatch=srv)))
+    out["share_same_mesh"] = np.array(RetrievalServer.from_artifact(
+        sart, policy=policy, share_dispatch=srv)._sigs is srv._sigs)
+
+    # -- the reverse server, f32 and int8 ------------------------------------
+    sync_rev = {}
+    for prec in ("f32", "int8"):
+        rs = RkMIPSEngine(sart.config.replace(scan_precision=prec),
+                          policy=policy).attach(sart).reverse_server()
+        rs.submit(q)
+        sync_rev[prec] = rs.flush(K)
+        out.update(served_arrays(sync_rev[prec], f"rsrv_{prec}/"))
+    budgeted = RkMIPSEngine(sart.config.replace(scan_budget=BUDGET),
+                            policy=policy).attach(sart).reverse_server()
+    budgeted.submit(q)
+    sync_budget = budgeted.flush(K)
+
+    # -- two runtimes under the controller: threads, linger, warmup ----------
+    rt_r = RkMIPSEngine.from_artifact(sart, policy=policy) \
+        .async_reverse_server(k=K, warmup=True, workers=2,
+                              batch_linger=0.005)
+    rt_f = RkMIPSEngine.from_artifact(sart, policy=policy).async_server(
+        k=K, warmup=True, workers=2, batch_linger=0.005)
+    try:
+        if lead:
+            rev_t, fwd_t = submit_from_threads([(rt_r.submit, list(q)),
+                                                (rt_f.submit, users)])
+            out["rt/reverse_same"] = np.array(same_reverse(answers(rev_t),
+                                                           sync_rev["f32"]))
+            out["rt/forward_same"] = np.array(same_forward(answers(fwd_t),
+                                                           sync_fwd))
+            # a bad k raises on every rank before any collective: the
+            # controller's ticket gets the error, each follower counts it
+            out["rt/bad_k_error"] = np.array(raises(
+                ValueError, lambda: rt_f.submit(u[0], k=10 * N).result(
+                    timeout=WAIT)))
+        else:
+            out["rt/submit_error"] = np.array(raises(
+                RuntimeError, lambda: rt_r.submit(q[0])))
+        out["rt/drained"] = np.array([rt_r.drain(WAIT), rt_f.drain(WAIT)])
+        out["rt/stats"] = np.array([[st.completed, st.failed,
+                                     st.traces_after_warmup]
+                                    for st in (rt_r.stats, rt_f.stats)])
+        out["rt/server_types"] = np.array([type(rt_r.server).__name__,
+                                           type(rt_f.server).__name__])
+    finally:
+        rt_r.close(timeout=WAIT)
+        rt_f.close(timeout=WAIT)
+
+    # -- changes and a compaction held open while tickets flow ---------------
+    more = (0.9 * inserts[:2]).astype(np.float32)
+    started, release = threading.Event(), threading.Event()
+    compact = IndexArtifact.compact
+    if lead:
+        def gated(self, **kw):
+            started.set()
+            assert release.wait(WAIT)
+            return compact(self, **kw)
+        IndexArtifact.compact = gated
+    rt = ServingRuntime(RkMIPSEngine.from_artifact(
+        sart, policy=policy).reverse_server(), k=K, compaction=True,
+        compact_fill=1.0, poll_interval=0.01)
+    try:
+        rt.insert_items(inserts)
+        rt.delete_items(deletes)
+        rt.request_compaction()
+        if lead:
+            assert started.wait(WAIT), "the compaction never started"
+            answers(rt.submit(q))                 # traffic keeps flowing
+            out["gated/held"] = np.array(rt.stats.compactions == 0)
+        rt.insert_items(more)                     # ... and so do changes
+        # an id past the version raises on every rank, after the stream
+        out["gated/bad_delete"] = np.array(raises(
+            ValueError, lambda: rt.delete_items([10 * N])))
+        if lead:
+            release.set()
+            wait_until(lambda: rt.stats.compactions >= 1,
+                       "the compaction never landed")
+            after = answers(rt.submit(q))
+        out["gated/drained"] = np.array(rt.drain(WAIT))
+        st = rt.stats
+        out["gated/counts"] = np.array([st.compactions, st.swaps,
+                                        st.completed])
+    finally:
+        release.set()
+        IndexArtifact.compact = compact
+        rt.close(timeout=WAIT)
+    landed = rt.artifact
+    out["gated/fingerprint"] = np.array(landed.fingerprint)
+    out["gated/pending"] = np.array([landed.n_base, landed.delta_used])
+    out["gated/sharded"] = np.array(landed.build_timings.sharded)
+    out.update(index_arrays(landed.index, "gated/"))
+    sync = RkMIPSEngine.from_artifact(landed, policy=policy).reverse_server()
+    sync.submit(q)
+    want = sync.flush(K)
+    if lead:
+        out["gated/after_same"] = np.array(same_reverse(after, want))
+
+    # -- a gateway of three tenants on one pool ------------------------------
+    gw = ServingGateway(pool_workers=2)
+    try:
+        gw.register("reverse", sart, k=K, sharding=policy)
+        gw.register("budgeted", sart, k=K, sharding=policy,
+                    policy=TenantPolicy(scan_budget=BUDGET))
+        gw.register("forward", sart, k=K, sharding=policy, mode="forward")
+        out["gw/shared"] = np.array(
+            gw.runtime("budgeted").server.engine._sigs
+            is gw.runtime("reverse").server.engine._sigs)
+        gw.warmup()
+        if lead:
+            tickets = [gw.submit("reverse", q), gw.submit("budgeted", q),
+                       gw.submit("forward", u)]
+            rev, bud, fw = (answers(t) for t in tickets)
+            out["gw/same"] = np.array([
+                all(same_reverse([g], [w]) and torch.equal(
+                    g.stats.tiles_scanned, w.stats.tiles_scanned)
+                    for g, w in zip(rev, sync_rev["f32"])),
+                same_reverse(bud, sync_budget)
+                and [g.truncated for g in bud] == [w.truncated
+                                                   for w in sync_budget],
+                same_forward(fw, sync_fwd)])
+        gw.swap("forward", staged)        # every rank, its own copy
+        if lead:
+            out["gw/swapped_same"] = np.array(same_forward(
+                answers(gw.submit("forward", u)), sync_staged))
+        out["gw/drained"] = np.array(gw.drain(WAIT))
+        st = gw.stats()
+        out["gw/stats"] = np.array(
+            [st.traces_after_warmup]
+            + [st.tenants[n].completed for n in gw.tenants])
+    finally:
+        gw.close(timeout=WAIT)
+    stream = controller.stream_for(policy)
+    wait_until(lambda: not stream.active, "the stream's thread never ended")
+    out["stream/ops"] = np.array([stream.sent[op] for op in controller.OPS])
     return out
 
 
@@ -159,7 +429,8 @@ def rank_main(rank: int, shape: tuple, workdir: str, art_dir: str) -> None:
     torch.set_num_threads(1)
     dist.init_process_group(
         "gloo", init_method=f"file://{os.path.join(workdir, 'rendezvous')}",
-        rank=rank, world_size=math.prod(shape))
+        rank=rank, world_size=math.prod(shape),
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT))
     try:
         out = rank_checks(shape, art_dir)
         np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
