@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the port's thirteen paths through their entry points, each with
+Drives the port's fourteen paths through their entry points, each with
 every launch count set to 0 just before it and read just after. The first
 seven run at the paper's Netflix scale (n = 17,770 items, m = 480,189 users,
 d = 100, synthetic MF-like factors from ``--seed``):
@@ -92,6 +92,31 @@ d = 100, synthetic MF-like factors from ``--seed``):
   dense 12B     mistral-nemo-12b at full width and depth (40 layers, d
                 5,120, 32 heads over 8 KV heads, vocab 131,072, bf16),
                 flash: the same prefill and 8 steps (cut for time);
+  model         gloo worlds ("data", "model") of (1, 2) and (2, 2) ranks
+  parallel      on the one card, weights from ``--seed`` as above, each
+                rank held against answers the recsys, LM and MoE phases
+                saved: qwen3-0.6b at full width, TP/SP flash prefill of
+                the 4 x 2,048 prompts (the flash kernel on each rank's
+                8 of 16 heads over 4 of 8 KV heads), then 32 split-KV
+                greedy decode steps under the decode rules and 8 under the
+                long-context ones, each fed the single-device tokens
+                (no further from the float32 model than one device's bf16,
+                1.25x margin, and within twice that distance of it: the
+                prefill logits against the chunked bf16 prefill, as the
+                LM phase's rule holds flash, the cache and decode logits
+                against the single-device ones; greedy tokens equal but
+                for traced near-ties); olmoe-1b-7b on
+                (1, 2): expert parallelism of layer 0 and the last layer
+                on the single-device inputs against the single-device
+                ``_moe_local`` of each rank's tokens at the local
+                capacity (drops exact),
+                then its EP prefill with each layer's drops; two-tower
+                retrieval over the 1,000,000 candidates with both tables
+                row-sharded (the item and user towers bitwise one
+                device's, the 64 sketch requests' ids and values bitwise
+                the single-device composition of the sharded scan). Its
+                times are of ranks that share one card: not a multi-GPU
+                speed;
   train         the trainer (``make_train_step`` + ``train_loop``,
                 chain(clip 1.0, adamw), deterministic algorithms on):
                 qwen3-0.6b at full width and depth in bf16 (remat,
@@ -128,7 +153,8 @@ It
      as ``fused_scan`` on the int8 path, the dense ``hamming_scores``
      never there but once per forward serving dispatch, and ``srp_hash``
      once per forward serving dispatch and per reverse chunk;
-     ``flash_attention`` exactly once per layer in prefill, every
+     ``flash_attention`` exactly once per layer in prefill (on every
+     rank of the model-parallel phase too), every
      launch on its ``wgmma`` route, never in decode, and no other kernel
      in an LM phase; ``ip_topk``, which
      the port calls only for the exact forward answer, is counted around
@@ -213,6 +239,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -498,7 +525,7 @@ def held_in_float64(name: str, model, fwd, out) -> float:
     return float(err.max())
 
 
-def recsys_path(seed: int, dev) -> dict:
+def recsys_path(seed: int, dev, mp_dir: str | None = None) -> dict:
     """The recsys serving phase at full width: two-tower retrieval over
     1,000,000 candidates (``launch/serve.py``: the candidate index, 64
     single-user requests by the SAH sketch and 64 by the exact
@@ -547,6 +574,7 @@ def recsys_path(seed: int, dev) -> dict:
     items = uniform_feats(gen, cfg.item_embedding.vocab_sizes, n, dev)
     cand = torch.cat([rec.item_tower(model, items[i:i + EMBED_CHUNK], cfg)
                       for i in range(0, n, EMBED_CHUNK)])
+    items_head = items[:EMBED_CHUNK].clone()
     del items
     mark("embed candidates")
     d = cand.shape[1]
@@ -721,6 +749,11 @@ def recsys_path(seed: int, dev) -> dict:
             for key, val in t.items()))
     del prep, rows, item_codes
     mark("retrieval-shape times")
+
+    if mp_dir is not None:
+        save_retrieval_answers(mp_dir, cand, codes, proj, users, uu,
+                               ids["sketch"], items_head)
+        mark("model-parallel answers")
 
     # -- serve_p99: the towers' row dot at batch 512, then float64 ---------
     uf = uniform_feats(gen, cfg.user_embedding.vocab_sizes, rows_p99, dev)
@@ -1391,10 +1424,12 @@ def serve_lm(label: str, model, prompts, steps: int, mark=None) -> dict:
     mark("decode")
     ops.reset_launch_counts()
     nxt = logits.argmax(-1)
-    tokens_out = []
+    tokens_out, fed, all_steps = [], [], []
     t0 = time.perf_counter()
     for step in range(steps):
+        fed.append(nxt)
         step_logits, cache = tf.decode_step(model, cache, nxt)
+        all_steps.append(step_logits)
         if step == 0:
             first_step = step_logits
         nxt = step_logits.argmax(-1)
@@ -1428,6 +1463,7 @@ def serve_lm(label: str, model, prompts, steps: int, mark=None) -> dict:
             or bool(((out < 0) | (out >= cfg.vocab)).any())):
         fail(f"{label}: bad prefill or decode output")
     return dict(logits=logits, first_step=first_step, prefill_s=prefill_s,
+                fed=torch.stack(fed), step_logits=torch.stack(all_steps),
                 decode_s=decode_s, cold_s=cold_s, steps=steps,
                 launches=launches_prefill, launches_decode=launches_decode,
                 peak=peak, peak_before=peak_before)
@@ -1499,7 +1535,7 @@ def cache_check(label: str, model, prompts, tol: float) -> None:
              f"{cerr}")
 
 
-def lm_path(seed: int, dev):
+def lm_path(seed: int, dev, mp_dir: str | None = None):
     """The LM serving path: qwen3-0.6b at full width and depth in bf16,
     ``attn_impl="flash"``, weights drawn from ``seed``; prefill of
     LM_BATCH prompts of LM_PROMPT tokens, then LM_STEPS greedy decode
@@ -1530,6 +1566,8 @@ def lm_path(seed: int, dev):
     run = serve_lm("lm", model, prompts, LM_STEPS)
     tol = flash_rule("lm", model, prompts, run["logits"])
     cache_check("lm", model, prompts, tol)
+    if mp_dir is not None:
+        save_lm_answers(mp_dir, model, prompts, run, tol)
 
     device_profile("lm prefill", lambda: tf.prefill(model, prompts))
     _, cache = tf.prefill(model, prompts)
@@ -1750,29 +1788,35 @@ class RouteRecorder:
             h.remove()
 
 
-def flash_shape_entry(arch: str, model, prompts, launches: dict) -> dict:
-    """Hold the flash kernel against its plain version on layer 0's own
-    q/k/v of ``model``'s prefill of ``prompts`` (within two bf16 ulps, as
-    for qwen3), time it (CUDA-graph replay), its plain version and SDPA,
-    and return its kernels-line entry with the operations bound."""
+def layer0_qkv(model, prompts):
+    """Layer 0's q/k/v of ``model``'s prefill of ``prompts`` (bf16, the
+    KV heads as the model makes them), contiguous."""
     import torch
-    from repro_torch.kernels import flash_attention, ops, ref
-    from repro_torch.models import attention
     from repro_torch.models import transformer as tf
-    cfg = model.cfg
     blk = model.blocks[0]
     with torch.no_grad():
         h = tf._rms_norm(model.embed[prompts], blk.ln1)
         pos = torch.arange(prompts.shape[1], device=prompts.device)
-        q, k, v = (t.contiguous() for t in tf._project_qkv(h, blk, cfg, pos))
+        return tuple(t.contiguous()
+                     for t in tf._project_qkv(h, blk, model.cfg, pos))
+
+
+def flash_timed_entry(name: str, q, k, v, launches, launches_wgmma) -> dict:
+    """Hold the flash kernel against its plain version on q/k/v (within
+    two bf16 ulps), time it (CUDA-graph replay), its plain version and
+    SDPA on repeated KV, and return its kernels-line entry with the
+    operations bound."""
+    import torch
+    from repro_torch.kernels import flash_attention, ops, ref
+    from repro_torch.models import attention
     if flash_attention.route(q, k, v) != "wgmma":
-        fail(f"{arch}: layer 0's q/k/v do not take the wgmma route")
+        fail(f"{name}: q/k/v do not take the wgmma route")
     err = flash_close(ops.flash_attention(q, k, v),
                       ref.flash_attention(q, k, v),
                       lambda a: 2.0 ** -6 * a + 1e-3)
     ms = device_ms(lambda: ops.flash_attention(q, k, v), 20, replays=3)
     plain = device_ms(lambda: ref.flash_attention(q, k, v), 2, replays=3)
-    rep = cfg.n_heads // cfg.n_kv_heads
+    rep = q.shape[1] // k.shape[1]
     kr = attention.repeat_kv(k, rep).contiguous()
     vr = attention.repeat_kv(v, rep).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1781,20 +1825,18 @@ def flash_shape_entry(arch: str, model, prompts, launches: dict) -> dict:
     flops = 4 * dh * b * hh * s * (s + 1) // 2
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
     bnd, by = bound(nbytes, flops / BF16_FLOP_PER_S)
-    print(f"check flash_attention {arch} layer 0 q {tuple(q.shape)} k/v "
-          f"{tuple(k.shape)} bf16 causal: max abs err {err:.6f}, every "
-          f"value within 2**-6 |plain| + 1e-3")
-    print(f"time flash_attention {arch} q {tuple(q.shape)} k/v "
-          f"{tuple(k.shape)}: wgmma kernel {ms:.5f} ms (device); plain "
-          f"{plain:.5f} ms; bound {bnd:.6f} ms ({by}: {flops / 1e9:.2f} "
-          f"GFLOP at 989 TFLOP/s bf16); library "
-          f"scaled_dot_product_attention(is_causal=True) on repeated KV "
-          f"{lib:.5f} ms; {flops / ms / 1e9:.1f} TFLOP/s")
-    return {"name": f"flash_attention/{arch}", "route": "cuda",
+    print(f"check {name} q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 "
+          f"causal: max abs err {err:.6f}, every value within 2**-6 "
+          f"|plain| + 1e-3")
+    print(f"time {name} q {tuple(q.shape)} k/v {tuple(k.shape)}: wgmma "
+          f"kernel {ms:.5f} ms (device); plain {plain:.5f} ms; bound "
+          f"{bnd:.6f} ms ({by}: {flops / 1e9:.2f} GFLOP at 989 TFLOP/s "
+          f"bf16); library scaled_dot_product_attention(is_causal=True) on "
+          f"repeated KV {lib:.5f} ms; {flops / ms / 1e9:.1f} TFLOP/s")
+    return {"name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:81",
-            "launches": launches["flash_attention"],
-            "launches_wgmma": launches["flash_attention_wgmma"],
+            "launches": launches, "launches_wgmma": launches_wgmma,
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bnd, "bound_by": by, "library_ms": lib,
             "library_call": "torch.nn.functional."
@@ -1802,6 +1844,77 @@ def flash_shape_entry(arch: str, model, prompts, launches: dict) -> dict:
                             "KV repeated",
             "tflops": flops / ms / 1e9,
             "shape": f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal"}
+
+
+def flash_shape_entry(arch: str, model, prompts, launches: dict) -> dict:
+    """``flash_timed_entry`` on layer 0's own q/k/v of ``model``'s prefill
+    of ``prompts``."""
+    return flash_timed_entry(f"flash_attention/{arch}",
+                             *layer0_qkv(model, prompts),
+                             launches["flash_attention"],
+                             launches["flash_attention_wgmma"])
+
+
+def flash_tp_entry(arch: str, model, prompts, tp: int) -> dict:
+    """``flash_timed_entry`` at the shapes a rank of a ``tp``-way head
+    split launches (``transformer.py``'s TP prefill: its contiguous block
+    of query and KV heads), on rank 0's heads of layer 0's q/k/v. The
+    launches are the model-parallel phase's, a rank, filled in there."""
+    q, k, v = layer0_qkv(model, prompts)
+    hq, hk = q.shape[1] // tp, k.shape[1] // tp
+    return flash_timed_entry(f"flash_attention/{arch}-tp{tp}",
+                             q[:, :hq].contiguous(), k[:, :hk].contiguous(),
+                             v[:, :hk].contiguous(), None, None)
+
+
+def row_parallel_times(model, prompts, tp: int) -> dict:
+    """A rank's row-parallel products of a ``tp``-way TP prefill of
+    ``model`` (``transformer._mm_f32``: bf16 operands, float32 output) at
+    ``prompts``' tokens, on rank 0's rows of layer 0's ``wo`` and
+    ``w_out``: held against the float32 product of the upcast operands
+    (exact operands, so only the order of the sums differs) and timed
+    (CUDA-graph replay) beside that float32 product and one device's bf16
+    product of the whole weight."""
+    import torch
+    from repro_torch.models import transformer as tf
+    blk = model.blocks[0]
+    rows = prompts.numel()
+    gen = torch.Generator(device=prompts.device).manual_seed(7)
+    out, flops = {}, 0
+    for name in ("wo", "w_out"):
+        w = getattr(blk, name).detach()
+        w_l = w[:w.shape[0] // tp].contiguous()
+        a = torch.randn(rows, w.shape[0], generator=gen, device=w.device,
+                        dtype=torch.float32).to(w.dtype)
+        a_l = a[:, :w_l.shape[0]].contiguous()
+        got = tf._mm_f32(a_l, w_l)
+        want = a_l.float() @ w_l.float()
+        err = float((got - want).abs().max() / want.abs().max())
+        if got.dtype != torch.float32 or err > 3e-5:
+            fail(f"row-parallel {name}: out_dtype product {got.dtype} "
+                 f"relative err {err}")
+        out[name] = {
+            "shape": f"({rows}, {w_l.shape[0]}) x {tuple(w_l.shape)}",
+            "max_err_over_max": err,
+            "ms": device_ms(lambda: tf._mm_f32(a_l, w_l), 20, replays=3),
+            "f32_ms": device_ms(lambda: a_l.float() @ w_l.float(), 20,
+                                replays=3),
+            "whole_bf16_ms": device_ms(lambda: a @ w, 20, replays=3)}
+        flops += 2 * rows * w_l.shape[0] * w_l.shape[1]
+    for name, t in out.items():
+        print(f"time row-parallel {name} a rank of TP {tp}, {t['shape']} "
+              f"bf16 -> float32: {t['ms']:.5f} ms (device; max |err| "
+              f"{t['max_err_over_max']:.2e} of the float32 product's max "
+              f"|value|); the "
+              f"float32 product of the upcast operands {t['f32_ms']:.5f} "
+              f"ms; one device's bf16 product of the whole weight "
+              f"{t['whole_bf16_ms']:.5f} ms")
+    layers = model.cfg.n_layers
+    print(f"time row-parallel a rank's prefill: {layers} layers x "
+          f"(wo + w_out) = {layers * sum(t['ms'] for t in out.values()):.3f}"
+          f" ms, float32 {layers * sum(t['f32_ms'] for t in out.values()):.3f}"
+          f" ms; {layers * flops / 1e12:.3f} TFLOP")
+    return out
 
 
 def lm_setup(arch: str, seed: int, dev, steps: int, label: str):
@@ -1834,7 +1947,7 @@ def lm_setup(arch: str, seed: int, dev, steps: int, label: str):
     return cfg, model, prompts
 
 
-def moe_path(seed: int, dev) -> dict:
+def moe_path(seed: int, dev, mp_dir: str | None = None) -> dict:
     """MoE LM serving: olmoe-1b-7b at full width and depth in bf16
     (16 layers, 64 experts top-8), flash prefill of LM_BATCH x LM_PROMPT
     tokens and LM_STEPS greedy decode steps, the dropped share of each
@@ -1849,6 +1962,8 @@ def moe_path(seed: int, dev) -> dict:
     routes = RouteRecorder(model)
     run = serve_lm("moe", model, prompts, LM_STEPS, mark=routes.mark)
     shares, dropped, assigned = routes.dropped("prefill")
+    if mp_dir is not None:
+        save_moe_answers(mp_dir, model, prompts, shares, dropped / assigned)
     _, d_dropped, d_assigned = routes.dropped("decode")
     with torch.no_grad():
         _, aux, _ = tf.forward(model, prompts)
@@ -1907,10 +2022,12 @@ def moe_path(seed: int, dev) -> dict:
     device_profile("moe 4 decode steps", steps)
     del cache
     entry = flash_shape_entry(cfg.name, model, prompts, run["launches"])
+    tp_entry = flash_tp_entry(cfg.name, model, prompts, MP_TP)
     peak = torch.cuda.max_memory_allocated()
     print(f"moe phase peak device memory (the float32 arbiter and the "
           f"no-drop cache check included): {peak / 2**30:.2f} GiB")
-    out = dict(entry=entry, peak=peak, peak_before=run["peak_before"])
+    out = dict(entry=entry, tp_entry=tp_entry, peak=peak,
+               peak_before=run["peak_before"])
     del model, run
     torch.cuda.empty_cache()
     return out
@@ -1948,6 +2065,593 @@ def nemo_path(seed: int, dev) -> dict:
     del model, run
     torch.cuda.empty_cache()
     return out
+
+
+# -- the model-parallel phase ----------------------------------------------
+
+MP_WORLDS = ((1, 2), (2, 2))   # ("data", "model") gloo worlds on cuda:0
+MP_TP = 2                # the "model" axis of both worlds
+MP_LONG_STEPS = 8        # long-context decode steps (cut from LM_STEPS)
+MP_CACHE_LAYERS = (0, 14, 27)   # qwen3 cache layers held (first, mid, last)
+MP_MOE_WORLD = (1, 2)    # olmoe's expert parallelism runs on this world
+MP_TIMEOUT = 300         # seconds a collective of a world may wait
+MP_LABEL = ("ranks share one card; collectives staged through the host: "
+            "not a multi-GPU speed")
+
+
+def mp_file(mp_dir: str, name: str) -> str:
+    return os.path.join(mp_dir, f"{name}.pt")
+
+
+def save_retrieval_answers(mp_dir: str, cand, codes, proj, users, uu,
+                           sketch_ids, items_head) -> None:
+    """What the model-parallel phase holds two-tower retrieval against:
+    the candidates, their codes and the query projection, the requests'
+    user features and vectors, the single-device sketch ids, and for each
+    world the single-device composition of the sharded scan (each of its
+    shards' ``RETR_N_CAND`` nearest re-ranked, the winners merged: the
+    mesh's semantics, ``engine/sharding.py::kmips_flat_arrays``)."""
+    import torch
+    from repro_torch.engine import sharding
+    from repro_torch.kernels import ops, ref
+    n = cand.shape[0]
+    composed = {}
+    for shape in MP_WORLDS:
+        shards = shape[0] * shape[1]
+        rows = sharding.pad_item_rows(
+            cand, torch.arange(n, dtype=torch.int32, device=cand.device),
+            torch.ones(n, dtype=torch.bool, device=cand.device), codes,
+            shards, RETR_K)
+        per = rows[0].shape[0] // shards
+        vals, ids = [], []
+        for u in uu:
+            q = u[None, :].contiguous()
+            qcode = ops.srp_hash(q, proj)
+            parts = [sharding.kmips_flat_arrays(
+                *(r[s * per:(s + 1) * per] for r in rows), qcode, q, RETR_K,
+                n_cand=RETR_N_CAND) for s in range(shards)]
+            best, pos = ref.topk_stable(torch.cat([p[0] for p in parts], 1),
+                                        RETR_K)
+            vals.append(best[0])
+            ids.append(torch.cat([p[1] for p in parts], 1).gather(1, pos)[0])
+        composed[shards] = (torch.stack(vals).cpu(), torch.stack(ids).cpu())
+    torch.save({"cand": cand.cpu(), "codes": codes.cpu(), "proj": proj.cpu(),
+                "users": users.cpu(), "u": uu.cpu(),
+                "sketch_ids": sketch_ids.cpu(), "items_head": items_head.cpu(),
+                "composed": composed}, mp_file(mp_dir, "retrieval"))
+
+
+def save_lm_answers(mp_dir: str, model, prompts, run, tol: float) -> None:
+    """What the model-parallel phase holds qwen3-0.6b against: the bf16
+    prefill's last logits (flash, and chunked: the LM phase's baseline
+    of bf16 prefill error), the tokens fed to each greedy step and each
+    step's logits, and the same from the float32 arbiter (its prefill,
+    and its decode fed the same tokens); the cache layers
+    ``MP_CACHE_LAYERS`` of both; the greedy near-tie tolerance."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer as tf
+    s = prompts.shape[1]
+    cfg = model.cfg
+    model.cfg = dataclasses.replace(cfg, attn_impl="chunked")
+    chunked, _ = tf.prefill(model, prompts)
+    model.cfg = cfg
+    model32 = float32_copy(model)
+    logits32, cache32 = tf.prefill(model32, prompts)
+    layers = list(MP_CACHE_LAYERS)
+    held32 = {k: cache32[k][layers, :, :, :s].cpu() for k in ("k", "v")}
+    steps32 = []
+    for tok in run["fed"]:
+        step, cache32 = tf.decode_step(model32, cache32, tok)
+        steps32.append(step)
+    del model32, cache32
+    _, cache = tf.prefill(model, prompts)
+    torch.save({"prompts": prompts.cpu(), "logits": run["logits"].cpu(),
+                "logits_chunked": chunked.cpu(),
+                "logits32": logits32.cpu(), "fed": run["fed"].cpu(),
+                "steps": run["step_logits"].cpu(),
+                "steps32": torch.stack(steps32).cpu(), "tol": tol,
+                "cache": {k: cache[k][layers, :, :, :s].cpu()
+                          for k in ("k", "v")}, "cache32": held32},
+               mp_file(mp_dir, "lm"))
+    del cache
+    torch.cuda.empty_cache()
+
+
+def moe_check_layers(n_layers: int) -> tuple[int, int]:
+    """The olmoe layers whose expert parallelism is held against the
+    per-shard composition: layer 0, and the last (where a quarter of the
+    assignments drop at the config's capacity)."""
+    return 0, n_layers - 1
+
+
+def save_moe_answers(mp_dir: str, model, prompts, shares, share) -> None:
+    """What the model-parallel phase holds olmoe-1b-7b's expert
+    parallelism against: the MoE input of ``moe_check_layers`` in a bf16
+    prefill, and for each rank of ``MP_MOE_WORLD`` the single-device
+    ``_moe_local`` of its sequence-parallel tokens at the local capacity
+    (output, dropped assignments); the single-device phase's dropped
+    shares."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    cfg = model.cfg
+    layers = moe_check_layers(cfg.n_layers)
+    seen = {}
+
+    def keep(i):
+        def hook(module, args):       # returns None: the args stay
+            seen.setdefault(i, args[0])
+        return hook
+
+    hooks = [model.blocks[i].moe.register_forward_pre_hook(keep(i))
+             for i in layers]
+    tf.prefill(model, prompts)
+    for h in hooks:
+        h.remove()
+    dp, tp = MP_MOE_WORLD
+    held = {}
+    with torch.no_grad():
+        for i in layers:
+            h = seen[i]
+            s_l = h.shape[1] // tp
+            outs, drops = [], []
+            for j in range(tp):
+                x = h[:, j * s_l:(j + 1) * s_l].reshape(-1, h.shape[-1])
+                stats = {}
+                out, _ = moe._moe_local(
+                    x, model.blocks[i].moe, cfg.moe,
+                    moe.expert_capacity(cfg.moe, x.shape[0]), stats)
+                outs.append(out.cpu())
+                drops.append(int(stats["dropped"]))
+            held[i] = {"h": h.cpu(), "outs": outs, "drops": drops}
+    torch.save({"prompts": prompts.cpu(), "layers": held, "shares": shares,
+                "share": share}, mp_file(mp_dir, "moe"))
+
+
+def mp_close(label: str, got, want, want32) -> dict:
+    """Hold bf16 ``got`` against the float32 arbiter ``want32`` no further
+    than the single-device bf16 ``want`` is (1.25x margin, max and mean),
+    and ``got`` against ``want`` within twice ``want``'s distance to
+    ``want32``: the LM phase's rule for two bf16 paths (``flash_rule``).
+    Returns the errors."""
+    e_mp = (got.float() - want32.float()).abs()
+    e_sd = (want.float() - want32.float()).abs()
+    out = {"max": float(e_mp.max()), "mean": float(e_mp.mean()),
+           "sd_max": float(e_sd.max()), "sd_mean": float(e_sd.mean()),
+           "vs_sd": float((got.float() - want.float()).abs().max())}
+    if out["max"] > 1.25 * out["sd_max"] or \
+            out["mean"] > 1.25 * out["sd_mean"] or \
+            out["vs_sd"] > 2 * out["sd_max"]:
+        fail(f"model parallel {label}: max {out['max']} mean {out['mean']} "
+             f"from the float32 model, single-device bf16 {out['sd_max']} "
+             f"and {out['sd_mean']}; {out['vs_sd']} from single-device "
+             f"bf16")
+    return out
+
+
+def mp_qwen3(mesh, seed: int, mp_dir: str, dev) -> dict:
+    """qwen3-0.6b at full width in bf16 on this rank: TP/SP flash prefill
+    of the LM phase's prompts, LM_STEPS greedy split-KV decode steps under
+    the decode rules and MP_LONG_STEPS under the long-context ones, each
+    fed the single-device phase's tokens; held against its answers."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import base
+    from repro_torch.dist import ShardingPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.launch import cells
+    from repro_torch.models import transformer as tf
+    arch = base.get("qwen3-0.6b")
+    cfg = dataclasses.replace(arch.make_config(), attn_impl="flash",
+                              max_seq=LM_PROMPT + LM_STEPS)
+    pol = {kind: ShardingPolicy(mesh=mesh, rules=cells._lm_rules(
+        arch, "decode" if kind != "prefill" else "prefill", mesh,
+        long_ctx=kind == "long_ctx"))
+        for kind in ("prefill", "decode", "long_ctx")}
+    ppol = pol["prefill"]
+    want = torch.load(mp_file(mp_dir, "lm"))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    model = tf.init_params(cfg, gen, dev, policy=ppol)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                            generator=gen, device=dev)
+    torch.cuda.synchronize()
+    out = {"lm_init_s": time.perf_counter() - t0,
+           "lm_params": sum(p.numel() for p in model.parameters())}
+    if not torch.equal(prompts.cpu(), want["prompts"]):
+        fail("model parallel qwen3: the seed drew other prompts")
+    batch = ppol.rules["act_btd"][0]
+    logits_rule = (ppol.rules["logits"][0], ppol.rules["logits"][2])
+    tok = ppol.relayout(prompts, (), (batch, None))
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = tf.prefill(model, tok, ppol)
+    torch.cuda.synchronize()
+    out["lm_prefill_s"] = time.perf_counter() - t0
+    n = dict(ops.launch_counts)
+    out["lm_prefill_launches"] = {k: v for k, v in n.items() if v}
+    if (n["flash_attention"] != cfg.n_layers
+            or n["flash_attention_wgmma"] != cfg.n_layers
+            or any(v for k, v in n.items()
+                   if not k.startswith("flash_attention"))):
+        fail(f"model parallel qwen3 prefill: launches {n}")
+    full = ppol.relayout(logits, logits_rule, ())
+    if full.shape != (LM_BATCH, cfg.vocab) or \
+            not bool(torch.isfinite(full).all()):
+        fail(f"model parallel qwen3: bad prefill logits {tuple(full.shape)}")
+    # the LM phase's rule: a flash prefill no further from float32 than
+    # 1.25 times the chunked bf16 prefill (flash_rule)
+    out["lm_prefill_err"] = mp_close("qwen3 prefill logits", full.cpu(),
+                                     want["logits_chunked"],
+                                     want["logits32"])
+    out["lm_prefill_err"]["sd_flash_max"] = float(
+        (want["logits"] - want["logits32"]).abs().max())
+    out["lm_prefill_err"]["vs_flash"] = float(
+        (full.cpu() - want["logits"]).abs().max())
+    # like for like: the flash prefill on one device, within twice its
+    # distance to float32 (the LM phase's rule for two bf16 paths)
+    if out["lm_prefill_err"]["vs_flash"] > \
+            2 * out["lm_prefill_err"]["sd_flash_max"]:
+        fail(f"model parallel qwen3 prefill logits: "
+             f"{out['lm_prefill_err']['vs_flash']} from the single-device "
+             f"flash prefill, more than twice its distance "
+             f"{out['lm_prefill_err']['sd_flash_max']} to float32")
+    tol = want["tol"]
+    out["lm_prefill_ties"] = greedy_ties(want["logits"], full.cpu(), tol)
+    first = ppol.relayout(tf.greedy(logits, ppol), (batch,), ())
+    if not torch.equal(first, full.argmax(-1)):
+        fail("model parallel qwen3: greedy over the vocabulary shards is not "
+             "the argmax of the gathered logits")
+    layers = list(MP_CACHE_LAYERS)
+    cache_err = {}
+    for name in ("k", "v"):
+        whole = ppol.relayout(cache[name], "kv_cache", ())
+        held = whole[layers, :, :, :LM_PROMPT].cpu()
+        cache_err[name] = mp_close(f"qwen3 cache {name}", held,
+                                   want["cache"][name], want["cache32"][name])
+        del whole
+    out["lm_cache_err"] = cache_err
+
+    for kind, steps in (("decode", LM_STEPS), ("long_ctx", MP_LONG_STEPS)):
+        dpol = pol[kind]
+        dbatch = (dpol.rules["act_btd"][0],)
+        drule = (dpol.rules["logits"][0], dpol.rules["logits"][2])
+        c = tf.relayout_cache(cache, ppol, dpol)
+        got, ties = [], 0
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for step in range(steps):
+            fed = dpol.relayout(want["fed"][step].to(dev), (), dbatch)
+            step_logits, c = tf.decode_step(model, c, fed, dpol)
+            g = dpol.relayout(tf.greedy(step_logits, dpol), dbatch, ())
+            whole = dpol.relayout(step_logits, drule, ())
+            if not torch.equal(g, whole.argmax(-1)):
+                fail(f"model parallel qwen3 {kind}: greedy over the "
+                     f"vocabulary shards is not the argmax")
+            got.append(whole.cpu())
+            ties += greedy_ties(want["steps"][step], got[-1], tol)
+        torch.cuda.synchronize()
+        out[f"lm_{kind}_ms"] = (time.perf_counter() - t0) * 1e3 / steps
+        launched = {k: v for k, v in ops.launch_counts.items() if v}
+        if launched:
+            fail(f"model parallel qwen3 {kind}: launched {launched}")
+        if c["length"] != LM_PROMPT + steps:
+            fail(f"model parallel qwen3 {kind}: cache length {c['length']}")
+        out[f"lm_{kind}_err"] = mp_close(
+            f"qwen3 {kind} logits", torch.stack(got),
+            want["steps"][:steps], want["steps32"][:steps])
+        out[f"lm_{kind}_ties"] = ties
+        out[f"lm_{kind}_local_seq"] = int(c["k"].shape[3])
+        del c
+    del model, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def mp_olmoe(mesh, seed: int, mp_dir: str, dev) -> dict:
+    """olmoe-1b-7b at full width in bf16 on this rank: the MoE of
+    ``moe_check_layers`` by expert parallelism on the rank's
+    sequence-parallel tokens of the single-device phase's input to that
+    layer, held against the single-device ``_moe_local`` of the same
+    tokens (dropped assignments exact, outputs within two bf16 ulps);
+    then the EP prefill of the prompts, with each layer's drops."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import base
+    from repro_torch.dist import ShardingPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.launch import cells
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    arch = base.get("olmoe-1b-7b")
+    cfg = dataclasses.replace(arch.make_config(), attn_impl="flash",
+                              max_seq=LM_PROMPT + LM_STEPS)
+    pol = ShardingPolicy(mesh=mesh, rules=cells._lm_rules(arch, "prefill",
+                                                          mesh))
+    want = torch.load(mp_file(mp_dir, "moe"))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    model = tf.init_params(cfg, gen, dev, policy=pol)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                            generator=gen, device=dev)
+    torch.cuda.synchronize()
+    out = {"moe_init_s": time.perf_counter() - t0,
+           "moe_params": sum(p.numel() for p in model.parameters()),
+           "moe_experts": [model.blocks[0].moe.w_in.shape[0],
+                           cfg.moe.n_experts]}
+    if not torch.equal(prompts.cpu(), want["prompts"]):
+        fail("model parallel olmoe: the seed drew other prompts")
+    me = pol.axis_index("model")
+    out["moe_layers"] = {}
+    for i, held in want["layers"].items():
+        x = pol.relayout(held["h"].to(dev), (), "act_btd")
+        stats = {}
+        with torch.no_grad():
+            got, _ = moe.moe_ffn(x, model.blocks[i].moe, cfg.moe, pol,
+                                 stats=stats)
+        got = got.reshape(-1, got.shape[-1]).float().cpu()
+        ref_out = held["outs"][me].float()
+        err = (got - ref_out).abs()
+        bad = int((err > 2.0 ** -6 * ref_out.abs() + 1e-3).sum())
+        rec = {"max_abs_err": float(err.max()), "bad": bad,
+               "dropped": int(stats["dropped"]),
+               "want_dropped": held["drops"][me],
+               "assigned": stats["assigned"], "capacity": stats["capacity"]}
+        out["moe_layers"][str(i)] = rec
+        if rec["dropped"] != rec["want_dropped"] or bad:
+            fail(f"model parallel olmoe layer {i}: {rec}")
+
+    routes = RouteRecorder(model)
+    routes.mark("prefill")
+    tok = pol.relayout(prompts, (), (pol.rules["act_btd"][0], None))
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = tf.prefill(model, tok, pol)
+    torch.cuda.synchronize()
+    out["moe_prefill_s"] = time.perf_counter() - t0
+    routes.mark("done")
+    n = dict(ops.launch_counts)
+    out["moe_prefill_launches"] = {k: v for k, v in n.items() if v}
+    if (n["flash_attention"] != cfg.n_layers
+            or n["flash_attention_wgmma"] != cfg.n_layers
+            or any(v for k, v in n.items()
+                   if not k.startswith("flash_attention"))):
+        fail(f"model parallel olmoe prefill: launches {n}")
+    out["moe_drops"] = [(i, int(d), a) for i, d, a in routes.drops["prefill"]]
+    routes.remove()
+    full = pol.relayout(logits, (pol.rules["logits"][0],
+                                 pol.rules["logits"][2]), ())
+    if full.shape != (LM_BATCH, cfg.vocab) or \
+            not bool(torch.isfinite(full).all()):
+        fail(f"model parallel olmoe: bad prefill logits {tuple(full.shape)}")
+    out["moe_cache_local"] = list(cache["k"].shape)
+    del model, cache, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def mp_two_tower(mesh, seed: int, mp_dir: str, dev) -> dict:
+    """Two-tower retrieval on this rank with both tables row-sharded over
+    "model", weights from the recsys phase's seeded draw: the item tower
+    on the first candidates' features bitwise the recsys phase's vectors,
+    then its 64 sketch requests by ``sah_retrieve_step`` over the
+    1,000,000 candidates: user vectors bitwise the single-device tower's,
+    ids and values bitwise the single-device composition of the sharded
+    scan; one ``srp_hash`` and one dense ``hamming_scores`` a request."""
+    import torch
+    from repro_torch.configs import base
+    from repro_torch.dist import ShardingPolicy, lm_rules
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import recsys as rec
+    pol = ShardingPolicy(mesh=mesh, rules=lm_rules(("data",), "model"))
+    cfg = base.get("two-tower-retrieval").make_config()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        model = rec.shard_tables(rec.init_twotower_params(gen, cfg,
+                                                          device=dev), pol)
+    torch.cuda.empty_cache()
+    want = torch.load(mp_file(mp_dir, "retrieval"))
+    cand, codes = want["cand"].to(dev), want["codes"].to(dev)
+    proj, users = want["proj"].to(dev), want["users"].to(dev)
+    torch.cuda.synchronize()
+    out = {"tt_setup_s": time.perf_counter() - t0,
+           "tt_table_rows": model.user_table.shape[0],
+           "tt_candidates": cand.shape[0]}
+    with torch.no_grad():
+        head = rec.item_tower(model, want["items_head"].to(dev), cfg, pol)
+        if not torch.equal(head.cpu(), want["cand"][:head.shape[0]]):
+            fail("model parallel two-tower: the item tower over the sharded "
+                 "item table differs from the single-device one")
+        u = torch.cat([rec.user_tower(model, users[i:i + 1], cfg, pol)
+                       for i in range(users.shape[0])])
+    if not torch.equal(u.cpu(), want["u"]):
+        fail("model parallel two-tower: user vectors differ from the "
+             "single-device tower's")
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vals, ids = [], []
+    for i in range(users.shape[0]):
+        v, d = serve.sah_retrieve_step(model, users[i:i + 1], cand, codes,
+                                       proj, cfg, pol, n_cand=RETR_N_CAND,
+                                       k=RETR_K)
+        vals.append(v)
+        ids.append(d)
+    torch.cuda.synchronize()
+    out["tt_ms"] = (time.perf_counter() - t0) * 1e3 / users.shape[0]
+    n = {k: v for k, v in ops.launch_counts.items() if v}
+    out["tt_launches"] = n
+    r = users.shape[0]
+    if n != {"srp_hash": r, "hamming_scores": r}:
+        fail(f"model parallel two-tower: launches {n}")
+    cv, ci = want["composed"][mesh.size()]
+    got_v, got_i = torch.stack(vals).cpu(), torch.stack(ids).cpu()
+    if not (torch.equal(got_i, ci) and torch.equal(got_v, cv)):
+        fail(f"model parallel two-tower: {int((got_i != ci).sum())} ids "
+             f"differ from the single-device composition")
+    out["tt_same_as_one_device"] = int(
+        (got_i == want["sketch_ids"]).all(1).sum())
+    del model, cand, codes
+    torch.cuda.empty_cache()
+    return out
+
+
+def mp_rank(rank: int, shape: tuple, seed: int, workdir: str,
+            mp_dir: str) -> None:
+    """One rank of a model-parallel world (``torch.multiprocessing.
+    spawn``): gloo over CUDA tensors, every rank on cuda:0, a ("data",
+    "model") ``DeviceMesh`` of ``shape``. Runs qwen3-0.6b (TP/SP prefill,
+    split-KV decode), olmoe-1b-7b's expert parallelism (on MP_MOE_WORLD)
+    and two-tower retrieval over row-sharded tables, each held against the
+    answers the single-device phases saved in ``mp_dir``; writes what it
+    saw to ``rank<r>.json`` in ``workdir``. A mismatch raises, and the
+    spawn fails the smoke."""
+    import datetime
+    import math
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(workdir, 'rendezvous')}",
+        rank=rank, world_size=math.prod(shape),
+        timeout=datetime.timedelta(seconds=MP_TIMEOUT))
+    try:
+        mesh = init_device_mesh("cuda", shape,
+                                mesh_dim_names=("data", "model"))
+        dev = torch.device("cuda", 0)
+        out = {"rank": rank, "coord": mesh.get_coordinate()}
+        for part in (mp_qwen3, mp_olmoe, mp_two_tower):
+            if part is mp_olmoe and tuple(shape) != MP_MOE_WORLD:
+                continue
+            dist.barrier()
+            t0 = time.perf_counter()
+            out.update(part(mesh, seed, mp_dir, dev))
+            out[f"{part.__name__}_s"] = time.perf_counter() - t0
+        out["peak"] = torch.cuda.max_memory_allocated()
+        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as fh:
+            json.dump(out, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def mp_path(seed: int, mp_dir: str) -> dict:
+    """The model-parallel phase: ``MP_WORLDS`` gloo worlds on the one card,
+    each rank held against the single-device phases' saved answers.
+    Returns each world's ranks' records and the launches a rank."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    torch.cuda.empty_cache()
+    moe_want = torch.load(mp_file(mp_dir, "moe"))
+    worlds = {}
+    for shape in MP_WORLDS:
+        world = shape[0] * shape[1]
+        with tempfile.TemporaryDirectory() as wdir:
+            t0 = time.perf_counter()
+            mp.spawn(mp_rank, args=(shape, seed, wdir, mp_dir), nprocs=world,
+                     join=True)
+            ranks = []
+            for r in range(world):
+                with open(os.path.join(wdir, f"rank{r}.json")) as fh:
+                    ranks.append(json.load(fh))
+        worlds[shape] = ranks
+        wall = time.perf_counter() - t0
+
+        def each(key, nd=3):
+            return [round(r[key], nd) if isinstance(r[key], float)
+                    else r[key] for r in ranks]
+
+        lead = ranks[0]
+        print(f"mp world={shape} (\"data\", \"model\"): backend gloo, {world} "
+              f"ranks on cuda:0, {wall:.1f} s in all ({MP_LABEL}); seconds "
+              f"a rank: qwen3 {each('mp_qwen3_s', 1)}, two-tower "
+              f"{each('mp_two_tower_s', 1)}"
+              + (f", olmoe {each('mp_olmoe_s', 1)}"
+                 if shape == MP_MOE_WORLD else "")
+              + f"; peak device memory a rank "
+              f"{[round(r['peak'] / 2**30, 2) for r in ranks]} GiB")
+        pe, ce = lead["lm_prefill_err"], lead["lm_cache_err"]
+        print(f"  mp world={shape} qwen3-0.6b TP/SP prefill ({LM_BATCH} x "
+              f"{LM_PROMPT} tokens, {lead['lm_params']:,} parameters a "
+              f"rank): {each('lm_prefill_s')} s a rank (the first, cold), "
+              f"launches {lead['lm_prefill_launches']} a rank; last logits "
+              f"from the float32 model max {pe['max']:.6f} mean "
+              f"{pe['mean']:.6f} (single-device bf16 chunked "
+              f"{pe['sd_max']:.6f} and {pe['sd_mean']:.6f}, flash max "
+              f"{pe['sd_flash_max']:.6f}), from single-device chunked max "
+              f"{pe['vs_sd']:.6f} and flash {pe['vs_flash']:.6f}; greedy "
+              f"ties {each('lm_prefill_ties')}; "
+              f"cache layers {list(MP_CACHE_LAYERS)} gathered: k max "
+              f"{ce['k']['max']:.6f} v max {ce['v']['max']:.6f} from float32 "
+              f"(single-device {ce['k']['sd_max']:.6f}, "
+              f"{ce['v']['sd_max']:.6f}), from single-device bf16 k "
+              f"{ce['k']['vs_sd']:.6f} v {ce['v']['vs_sd']:.6f}")
+        for kind, steps in (("decode", LM_STEPS),
+                            ("long_ctx", MP_LONG_STEPS)):
+            e = lead[f"lm_{kind}_err"]
+            print(f"  mp world={shape} qwen3-0.6b split-KV decode, {kind} "
+                  f"rules ({steps} steps fed the single-device tokens, KV "
+                  f"sequence {lead[f'lm_{kind}_local_seq']} positions a "
+                  f"rank): {each(f'lm_{kind}_ms')} ms/step a rank, no "
+                  f"kernel; logits from float32 max {e['max']:.6f} mean "
+                  f"{e['mean']:.6f} (single-device bf16 {e['sd_max']:.6f}, "
+                  f"{e['sd_mean']:.6f}), from single-device bf16 max "
+                  f"{e['vs_sd']:.6f}; greedy tokens equal the "
+                  f"single-device ones but for {each(f'lm_{kind}_ties')} "
+                  f"traced near-ties")
+        if shape == MP_MOE_WORLD:
+            drops = {}
+            for r in ranks:
+                for i, d, a in r["moe_drops"]:
+                    got = drops.setdefault(i, [0, 0])
+                    got[0] += d
+                    got[1] += a
+            shares = [drops[i][0] / drops[i][1] for i in sorted(drops)]
+            total = (sum(d for d, _ in drops.values())
+                     / sum(a for _, a in drops.values()))
+            def layer(i, key):
+                return [round(r["moe_layers"][i][key], 6) for r in ranks]
+
+            print(f"  mp world={shape} olmoe-1b-7b expert parallelism "
+                  f"({lead['moe_params']:,} parameters a rank, "
+                  f"{lead['moe_experts'][0]} of {lead['moe_experts'][1]} "
+                  f"experts): "
+                  + "; ".join(
+                      f"layer {i} on the single-device layer's input: "
+                      f"dropped {layer(i, 'dropped')} = the per-shard "
+                      f"composition's {layer(i, 'want_dropped')} of "
+                      f"{layer(i, 'assigned')} at capacity "
+                      f"{lead['moe_layers'][i]['capacity']}, outputs max "
+                      f"abs err {layer(i, 'max_abs_err')}"
+                      for i in lead["moe_layers"])
+                  + f" (within 2**-6 |ref| + 1e-3); EP prefill "
+                  f"{each('moe_prefill_s')} s a rank, launches "
+                  f"{lead['moe_prefill_launches']} a rank; dropped "
+                  f"{total:.4%} of assignments (single device "
+                  f"{moe_want['share']:.4%}), by layer "
+                  + ", ".join(f"{x:.4%}" for x in shares)
+                  + " (single device "
+                  + ", ".join(f"{x:.4%}" for x in moe_want["shares"]) + ")")
+        print(f"  mp world={shape} two-tower retrieval ({RETR_REQUESTS} "
+              f"sketch requests, {lead['tt_candidates']:,} candidates, "
+              f"tables row-sharded: "
+              f"{lead['tt_table_rows']:,} user rows a rank): "
+              f"{each('tt_ms')} ms/request a rank, launches "
+              f"{lead['tt_launches']} a rank; item tower and user vectors "
+              f"bitwise the single-device towers; ids and values bitwise "
+              f"the single-device composition of the sharded scan (n_cand "
+              f"{RETR_N_CAND} a shard); {each('tt_same_as_one_device')} of "
+              f"{RETR_REQUESTS} requests have the single-device n_cand "
+              f"{RETR_N_CAND} answer")
+    return worlds
 
 
 # -- the cells phase -------------------------------------------------------
@@ -3687,21 +4391,30 @@ def main() -> int:
                              items, results)
     phase_done("serving")
 
+    # the single-device phases' answers that the model-parallel phase holds
+    # its ranks against
+    mp_dir = tempfile.TemporaryDirectory()
+
     # -- recsys serving at full width, counted; frees its tables -------------
     with torch.no_grad():           # the towers' parameters are trainable
-        rec_out = recsys_path(args.seed, dev)
+        rec_out = recsys_path(args.seed, dev, mp_dir.name)
     phase_done("recsys")
 
     # -- LM serving path, counted ---------------------------------------------
-    lm = lm_path(args.seed, dev)
+    lm = lm_path(args.seed, dev, mp_dir.name)
     lm["flash_build"] = flash_build
     phase_done("lm path")
 
     # -- MoE LM serving (olmoe-1b-7b), then mistral-nemo-12b, counted -------
-    moe_out = moe_path(args.seed, dev)
+    moe_out = moe_path(args.seed, dev, mp_dir.name)
     phase_done("moe lm")
     nemo_out = nemo_path(args.seed, dev)
     phase_done("nemo lm")
+
+    # -- model parallelism: gloo worlds (1, 2) and (2, 2) on the card ---------
+    mp_worlds = mp_path(args.seed, mp_dir.name)
+    mp_dir.cleanup()
+    phase_done("model parallel")
 
     # -- kernels against their plain versions, at main-path inputs -----------
     n_top = cfg.n_top or 2 * cfg.k_max
@@ -3922,6 +4635,10 @@ def main() -> int:
             for line in _build.build_log(name).splitlines()
             if "Used" in line or "spill" in line or "stack" in line))
     flash_entry = flash_kernel_entry(lm, args.seed, dev)
+    qwen_tp_entry = flash_tp_entry("qwen3-0.6b", lm["model"], lm["prompts"],
+                                   MP_TP)
+    qwen_tp_entry["row_parallel"] = row_parallel_times(
+        lm["model"], lm["prompts"], MP_TP)
     phase_done("kernel times")
     profile_query(eng, queries, 10, steps[10])
     profile_query(eng8, queries, 10, steps[10])
@@ -3947,6 +4664,25 @@ def main() -> int:
                torch.cuda.max_memory_allocated())
     print(f"peak device memory: {peak / 2**30:.2f} GiB")
 
+    # the model-parallel phase's launches, a rank, by world
+    def mp_launches(key, name, worlds=MP_WORLDS):
+        return {str(shape): [r[key].get(name, 0) for r in mp_worlds[shape]]
+                for shape in worlds}
+
+    flash_entry["launches_mp"] = mp_launches("lm_prefill_launches",
+                                             "flash_attention")
+    moe_out["entry"]["launches_mp"] = mp_launches(
+        "moe_prefill_launches", "flash_attention", (MP_MOE_WORLD,))
+    for entry, key, worlds in ((qwen_tp_entry, "lm_prefill_launches",
+                                MP_WORLDS),
+                               (moe_out["tp_entry"], "moe_prefill_launches",
+                                (MP_MOE_WORLD,))):
+        entry["launches_mp"] = mp_launches(key, "flash_attention", worlds)
+        entry["launches"] = mp_worlds[worlds[0]][0][key]["flash_attention"]
+        entry["launches_wgmma"] = mp_worlds[worlds[0]][0][key][
+            "flash_attention_wgmma"]
+        entry["launches_are"] = "a rank, in the model-parallel prefill"
+
     kernels = [
         {"name": "srp_hash", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/srp_hash.cu",
@@ -3969,6 +4705,7 @@ def main() -> int:
          "launches_cells_path": cells_out["cells"][
              "two-tower-retrieval/retrieval_cand_sah"]["launches"][
              "srp_hash"],
+         "launches_mp_retrieval": mp_launches("tt_launches", "srp_hash"),
          **serve_out["srp"], **rec_out["srp"]},
         {"name": "hamming_nearest", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hamming_scan.cu",
@@ -4000,6 +4737,8 @@ def main() -> int:
              "launches_cells_path": cells_out["cells"][
                  "two-tower-retrieval/retrieval_cand_sah"]["launches"][
                  "hamming_scores"],
+             "launches_mp_retrieval": mp_launches("tt_launches",
+                                                  "hamming_scores"),
              "max_abs_err": ham_err, "ms": ham_ms, "plain_ms": ham_plain,
              "bound_ms": ham_bound, "bound_by": ham_by, "call_ms": ham_call,
              "library_ms": None, **serve_out["dense"],
@@ -4028,7 +4767,7 @@ def main() -> int:
          "shape": f"{tuple(users_fwd.shape)}x{tuple(items.shape)}, k "
                   f"{K_FWD}", **rec_out["ip_topk"]},
         flash_entry, moe_out["entry"], nemo_out["entry"],
-        cells_out["flash"],
+        cells_out["flash"], qwen_tp_entry, moe_out["tp_entry"],
     ]
     print(f"phases (host s): {phases}; total "
           f"{time.perf_counter() - T_START:.1f} s since start")

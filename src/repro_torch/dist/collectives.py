@@ -1,4 +1,5 @@
-"""The collectives of the mesh paths, over the group that spans the mesh.
+"""The collectives of the mesh paths, over the group that spans the mesh or
+over one mesh axis.
 
 The reference's ``shard_map`` bodies end in ``all_gather(..., tiled=True)``
 and ``psum`` over every mesh axis; under SPMD these are explicit
@@ -8,12 +9,25 @@ the serving runtime's compaction does, ``spare_group``), whose ranks the
 mesh must span. Results come back in mesh order (``policy.shard_rank``),
 the order JAX tiles ``P(axes)`` in, whatever the ranks' global numbers.
 
+The model-parallel paths (slice 16: the LM's TP/SP layers, split-KV
+decode, MoE expert parallelism, row-sharded tables) need collectives over
+one named axis of the mesh, on ``mesh.get_group(axis)``: ``all_gather``
+(JAX's ``all_gather(tiled=True)``), ``reduce_scatter`` (sum),
+``all_to_all`` (JAX's ``split_axis``/``concat_axis``, ``tiled=True``),
+and ``psum``/``pmax``/``pmean`` over a tuple of axes (one axis after the
+other). A chunk's place is the rank's coordinate along the axis, not its
+rank within the axis group.
+
 The caller initializes the process group and so picks the backend: NCCL
 on a multi-GPU host, gloo on the CPU, and gloo over CUDA tensors where
 several ranks share one card (NCCL refuses two ranks on one device).
-Gloo takes CUDA tensors for every collective used here (list
-``all_gather``, ``all_reduce``, ``broadcast``) and stages them through
-the host itself, so no path here copies to the host on its own.
+Gloo takes CUDA tensors for every collective used here and stages them
+through the host itself, so no path here copies to the host on its own:
+list ``all_gather``, ``all_reduce`` (sum and max), ``broadcast``,
+``reduce_scatter`` and ``all_to_all_single``. It refuses the list
+``all_to_all`` on CUDA tensors ("Backend gloo does not support
+alltoall", seen on torch 2.11 with CUDA 12.8), so ``all_to_all`` is
+written on ``all_to_all_single``, which NCCL takes as well.
 """
 
 from __future__ import annotations
@@ -91,6 +105,52 @@ def check_same_call(queries: torch.Tensor, k: int, who: str,
                          f"every rank must make the same call")
 
 
+def agree(policy: ShardingPolicy, who: str, error: Exception | None,
+          tokens: torch.Tensor, batch_axes=(), step: int = 0) -> None:
+    """The model-parallel entry points' call contract, held before their
+    first collective: every rank passed its own checks (``error`` is what
+    they raised, or None), every rank is at the same ``step`` (a decode
+    position), and ranks at the same coordinate along ``batch_axes`` hold
+    the same ``tokens``. One all_gather of five int64 a call (a failure
+    flag, the tokens' shape, a checksum of them, ``step``); on a
+    mismatch every rank raises together, a rank that failed its own
+    ``error``, the others a ``ValueError`` naming the ranks at fault (a
+    rank that raised alone would leave the others waiting in the next
+    collective)."""
+    import numpy as np
+    t = tokens.reshape(tokens.shape[0], -1).to(torch.int64)
+    weights = torch.arange(1, t.numel() + 1, dtype=torch.int64,
+                           device=t.device).reshape(t.shape)
+    mine = torch.tensor([int(error is not None), *t.shape, 0, step],
+                        dtype=torch.int64, device=t.device)
+    mine[3] = (t * weights).sum()
+    rows = all_gather_cat(mine[None], policy).cpu()      # (world, 5)
+    failed = rows[:, 0].nonzero().flatten().tolist()
+    if failed:
+        if error is not None:
+            raise error
+        raise ValueError(f"{who}: the ranks at mesh positions {failed} "
+                         f"refused the call")
+    if not bool((rows[:, 4] == rows[0, 4]).all()):
+        raise ValueError(f"{who}: the ranks are at steps "
+                         f"{rows[:, 4].tolist()}; every rank must make the "
+                         f"same call")
+    names = tuple(policy.mesh.mesh_dim_names)
+    coords = np.stack(np.unravel_index(np.arange(rows.shape[0]),
+                                       tuple(policy.mesh.mesh.shape)), 1)
+    keys = [tuple(c[names.index(a)] for a in _axes(batch_axes))
+            for c in coords]
+    first = {}
+    for i, key in enumerate(keys):
+        j = first.setdefault(key, i)
+        if not torch.equal(rows[i, 1:4], rows[j, 1:4]):
+            raise ValueError(
+                f"{who}: the ranks at mesh positions {j} and {i} hold the "
+                f"same batch shard but were given different tokens; ranks "
+                f"along the axes that do not split the batch must make the "
+                f"same call")
+
+
 def group_timeout(group=None):
     """The timeout of ``group``'s backend (None: the default group), or
     None where the backend does not expose it."""
@@ -111,3 +171,127 @@ def spare_group():
     default group. Every rank must call it, in the same order (group
     creation is collective)."""
     return _dist().new_group(timeout=group_timeout())
+
+
+# -- collectives over one mesh axis (model parallelism) ---------------------
+
+
+def _axes(axes) -> tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def _axis_ranks(policy: ShardingPolicy, axis: str) -> list[int]:
+    """The global ranks of this rank's line along mesh axis ``axis``, in
+    coordinate order (the order JAX tiles a dim sharded over ``axis``)."""
+    dist = _dist()
+    names = tuple(policy.mesh.mesh_dim_names or ())
+    if axis not in names:
+        raise ValueError(f"mesh axes {names} have no {axis!r}")
+    mesh = policy.mesh.mesh
+    dim = names.index(axis)
+    coord = [int(c[0]) for c in (mesh == dist.get_rank()).nonzero(
+        as_tuple=True)]
+    coord[dim] = slice(None)
+    return mesh[tuple(coord)].tolist()
+
+
+def _axis_group(policy: ShardingPolicy, axis: str):
+    """(the axis's process group, its group ranks in coordinate order)."""
+    dist = _dist()
+    group = policy.mesh.get_group(axis)
+    return group, [dist.get_group_rank(group, r)
+                   for r in _axis_ranks(policy, axis)]
+
+
+def all_gather(t: torch.Tensor, policy: ShardingPolicy, axis: str,
+               dim: int) -> torch.Tensor:
+    """The shards of ``t`` along mesh axis ``axis`` concatenated along
+    ``dim`` in coordinate order: JAX's ``all_gather(t, axis, axis=dim,
+    tiled=True)``."""
+    dist = _dist()
+    group, order = _axis_group(policy, axis)
+    if len(order) == 1:
+        return t
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in order]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat([parts[g] for g in order], dim=dim)
+
+
+def reduce_scatter(t: torch.Tensor, policy: ShardingPolicy, axis: str,
+                   dim: int) -> torch.Tensor:
+    """The sum of every rank's ``t`` along mesh axis ``axis``, of which
+    this rank keeps its coordinate's chunk of ``dim``: JAX's
+    ``psum_scatter(t, axis, scatter_dimension=dim, tiled=True)``."""
+    dist = _dist()
+    group, order = _axis_group(policy, axis)
+    n = len(order)
+    if n == 1:
+        return t
+    if t.shape[dim] % n:
+        raise ValueError(f"reduce_scatter over {axis!r} ({n} ranks): dim "
+                         f"{dim} of shape {tuple(t.shape)} does not divide")
+    chunks = [c.contiguous() for c in t.chunk(n, dim=dim)]
+    send = [None] * n
+    for c, g in enumerate(order):
+        send[g] = chunks[c]
+    out = torch.empty_like(chunks[0])
+    dist.reduce_scatter(out, send, group=group)
+    return out
+
+
+def all_to_all(t: torch.Tensor, policy: ShardingPolicy, axis: str, *,
+               split_axis: int, concat_axis: int) -> torch.Tensor:
+    """JAX's ``all_to_all(t, axis, split_axis, concat_axis, tiled=True)``:
+    ``t`` cut into as many chunks along ``split_axis`` as the axis has
+    ranks, chunk c sent to coordinate c, and the chunks received from
+    coordinates 0, 1, ... concatenated along ``concat_axis``. One
+    ``all_to_all_single`` (module docstring)."""
+    dist = _dist()
+    group, order = _axis_group(policy, axis)
+    n = len(order)
+    if n == 1:
+        return t
+    if t.shape[split_axis] % n:
+        raise ValueError(f"all_to_all over {axis!r} ({n} ranks): split "
+                         f"axis {split_axis} of shape {tuple(t.shape)} "
+                         f"does not divide")
+    moved = t.movedim(split_axis, 0)
+    chunks = moved.reshape(n, moved.shape[0] // n, *moved.shape[1:])
+    by_group = [None] * n
+    for c, g in enumerate(order):
+        by_group[g] = c
+    send = chunks[by_group].contiguous()        # row g goes to group rank g
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    parts = [recv[g].movedim(0, split_axis) for g in order]
+    return torch.cat(parts, dim=concat_axis)
+
+
+def _reduce(t: torch.Tensor, policy: ShardingPolicy, axes, op):
+    dist = _dist()
+    out = t.clone(memory_format=torch.contiguous_format)
+    for axis in _axes(axes):
+        group, order = _axis_group(policy, axis)
+        if len(order) > 1:
+            dist.all_reduce(out, op=op, group=group)
+    return out
+
+
+def psum(t: torch.Tensor, policy: ShardingPolicy, axes) -> torch.Tensor:
+    """The sum of ``t`` over the mesh axes ``axes`` (a name or a tuple),
+    as a new tensor: JAX's ``psum``."""
+    return _reduce(t, policy, axes, _dist().ReduceOp.SUM)
+
+
+def pmax(t: torch.Tensor, policy: ShardingPolicy, axes) -> torch.Tensor:
+    """The elementwise max of ``t`` over the mesh axes ``axes``."""
+    return _reduce(t, policy, axes, _dist().ReduceOp.MAX)
+
+
+def pmean(t: torch.Tensor, policy: ShardingPolicy, axes) -> torch.Tensor:
+    """The mean of ``t`` over the mesh axes ``axes``: JAX's ``pmean``."""
+    n = 1
+    for axis in _axes(axes):
+        n *= policy.axis_size(axis)
+    return psum(t, policy, axes) / n

@@ -9,12 +9,25 @@ None); ``()`` is the fully replicated ``P()``.
 
   * single-device (``NO_SHARDING``): ``sharding`` is None and
     ``constrain`` the identity, as in the reference;
-  * under a mesh: the RkMIPS engine shards its user rows and the forward
-    scan its item rows over every mesh axis (``engine/sharding.py``),
-    one process per rank (SPMD), in the order ``shard_rank`` gives.
-    Pinning a named activation or parameter layout (``sharding`` and
-    ``constrain`` of a rule the policy has) is model parallelism, which
-    waits for slice 16 of the port's multi-GPU work and raises.
+  * under a mesh the program is explicit SPMD: one process per rank, each
+    holding its local shard of every tensor, and collectives on the
+    mesh's groups where the reference's GSPMD would insert them. The
+    RkMIPS engine shards its user rows and the forward scan its item rows
+    over every mesh axis (``engine/sharding.py``), in the order
+    ``shard_rank`` gives. The models (slice 16: ``models/transformer.py``,
+    ``models/moe.py``, ``models/embedding.py``) keep each named tensor in
+    its rule's layout: ``sharding(name)`` is the rule as placements over
+    the ``DeviceMesh`` (one ``Shard(dim)`` or ``Replicate()`` a mesh
+    dimension), and ``relayout(x, src, dst)`` moves a rank-local tensor
+    from one layout to another (a gather, a scatter-reduce of partial
+    sums, a slice): the explicit form of what GSPMD inserts between two
+    ``constrain``s. ``constrain`` of a plain local tensor under a mesh
+    raises, pointing to ``relayout``: a local tensor has no layout to
+    pin, and a silent identity would hide a missing collective.
+
+A dim sharded over several axes is tiled row-major over them in the
+rule's order, as JAX tiles ``P(("data", "model"))``: rank (i, j) of a
+(2, 2) mesh holds chunk ``i * 2 + j``.
 
 Rule names are the reference's closed vocabulary (DESIGN.md SS5):
 act_btd, act_attn_in, act_bhsd, act_btf, logits, kv_cache for the
@@ -39,8 +52,8 @@ DP_AXIS_NAMES = ("pod", "data")
 TP_AXIS_NAME = "model"
 
 # the mesh work still to port, named in the NotImplementedError it raises
-MODEL_SLICE = ("the multi-GPU slice 16 of the port (model parallelism "
-               "under a mesh)")
+MODEL_SLICE = ("the multi-GPU slice 17 of the port (model-parallel training "
+               "and the cells under a mesh)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,19 +75,131 @@ class ShardingPolicy:
         """The layout rule registered under ``name`` (None if absent)."""
         return self.rules.get(name)
 
+    def axes(self, spec) -> tuple[tuple[str, ...], ...]:
+        """``spec`` (a rule name or a rule) as one tuple of axis names per
+        dimension; a name the policy has no rule for raises."""
+        if isinstance(spec, str):
+            if spec not in self.rules:
+                raise KeyError(f"the policy has no rule {spec!r}")
+            spec = self.rules[spec]
+        return tuple(_axes_tuple(e) for e in spec)
+
     def sharding(self, name: str):
-        """None when unsharded or the rule is unknown; a rule under a mesh
-        waits for model parallelism and raises."""
+        """None when unsharded or the rule is unknown; under a mesh the
+        rule as ``DeviceMesh`` placements, one a mesh dimension:
+        ``Shard(d)`` where the mesh axis shards dim d, else
+        ``Replicate()``."""
         if self.mesh is None or name not in self.rules:
             return None
-        raise NotImplementedError(
-            f"ShardingPolicy.sharding({name!r}) under a mesh waits for "
-            f"{MODEL_SLICE}")
+        from torch.distributed.tensor import Replicate, Shard
+        names = self._names()
+        where = {}
+        for d, axes in enumerate(self.axes(name)):
+            order = [names.index(a) for a in axes if a in names]
+            if order != sorted(order):
+                raise ValueError(f"rule {name!r}: dim {d} is tiled over "
+                                 f"{axes}, not in the mesh's order {names}; "
+                                 f"placements cannot say so")
+            for a in axes:
+                if a in where:
+                    raise ValueError(f"rule {name!r} shards two dims over "
+                                     f"mesh axis {a!r}")
+                where[a] = d
+        return tuple(Shard(where[a]) if a in where else Replicate()
+                     for a in names)
 
     def constrain(self, x, name: str):
         """Pin ``x`` to the layout of rule ``name``: the identity without
-        a mesh or for an unknown name, as in the reference."""
-        self.sharding(name)          # raises for a rule under a mesh
+        a mesh or for an unknown name, as in the reference. Under a mesh
+        a rank's local tensor raises (use ``relayout``)."""
+        if self.sharding(name) is None:
+            return x
+        raise TypeError(
+            f"constrain({name!r}) of a local tensor under a mesh: the port "
+            f"runs explicit SPMD, so a rank's tensor has no layout to pin; "
+            f"move it with policy.relayout(x, src, {name!r})")
+
+    def axis_index(self, axes) -> int:
+        """This rank's chunk index along a dim tiled over ``axes`` (a name
+        or a tuple, row-major in its order); 0 without a mesh."""
+        if self.mesh is None:
+            return 0
+        idx = 0
+        for a in _axes_tuple(axes):
+            if a in self._names():
+                idx = idx * self.axis_size(a) + int(
+                    self.mesh.get_local_rank(a))
+        return idx
+
+    def axes_size(self, axes) -> int:
+        """The product of the sizes of ``axes`` (1 without a mesh)."""
+        size = 1
+        for a in _axes_tuple(axes):
+            size *= self.axis_size(a)
+        return size
+
+    def local_shape(self, shape, spec, what: str = "tensor") -> tuple:
+        """The rank-local shape of a global ``shape`` in layout ``spec``;
+        a dim its axes do not divide raises, naming ``what`` and the
+        dim."""
+        axes = self.axes(spec)
+        if len(axes) > len(shape):
+            raise ValueError(f"{what}: layout {axes} has more dims than "
+                             f"shape {tuple(shape)}")
+        out = list(shape)
+        for d, a in enumerate(axes):
+            n = self.axes_size(a)
+            if out[d] % n:
+                raise ValueError(f"{what}: dim {d} of shape {tuple(shape)} "
+                                 f"({out[d]}) does not divide over {a} "
+                                 f"({n} ranks)")
+            out[d] //= n
+        return tuple(out)
+
+    def relayout(self, x: torch.Tensor, src, dst, *,
+                 partial=()) -> torch.Tensor:
+        """Move the rank-local ``x`` from layout ``src`` to layout ``dst``
+        (each a rule name or a rule; trailing dims absent from a rule are
+        replicated). ``partial`` names mesh axes over which the ranks'
+        ``x`` are partial sums of the true value: each is reduced, by a
+        reduce-scatter onto the dim ``dst`` newly shards over it, else by
+        an all-reduce. Then each dim is gathered over the axes ``src``
+        has and ``dst`` has not, and sliced over the axes ``dst`` adds;
+        slicing alone needs no communication. The identity without a
+        mesh."""
+        if self.mesh is None:
+            return x
+        from repro_torch.dist import collectives as coll
+        nd = x.dim()
+        pad = lambda axes: axes + ((),) * (nd - len(axes))  # noqa: E731
+        s_axes = list(pad(self.axes(src)))
+        d_axes = pad(self.axes(dst))
+        for a in _axes_tuple(partial):
+            if self.axis_size(a) == 1:
+                continue
+            dims = [d for d in range(nd)
+                    if d_axes[d][:len(s_axes[d]) + 1] == s_axes[d] + (a,)]
+            if dims:
+                x = coll.reduce_scatter(x, self, a, dims[0])
+                s_axes[dims[0]] = s_axes[dims[0]] + (a,)
+            else:
+                x = coll.psum(x, self, a)
+        for d in range(nd):
+            have, want = s_axes[d], d_axes[d]
+            keep = 0
+            while (keep < min(len(have), len(want))
+                   and have[keep] == want[keep]):
+                keep += 1
+            for a in reversed(have[keep:]):          # innermost first
+                x = coll.all_gather(x, self, a, d)
+            extra = want[keep:]
+            if extra:
+                n = self.axes_size(extra)
+                if x.shape[d] % n:
+                    raise ValueError(f"relayout: dim {d} of {tuple(x.shape)}"
+                                     f" does not divide over {extra} ({n} "
+                                     f"ranks)")
+                x = x.chunk(n, dim=d)[self.axis_index(extra)]
         return x
 
     # -- mesh geometry -----------------------------------------------------

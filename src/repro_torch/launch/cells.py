@@ -9,10 +9,12 @@ that runs.
 
 What differs from the reference:
 
-* No mesh: a cell is for one device. The sharding specs
-  (``_shardings``, ``opt_state_specs``, ``_lm_rules``,
-  ``_zero1_opt_specs``, ``_recsys_param_specs``) wait for slice 16 of
-  the port's multi-GPU work, and so does the ``zero1`` variant.
+* No mesh: a cell is for one device. ``_lm_rules`` (the prefill and
+  decode rule sets) is ported, since the model-parallel serving path
+  runs under it (slice 16); the other sharding specs (``_shardings``,
+  ``opt_state_specs``, ``_zero1_opt_specs``, ``_recsys_param_specs``),
+  the cells under a mesh and the ``zero1`` variant wait for slice 17 of
+  the port's multi-GPU work.
 * A step takes the model first: the port's models are modules where the
   reference passes a params pytree. ``abstract_args`` are meta tensors
   and a meta model; a train cell's args are (model, ``TrainState`` of the
@@ -44,6 +46,7 @@ from typing import Callable
 import torch
 
 from repro_torch.configs import base as cfg_base
+from repro_torch.dist import policy as pol
 from repro_torch.kernels import ref as kref
 from repro_torch.models import gat as gat_lib
 from repro_torch.models import recsys as rec_lib
@@ -123,6 +126,38 @@ def _train_step(loss: Callable, optimizer, grad_accum: int = 1):
 # ---------------------------------------------------------------------------
 # LM cells
 # ---------------------------------------------------------------------------
+
+
+def _lm_rules(arch: cfg_base.ArchSpec, kind: str, mesh,
+              long_ctx: bool = False) -> dict[str, tuple]:
+    """The LM rules of a cell on ``mesh`` (a ``DeviceMesh``;
+    ``cells.py:121-144``). Train and prefill: ``lm_rules`` (pure data
+    parallel for an arch that trains so, on 256 ranks), heads replicated
+    where the arch's heads do not shard (``tp_heads=False``). Decode: the
+    batch over the data axes and the KV cache's sequence over "model", or
+    for a long context the batch replicated and the sequence over every
+    axis."""
+    names = tuple(mesh.mesh_dim_names or ())
+    dp = tuple(a for a in pol.DP_AXIS_NAMES if a in names)
+    tp = pol.TP_AXIS_NAME
+    if kind in ("train", "prefill"):
+        pure = arch.pure_dp_train and kind == "train" and mesh.size() == 256
+        rules = pol.lm_rules(dp, tp, pure_dp=pure)
+        if not arch.tp_heads and not pure:
+            rules["act_bhsd"] = pol._spec(dp, None, None, None)
+        return rules
+    kv_seq = (dp + (tp,)) if long_ctx else (tp,)
+    batch = () if long_ctx else dp
+    rules = pol.lm_rules(dp, tp, pure_dp=False)
+    rules.update({
+        "act_btd": pol._spec(batch, None, None),
+        "act_btf": pol._spec(batch, None, tp),
+        "act_bhsd": pol._spec(batch, tp if arch.tp_heads else None, None,
+                              None),
+        "logits": pol._spec(batch, None, tp),
+        "kv_cache": pol._spec(None, batch, None, kv_seq, None),
+    })
+    return rules
 
 
 def build_lm_cell(arch: cfg_base.ArchSpec, shape: cfg_base.ShapeSpec,

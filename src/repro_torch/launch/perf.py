@@ -10,9 +10,9 @@ Twin of ``src/repro/launch/perf.py``. Variants:
                   (``launch/serve.py::build_sah_retrieval_cell``)
   qwen3_zero1     qwen3-0.6b train_4k, pure-DP + ZeRO-1 optimizer sharding
   gat_dstpart     gat-cora ogb_products, dst-partitioned aggregation
-The last two shard over a device mesh and wait for slice 16 of the port's
-multi-GPU work, model parallelism (ROADMAP.md, queue 1 item 4): asking
-for one raises.
+The last two shard over a device mesh and wait for slice 17 of the port's
+multi-GPU work, model-parallel training and the cells under a mesh
+(ROADMAP.md, queue 1 item 4): asking for one raises.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ def run_variant(variant: str, out_dir: str, *, measure: bool = False
     if variant in MESH_VARIANTS:
         raise NotImplementedError(
             f"perf variant {variant!r} shards over a device mesh: it waits "
-            f"for the multi-GPU slice 16 of the port, model parallelism "
+            f"for the multi-GPU slice 17 of the port, model-parallel training "
             f"(ROADMAP.md, queue 1 item 4)")
     if variant != "retrieval_sah":
         raise ValueError(f"unknown perf variant {variant!r}")

@@ -14,9 +14,12 @@ candidate vectors.
 
 ``sah_retrieve_step`` is split at the user vector: ``retrieve_for_user``
 is its discrete part (the query's SRP code, the scan), so a test can feed
-it the reference's tower output. Under a mesh policy the candidate scan
-shards over its rows (``engine/sharding.py::kmips_flat_arrays``); the
-towers' sharded tables wait for slice 16 of the port's multi-GPU work.
+it the reference's tower output. Under a mesh policy (every rank makes
+the same call) the user tower looks up its row-sharded tables
+(``recsys.shard_tables``; a masked take summed over "model") and the
+candidate scan shards over its rows (``engine/sharding.py::
+kmips_flat_arrays``, ``n_cand`` a shard): one ``srp_hash`` and one dense
+``hamming_scores`` a request on every rank.
 ``build_sah_retrieval_cell``
 returns the dry-run ``Cell`` of this path (two-tower-retrieval x
 retrieval_cand, variant "sah"; ``launch/cells.py``). Each entry point

@@ -11,6 +11,14 @@ the KV chunks carrying the running (max, denominator, accumulator) triple,
 FlashAttention's recurrence written as tensor ops, so the peak live
 intermediate is (B, H, S_q, chunk). ``decode_attention`` scores one query
 position against a KV cache with positions at or past ``length`` masked.
+
+Split-KV decode (a cache whose sequence is sharded over mesh axes, the
+decode rules' ``kv_cache``): ``decode_attention_shard`` attends over one
+rank's positions and returns (o, m, l), its output normalized over the
+shard, the shard's max score and its softmax denominator at that max; a
+shard with no valid position gives (0, -1e30, 0). ``merge_decode``
+combines the ranks' triples by log-sum-exp: with M the max of the m's,
+each o weighs exp(m - M) * l.
 """
 
 from __future__ import annotations
@@ -95,16 +103,44 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """One-position attention against a cache.
 
     q (B, H, Dh); k_cache/v_cache (B, H, Smax, Dh) (already GQA-repeated);
-    length: the cache fill (positions >= length are masked).
-    """
-    smax, dh = k_cache.shape[2], k_cache.shape[3]
-    out_dtype = q.dtype
+    length: the cache fill (positions >= length are masked). The whole
+    cache as one shard of ``decode_attention_shard``."""
+    return decode_attention_shard(q, k_cache, v_cache, length, 0)[0].to(
+        q.dtype)
+
+
+def decode_attention_shard(q: torch.Tensor, k_shard: torch.Tensor,
+                           v_shard: torch.Tensor, length: int, offset: int
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """One-position attention over a shard of the cache's sequence.
+
+    q (B, H, Dh); k_shard/v_shard (B, H, S_local, Dh) (already
+    GQA-repeated) holding positions ``offset`` to ``offset + S_local - 1``;
+    positions at or past ``length`` are masked. -> (o (B, H, Dh) in float32
+    normalized over the shard, m (B, H), l (B, H))."""
+    s_local, dh = k_shard.shape[2], k_shard.shape[3]
     s = torch.einsum("bhd,bhsd->bhs", (q * dh ** -0.5).to(torch.float32),
-                     k_cache.to(torch.float32))
-    valid = torch.arange(smax, device=q.device)[None, None, :] < length
+                     k_shard.to(torch.float32))
+    valid = (offset + torch.arange(s_local, device=q.device)
+             )[None, None, :] < length
     s = torch.where(valid, s, _NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bhs,bhsd->bhd", p, v_cache.to(torch.float32))
-    return (out / torch.clamp(l, min=1e-30)).to(out_dtype)
+    m = s.amax(dim=-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhs,bhsd->bhd", p, v_shard.to(torch.float32))
+    return o / torch.clamp(l, min=1e-30)[..., None], m, l
+
+
+def merge_decode(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor, policy,
+                 axes, out_dtype=None) -> torch.Tensor:
+    """Merge the shards' ``decode_attention_shard`` triples over the mesh
+    ``axes`` by log-sum-exp -> (B, H, Dh) in ``out_dtype`` (the model's
+    bf16 or float32; default o's), the same on every rank of them."""
+    from repro_torch.dist import collectives as coll
+    top = coll.pmax(m, policy, axes)
+    w = torch.exp(m - top) * l
+    both = coll.psum(torch.cat([o * w[..., None], w[..., None]], dim=-1),
+                     policy, axes)                     # one collective
+    out = both[..., :-1] / torch.clamp(both[..., -1:], min=1e-30)
+    return out.to(out_dtype or o.dtype)

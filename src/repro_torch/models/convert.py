@@ -12,6 +12,10 @@ the (in, out) layout, so the copy is bitwise.
 ``init_twotower_params``: leaf ``tree[a][i][b]`` lands on the parameter
 named ``a.i.b`` of the config's ``models/recsys.py`` model.
 
+Under a mesh ``policy`` both give the rank's shard: the LM cut by
+``transformer.shard_lm`` (``param_specs``), a recsys model's tables (made
+with the reference's ``table_pad``) by ``recsys.shard_tables``.
+
 ``gat_params_from_jax`` does it for ``repro.models.gat.init_params``
 (``layers.i.w`` and so on).
 
@@ -42,7 +46,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import gat, recsys
-from repro_torch.models.transformer import LM, LMConfig
+from repro_torch.models.transformer import LM, LMConfig, shard_lm
 from repro_torch.train.optimizer import LAYER_LEAF as _BLOCK
 
 
@@ -61,10 +65,14 @@ def _tensor_from_numpy(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def params_from_jax(tree: dict, cfg: LMConfig, device="cuda") -> LM:
-    """The reference's parameter pytree -> an ``LM`` on ``device``.
-    Raises unless every leaf lands on exactly one parameter of the same
-    shape and dtype, and every parameter receives one leaf."""
+def params_from_jax(tree: dict, cfg: LMConfig, device="cuda",
+                    policy=None) -> LM:
+    """The reference's parameter pytree -> an ``LM`` on ``device`` (this
+    rank's shard of it under a mesh ``policy``). Raises unless every leaf
+    lands on exactly one parameter of the same shape and dtype, and every
+    parameter receives one leaf."""
+    if policy is not None and policy.mesh is not None:
+        return shard_lm(params_from_jax(tree, cfg, "cpu"), policy).to(device)
     model = LM(cfg, device)
     leaves = {name: tree[name] for name in ("embed", "head", "final_norm")}
     for name, stacked in _named_leaves(tree["layers"]).items():
@@ -113,15 +121,25 @@ def _named_leaves(tree, prefix: str = "") -> dict:
     return out
 
 
-def recsys_params_from_jax(tree: dict, cfg, device="cuda") -> nn.Module:
+def recsys_params_from_jax(tree: dict, cfg, device="cuda",
+                           policy=None) -> nn.Module:
     """The reference's recsys parameter pytree (``init_ctr_params``,
     ``init_din_params`` or ``init_twotower_params`` of ``cfg``, tables
-    unpadded) -> the config's model on ``device``. Raises unless every
-    leaf lands on exactly one parameter of the same shape and dtype, and
-    every parameter receives one leaf."""
+    padded by its ``table_pad`` or not) -> the config's model on
+    ``device``, its tables this rank's rows under a mesh ``policy``.
+    Raises unless every leaf lands on exactly one parameter of the same
+    shape and dtype (a table's rows may be padded), and every parameter
+    receives one leaf."""
     model = recsys.model_for(cfg, device)
-    _copy_leaves(model, _named_leaves(tree))
-    return model
+    leaves = _named_leaves(tree)
+    for name in recsys.TABLES[type(model).__name__]:
+        table = getattr(model, name)
+        rows = np.shape(leaves.get(name, table))[0]
+        if rows > table.shape[0]:               # the reference's table_pad
+            setattr(model, name, nn.Parameter(table.new_empty(
+                (rows,) + tuple(table.shape[1:]))))
+    _copy_leaves(model, leaves)
+    return recsys.shard_tables(model, policy)
 
 
 def gat_params_from_jax(tree: dict, cfg: gat.GATConfig,

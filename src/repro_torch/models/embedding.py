@@ -1,14 +1,23 @@
 """EmbeddingBag of the recsys models: one concatenated table with per-field
 row offsets.
 
-Twin of ``src/repro/models/embedding.py`` on one device. All fields share
-one (total_rows, dim) table; a field's ids become global rows by adding
-its offset (``flatten_ids``), and a lookup is a plain gather
+Twin of ``src/repro/models/embedding.py``. All fields share one
+(total_rows, dim) table; a field's ids become global rows by adding its
+offset (``flatten_ids``), and a lookup is a plain gather
 (``embedding_bag``), optionally times per-id weights (EmbeddingBag sum
-weights). The reference's mod-row sharding over a 'model' mesh axis (its
-``shard_map`` branch) goes with slice 16 of the port's multi-GPU work
-(model parallelism): a policy that carries a mesh raises, through
-``engine/sharding.py::check_policy``.
+weights).
+
+Under a mesh whose "model" axis has more than one rank the table is
+row-sharded in contiguous blocks: the rank at "model" coordinate r holds
+rows ``[r * R, (r + 1) * R)`` of the (padded) table, R = rows / tp
+(``embedding.py:63-106``; ``shard_rows`` cuts it, ``init_table``'s
+``pad_to`` makes the rows divide). A lookup is ``local_take`` (the rows
+the rank holds, zeros elsewhere) and a sum over "model": one value plus
+zeros, so the sharded lookup equals the whole table's bit for bit (but
+for the sign of a zero). The rank looks up the rows it was given (the
+reference splits the rows over the data axes when they divide; under
+explicit SPMD a rank's rows are its own). The LM's vocabulary-sharded
+``embed`` uses the same ``local_take``.
 """
 
 from __future__ import annotations
@@ -18,8 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.dist.policy import MODEL_SLICE
-from repro_torch.engine.sharding import check_policy
+from repro_torch.dist.policy import TP_AXIS_NAME
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,13 +68,52 @@ def flatten_ids(ids: torch.Tensor, cfg: EmbeddingConfig) -> torch.Tensor:
                                  device=ids.device)
 
 
+def shard_rows(table: torch.Tensor, policy) -> torch.Tensor:
+    """The rank's contiguous block of ``table``'s rows under ``policy``'s
+    "model" axis (a copy; the table itself without a mesh). Raises when
+    the rows do not divide (pad the table: ``init_table(pad_to=)``)."""
+    if policy is None or policy.mesh is None:
+        return table
+    tp = policy.model_axis_size
+    if table.shape[0] % tp:
+        raise ValueError(f"a table of {table.shape[0]} rows does not shard "
+                         f"over {tp} 'model' ranks: pad it to a multiple "
+                         f"(init_table(pad_to=...), table_pad=)")
+    return policy.relayout(table, (), (TP_AXIS_NAME,)).clone()
+
+
+def local_take(table: torch.Tensor, rows: torch.Tensor, policy,
+               axes=(TP_AXIS_NAME,)) -> torch.Tensor:
+    """The rank's part of a row-sharded lookup: ``table`` is the rank's
+    block of rows of a table tiled over ``axes``; rows (any leading
+    shape) of global ids -> (..., D) with the rows the rank holds and
+    zeros elsewhere (summed over ``axes``, the whole lookup)."""
+    r_local = table.shape[0]
+    lid = rows - policy.axis_index(axes) * r_local
+    valid = (lid >= 0) & (lid < r_local)
+    emb = torch.index_select(table, 0, torch.clamp(lid, 0, r_local - 1)
+                             .reshape(-1)).reshape(*rows.shape,
+                                                   table.shape[1])
+    return torch.where(valid[..., None], emb, 0.0)
+
+
 def embedding_bag(table: torch.Tensor, rows: torch.Tensor, policy=None,
                   weights: torch.Tensor | None = None) -> torch.Tensor:
     """Gather rows (any leading shape, integer global row ids) from the
-    (R, D) table -> (..., D); ``weights`` (...,) multiplies each row."""
-    check_policy(policy, "embedding_bag", MODEL_SLICE)
-    out = torch.index_select(table, 0, rows.reshape(-1)).reshape(
-        *rows.shape, table.shape[1])
+    (R, D) table -> (..., D); ``weights`` (...,) multiplies each row.
+    Under a mesh with a "model" axis of more than one rank ``table`` is
+    the rank's block of rows (``shard_rows``) and the lookup a masked
+    local take summed over "model" (module docstring)."""
+    from repro_torch.dist import collectives as coll
+    meshed = policy is not None and policy.mesh is not None
+    if meshed:
+        coll.check_mesh(policy)
+    if meshed and policy.model_axis_size > 1:
+        out = coll.psum(local_take(table, rows, policy), policy,
+                        TP_AXIS_NAME)
+    else:
+        out = torch.index_select(table, 0, rows.reshape(-1)).reshape(
+            *rows.shape, table.shape[1])
     if weights is not None:
         out = out * weights[..., None]
     return out

@@ -22,7 +22,7 @@ The model is a ``GATModel`` holding one ``GATLayer`` a layer, with ``w``
 (d_in, heads, d_out), ``a_src`` and ``a_dst`` (heads, d_out) named as the
 reference's pytree, so ``models/convert.py`` copies its arrays as they
 are. The reference's edge sharding over a mesh (``agg_mode``) goes with
-slice 16 of the port's multi-GPU work: a policy with a mesh raises.
+slice 17 of the port's multi-GPU work: a policy with a mesh raises.
 """
 
 from __future__ import annotations

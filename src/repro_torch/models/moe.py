@@ -25,9 +25,20 @@ Contracts kept from the reference, op for op:
 - the aux loss ``E * sum_e frac_tokens_e * frac_probs_e`` counts every
   assignment in ``frac_tokens``, dropped ones included.
 
-Expert parallelism (the reference's ``shard_map`` + ``all_to_all`` path)
-waits for slice 16 of the port's multi-GPU work. ``moe_ffn`` takes no
-sharding policy, as the port's transformer functions take none.
+Expert parallelism (``moe_ffn(..., policy)`` under a mesh whose "model"
+axis has more than one rank; the reference's ``shard_map`` +
+``all_to_all`` path, ``moe.py:138-196``) is explicit SPMD: each rank holds
+the experts of its "model" coordinate (``p_expert_in``/``p_expert_out``:
+E / tp of them, contiguous) and its own tokens, those of the residual's
+layout (``act_btd``: the sequence-parallel shard in prefill, the batch
+in decode). It routes and dispatches them at **the local capacity**
+``expert_capacity(cfg, T_local)``, exchanges the (E, C, D) buffer for
+(E_local, C * tp, D) by one ``all_to_all`` over "model", runs its
+experts, sends the rows home by a second ``all_to_all`` and combines; the
+aux loss is the ``pmean`` over "model" and the data axes. Since the
+capacity is per shard, an answer under a mesh differs from one device's
+where an expert overflows (as in the reference); with nothing dropped
+they agree.
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from repro_torch.dist.policy import TP_AXIS_NAME
 from repro_torch.kernels import ref as kref
 
 
@@ -67,18 +79,25 @@ class MoE(nn.Module):
         self.w_in, self.w_gate = p(e, d_model, f), p(e, d_model, f)
         self.w_out = p(e, f, d_model)
 
-    def forward(self, x: torch.Tensor, cfg: MoEConfig):
-        return moe_ffn(x, self, cfg)
+    def forward(self, x: torch.Tensor, cfg: MoEConfig, policy=None):
+        return moe_ffn(x, self, cfg, policy)
+
+
+def draws(d_model: int, d_ff_expert: int) -> tuple[tuple[str, float], ...]:
+    """(parameter, scale) of an MoE layer's draws, in the order the
+    generator draws them: each matrix N(0, 1) times fan_in^-0.5."""
+    d, f = d_model, d_ff_expert
+    return (("router", d ** -0.5), ("w_in", d ** -0.5),
+            ("w_gate", d ** -0.5), ("w_out", f ** -0.5))
 
 
 @torch.no_grad()
 def draw_moe_params_(moe: MoE, generator: torch.Generator) -> MoE:
-    """Fill ``moe`` in place at the reference's scales: each matrix N(0, 1)
-    times fan_in^-0.5, drawn in float32 on the generator's device and cast
-    to its parameter's dtype (the router stays float32)."""
-    d, f = moe.w_in.shape[1], moe.w_in.shape[2]
-    for param, scale in ((moe.router, d ** -0.5), (moe.w_in, d ** -0.5),
-                         (moe.w_gate, d ** -0.5), (moe.w_out, f ** -0.5)):
+    """Fill ``moe`` in place at the reference's scales (``draws``), drawn
+    in float32 on the generator's device and cast to its parameter's
+    dtype (the router stays float32)."""
+    for name, scale in draws(moe.w_in.shape[1], moe.w_in.shape[2]):
+        param = getattr(moe, name)
         x = torch.randn(param.shape, generator=generator,
                         device=generator.device, dtype=torch.float32)
         param.copy_((x * scale).to(param.dtype))
@@ -144,45 +163,105 @@ def _expert_ffn(buf: torch.Tensor, w_in, w_gate, w_out) -> torch.Tensor:
     return torch.bmm(torch.nn.functional.silu(g) * h, w_out)
 
 
-def _moe_local(x2d: torch.Tensor, params: MoE, cfg: MoEConfig,
-               capacity: int):
-    """Route + dispatch + expert FFN + combine for x2d (T, D) over all
-    ``cfg.n_experts`` experts -> (combined (T, D), aux ())."""
+def _dispatch(x2d: torch.Tensor, router: torch.Tensor, cfg: MoEConfig,
+              capacity: int):
+    """Route x2d (T, D) and scatter its rows into the (E, C, D) buffer ->
+    (buf, probs, flat_e, gates, slot, keep)."""
     t, d = x2d.shape
     e, k = cfg.n_experts, cfg.top_k
-    probs, top_e, gates, slot, keep = route(x2d, params.router, cfg,
-                                            capacity)
-    flat_e = top_e.reshape(-1)                                 # (T*k,)
+    probs, top_e, gates, slot, keep = route(x2d, router, cfg, capacity)
     token_of = torch.arange(t * k, device=x2d.device) // k
-
     # dropped assignments write one spare row past the buffer, which is cut
     # off: the reference's .at[...].set(mode="drop"), without a host sync
     buf = x2d.new_zeros((e * capacity + 1, d))
     buf[torch.where(keep, slot, e * capacity)] = x2d[token_of]
-    buf = buf[:-1].reshape(e, capacity, d)
+    return (buf[:-1].reshape(e, capacity, d), probs, top_e.reshape(-1),
+            gates, slot, keep)
 
-    out_buf = _expert_ffn(buf, params.w_in, params.w_gate,
-                          params.w_out)                        # (E, C, D)
 
-    rows = out_buf.reshape(e * capacity, d)[slot]              # (T*k, D)
+def _combine(out_buf: torch.Tensor, gates, slot, keep, cfg: MoEConfig,
+             dtype) -> torch.Tensor:
+    """The (E, C, D) expert outputs gathered back to their assignments
+    and summed with the gates -> (T, D)."""
+    d = out_buf.shape[-1]
+    rows = out_buf.reshape(-1, d)[slot]                        # (T*k, D)
     rows = torch.where(keep[:, None], rows, 0.0)
-    combined = torch.sum(rows.reshape(t, k, d)
-                         * gates[..., None].to(x2d.dtype), dim=1)
+    return torch.sum(rows.reshape(-1, cfg.top_k, d)
+                     * gates[..., None].to(dtype), dim=1)
 
-    # load-balance aux loss (Switch Transformer eq. 4); the one-hot mean,
-    # as the reference takes it (torch.bincount would sync with the host)
+
+def _aux(flat_e: torch.Tensor, probs: torch.Tensor, e: int) -> torch.Tensor:
+    """The load-balance loss (Switch Transformer eq. 4); the one-hot mean,
+    as the reference takes it (torch.bincount would sync with the
+    host)."""
     frac_tokens = (flat_e[:, None] == torch.arange(
         e, device=flat_e.device)).to(torch.float32).mean(dim=0)
-    frac_probs = probs.mean(dim=0)
-    aux = e * torch.sum(frac_tokens * frac_probs)
-    return combined, aux
+    return e * torch.sum(frac_tokens * probs.mean(dim=0))
 
 
-def moe_ffn(x: torch.Tensor, params: MoE, cfg: MoEConfig
-            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """MoE FFN over (B, S, D) activations -> (out (B, S, D), aux ())."""
+def _moe_local(x2d: torch.Tensor, params: MoE, cfg: MoEConfig,
+               capacity: int, stats: dict | None = None):
+    """Route + dispatch + expert FFN + combine for x2d (T, D) over all
+    ``cfg.n_experts`` experts -> (combined (T, D), aux ())."""
+    buf, probs, flat_e, gates, slot, keep = _dispatch(
+        x2d, params.router, cfg, capacity)
+    out_buf = _expert_ffn(buf, params.w_in, params.w_gate,
+                          params.w_out)                        # (E, C, D)
+    _record(stats, keep, capacity)
+    return (_combine(out_buf, gates, slot, keep, cfg, x2d.dtype),
+            _aux(flat_e, probs, cfg.n_experts))
+
+
+def _record(stats: dict | None, keep: torch.Tensor, capacity: int) -> None:
+    if stats is not None:
+        stats.update(dropped=(~keep).sum(), assigned=keep.numel(),
+                     capacity=capacity)
+
+
+def _moe_ep(x2d: torch.Tensor, params: MoE, cfg: MoEConfig, policy,
+            stats: dict | None = None):
+    """Expert parallelism over "model" for this rank's tokens x2d (T, D)
+    and its experts (module docstring) -> (combined (T, D), aux ())."""
+    from repro_torch.dist import collectives as coll
+    tp = policy.model_axis_size
+    if cfg.n_experts % tp or params.w_in.shape[0] != cfg.n_experts // tp:
+        raise ValueError(f"expert parallelism over {tp} ranks: "
+                         f"{cfg.n_experts} experts, this rank holds "
+                         f"{params.w_in.shape[0]} (want the rank's "
+                         f"{cfg.n_experts // tp})")
+    capacity = expert_capacity(cfg, x2d.shape[0])
+    buf, probs, flat_e, gates, slot, keep = _dispatch(
+        x2d, params.router, cfg, capacity)
+    # (E, C, D) -> (E_local, C * tp, D): every rank's rows for my experts
+    buf = coll.all_to_all(buf, policy, TP_AXIS_NAME, split_axis=0,
+                          concat_axis=1)
+    out_buf = _expert_ffn(buf, params.w_in, params.w_gate, params.w_out)
+    out_buf = coll.all_to_all(out_buf, policy, TP_AXIS_NAME, split_axis=1,
+                              concat_axis=0)
+    _record(stats, keep, capacity)
+    aux = coll.pmean(_aux(flat_e, probs, cfg.n_experts), policy,
+                     (TP_AXIS_NAME,) + policy.dp_axes())
+    return _combine(out_buf, gates, slot, keep, cfg, x2d.dtype), aux
+
+
+def moe_ffn(x: torch.Tensor, params: MoE, cfg: MoEConfig, policy=None, *,
+            stats: dict | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """MoE FFN over (B, S, D) activations -> (out (B, S, D), aux ()).
+    Under a mesh with a "model" axis of more than one rank: expert
+    parallelism over this rank's tokens and experts (module docstring).
+    ``stats``, a dict, receives the call's ``dropped`` assignments (a
+    device count), ``assigned`` and ``capacity``."""
     b, s, d = x.shape
     t = b * s
-    out, aux = _moe_local(x.reshape(t, d), params, cfg,
-                          expert_capacity(cfg, t))
+    if policy is None or policy.mesh is None:
+        out, aux = _moe_local(x.reshape(t, d), params, cfg,
+                              expert_capacity(cfg, t), stats)
+    elif policy.model_axis_size > 1:
+        out, aux = _moe_ep(x.reshape(t, d), params, cfg, policy, stats)
+    else:
+        raise ValueError(
+            "moe_ffn under a mesh without a 'model' axis: the reference "
+            "routes the global batch at its global capacity there (GSPMD); "
+            "explicit SPMD holds local tokens, so give the mesh a 'model' "
+            "axis for expert parallelism")
     return out.reshape(b, s, d), aux

@@ -31,6 +31,13 @@ larger than that is built at any batch (PORT.md, "Recsys"). When autograd
 records, each micro-chunk runs under a checkpoint, so the backward too
 holds one chunk's outer products at a time.
 
+Under a mesh whose "model" axis has more than one rank the embedding
+tables are row-sharded (``shard_tables``: the reference's ``P("model",
+None)`` for each table, ``_recsys_param_specs``) and every lookup is
+``models/embedding.py``'s masked local take summed over "model"; the rest
+of a model is replicated. ``table_pad`` pads a table's rows to a multiple
+of the "model" axis, as in the reference.
+
 Parameters are trainable ``nn.Parameter``s and the losses (``ctr_loss``,
 ``din_loss``, ``twotower_loss``) record for autograd; a table's gradient
 is dense, as the reference's ``jnp.take`` gives it. The serving entry
@@ -189,16 +196,23 @@ def _init_mlp(layers: nn.ModuleList, generator: torch.Generator) -> None:
         layer.b.zero_()
 
 
+def _padded_table(model: nn.Module, name: str, generator, ecfg,
+                  table_pad: int) -> None:
+    """Draw table ``name`` with its rows padded to ``table_pad``."""
+    table = emb_lib.init_table(generator, ecfg, pad_to=table_pad)
+    setattr(model, name, nn.Parameter(table.to(getattr(model, name).device)))
+
+
 @torch.no_grad()
 def init_ctr_params(generator: torch.Generator, cfg: CTRConfig, *,
-                    device=None) -> CTRModel:
+                    device=None, table_pad: int = 1) -> CTRModel:
     """A ``CTRModel`` on ``device`` with weights at the reference's scales
     (``recsys.py:init_ctr_params``), drawn in float32 on the generator's
-    device in the order table, linear, mlp, cin, cin_out. Tables are not
-    padded: the reference's ``table_pad`` serves its mod-row sharding,
-    which waits for slice 16 of the port's multi-GPU work."""
+    device in the order table, linear, mlp, cin, cin_out. ``table_pad``
+    pads the table's rows to a multiple (the reference's, for its
+    row-sharded tables: ``shard_tables``)."""
     model = CTRModel(cfg, device)
-    model.table.copy_(emb_lib.init_table(generator, cfg.embedding))
+    _padded_table(model, "table", generator, cfg.embedding, table_pad)
     _normal(model.linear, generator, 0.01)
     _init_mlp(model.mlp, generator)
     if cfg.interaction == "cin":
@@ -211,10 +225,11 @@ def init_ctr_params(generator: torch.Generator, cfg: CTRConfig, *,
 
 @torch.no_grad()
 def init_din_params(generator: torch.Generator, cfg: DINConfig, *,
-                    device=None) -> DINModel:
-    """A ``DINModel`` on ``device`` (table, attn, mlp, in that order)."""
+                    device=None, table_pad: int = 1) -> DINModel:
+    """A ``DINModel`` on ``device`` (table, attn, mlp, in that order;
+    ``table_pad`` as for ``init_ctr_params``)."""
     model = DINModel(cfg, device)
-    model.table.copy_(emb_lib.init_table(generator, cfg.embedding))
+    _padded_table(model, "table", generator, cfg.embedding, table_pad)
     _init_mlp(model.attn, generator)
     _init_mlp(model.mlp, generator)
     return model
@@ -222,14 +237,36 @@ def init_din_params(generator: torch.Generator, cfg: DINConfig, *,
 
 @torch.no_grad()
 def init_twotower_params(generator: torch.Generator, cfg: TwoTowerConfig,
-                         *, device=None) -> TwoTowerModel:
+                         *, device=None, table_pad: int = 1
+                         ) -> TwoTowerModel:
     """A ``TwoTowerModel`` on ``device`` (user table, item table, user
-    mlp, item mlp, in that order)."""
+    mlp, item mlp, in that order; ``table_pad`` as for
+    ``init_ctr_params``)."""
     model = TwoTowerModel(cfg, device)
-    model.user_table.copy_(emb_lib.init_table(generator, cfg.user_embedding))
-    model.item_table.copy_(emb_lib.init_table(generator, cfg.item_embedding))
+    _padded_table(model, "user_table", generator, cfg.user_embedding,
+                  table_pad)
+    _padded_table(model, "item_table", generator, cfg.item_embedding,
+                  table_pad)
     _init_mlp(model.user_mlp, generator)
     _init_mlp(model.item_mlp, generator)
+    return model
+
+
+TABLES = {"CTRModel": ("table",), "DINModel": ("table",),
+          "TwoTowerModel": ("user_table", "item_table")}
+
+
+@torch.no_grad()
+def shard_tables(model: nn.Module, policy) -> nn.Module:
+    """``model`` with each embedding table (``TABLES``) cut to the rank's
+    contiguous block of rows under ``policy``'s "model" axis, in place;
+    the rest stays whole. Returns the model."""
+    if policy is None or policy.mesh is None:
+        return model
+    for name in TABLES[type(model).__name__]:
+        table = getattr(model, name)
+        setattr(model, name, nn.Parameter(emb_lib.shard_rows(table.detach(),
+                                                             policy)))
     return model
 
 

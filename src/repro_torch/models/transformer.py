@@ -8,13 +8,48 @@ one ``Block`` per layer, run by a Python loop. Weight matrices keep the
 reference's (in, out) layout and are used as ``x @ w``, so
 ``models/convert.py`` copies the reference's arrays as they are.
 
-The functions take no ``ShardingPolicy``: on one device every
-``policy.constrain`` of the reference is a no-op. ``LMConfig`` drops
-``scan_layers``, which chooses how JAX traces the layer stack and means
-nothing to eager PyTorch. With ``moe`` set each layer's FFN is
-``models/moe.py``'s (the reference's mesh-less path) and ``forward``'s aux
-is the mean of the layers' load-balance losses. ``remat="full"`` (the
-default, as in the reference) runs each layer under
+``LMConfig`` drops ``scan_layers``, which chooses how JAX traces the
+layer stack and means nothing to eager PyTorch.
+
+Model parallelism (``policy=`` with a mesh; slice 16 of the port's
+multi-GPU work) is explicit SPMD: every rank holds its shard of the model
+(``init_params(..., policy=)`` draws it, ``shard_lm`` cuts it from a
+whole ``LM``, both by ``param_specs``) and calls the entry points with
+its local tensors in the policy's layouts: tokens (B_local, S) with the
+batch over ``act_btd``'s batch axes, logits (B_local, V_local) in the
+``logits`` layout, the cache in ``kv_cache``'s. Each reference
+``constrain`` boundary becomes a ``relayout`` (``dist/policy.py``), the
+identity without a mesh, so one code path runs both:
+
+  * embed: vocab rows over "model": a masked local take, reduce-scattered
+    onto the sequence-parallel residual (``act_btd``); the residual and
+    the norms stay sequence-parallel;
+  * ``act_attn_in``: the sequence gathered; q/k/v column-parallel
+    (``p_attn_in``), reshaped into the rank's heads (``act_bhsd``; GQA's
+    ratio kept, the flash kernel over the rank's heads), or gathered to
+    every head where the heads are not sharded (``tp_heads=False``);
+  * ``wo`` and ``w_out`` row-parallel: float32 partial sums
+    reduce-scattered back onto ``act_btd`` (one rounding to the model
+    dtype, as one device's matrix product has); ``act_btf`` column-
+    parallel; an MoE layer runs expert parallelism on its
+    sequence-parallel tokens (``models/moe.py``);
+  * the head vocab-sharded: logits in the ``logits`` layout, and
+    ``greedy`` reduces (max, lowest id) over the vocabulary's axes;
+  * prefill's cache gathered to ``kv_cache`` (heads replicated);
+    ``relayout_cache`` moves it to the decode rules' layout (a slice of
+    the sequence for ``launch/cells.py::_lm_rules``'s decode sets);
+  * ``decode_step`` under the decode rules: the residual replicated over
+    "model", q/k/v gathered to every head, the new position written on
+    the rank that owns it, attention over each rank's KV-sequence shard
+    merged by log-sum-exp over the cache's sequence axes
+    (``models/attention.py``).
+
+Training under a mesh (``lm_loss``, a forward that records for autograd)
+waits for slice 17: the collectives have no backward yet.
+
+With ``moe`` set each layer's FFN is ``models/moe.py``'s and
+``forward``'s aux is the mean of the layers' load-balance losses.
+``remat="full"`` (the default, as in the reference) runs each layer under
 ``torch.utils.checkpoint`` when autograd records, so a layer keeps only
 its input for the backward and recomputes the rest.
 
@@ -34,13 +69,16 @@ kernel on the card (``kernels/ops.flash_attention``); the default
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.policy import MODEL_SLICE, NO_SHARDING
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
+from repro_torch.models import embedding as emb_lib
 from repro_torch.models import moe as moe_lib
 
 _ATTN_IMPLS = ("chunked", "flash")
@@ -158,44 +196,270 @@ class LM(nn.Module):
                                     for _ in range(cfg.n_layers))
 
 
+def _draws(cfg: LMConfig):
+    """(parameter name, scale) of every drawn parameter, in the order the
+    generator draws them: each block's wq, wk, wv, wo, then w_in, w_gate,
+    w_out or its experts (``models/moe.py::draws``), then embed and
+    head."""
+    d, f = cfg.d_model, cfg.d_ff
+    nhd = cfg.n_heads * cfg.head_dim
+    for i in range(cfg.n_layers):
+        yield from ((f"blocks.{i}.wq", d ** -0.5), (f"blocks.{i}.wk",
+                    d ** -0.5), (f"blocks.{i}.wv", d ** -0.5),
+                    (f"blocks.{i}.wo", nhd ** -0.5))
+        if cfg.moe is None:
+            yield from ((f"blocks.{i}.w_in", d ** -0.5),
+                        (f"blocks.{i}.w_gate", d ** -0.5),
+                        (f"blocks.{i}.w_out", f ** -0.5))
+        else:
+            yield from ((f"blocks.{i}.moe.{name}", scale) for name, scale
+                        in moe_lib.draws(d, cfg.moe.d_ff_expert))
+    yield from (("embed", 1.0), ("head", d ** -0.5))
+
+
+def _set_param(model: nn.Module, name: str, value: torch.Tensor) -> None:
+    owner, _, leaf = name.rpartition(".")
+    setattr(model.get_submodule(owner) if owner else model, leaf,
+            nn.Parameter(value))
+
+
 def init_params(cfg: LMConfig, generator: torch.Generator,
-                device="cuda") -> LM:
+                device="cuda", policy=None) -> LM:
     """An ``LM`` on ``device`` with weights drawn at the reference's
     scales: each matrix N(0, 1) * fan_in^-0.5 (the embedding N(0, 1)),
     drawn in float32 on the generator's device and cast to ``cfg.dtype``;
-    norm scales 1, biases 0; an MoE layer's experts by
-    ``models/moe.py::draw_moe_params_`` (router in float32). The draws are
-    torch's, not JAX's: to hold the port against the reference, convert
-    the reference's own arrays (``models/convert.py``)."""
-    model = LM(cfg, device)
-    d, f = cfg.d_model, cfg.d_ff
-    nhd = cfg.n_heads * cfg.head_dim
+    norm scales 1, biases 0; an MoE layer's router in float32. The draws
+    are torch's, not JAX's: to hold the port against the reference,
+    convert the reference's own arrays (``models/convert.py``).
 
-    def normal(param, scale):
-        x = torch.randn(param.shape, generator=generator,
-                        device=generator.device, dtype=torch.float32)
-        param.copy_((x * scale).to(cfg.dtype))
+    Under a mesh ``policy`` the rank's shard (``shard_lm``'s) of the model
+    the same generator draws without one: each parameter is drawn whole,
+    in the same order, and only the rank's slice is kept."""
+    model = LM(cfg, "meta")
+    specs = None
+    if _meshed(policy):
+        _local_shapes(cfg, policy)           # raises on an indivisible dim
+        specs = _param_spec_map(cfg, policy)
+
+    def keep(name, value):
+        if specs is not None:
+            value = policy.relayout(value, (), specs[name]).clone()
+        _set_param(model, name, value.to(device))
 
     with torch.no_grad():
-        for blk in model.blocks:
-            for name, scale in (("wq", d ** -0.5), ("wk", d ** -0.5),
-                                ("wv", d ** -0.5), ("wo", nhd ** -0.5),
-                                ("w_in", d ** -0.5), ("w_gate", d ** -0.5),
-                                ("w_out", f ** -0.5)):
-                if hasattr(blk, name):
-                    normal(getattr(blk, name), scale)
-            if cfg.moe is not None:
-                moe_lib.draw_moe_params_(blk.moe, generator)
-            for name in ("ln1", "ln2", "q_norm", "k_norm"):
-                if hasattr(blk, name):
-                    getattr(blk, name).fill_(1)
-            for name in ("bq", "bk", "bv"):
-                if hasattr(blk, name):
-                    getattr(blk, name).zero_()
-        normal(model.embed, 1.0)
-        normal(model.head, d ** -0.5)
-        model.final_norm.fill_(1)
+        for name, scale in _draws(cfg):
+            meta = model.get_parameter(name)
+            x = torch.randn(meta.shape, generator=generator,
+                            device=generator.device, dtype=torch.float32)
+            keep(name, (x * scale).to(meta.dtype))
+        for name, meta in list(model.named_parameters()):
+            if meta.is_meta:        # norm scales 1, biases 0: no draws
+                leaf = name.rpartition(".")[2]
+                fill = 0.0 if leaf in ("bq", "bk", "bv") else 1.0
+                keep(name, torch.full(meta.shape, fill, dtype=meta.dtype))
     return model
+
+
+def param_specs(cfg: LMConfig, policy) -> dict:
+    """The layout of every parameter (``transformer.py:128-154``), as the
+    reference's nest of rules: per-layer leaves under ``layers`` with the
+    leading (L,) axis, an MoE layer's under ``layers/moe``."""
+    r = policy.rules
+    layer = {
+        "wq": r["p_attn_in"], "wk": r["p_attn_in"], "wv": r["p_attn_in"],
+        "wo": r["p_attn_out"], "ln1": r["p_norm"], "ln2": r["p_norm"],
+    }
+    if cfg.qkv_bias:
+        layer.update({"bq": (None, None), "bk": (None, None),
+                      "bv": (None, None)})
+    if cfg.qk_norm:
+        layer.update({"q_norm": r["p_norm"], "k_norm": r["p_norm"]})
+    if cfg.moe is not None:
+        layer["moe"] = {
+            "router": r["p_router"],
+            "w_in": r["p_expert_in"], "w_gate": r["p_expert_in"],
+            "w_out": r["p_expert_out"],
+        }
+    else:
+        layer.update({"w_in": r["p_mlp_in"], "w_gate": r["p_mlp_in"],
+                      "w_out": r["p_mlp_out"]})
+    return {"embed": r["p_embed"], "head": r["p_head"],
+            "final_norm": (None,), "layers": layer}
+
+
+def _param_spec_map(cfg: LMConfig, policy) -> dict[str, tuple]:
+    """``param_specs`` keyed by the ``LM``'s parameter names: a block's
+    leaf takes its layer rule less the stacked (L,) axis."""
+    specs = param_specs(cfg, policy)
+    out = {name: specs[name] for name in ("embed", "head", "final_norm")}
+    for i in range(cfg.n_layers):
+        for name, spec in specs["layers"].items():
+            if isinstance(spec, dict):
+                out.update({f"blocks.{i}.{name}.{leaf}": tuple(sub)[1:]
+                            for leaf, sub in spec.items()})
+            else:
+                out[f"blocks.{i}.{name}"] = tuple(spec)[1:]
+    return out
+
+
+@functools.lru_cache(maxsize=16)
+def _global_shapes(cfg: LMConfig) -> dict[str, tuple]:
+    return {name: tuple(p.shape)
+            for name, p in LM(cfg, "meta").named_parameters()}
+
+
+def _local_shapes(cfg: LMConfig, policy) -> dict[str, tuple]:
+    specs = _param_spec_map(cfg, policy)
+    return {name: policy.local_shape(shape, specs[name], name)
+            for name, shape in _global_shapes(cfg).items()}
+
+
+@torch.no_grad()
+def shard_lm(model: LM, policy) -> LM:
+    """This rank's shard of the whole ``model`` under ``policy``: each
+    parameter sliced to its ``param_specs`` layout (slicing only, no
+    communication), on the parameter's device. A dim that a rule's axes
+    do not divide raises, naming the parameter and the dim."""
+    cfg = model.cfg
+    specs = _param_spec_map(cfg, policy)
+    _local_shapes(cfg, policy)               # raises on an indivisible dim
+    shard = LM(cfg, "meta")
+    for name, p in model.named_parameters():
+        _set_param(shard, name,
+                   policy.relayout(p.detach(), (), specs[name]).clone())
+    return shard
+
+
+def _meshed(policy) -> bool:
+    return policy is not None and policy.mesh is not None
+
+
+def _check_shard(model: LM, policy, who: str) -> None:
+    """Raise unless ``model`` is ``policy``'s shard and nothing records
+    for autograd (the collectives have no backward yet)."""
+    if torch.is_grad_enabled():
+        raise NotImplementedError(
+            f"{who} under a mesh records for autograd; the backward through "
+            f"the collectives waits for {MODEL_SLICE}")
+    want = _local_shapes(model.cfg, policy)
+    for name, p in model.named_parameters():
+        if tuple(p.shape) != want[name]:
+            raise ValueError(
+                f"{who}: parameter {name} is {tuple(p.shape)}, its shard "
+                f"under the policy {want[name]}: pass the rank's shard "
+                f"(shard_lm, or init_params(..., policy=))")
+
+
+def _entry(model: LM, tokens: torch.Tensor, policy, who: str, *,
+           decode: bool = False, check=None, step: int = 0) -> "_Layout":
+    """The call's ``_Layout`` after its checks: the heads' split, the
+    rank's shard, no autograd, and ``check(lay)``. Without a mesh a check
+    raises at once. Under one every rank runs them before its first
+    collective and all raise together (``collectives.agree``, which also
+    holds every rank at the same ``step`` and the tokens the same along
+    the axes that do not split the batch)."""
+    if not _meshed(policy):
+        lay = _Layout(model.cfg, policy, decode)
+        if check is not None:
+            check(lay)
+        return lay
+    from repro_torch.dist import collectives as coll
+    coll.check_mesh(policy)
+    lay, error = None, None
+    try:
+        lay = _Layout(model.cfg, policy, decode)
+        _check_shard(model, policy, who)
+        if check is not None:
+            check(lay)
+    except Exception as e:  # noqa: BLE001 -- raised on every rank below
+        error = e
+    coll.agree(policy, who, error, tokens, policy.axes("act_btd")[0], step)
+    return lay
+
+
+class _Layout:
+    """The mesh axes each tensor of a layer is tiled over under
+    ``policy``, from its rules (every entry () without a mesh, where each
+    ``relayout`` is the identity). ``decode``: the decode step's layout
+    (projections from the replicated residual, q/k/v in the cache's head
+    layout)."""
+
+    def __init__(self, cfg: LMConfig, policy, decode: bool = False):
+        self.policy = policy if policy is not None else NO_SHARDING
+        self.mesh = _meshed(policy)
+        if not self.mesh:
+            none = ((),) * 5
+            self.btd = self.attn_in = self.ffn = self.kv = self.logits = \
+                none
+            self.heads = self.col_attn = self.row_attn = self.col_ffn = \
+                self.row_ffn = self.vocab_in = self.vocab_out = ()
+            return
+        ax = self.policy.axes
+        self.btd = ax("act_btd")
+        self.attn_in = self.btd if decode else ax("act_attn_in")
+        self.kv = ax("kv_cache")
+        self.heads = self.kv[2] if decode else ax("act_bhsd")[1]
+        self.col_attn, self.row_attn = ax("p_attn_in")[2], \
+            ax("p_attn_out")[1]
+        self.ffn = ax("act_btf")
+        self.col_ffn, self.row_ffn = ax("p_mlp_in")[2], ax("p_mlp_out")[1]
+        self.vocab_in, self.vocab_out = ax("p_embed")[0], ax("p_head")[1]
+        self.logits = ax("logits")
+        n = self.policy.axes_size(self.heads)
+        if cfg.n_heads % n or cfg.n_kv_heads % n:
+            raise ValueError(
+                f"{cfg.name}: {cfg.n_heads} query and {cfg.n_kv_heads} KV "
+                f"heads do not shard over {self.heads} ({n} ranks); give "
+                f"the heads a replicated rule (tp_heads=False)")
+
+    def relayout(self, x, src, dst, partial=()):
+        return self.policy.relayout(x, src, dst, partial=partial)
+
+    def to_heads(self, *ts):
+        """Column-parallel projections (B, S, F_local) over ``col_attn``
+        -> the same in ``heads``' layout. Where the two differ the
+        features are gathered in one collective for all of ``ts`` (each
+        rank's blocks side by side), then sliced to ``heads``."""
+        if self.heads == self.col_attn:
+            return ts
+        n = self.policy.axes_size(self.col_attn)
+        sizes = [t.shape[-1] for t in ts]
+        both = torch.cat(ts, dim=-1)[None]
+        both = self.relayout(both, (self.col_attn,), ((),))  # (n, B, S, F)
+        out = []
+        for part in both.split(sizes, dim=-1):
+            whole = part.movedim(0, 2).reshape(*part.shape[1:3],
+                                               n * part.shape[-1])
+            out.append(self.relayout(whole, (self.attn_in[0],
+                                             self.attn_in[1], ()),
+                                     (self.attn_in[0], self.attn_in[1],
+                                      self.heads)))
+        return tuple(out)
+
+    def row_parallel(self, a, w, a_layout, rows):
+        """``a @ w`` for ``w`` row-parallel over ``rows``, back in the
+        residual's layout: ``a``'s features moved to ``rows``, the float32
+        partial sums reduced onto ``act_btd``. Without a split it is the
+        model-dtype product, as on one device."""
+        a = self.relayout(a, a_layout, (a_layout[0], a_layout[1], rows))
+        out = (a_layout[0], a_layout[1], ())
+        if self.policy.axes_size(rows) == 1:
+            return self.relayout(a @ w, out, self.btd)
+        return self.relayout(_mm_f32(a, w), out, self.btd, partial=rows)
+
+
+def _mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` with a float32 result. On the card bf16 operands stay on
+    the tensor cores with a float32 output (``torch.mm``'s ``out_dtype``:
+    no float32 copy of the weight, no float32 product); elsewhere, and for
+    float32 operands, the operands are upcast (exact for bf16), which
+    gives the same sums up to their order."""
+    if a.is_cuda and a.dtype == w.dtype and a.dtype in (torch.bfloat16,
+                                                          torch.float16):
+        out = torch.mm(a.reshape(-1, a.shape[-1]), w,
+                       out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], w.shape[-1])
+    return a.to(torch.float32) @ w.to(torch.float32)
 
 
 def _rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -219,16 +483,23 @@ def _rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def _project_qkv(x: torch.Tensor, p: Block, cfg: LMConfig,
-                 positions: torch.Tensor):
-    """x (B, S, D) -> q (B,H,S,Dh), k/v (B,Hkv,S,Dh) with RoPE applied."""
+                 positions: torch.Tensor, lay: _Layout | None = None):
+    """x (B, S, D) -> q (B,H,S,Dh), k/v (B,Hkv,S,Dh) with RoPE applied.
+    Under a mesh (``lay``) the column-parallel products hold the rank's
+    features, moved to ``lay.heads`` (the rank's heads, or every head)."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
-    if cfg.qkv_bias:
+    if lay is not None and lay.mesh:
+        if cfg.qkv_bias:
+            q, k, v = (t + lay.relayout(bias, (), (lay.col_attn,))
+                       for t, bias in ((q, p.bq), (k, p.bk), (v, p.bv)))
+        q, k, v = lay.to_heads(q, k, v)
+    elif cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(b, s, cfg.n_heads, hd).transpose(1, 2)
-    k = k.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
-    v = v.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
+    q = q.reshape(b, s, -1, hd).transpose(1, 2)
+    k = k.reshape(b, s, -1, hd).transpose(1, 2)
+    v = v.reshape(b, s, -1, hd).transpose(1, 2)
     if cfg.qk_norm:
         q = _rms_norm(q, p.q_norm)
         k = _rms_norm(k, p.k_norm)
@@ -237,64 +508,103 @@ def _project_qkv(x: torch.Tensor, p: Block, cfg: LMConfig,
     return q, k, v
 
 
-def _ffn(h: torch.Tensor, p: Block, cfg: LMConfig):
-    """The block's FFN on h (B, S, D) -> (out, aux): the dense SwiGLU with a
-    None aux, or the MoE FFN and its load-balance loss."""
+def _ffn(h: torch.Tensor, p: Block, cfg: LMConfig, lay: _Layout):
+    """The block's FFN on h (B, S, D) in the residual's layout -> (out,
+    aux): the dense SwiGLU with a None aux (``act_btf`` column-parallel,
+    ``w_out`` row-parallel under a mesh), or the MoE FFN and its
+    load-balance loss (expert parallelism under a mesh)."""
     if cfg.moe is not None:
+        if lay.mesh:
+            return p.moe(h, cfg.moe, policy=lay.policy)
         return p.moe(h, cfg.moe)
-    return (torch.nn.functional.silu(h @ p.w_gate) * (h @ p.w_in)
-            ) @ p.w_out, None
+    ffn_in = (lay.ffn[0], lay.ffn[1], ())
+    h = lay.relayout(h, lay.btd, ffn_in)
+    col = (lay.ffn[0], lay.ffn[1], lay.col_ffn)
+    gate = lay.relayout(h @ p.w_gate, col, lay.ffn)
+    up = lay.relayout(h @ p.w_in, col, lay.ffn)
+    act = torch.nn.functional.silu(gate) * up
+    return lay.row_parallel(act, p.w_out, lay.ffn, lay.row_ffn), None
 
 
 def _layer(x: torch.Tensor, p: Block, cfg: LMConfig,
-           positions: torch.Tensor):
-    """One transformer block. x (B, S, D) -> (x', aux, (k, v)); aux is
-    None in a dense block."""
-    h = _rms_norm(x, p.ln1)
-    q, k, v = _project_qkv(h, p, cfg, positions)
+           positions: torch.Tensor, lay: _Layout):
+    """One transformer block. x (B, S, D) in ``act_btd`` -> (x', aux,
+    (k, v)); aux is None in a dense block. k/v hold the rank's heads."""
+    h = lay.relayout(_rms_norm(x, p.ln1), lay.btd, lay.attn_in)
+    q, k, v = _project_qkv(h, p, cfg, positions, lay)
     if cfg.attn_impl == "flash":
         # the kernel reads KV head h // n_rep in place: no repeated copy
         o = kops.flash_attention(q.contiguous(), k.contiguous(),
                                  v.contiguous(), causal=True)
     else:
-        rep = cfg.n_heads // cfg.n_kv_heads
+        rep = q.shape[1] // k.shape[1]
         o = attn.chunked_attention(q, attn.repeat_kv(k, rep),
                                    attn.repeat_kv(v, rep),
-                                   chunk=min(cfg.attn_chunk, x.shape[1]))
-    b, s, _ = x.shape
-    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
-    x = x + (o @ p.wo).to(x.dtype)
-    f, aux = _ffn(_rms_norm(x, p.ln2), p, cfg)
+                                   chunk=min(cfg.attn_chunk, h.shape[1]))
+    b, s = h.shape[:2]
+    o = o.transpose(1, 2).reshape(b, s, -1)
+    x = x + lay.row_parallel(o, p.wo, (lay.attn_in[0], lay.attn_in[1],
+                                       lay.heads), lay.row_attn).to(x.dtype)
+    f, aux = _ffn(_rms_norm(x, p.ln2), p, cfg, lay)
     x = x + f.to(x.dtype)
     return x, aux, (k, v)
 
 
 def _layer_out(x: torch.Tensor, p: Block, cfg: LMConfig,
-               positions: torch.Tensor):
-    return _layer(x, p, cfg, positions)[:2]
+               positions: torch.Tensor, lay: _Layout):
+    return _layer(x, p, cfg, positions, lay)[:2]
 
 
-def forward(model: LM, tokens: torch.Tensor, *, return_cache: bool = False):
+def _embed(model: LM, tokens: torch.Tensor, lay: _Layout) -> torch.Tensor:
+    """tokens (B, S) -> (B, S, D) in ``act_btd``: under a mesh a masked
+    take of the rank's vocabulary rows, the partial sums reduced onto the
+    residual's layout (a reduce-scatter of the sequence in prefill)."""
+    if not lay.mesh:
+        return model.embed[tokens]
+    part = emb_lib.local_take(model.embed, tokens, lay.policy, lay.vocab_in)
+    return lay.relayout(part, (lay.btd[0], (), ()), lay.btd,
+                        partial=lay.vocab_in)
+
+
+def _logits(model: LM, x: torch.Tensor, lay: _Layout) -> torch.Tensor:
+    """x (B, D) -> float32 logits (B, V), in the ``logits`` layout under
+    a mesh (the rank's vocabulary columns)."""
+    out = (x @ model.head).to(torch.float32)
+    return lay.relayout(out, (lay.btd[0], lay.vocab_out),
+                        (lay.logits[0], lay.logits[2]))
+
+
+def forward(model: LM, tokens: torch.Tensor, policy=None, *,
+            return_cache: bool = False):
     """tokens (B, S) int -> (hidden (B, S, D) after the final norm, aux,
     cache). ``aux`` is the float32 mean over layers of the MoE
     load-balance loss (a dense model's is 0); ``cache`` is (k, v), each
-    (L, B, Hkv, S, Dh), when ``return_cache``, else None. Records for autograd when grad is enabled, each layer under
-    a checkpoint with ``remat="full"``.
+    (L, B, Hkv, S, Dh), when ``return_cache``, else None. Records for
+    autograd when grad is enabled, each layer under a checkpoint with
+    ``remat="full"``. Under a mesh ``policy``: the rank's tokens and
+    hidden states in ``act_btd`` (the sequence-parallel shard) and its
+    heads of the cache; no autograd (module docstring).
 
     Returns hidden states, not logits: (B, S, V) float32 logits are GiBs
     at vocab 152k; the loss and serving project only what they need."""
+    return _forward(model, tokens, _entry(model, tokens, policy, "forward"),
+                    return_cache)
+
+
+def _forward(model: LM, tokens: torch.Tensor, lay: _Layout,
+             return_cache: bool):
     cfg = model.cfg
-    x = model.embed[tokens]
+    x = _embed(model, tokens, lay)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     remat = cfg.remat == "full" and torch.is_grad_enabled()
     ks, vs, auxes = [], [], []
     for blk in model.blocks:
         if remat and not return_cache:
             # no draws in a layer: nothing of the RNG state to keep
-            x, aux = checkpoint(_layer_out, x, blk, cfg, positions,
+            x, aux = checkpoint(_layer_out, x, blk, cfg, positions, lay,
                                 use_reentrant=False, preserve_rng_state=False)
         else:
-            x, aux, (k, v) = _layer(x, blk, cfg, positions)
+            x, aux, (k, v) = _layer(x, blk, cfg, positions, lay)
             if return_cache:
                 ks.append(k)
                 vs.append(v)
@@ -331,7 +641,7 @@ def _chunk_nll(h_c: torch.Tensor, y_c: torch.Tensor,
     return (lse - correct).sum()
 
 
-def lm_loss(model: LM, batch: dict, *, loss_chunk: int = 512
+def lm_loss(model: LM, batch: dict, policy=None, *, loss_chunk: int = 512
             ) -> torch.Tensor:
     """batch = {"tokens": (B, S), "labels": (B, S)} -> scalar float32
     loss: the mean next-token cross-entropy plus ``aux_loss_weight`` times
@@ -341,7 +651,12 @@ def lm_loss(model: LM, batch: dict, *, loss_chunk: int = 512
     when B is a multiple of 8 and ``loss_chunk < S * B``, else over one,
     and with several chunks each runs under a checkpoint, so a chunk's
     (bc, S, V) float32 logits never outlive it in either pass. The chunk
-    sums are added in order to a float32 total."""
+    sums are added in order to a float32 total. Under a mesh (a
+    vocabulary-sharded cross-entropy and the backward through the
+    collectives) it waits for slice 17 and raises."""
+    if _meshed(policy):
+        raise NotImplementedError(f"lm_loss under a mesh waits for "
+                                  f"{MODEL_SLICE}")
     cfg = model.cfg
     hidden, aux, _ = forward(model, batch["tokens"])
     b, s, _ = hidden.shape
@@ -371,55 +686,130 @@ def init_cache(cfg: LMConfig, batch: int, dtype=None, device="cuda") -> dict:
 
 
 @torch.no_grad()
-def decode_step(model: LM, cache: dict, tokens: torch.Tensor):
+def decode_step(model: LM, cache: dict, tokens: torch.Tensor, policy=None):
     """One decode step. tokens (B,) int -> (logits (B, V) float32, cache).
 
     Writes the new position's k and v into ``cache`` in place, at
     ``cache["length"]``, and returns the same dict with ``length`` one
     more. Raises when the cache is full (the reference clamps the write
-    index and overwrites the last slot)."""
+    index and overwrites the last slot).
+
+    Under a mesh ``policy`` (the decode rules, ``launch/cells.py::
+    _lm_rules``): the rank's tokens and logits, and a cache in the
+    ``kv_cache`` layout (``relayout_cache`` moves prefill's there); the
+    rank that owns position ``length`` writes it, each rank attends over
+    its shard of the sequence, and the shards merge by log-sum-exp."""
     cfg = model.cfg
     pos = int(cache["length"])
-    if pos >= cache["k"].shape[3]:
-        raise ValueError(f"the KV cache is full: length {pos} == max_seq "
-                         f"{cache['k'].shape[3]}")
+    s_local = cache["k"].shape[3]
+
+    def room(lay):
+        n = s_local * lay.policy.axes_size(lay.kv[3])
+        if pos >= n:
+            raise ValueError(f"the KV cache is full: length {pos} == "
+                             f"max_seq {n}")
+
+    lay = _entry(model, tokens, policy, "decode_step", decode=True,
+                 check=room, step=pos)
+    seq = lay.kv[3]
+    n_seq = lay.policy.axes_size(seq)
+    lo = lay.policy.axis_index(seq) * s_local
     b = tokens.shape[0]
-    x = model.embed[tokens][:, None, :]                       # (B, 1, D)
+    x = _embed(model, tokens[:, None], lay)                  # (B, 1, D)
     positions = torch.full((1,), pos, dtype=torch.int64,
                            device=tokens.device)
-    rep = cfg.n_heads // cfg.n_kv_heads
     for i, blk in enumerate(model.blocks):
         kc, vc = cache["k"][i], cache["v"][i]
         h = _rms_norm(x, blk.ln1)
-        q, k, v = _project_qkv(h, blk, cfg, positions)
-        kc[:, :, pos] = k[:, :, 0]
-        vc[:, :, pos] = v[:, :, 0]
-        o = attn.decode_attention(q[:, :, 0, :], attn.repeat_kv(kc, rep),
-                                  attn.repeat_kv(vc, rep), pos + 1)
-        x = x + (o.reshape(b, 1, -1) @ blk.wo).to(x.dtype)
-        f, _ = _ffn(_rms_norm(x, blk.ln2), blk, cfg)     # the aux is dropped
+        q, k, v = _project_qkv(h, blk, cfg, positions, lay)
+        if lo <= pos < lo + s_local:
+            kc[:, :, pos - lo] = k[:, :, 0]
+            vc[:, :, pos - lo] = v[:, :, 0]
+        rep = q.shape[1] // kc.shape[1]
+        kr, vr = attn.repeat_kv(kc, rep), attn.repeat_kv(vc, rep)
+        if n_seq == 1:
+            o = attn.decode_attention(q[:, :, 0, :], kr, vr, pos + 1)
+        else:
+            o = attn.merge_decode(*attn.decode_attention_shard(
+                q[:, :, 0, :], kr, vr, pos + 1, lo), lay.policy, seq,
+                out_dtype=q.dtype)
+        x = x + lay.row_parallel(o.reshape(b, 1, -1), blk.wo,
+                                 (lay.btd[0], (), lay.heads),
+                                 lay.row_attn).to(x.dtype)
+        f, _ = _ffn(_rms_norm(x, blk.ln2), blk, cfg, lay)  # aux dropped
         x = x + f.to(x.dtype)
     x = _rms_norm(x[:, 0, :], model.final_norm)
-    logits = (x @ model.head).to(torch.float32)
+    logits = _logits(model, x, lay)
     cache["length"] = pos + 1
     return logits, cache
 
 
 @torch.no_grad()
-def prefill(model: LM, tokens: torch.Tensor):
+def prefill(model: LM, tokens: torch.Tensor, policy=None):
     """Prefill: a full forward that also fills the KV cache.
 
     tokens (B, S) -> (last-position logits (B, V) float32, cache) with the
-    cache padded to ``max_seq`` and ``length`` S."""
+    cache padded to ``max_seq`` and ``length`` S. Under a mesh: the rank's
+    tokens (the batch over ``act_btd``'s batch axes), its logits in the
+    ``logits`` layout and the cache in ``kv_cache``'s (the rank's heads
+    gathered where the rule replicates them)."""
     cfg = model.cfg
     s = tokens.shape[1]
-    if s > cfg.max_seq:
-        raise ValueError(f"prompt of {s} tokens exceeds max_seq "
-                         f"{cfg.max_seq}")
-    hidden, _, (k, v) = forward(model, tokens, return_cache=True)
-    cache = init_cache(cfg, tokens.shape[0], dtype=k.dtype, device=k.device)
-    cache["k"][:, :, :, :s] = k
-    cache["v"][:, :, :, :s] = v
-    cache["length"] = s
-    last = (hidden[:, -1, :] @ model.head).to(torch.float32)
-    return last, cache
+
+    def fits(lay):
+        if s > cfg.max_seq:
+            raise ValueError(f"prompt of {s} tokens exceeds max_seq "
+                             f"{cfg.max_seq}")
+
+    lay = _entry(model, tokens, policy, "prefill", check=fits)
+    hidden, _, (k, v) = _forward(model, tokens, lay, return_cache=True)
+    if lay.mesh:
+        src = ((), lay.attn_in[0], lay.heads, (), ())
+        pad = (0, 0, 0, cfg.max_seq - s)
+        cache = {name: lay.relayout(torch.nn.functional.pad(t, pad), src,
+                                    "kv_cache")
+                 for name, t in (("k", k), ("v", v))}
+        cache["length"] = s
+        # the last position lives on the sequence's last shard
+        last = lay.relayout(hidden[:, -1:, :], lay.btd,
+                            (lay.btd[0], (), ()))[:, -1, :]
+    else:
+        cache = init_cache(cfg, tokens.shape[0], dtype=k.dtype,
+                           device=k.device)
+        cache["k"][:, :, :, :s] = k
+        cache["v"][:, :, :, :s] = v
+        cache["length"] = s
+        last = hidden[:, -1, :]
+    return _logits(model, last, lay), cache
+
+
+def relayout_cache(cache: dict, src, dst) -> dict:
+    """A cache in policy ``src``'s ``kv_cache`` layout (``prefill``'s)
+    moved to policy ``dst``'s (the decode rules'): for the decode rule
+    sets of ``launch/cells.py::_lm_rules`` a local slice of the sequence,
+    and for a long context also a gather of the batch over the data axes.
+    The two policies share one mesh. The new cache is a copy: decode
+    writes into it in place, and ``cache`` stays as it was."""
+    return {name: dst.relayout(cache[name], src.rules["kv_cache"],
+                               dst.rules["kv_cache"]).clone()
+            for name in ("k", "v")} | {"length": cache["length"]}
+
+
+@torch.no_grad()
+def greedy(logits: torch.Tensor, policy=None) -> torch.Tensor:
+    """The greedy tokens of float32 logits (B, V) -> (B,) int64: the
+    argmax over the whole vocabulary, ties to the lowest id. Under a mesh
+    the logits are the rank's vocabulary columns (the ``logits``
+    layout): each rank's (max, lowest index) is reduced over the
+    vocabulary's axes, and every rank of them returns the same tokens."""
+    if not _meshed(policy):
+        return logits.argmax(-1)
+    axes = policy.axes("logits")[2]
+    best, arg = logits.max(-1)              # the first maximal index
+    ids = arg + policy.axis_index(axes) * logits.shape[-1]
+    rows = (axes, ())
+    vals = policy.relayout(best[None], rows, ((), ()))   # (shards, B)
+    cand = policy.relayout(ids[None], rows, ((), ()))
+    top = vals.max(0).values
+    lowest = torch.where(vals == top, cand, torch.iinfo(cand.dtype).max)
+    return lowest.min(0).values

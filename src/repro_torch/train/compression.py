@@ -10,8 +10,8 @@ step, which keeps the compressed optimizer convergent (Seide et al. 2014,
 Tang et al. 2021).
 
 The reference's ``compressed_psum`` (quantize, psum in int32 over a mesh
-axis, dequantize) is a collective; it waits for slice 16 of the port's
-multi-GPU work (ROADMAP.md).
+axis, dequantize) is a collective of training under a mesh; it waits for
+slice 17 of the port's multi-GPU work (ROADMAP.md).
 """
 
 from __future__ import annotations

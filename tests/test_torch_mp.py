@@ -1,0 +1,466 @@
+"""The port's model-parallel serving paths (slice 16) in gloo worlds on the
+CPU, held against the JAX reference and the single-device port.
+
+Two worlds, each spawned once: ("data", "model") meshes of (1, 2) and
+(2, 2) (``tests/torch_mp_worker.py`` is the rank body, free of JAX). The
+inputs are made with numpy from a seed; the models are the reference's
+parameters (numpy draws at the shapes of its ``init_params``,
+``init_twotower_params(table_pad=8)`` and ``init_moe_params``), cut into each
+rank's shard by ``models/convert.py``. The reference's mesh semantics are
+its single-device ones within float tolerance (its TP/SP prefill and its
+sharded lookup and EP were run on an 8-device host mesh against
+``NO_SHARDING``), so the ranks are held against the reference's
+single-device functions, and against its per-shard composition where the
+mesh changes the answer (EP's capacity is per shard). Held, float32:
+
+* ``sharding(name)``: the placements of every rule of ``lm_rules`` (both
+  sets) and ``_lm_rules`` (prefill with and without head TP, decode,
+  long-context decode) read back as the reference's ``PartitionSpec``;
+* ``relayout`` round trips and partial sums; ``all_to_all`` against
+  JAX's tiled semantics; the refusals;
+* the row-sharded ``embedding_bag`` against the reference's (atol 1e-6);
+* EP ``moe_ffn`` against the reference's ``_moe_local`` on each rank's
+  tokens at the local capacity (drop counts exact) and, at capacity
+  factor 8, against its ``NO_SHARDING`` ``moe_ffn`` (atol 2e-4, the
+  reference's own);
+* TP/SP ``prefill`` (the dense LM with the flash path's plain version,
+  and with replicated heads; the MoE LM at a capacity factor where
+  nothing drops): last logits and the gathered cache against the
+  reference's ``prefill`` (rtol 1e-4, atol 1e-5, as the LM tests: the two
+  frameworks sum in other orders); split-KV ``decode_step`` under both
+  decode rule sets against the reference's ``decode_step`` on the same
+  tokens, and ``greedy`` against its argmax;
+* ``sah_retrieve_step`` over row-sharded tables: the user vector bitwise
+  the single-device tower's, and the ids bitwise the single-device
+  composition of the sharded scan (each shard's ``n_cand`` nearest,
+  merged).
+"""
+
+import dataclasses
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.sharding import PartitionSpec as P
+
+import torch_mp_worker as W
+from repro.configs import base as jbase
+from repro.dist.policy import NO_SHARDING as JAX_NO_SHARDING
+from repro.dist.policy import ShardingPolicy as JaxPolicy
+from repro.dist.policy import lm_rules as jax_lm_rules
+from repro.launch import cells as jcells
+from repro.models import embedding as jemb
+from repro.models import moe as jmoe
+from repro.models import recsys as jrec
+from repro.models import transformer as jtf
+
+from repro_torch.configs import base
+from repro_torch.dist import ShardingPolicy, lm_rules
+from repro_torch.engine import sharding
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as kref
+from repro_torch.launch import serve
+from repro_torch.models import convert, recsys
+from repro_torch.models import transformer as tf
+
+LM_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _flat(tree, prefix: str, out: dict) -> dict:
+    """A nest of dicts and lists as {"prefix/a/0/b": array}."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for key, value in items:
+        if isinstance(value, (dict, list, tuple)):
+            _flat(value, f"{prefix}/{key}", out)
+        else:
+            out[f"{prefix}/{key}"] = np.array(value)
+    return out
+
+
+def _jax_dense():
+    return jtf.LMConfig(**W.DENSE, dtype=jnp.float32, max_seq=W.MAX_SEQ)
+
+
+def _jax_moe_lm():
+    cfg = jbase.get("olmoe-1b-7b").make_smoke_config()
+    return dataclasses.replace(
+        cfg, max_seq=W.MOE_PROMPT[1] + W.MOE_DECODE,
+        moe=dataclasses.replace(cfg.moe, capacity_factor=float(
+            cfg.moe.n_experts // cfg.moe.top_k)))
+
+
+def _draw(shapes, rng, path=""):
+    """numpy draws at the shapes of a reference ``init_*`` (from
+    ``jax.eval_shape``; jitting its ``jax.random`` draws costs seconds a
+    shape on the CPU): matrices N(0, 1) * fan_in^-0.5 (the embedding and
+    the tables N(0, 1) / 4), norm scales 1 + N(0, 0.1^2), biases N(0,
+    0.1^2), so every slice a rank holds matters."""
+    if isinstance(shapes, dict):
+        return {k: _draw(v, rng, f"{path}/{k}") for k, v in shapes.items()}
+    if isinstance(shapes, (list, tuple)):
+        return [_draw(v, rng, f"{path}/{i}") for i, v in enumerate(shapes)]
+    leaf, shape = path.rsplit("/", 1)[-1], shapes.shape
+    x = rng.standard_normal(shape)
+    if leaf in ("embed", "user_table", "item_table"):
+        x = x / 4
+    elif leaf in ("ln1", "ln2", "q_norm", "k_norm", "final_norm"):
+        x = 1 + 0.1 * x
+    elif leaf in ("bq", "bk", "bv", "b") or len(shape) < 2:
+        x = 0.1 * x
+    else:
+        x = x * shape[-2] ** -0.5
+    return x.astype(shapes.dtype)
+
+
+def _lm_reference(jcfg, rng, tokens_shape, n_decode):
+    """The reference's parameters (numpy), tokens, prefill and
+    ``n_decode`` greedy decode steps (each jitted once) -> (params,
+    tokens, last logits, cache k, cache v, step logits (n, B, V), the
+    tokens fed to each step (n, B))."""
+    params = _draw(jax.eval_shape(lambda k: jtf.init_params(k, jcfg),
+                                  jax.random.PRNGKey(0)), rng)
+    tokens = rng.integers(0, jcfg.vocab, tokens_shape).astype(np.int32)
+    prefill = jax.jit(lambda p, t: jtf.prefill(p, t, jcfg))
+    decode = jax.jit(lambda p, c, t: jtf.decode_step(p, c, t, jcfg))
+    logits, cache = prefill(params, jnp.asarray(tokens))
+    out = [params, tokens, np.asarray(logits), np.asarray(cache["k"]),
+           np.asarray(cache["v"])]
+    steps, teach = [], []
+    nxt = jnp.argmax(logits, -1).astype(jnp.int32)
+    for _ in range(n_decode):
+        teach.append(np.asarray(nxt))
+        logits_s, cache = decode(params, cache, nxt)
+        steps.append(np.asarray(logits_s))
+        nxt = jnp.argmax(logits_s, -1).astype(jnp.int32)
+    v = jcfg.vocab
+    return out + [np.array(steps).reshape(n_decode, tokens.shape[0], v),
+                  np.array(teach, dtype=np.int32).reshape(n_decode, -1)]
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    """The inputs every rank loads, and the reference's answers."""
+    rng = np.random.default_rng(W.SEED)
+    key = jax.random.PRNGKey(W.SEED)
+    inputs, want = {}, {}
+    for prefix, jcfg, shape, steps in (
+            ("lm", _jax_dense(), W.PROMPT, W.N_DECODE),
+            ("moe_lm", _jax_moe_lm(), W.MOE_PROMPT, W.MOE_DECODE)):
+        (params, inputs[f"{prefix}/tokens"], want[f"{prefix}/logits"],
+         want[f"{prefix}/cache_k"], want[f"{prefix}/cache_v"],
+         want[f"{prefix}/steps"], inputs[f"{prefix}/teach"]) = \
+            _lm_reference(jcfg, rng, shape, steps)
+        _flat(params, f"{prefix}/params", inputs)
+
+    # the row-sharded lookup (the reference test's shapes)
+    inputs["emb/table"] = rng.standard_normal((64, 8)).astype(np.float32)
+    inputs["emb/rows"] = rng.integers(0, 64, (16, 3)).astype(np.int32)
+    want["emb"] = np.asarray(jemb.embedding_bag(
+        jnp.asarray(inputs["emb/table"]), jnp.asarray(inputs["emb/rows"]),
+        JAX_NO_SHARDING))
+
+    # expert parallelism: weights at init_moe_params' shapes and scales
+    b, s, d = W.EP_TOKENS
+    jm = jmoe.MoEConfig(**W.MOE, capacity_factor=1.25)
+    shapes = jax.eval_shape(lambda k: jmoe.init_moe_params(k, d, jm), key)
+    scale = {"router": d ** -0.5, "w_in": d ** -0.5, "w_gate": d ** -0.5,
+             "w_out": W.MOE["d_ff_expert"] ** -0.5}
+    mp = {name: (rng.standard_normal(sd.shape) * scale[name]).astype(
+        np.float32) for name, sd in shapes.items()}
+    x = rng.standard_normal(W.EP_TOKENS).astype(np.float32)
+    _flat(mp, "moe/params", inputs)
+    inputs["moe/x"] = x
+    want["moe/params"], want["moe/x"] = mp, x
+    want["moe8"] = np.asarray(jmoe.moe_ffn(
+        jnp.asarray(x), jax.tree.map(jnp.asarray, mp),
+        dataclasses.replace(jm, capacity_factor=8.0), JAX_NO_SHARDING)[0])
+
+    # two-tower: padded tables, random candidates indexed by the port
+    tcfg = jbase.get("two-tower-retrieval").make_smoke_config()
+    tparams = _draw(jax.eval_shape(lambda k: jrec.init_twotower_params(
+        k, tcfg, table_pad=8), key), rng)
+    _flat(tparams, "tt/params", inputs)
+    cand = rng.standard_normal((W.TT_CAND, tcfg.out_dim)).astype(np.float32)
+    codes, proj = serve.build_candidate_index(
+        torch.from_numpy(cand), torch.Generator().manual_seed(W.SEED),
+        device="cpu")
+    inputs["tt/cand"], inputs["tt/codes"] = cand, codes.numpy()
+    inputs["tt/proj"] = proj.numpy()
+    inputs["tt/users"] = np.stack(
+        [rng.integers(0, v, W.TT_USERS) for v in
+         tcfg.user_embedding.vocab_sizes], axis=1).astype(np.int32)
+    want["tt/params"] = tparams
+
+    path = tmp_path_factory.mktemp("mp_inputs") / "inputs.npz"
+    np.savez(path, **inputs)
+    return str(path), inputs, want
+
+
+@pytest.fixture(scope="module", params=list(W.WORLDS))
+def world(request, reference, tmp_path_factory):
+    """(name, mesh shape, each rank's arrays) of one world, spawned once."""
+    path = tmp_path_factory.mktemp(f"mp_world_{request.param}")
+    ranks = W.spawn_world(request.param, str(path), reference[0])
+    return request.param, W.WORLDS[request.param], ranks
+
+
+def _norm(spec) -> tuple:
+    return tuple(spec)
+
+
+def _reference_rules(name: str, shape: tuple) -> dict:
+    mesh = type("M", (), {"shape": dict(zip(("data", "model"), shape))})()
+    if name in ("tp", "pure_dp"):
+        return jax_lm_rules(("data",), "model", pure_dp=name == "pure_dp")
+    arch = jbase.get("qwen2-1.5b" if name == "prefill_no_tp_heads"
+                     else "qwen3-0.6b")
+    kind = "prefill" if name.startswith("prefill") else "decode"
+    return jcells._lm_rules(arch, kind, mesh, long_ctx=name == "long_ctx")
+
+
+# -- the policy ---------------------------------------------------------------
+
+
+def test_sharding_placements_match_the_reference(world):
+    _, shape, ranks = world
+    for name in W.RULE_SETS:
+        want = _reference_rules(name, shape)
+        for rule, spec in want.items():
+            for got in ranks:
+                assert str(got[f"rules/{name}/{rule}"]) == repr(
+                    _norm(spec)), (name, rule)
+
+
+def test_lm_rules_of_the_cells_match_the_reference():
+    """``_lm_rules`` as data, without a mesh's placements."""
+    for shape in ((1, 2), (2, 2), (16, 16)):
+        mesh = type("M", (), {"mesh_dim_names": ("data", "model"),
+                              "size": lambda self, s=shape: s[0] * s[1]})()
+        for name in W.RULE_SETS[2:]:
+            got = W.rule_set(name, mesh)
+            want = _reference_rules(name, shape)
+            assert got == {k: _norm(v) for k, v in want.items()}, name
+
+
+def test_param_specs_match_the_reference():
+    for arch in ("qwen3-0.6b", "olmoe-1b-7b", "qwen2-1.5b"):
+        jcfg = jbase.get(arch).make_smoke_config()
+        cfg = base.get(arch).make_smoke_config()
+        want = jtf.param_specs(jcfg, JaxPolicy(rules=jax_lm_rules(
+            ("data",), "model")))
+        got = tf.param_specs(cfg, ShardingPolicy(rules=lm_rules(
+            ("data",), "model")))
+        assert jax.tree.map(_norm, want, is_leaf=lambda x: isinstance(
+            x, P)) == got, arch
+
+
+@pytest.mark.parametrize("arch", ["two-tower-retrieval", "deepfm", "din"])
+def test_recsys_table_pad_matches_the_reference(arch):
+    """``init_*_params(table_pad=)`` pads the tables as the reference does:
+    every leaf's shape equals the reference's at the same pad."""
+    jcfg = jbase.get(arch).make_smoke_config()
+    cfg = base.get(arch).make_smoke_config()
+    jinit, init = {"two-tower-retrieval": (jrec.init_twotower_params,
+                                           recsys.init_twotower_params),
+                   "deepfm": (jrec.init_ctr_params, recsys.init_ctr_params),
+                   "din": (jrec.init_din_params, recsys.init_din_params)}[arch]
+    want = jax.eval_shape(lambda k: jinit(k, jcfg, table_pad=8),
+                          jax.random.PRNGKey(0))
+    want = {k: tuple(v.shape) for k, v in convert._named_leaves(want).items()}
+    model = init(torch.Generator().manual_seed(0), cfg, device="cpu",
+                 table_pad=8)
+    assert {k: tuple(p.shape) for k, p in model.named_parameters()} == want
+    for name in recsys.TABLES[type(model).__name__]:
+        assert getattr(model, name).shape[0] % 8 == 0
+
+
+def test_relayout_round_trips(world):
+    for got in world[2]:
+        assert got["relayout/ok"].all(), got["relayout/ok"]
+        assert got["pmax"][0] == world[1][1] - 1
+
+
+def test_all_to_all_has_jax_tiled_semantics(world):
+    assert all(bool(got["a2a/ok"]) for got in world[2])
+
+
+def test_refusals(world):
+    for got in world[2]:
+        assert "relayout" in str(got["refuse/constrain"])
+        msg = str(got["refuse/indivisible"])
+        assert "embed" in msg and "dim 0" in msg and "127" in msg
+        assert "mesh's order" in str(got["refuse/order"])
+        assert "slice 17" in str(got["refuse/train"])
+
+
+def test_mismatched_calls_raise_on_every_rank(world):
+    """A call the ranks disagree on raises on every rank (none is left
+    waiting in a collective): tokens that differ along "model", a rank
+    that passes the whole model, ranks at different decode steps."""
+    for got in world[2]:
+        assert "different tokens" in str(got["refuse/tokens"])
+        assert "at steps" in str(got["refuse/step"])
+    shard = [str(got["refuse/shard"]) for got in world[2]]
+    assert all("its shard" in msg or "refused the call" in msg
+               for msg in shard), shard
+    assert any("its shard" in msg for msg in shard), shard
+    assert any("refused the call" in msg for msg in shard), shard
+
+
+def test_sharded_init_equals_the_cut_whole_model(world):
+    assert all(bool(got["init/same"]) for got in world[2])
+
+
+# -- the row-sharded lookup and expert parallelism -------------------------
+
+
+def test_sharded_embedding_bag_matches_the_reference(world, reference):
+    for got in world[2]:
+        np.testing.assert_allclose(got["emb/out"], reference[2]["emb"],
+                                   atol=1e-6)
+
+
+def _shards(x, shape):
+    """Each rank's (B, S) block of x under act_btd, in rank order."""
+    dp, tp = shape
+    b, s = x.shape[0] // dp, x.shape[1] // tp
+    return [x[i * b:(i + 1) * b, j * s:(j + 1) * s]
+            for i in range(dp) for j in range(tp)]
+
+
+def test_expert_parallel_moe_is_the_per_shard_composition(world, reference):
+    """EP at capacity factor 1.25, where experts overflow: each rank's
+    tokens through the reference's ``_moe_local`` at the local capacity."""
+    _, shape, ranks = world
+    want = reference[2]
+    mp = jax.tree.map(jnp.asarray, want["moe/params"])
+    cfg = jmoe.MoEConfig(**W.MOE, capacity_factor=1.25)
+    x = want["moe/x"]
+    @functools.partial(jax.jit, static_argnums=1)
+    def local(x2d, cap):
+        o, aux = jmoe._moe_local(x2d, mp, cfg, cap, mp["w_in"],
+                                 mp["w_gate"], mp["w_out"])
+        _, top_e = jax.lax.top_k(jax.nn.softmax(x2d @ mp["router"]),
+                                 cfg.top_k)
+        return o, aux, jmoe._dispatch_indices(top_e.reshape(-1),
+                                              cfg.n_experts, cap)[1]
+
+    outs, drops, auxes = [], [], []
+    for xs in _shards(x, shape):
+        x2d = jnp.asarray(xs.reshape(-1, x.shape[-1]))
+        t = x2d.shape[0]
+        cap = max(cfg.top_k, int(cfg.capacity_factor * t * cfg.top_k
+                                 / cfg.n_experts))
+        o, aux, keep = local(x2d, cap)
+        outs.append(np.asarray(o).reshape(xs.shape))
+        drops.append(int((~np.asarray(keep)).sum()))
+        auxes.append(float(aux))
+    dp, tp = shape
+    whole = np.concatenate([np.concatenate(outs[i * tp:(i + 1) * tp], 1)
+                            for i in range(dp)], 0)
+    assert sum(drops) > 0                   # the check sees drops
+    for r, got in enumerate(ranks):
+        np.testing.assert_allclose(got["moe1.25/out"], whole, atol=2e-4)
+        assert int(got["moe1.25/dropped"]) == drops[r]
+        np.testing.assert_allclose(got["moe1.25/aux"], np.mean(auxes),
+                                   rtol=1e-5)
+
+
+def test_expert_parallel_moe_matches_no_sharding(world, reference):
+    for got in world[2]:
+        assert int(got["moe8.0/dropped"]) == 0
+        np.testing.assert_allclose(got["moe8.0/out"], reference[2]["moe8"],
+                                   atol=2e-4)
+
+
+# -- the LM: TP/SP prefill and split-KV decode -------------------------------
+
+
+@pytest.mark.parametrize("prefix", ["lm", "moe_lm"])
+def test_tp_sp_prefill_matches_the_reference(world, reference, prefix):
+    want = reference[2]
+    for got in world[2]:
+        np.testing.assert_allclose(got[f"{prefix}/logits"],
+                                   want[f"{prefix}/logits"], **LM_TOL)
+        for name in ("k", "v"):
+            np.testing.assert_allclose(got[f"{prefix}/cache_{name}"],
+                                       want[f"{prefix}/cache_{name}"],
+                                       **LM_TOL)
+        np.testing.assert_array_equal(got[f"{prefix}/greedy0"],
+                                      want[f"{prefix}/logits"].argmax(-1))
+
+
+def test_prefill_with_replicated_heads_matches_the_reference(world,
+                                                             reference):
+    """``tp_heads=False`` rules (qwen2-1.5b's): q/k/v gathered to every
+    head on each rank, the chunked attention, the same answer."""
+    for got in world[2]:
+        np.testing.assert_allclose(got["lm_heads/logits"],
+                                   reference[2]["lm/logits"], **LM_TOL)
+
+
+@pytest.mark.parametrize("prefix,rules", [("lm", "decode"),
+                                          ("lm", "long_ctx"),
+                                          ("moe_lm", "decode")])
+def test_split_kv_decode_matches_the_reference(world, reference, prefix,
+                                               rules):
+    want = reference[2][f"{prefix}/steps"]
+    for got in world[2]:
+        np.testing.assert_allclose(got[f"{prefix}/{rules}/logits"], want,
+                                   **LM_TOL)
+        np.testing.assert_array_equal(got[f"{prefix}/{rules}/greedy"],
+                                      want.argmax(-1))
+        n = want.shape[0]
+        assert int(got[f"{prefix}/{rules}/length"]) == \
+            reference[1][f"{prefix}/tokens"].shape[1] + n
+
+
+# -- two-tower retrieval over row-sharded tables ---------------------------
+
+
+def test_sah_retrieve_step_is_bitwise(world, reference):
+    _, shape, ranks = world
+    inputs = reference[1]
+    tcfg = base.get("two-tower-retrieval").make_smoke_config()
+    model = convert.recsys_params_from_jax(reference[2]["tt/params"], tcfg,
+                                           "cpu")
+    cand = torch.from_numpy(inputs["tt/cand"])
+    codes = torch.from_numpy(inputs["tt/codes"])
+    proj = torch.from_numpy(inputs["tt/proj"])
+    users = torch.from_numpy(inputs["tt/users"]).long()
+    n, shards, k = cand.shape[0], shape[0] * shape[1], W.TT_K
+    rows = sharding.pad_item_rows(
+        cand, torch.arange(n, dtype=torch.int32),
+        torch.ones(n, dtype=torch.bool), codes, shards, k)
+    per = rows[0].shape[0] // shards
+    assert W.TT_NCAND < per             # the sketch's n_cand binds
+    us, ids = [], []
+    with torch.no_grad():
+        for i in range(users.shape[0]):
+            u = recsys.user_tower(model, users[i:i + 1], tcfg)
+            qcode = ops.srp_hash(u, proj)
+            parts = [sharding.kmips_flat_arrays(
+                *(r[s * per:(s + 1) * per] for r in rows), qcode, u, k,
+                n_cand=W.TT_NCAND) for s in range(shards)]
+            best, pos = kref.topk_stable(torch.cat([v for v, _ in parts], 1),
+                                         k)
+            ids.append(torch.cat([i for _, i in parts], 1).gather(1, pos)[0])
+            us.append(u[0])
+    u_want, ids_want = torch.stack(us).numpy(), torch.stack(ids).numpy()
+    for got in ranks:
+        assert int(got["tt/table_rows"]) * shape[1] == \
+            reference[2]["tt/params"]["user_table"].shape[0]
+        np.testing.assert_array_equal(got["tt/u"], u_want)
+        np.testing.assert_array_equal(got["tt/ids"], ids_want)

@@ -165,8 +165,10 @@ def test_embedding_config_and_init_table():
 
 
 def test_embedding_bag_refuses_a_mesh():
+    """A mesh that is not a torch ``DeviceMesh`` is refused (the sharded
+    lookup under a real mesh: ``tests/test_torch_mp.py``)."""
     policy = dataclasses.make_dataclass("P", ["mesh"])(mesh=object())
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         embedding.embedding_bag(torch.zeros(4, 2),
                                 torch.zeros(3, dtype=torch.int32), policy)
 

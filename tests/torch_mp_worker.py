@@ -1,0 +1,331 @@
+"""The rank body of the gloo worlds that tests/test_torch_mp.py spawns:
+the port's model-parallel serving paths (slice 16) on the CPU.
+
+JAX-free on purpose: ``torch.multiprocessing.spawn`` re-imports this module
+in every rank, and a rank runs the port alone. The test writes the inputs
+(the reference's parameters as numpy, tokens, tables, candidates) to one
+``inputs.npz``; each world is spawned once (``spawn_world``); every rank
+runs ``rank_checks`` under its ("data", "model") mesh and writes what it
+saw, gathered to whole tensors, to ``rank<r>.npz``, which the test holds
+against the reference and the single-device port.
+"""
+
+from __future__ import annotations
+
+import datetime
+import math
+import os
+
+import numpy as np
+import torch
+
+# world name -> ("data", "model") mesh shape
+WORLDS = {"1x2": (1, 2), "2x2": (2, 2)}
+GROUP_TIMEOUT = 60       # seconds a collective may wait
+SEED = 11
+
+# the dense LM: the reference test's config (tests/test_distributed.py)
+# with qk-norm and QKV biases on, so the rank's slices of both are used
+DENSE = dict(name="t", n_layers=2, d_model=32, n_heads=4, n_kv_heads=2,
+             d_head=8, d_ff=64, vocab=128, attn_chunk=16, qk_norm=True,
+             qkv_bias=True)
+MOE = dict(n_experts=8, top_k=2, d_ff_expert=16)
+PROMPT = (4, 32)         # prefill tokens (B, S): S shards over "model"
+N_DECODE = 4             # decode steps, each rule set
+MAX_SEQ = 36             # S + N_DECODE: divides over 2 and 4 ranks
+MOE_PROMPT = (4, 16)
+MOE_DECODE = 2
+EP_TOKENS = (4, 8, 16)   # (B, S, D) of the standalone EP checks
+TT_CAND = 600            # two-tower candidates; n_cand < a shard's rows
+TT_USERS = 6
+TT_NCAND, TT_K = 64, 10
+# the rules whose placements are held against the reference: lm_rules
+# (both sets), and _lm_rules' prefill (tp_heads and not), decode and
+# long-context decode sets
+RULE_SETS = ("tp", "pure_dp", "prefill", "prefill_no_tp_heads", "decode",
+             "long_ctx")
+
+
+def dense_config(**kw):
+    from repro_torch.models.transformer import LMConfig
+    return LMConfig(**{**DENSE, "dtype": torch.float32, "max_seq": MAX_SEQ,
+                       **kw})
+
+
+def moe_lm_config():
+    """olmoe-smoke (2 layers, 8 experts top-2) at a capacity factor where
+    nothing drops (E / k: capacity = the tokens), so the per-shard
+    capacity of expert parallelism changes no answer."""
+    import dataclasses as dc
+    from repro_torch.configs import base
+    cfg = base.get("olmoe-1b-7b").make_smoke_config()
+    return dc.replace(cfg, max_seq=MOE_PROMPT[1] + MOE_DECODE,
+                      moe=dc.replace(cfg.moe, capacity_factor=float(
+                          cfg.moe.n_experts // cfg.moe.top_k)))
+
+
+def moe_config(capacity_factor: float):
+    from repro_torch.models import moe
+    return moe.MoEConfig(**MOE, capacity_factor=capacity_factor)
+
+
+def rule_set(name: str, mesh) -> dict:
+    from repro_torch.configs import base
+    from repro_torch.dist import lm_rules
+    from repro_torch.launch import cells
+    if name in ("tp", "pure_dp"):
+        return lm_rules(("data",), "model", pure_dp=name == "pure_dp")
+    arch = base.get("qwen2-1.5b" if name == "prefill_no_tp_heads"
+                    else "qwen3-0.6b")
+    kind = "prefill" if name.startswith("prefill") else "decode"
+    return cells._lm_rules(arch, kind, mesh, long_ctx=name == "long_ctx")
+
+
+def unflatten(flat: dict, prefix: str) -> dict:
+    """The nest {a: {b: leaf}} of the keys ``prefix/a/b`` of ``flat``."""
+    tree = {}
+    for key, value in flat.items():
+        if not key.startswith(prefix + "/"):
+            continue
+        *path, leaf = key[len(prefix) + 1:].split("/")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return tree
+
+
+def spec_of(placements, names, ndim) -> tuple:
+    """Placements back to a rule in ``tuple(PartitionSpec)``'s form."""
+    from torch.distributed.tensor import Shard
+    out = []
+    for d in range(ndim):
+        axes = tuple(n for n, pl in zip(names, placements)
+                     if isinstance(pl, Shard) and pl.dim == d)
+        out.append(None if not axes else axes[0] if len(axes) == 1
+                   else axes)
+    return tuple(out)
+
+
+def raises(exc, fn) -> str:
+    """The message of the ``exc`` that ``fn()`` raises ('' if none)."""
+    try:
+        fn()
+    except exc as e:  # noqa: PERF203
+        return str(e)
+    return ""
+
+
+def rank_checks(shape: tuple, inputs: dict) -> dict:
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.dist import ShardingPolicy, collectives as coll
+    from repro_torch.launch import serve
+    from repro_torch.models import convert, embedding, moe, recsys
+    from repro_torch.models import transformer as tf
+
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+    out = {}
+    sets = {name: rule_set(name, mesh) for name in RULE_SETS}
+    pol = {name: ShardingPolicy(mesh=mesh, rules=rules)
+           for name, rules in sets.items()}
+
+    # -- the rules as placements ------------------------------------------
+    for name, rules in sets.items():
+        for rule, spec in rules.items():
+            got = spec_of(pol[name].sharding(rule), mesh.mesh_dim_names,
+                          len(spec))
+            out[f"rules/{name}/{rule}"] = np.array(repr(got))
+
+    # -- relayout round trips and all_to_all -------------------------------
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.randn(4, 8, 6, generator=gen)
+    tp = pol["tp"]
+    ok = []
+    for a, b in ((("data", "model", None), (None, "model", None)),
+                 ((("data", "model"), None, None), (None, None, "model")),
+                 (("model", None, None), ("data", "model", None))):
+        xa, xb = tp.relayout(x, (), a), tp.relayout(x, (), b)
+        ok.append(torch.equal(tp.relayout(xa, a, ()), x))
+        ok.append(torch.equal(tp.relayout(xa, a, b), xb))
+    # partial sums: each rank's share, reduce-scattered onto the sequence
+    share = torch.randn(4, 8, 6, generator=torch.Generator().manual_seed(
+        SEED + tp.axis_index(("data", "model"))))
+    total = coll.psum(share, tp, ("data", "model"))
+    ok.append(torch.allclose(
+        tp.relayout(share, ("data", None, None), "act_btd",
+                    partial=("model",)),
+        tp.relayout(coll.psum(share, tp, "model"), ("data", None, None),
+                    "act_btd"),
+        rtol=0, atol=1e-6))
+    ok.append(torch.allclose(tp.relayout(total, (), ()),
+                             sum(torch.randn(4, 8, 6,
+                                             generator=torch.Generator()
+                                             .manual_seed(SEED + r))
+                                 for r in range(mesh.size())), atol=1e-5))
+    out["relayout/ok"] = np.array(ok)
+    me = tp.axis_index("model")
+    n = tp.model_axis_size
+    t = torch.arange(n * 3 * 2 * n, dtype=torch.float32).reshape(
+        n * 3, 2 * n) + 1000 * me
+    got = coll.all_to_all(t, tp, "model", split_axis=0, concat_axis=1)
+    want = torch.cat([(torch.arange(n * 3 * 2 * n, dtype=torch.float32)
+                       .reshape(n * 3, 2 * n) + 1000 * c)[me * 3:(me + 1) * 3]
+                      for c in range(n)], dim=1)
+    out["a2a/ok"] = np.array(torch.equal(got, want))
+    out["pmax"] = coll.pmax(torch.tensor([float(me)]), tp, "model").numpy()
+
+    # -- the refusals -----------------------------------------------------
+    out["refuse/constrain"] = np.array(raises(
+        TypeError, lambda: tp.constrain(x, "act_btd")))
+    out["refuse/indivisible"] = np.array(raises(
+        ValueError, lambda: tf.init_params(
+            dense_config(vocab=127), torch.Generator().manual_seed(0),
+            "cpu", policy=tp)))
+    out["refuse/order"] = np.array(raises(ValueError, lambda: ShardingPolicy(
+        mesh=mesh, rules={"r": (("model", "data"),)}).sharding("r")))
+    out["refuse/train"] = np.array(raises(
+        NotImplementedError, lambda: tf.lm_loss(None, {}, tp)))
+    # the shard init_params draws equals shard_lm of the whole model
+    whole = tf.init_params(dense_config(), torch.Generator().manual_seed(3),
+                           "cpu")
+    part = tf.init_params(dense_config(), torch.Generator().manual_seed(3),
+                          "cpu", policy=tp)
+    cut = dict(tf.shard_lm(whole, tp).named_parameters())
+    out["init/same"] = np.array(all(torch.equal(p, cut[name]) for name, p
+                                    in part.named_parameters()))
+
+    # -- calls the ranks disagree on: every rank raises, none waits -------
+    ppol, dpol = pol["prefill"], pol["decode"]
+    shard = tf.shard_lm(whole, ppol)
+    lm_tokens = torch.from_numpy(inputs["lm/tokens"]).long()
+    tok = ppol.relayout(lm_tokens, (), (ppol.rules["act_btd"][0], None))
+    out["refuse/tokens"] = np.array(raises(ValueError, lambda: tf.prefill(
+        shard, (tok + int(me == 1)) % DENSE["vocab"], ppol)))
+    out["refuse/shard"] = np.array(raises(ValueError, lambda: tf.prefill(
+        whole if me == 0 else shard, tok, ppol)))
+    cache = tf.relayout_cache(tf.prefill(shard, tok, ppol)[1], ppol, dpol)
+    cache["length"] += int(me == 1)
+    out["refuse/step"] = np.array(raises(ValueError, lambda: tf.decode_step(
+        shard, cache, dpol.relayout(lm_tokens[:, 0], (),
+                                    (dpol.rules["act_btd"][0],)), dpol)))
+
+    # -- the row-sharded embedding_bag ------------------------------------
+    table_l = embedding.shard_rows(torch.from_numpy(inputs["emb/table"]),
+                                   tp)
+    out["emb/out"] = embedding.embedding_bag(
+        table_l, torch.from_numpy(inputs["emb/rows"]).long(), tp).numpy()
+
+    # -- expert parallelism: tokens in act_btd, the rank's experts --------
+    moe_p = unflatten(inputs, "moe/params")
+    for cf in (1.25, 8.0):
+        cfg = moe_config(cf)
+        m = moe.MoE(EP_TOKENS[2], cfg, torch.float32, "cpu")
+        with torch.no_grad():
+            m.router.copy_(torch.from_numpy(moe_p["router"]))
+            for w in ("w_in", "w_gate", "w_out"):
+                full = torch.from_numpy(moe_p[w])
+                setattr(m, w, torch.nn.Parameter(
+                    tp.relayout(full, (), ("model", None, None)).clone()))
+            x_l = tp.relayout(torch.from_numpy(inputs["moe/x"]), (),
+                              "act_btd")
+            stats = {}
+            o, aux = moe.moe_ffn(x_l, m, cfg, tp, stats=stats)
+        out[f"moe{cf}/out"] = tp.relayout(o, "act_btd", ()).numpy()
+        out[f"moe{cf}/aux"] = aux.numpy()
+        out[f"moe{cf}/dropped"] = np.array(int(stats["dropped"]))
+
+    # -- the dense LM: TP/SP prefill, then split-KV decode ----------------
+    tree = unflatten(inputs, "lm/params")
+    cfg = dense_config(attn_impl="flash")
+    tokens = torch.from_numpy(inputs["lm/tokens"]).long()
+    teach = torch.from_numpy(inputs["lm/teach"]).long()      # (steps, B)
+
+    def lm_run(prefix, cfg, tree, tokens, teach, pname, dnames):
+        ppol = pol[pname]
+        model = convert.params_from_jax(tree, cfg, "cpu", policy=ppol)
+        tok_l = ppol.relayout(tokens, (), (ppol.rules["act_btd"][0], None))
+        logits, cache = tf.prefill(model, tok_l, ppol)
+        out[f"{prefix}/logits"] = ppol.relayout(
+            logits, (ppol.rules["logits"][0], ppol.rules["logits"][2]),
+            ()).numpy()
+        for name in ("k", "v"):
+            out[f"{prefix}/cache_{name}"] = ppol.relayout(
+                cache[name], "kv_cache", ()).numpy()
+        first = tf.greedy(logits, ppol)
+        out[f"{prefix}/greedy0"] = ppol.relayout(
+            first, (ppol.rules["act_btd"][0],), ()).numpy()
+        for dname in dnames:
+            dpol = pol[dname]
+            c = tf.relayout_cache(cache, ppol, dpol)
+            batch = (dpol.rules["act_btd"][0],)
+            lg, gr = [], []
+            for step in range(teach.shape[0]):
+                step_logits, c = tf.decode_step(
+                    model, c, dpol.relayout(teach[step], (), batch), dpol)
+                lg.append(dpol.relayout(step_logits,
+                                        (dpol.rules["logits"][0],
+                                         dpol.rules["logits"][2]), ()))
+                gr.append(dpol.relayout(tf.greedy(step_logits, dpol),
+                                        batch, ()))
+            out[f"{prefix}/{dname}/logits"] = torch.stack(lg).numpy()
+            out[f"{prefix}/{dname}/greedy"] = torch.stack(gr).numpy()
+            out[f"{prefix}/{dname}/length"] = np.array(c["length"])
+
+    lm_run("lm", cfg, tree, tokens, teach, "prefill", ("decode", "long_ctx"))
+    lm_run("lm_heads", dense_config(), tree, tokens, teach[:0],
+           "prefill_no_tp_heads", ())
+    lm_run("moe_lm", moe_lm_config(), unflatten(inputs, "moe_lm/params"),
+           torch.from_numpy(inputs["moe_lm/tokens"]).long(),
+           torch.from_numpy(inputs["moe_lm/teach"]).long(), "prefill",
+           ("decode",))
+
+    # -- two-tower retrieval over row-sharded tables ----------------------
+    from repro_torch.configs import base
+    tcfg = base.get("two-tower-retrieval").make_smoke_config()
+    model = convert.recsys_params_from_jax(unflatten(inputs, "tt/params"),
+                                           tcfg, "cpu", policy=tp)
+    out["tt/table_rows"] = np.array(model.user_table.shape[0])
+    cand = torch.from_numpy(inputs["tt/cand"])
+    codes = torch.from_numpy(inputs["tt/codes"])
+    proj = torch.from_numpy(inputs["tt/proj"])
+    users = torch.from_numpy(inputs["tt/users"]).long()
+    us, ids, vals = [], [], []
+    with torch.no_grad():
+        for i in range(users.shape[0]):
+            us.append(recsys.user_tower(model, users[i:i + 1], tcfg, tp)[0])
+            v, d = serve.sah_retrieve_step(model, users[i:i + 1], cand,
+                                           codes, proj, tcfg, tp,
+                                           n_cand=TT_NCAND, k=TT_K)
+            vals.append(v)
+            ids.append(d)
+    out["tt/u"] = torch.stack(us).numpy()
+    out["tt/ids"] = torch.stack(ids).numpy()
+    out["tt/vals"] = torch.stack(vals).numpy()
+    return out
+
+
+def rank_main(rank: int, shape: tuple, workdir: str, inputs: str) -> None:
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(workdir, 'rendezvous')}",
+        rank=rank, world_size=math.prod(shape),
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT))
+    try:
+        out = rank_checks(shape, dict(np.load(inputs)))
+        np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_world(name: str, workdir: str, inputs: str) -> list[dict]:
+    """Run world ``name`` once (one process a rank, gloo on the CPU, a
+    ``file://`` rendezvous in ``workdir``); returns each rank's arrays."""
+    import torch.multiprocessing as mp
+    shape = WORLDS[name]
+    world = math.prod(shape)
+    mp.spawn(rank_main, args=(shape, workdir, inputs), nprocs=world,
+             join=True)
+    return [dict(np.load(os.path.join(workdir, f"rank{r}.npz")))
+            for r in range(world)]
+
