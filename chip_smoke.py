@@ -92,10 +92,31 @@ d = 100, synthetic MF-like factors from ``--seed``):
   dense 12B     mistral-nemo-12b at full width and depth (40 layers, d
                 5,120, 32 heads over 8 KV heads, vocab 131,072, bf16),
                 flash: the same prefill and 8 steps (cut for time);
+  train         the trainer (``make_train_step`` + ``train_loop``,
+                chain(clip 1.0, adamw), deterministic algorithms on):
+                qwen3-0.6b at full width and depth in bf16 (remat,
+                chunked attention) on one repeated batch of 4 x 4,096
+                tokens, 4 micro-batches a step: the first micro-batch's
+                loss and gradient norm against float32, the loss falling,
+                a run crashed at step 2 and resumed from its checkpoint bit
+                for bit equal to the uninterrupted run, ``attn_impl=
+                "flash"`` refusing grad; two-tower, DeepFM, xDeepFM and DIN
+                at their ``train_batch`` (halved while it does not fit) and
+                gat-cora at ``full_graph_sm``, each first loss against
+                float64 and the loss falling. No hand-written kernel runs
+                there (the reference's training runs no Pallas kernel). It
+                first saves the model-parallel phase's training answers:
+                the loss, gradient norm and the gradients of layers 0, 14
+                and 27, the embedding, the head and the final norm, in
+                bf16 and from the float32 copy, on the first one and two
+                sequences, and the losses of 3 steps on each, and how far
+                a second correct bf16 path (half the attention chunk)
+                lies from the first against float32;
   model         gloo worlds ("data", "model") of (1, 2) and (2, 2) ranks
   parallel      on the one card, weights from ``--seed`` as above, each
-                rank held against answers the recsys, LM and MoE phases
-                saved: qwen3-0.6b at full width, TP/SP flash prefill of
+                rank held against answers the recsys, LM, MoE and train
+                phases saved: qwen3-0.6b at full width, TP/SP flash
+                prefill of
                 the 4 x 2,048 prompts (the flash kernel on each rank's
                 8 of 16 heads over 4 of 8 KV heads), then 32 split-KV
                 greedy decode steps under the decode rules and 8 under the
@@ -110,26 +131,35 @@ d = 100, synthetic MF-like factors from ``--seed``):
                 on the single-device inputs against the single-device
                 ``_moe_local`` of each rank's tokens at the local
                 capacity (drops exact),
-                then its EP prefill with each layer's drops; two-tower
-                retrieval over the 1,000,000 candidates with both tables
-                row-sharded (the item and user towers bitwise one
-                device's, the 64 sketch requests' ids and values bitwise
-                the single-device composition of the sharded scan). Its
-                times are of ranks that share one card: not a multi-GPU
-                speed;
-  train         the trainer (``make_train_step`` + ``train_loop``,
-                chain(clip 1.0, adamw), deterministic algorithms on):
-                qwen3-0.6b at full width and depth in bf16 (remat,
-                chunked attention) on one repeated batch of 4 x 4,096
-                tokens, 4 micro-batches a step: the first micro-batch's
-                loss and gradient norm against float32, the loss falling,
-                a run crashed at step 2 and resumed from its checkpoint bit
-                for bit equal to the uninterrupted run, ``attn_impl=
-                "flash"`` refusing grad; two-tower, DeepFM, xDeepFM and DIN
-                at their ``train_batch`` (halved while it does not fit) and
-                gat-cora at ``full_graph_sm``, each first loss against
-                float64 and the loss falling. No hand-written kernel runs
-                there (the reference's training runs no Pallas kernel);
+                and layer 0's EP backward at the same capacity against
+                the composition's gradients (within two bf16 ulps of each
+                gradient's largest), then its EP prefill with each layer's
+                drops; two-tower retrieval over the 1,000,000 candidates
+                with both tables row-sharded (the item and user towers
+                bitwise one device's, the 64 sketch requests' ids and
+                values bitwise the single-device composition of the
+                sharded scan). Then training in the same worlds, under
+                the train rules: qwen3-0.6b at full width and depth on one
+                4,096-token sequence a data rank, its loss and gradient
+                norm within 1e-2 and 5e-2 of one device's and every held
+                gradient (reduced, gathered) no further from float32 than
+                one device's bf16 (mean and RMS distance within 1.25x,
+                the max within 1.5x, and within 2x one device's max
+                distance plus one bf16 ulp of its gradient:
+                ``grad_close``; the spread of two correct single-device
+                bf16 paths is measured beside it), its forward + backward
+                timed again without the collective timers and without
+                deterministic algorithms and profiled on rank 0 (on
+                (1, 2)), 3 steps of
+                chain(clip 1.0, adamw) each within 1e-2 of one device's
+                loss and the loss falling, ``compressed_psum`` over
+                "data" on (2, 2) (int32 sums exact against a host
+                replay), and a run crashed at step 2 resumed from its
+                sharded checkpoint bit for bit (2 layers at full width);
+                olmoe-1b-7b's EP train step on (1, 2) at 2 layers, full
+                width, nothing dropped, against one device by the same
+                rules. Its times are of ranks that share one card: not a
+                multi-GPU speed;
   cells         the reference's cell catalogue at full width through
                 ``launch/dryrun.py::run_cell(..., measure_it=True)``:
                 each cell reckoned on the meta device, then one warm and
@@ -907,7 +937,7 @@ def within(name: str, got: float, want: float, rtol: float) -> float:
     return rel
 
 
-def lm_train(seed: int, dev) -> dict:
+def lm_train(seed: int, dev, mp_dir: str | None = None) -> dict:
     """qwen3-0.6b at full width and depth, trained on one repeated batch
     of TRAIN_ACCUM x TRAIN_MICRO sequences of TRAIN_SEQ tokens by the
     port's ``make_train_step`` + ``train_loop`` (chain(clip 1.0, adamw
@@ -915,7 +945,8 @@ def lm_train(seed: int, dev) -> dict:
     first micro-batch's loss and gradient norm against float32, the loss
     falling, a run crashed by ``fail_at_step`` and resumed from its
     checkpoint equal bit for bit to the uninterrupted run, and flash
-    attention refusing grad.
+    attention refusing grad. With ``mp_dir`` it first saves what the
+    model-parallel phase holds its training against (``mp_train_answers``).
     Times the steps, one step's parts, and profiles one step."""
     import copy
     import dataclasses
@@ -955,18 +986,48 @@ def lm_train(seed: int, dev) -> dict:
 
     # -- the first micro-batch against the same weights in float32 ---------
     micro = {k: v[:TRAIN_MICRO] for k, v in batch.items()}
+    held = mp_held(model, MP_TRAIN_LAYERS) if mp_dir else ()
 
-    def loss_and_norm(m):
-        loss = tf.lm_loss(m, micro)
+    def loss_and_norm(m, b=micro):
+        loss = tf.lm_loss(m, b)
+        names = [n for n, _ in m.named_parameters()]
         grads = torch.autograd.grad(loss, list(m.parameters()))
+        kept = {n: g.cpu() for n, g in zip(names, grads) if n in held}
         return (float(loss.detach()),
-                float(opt_lib.global_norm(dict(enumerate(grads)))))
+                float(opt_lib.global_norm(dict(enumerate(grads)))), kept)
 
-    loss16, norm16 = loss_and_norm(model)
+    loss16, norm16, kept16 = loss_and_norm(model)
+    if mp_dir:          # a second correct bf16 path: half the attention
+        #                 chunk, so the online softmax sums in another order
+        model.cfg = dataclasses.replace(cfg, attn_chunk=cfg.attn_chunk // 2)
+        kept16b = loss_and_norm(model)[2]
+        model.cfg = cfg
     model32 = copy.deepcopy(model).float()
     model32.cfg = dataclasses.replace(cfg, dtype=torch.float32)
-    loss32, norm32 = loss_and_norm(model32)
-    del model32
+    loss32, norm32, kept32 = loss_and_norm(model32)
+    answers = {}
+    if mp_dir:
+        spread = grad_spread(kept16, kept16b, kept32)
+        del kept16b
+        print(f"train lm: two single-device bf16 gradient paths (attention "
+              f"chunk {cfg.attn_chunk} and {cfg.attn_chunk // 2}) on "
+              f"{len(kept32)} leaves, against float32: distance ratios "
+              f"either way round up to max {spread['max'][0]:.3f}x "
+              f"({spread['max'][1]}), mean {spread['mean'][0]:.3f}x "
+              f"({spread['mean'][1]}), rms {spread['rms'][0]:.3f}x "
+              f"({spread['rms'][1]}); the two paths up to "
+              f"{spread['gap'][0]:.3f}x one path's max distance apart "
+              f"({spread['gap'][1]})")
+        answers[1] = dict(loss16=loss16, norm16=norm16, loss32=loss32,
+                          norm32=norm32, grads16=kept16, grads32=kept32)
+        for n in sorted({dp for dp, _ in MP_WORLDS} - {1}):
+            b = {k: v[:n] for k, v in batch.items()}
+            rec = dict(zip(("loss16", "norm16", "grads16"),
+                           loss_and_norm(model, b)))
+            rec.update(zip(("loss32", "norm32", "grads32"),
+                           loss_and_norm(model32, b)))
+            answers[n] = rec
+    del model32, kept16, kept32
     torch.cuda.empty_cache()
     rel_loss = within("lm loss bf16 vs float32", loss16, loss32,
                       LM_LOSS_RTOL)
@@ -978,6 +1039,16 @@ def lm_train(seed: int, dev) -> dict:
           f"{LM_GNORM_RTOL})")
 
     quiet = dict(log_every=10 ** 9, log_fn=print)
+
+    def from_start():
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(start[k])
+        return init_state(params, opt)
+
+    if mp_dir:
+        mp_train_answers(mp_dir, model, batch, answers, from_start, held)
+        from_start()
     run_a = []
     state = train_loop(init_state(params, opt), recorded(step, run_a),
                        itertools.repeat(batch), n_steps=TRAIN_STEPS, **quiet)
@@ -986,12 +1057,6 @@ def lm_train(seed: int, dev) -> dict:
     del state
 
     # -- crashed at TRAIN_CKPT_AT, restored from its checkpoint, resumed ---
-    def from_start():
-        with torch.no_grad():
-            for k, p in params.items():
-                p.copy_(start[k])
-        return init_state(params, opt)
-
     ck_dir = ROOT / "build" / "train_ckpt"
     shutil.rmtree(ck_dir, ignore_errors=True)
     run_b, run_c = [], []
@@ -1315,12 +1380,13 @@ def gat_train(seed: int, dev) -> dict:
             "peak": peak}
 
 
-def train_path(seed: int, dev, card: str) -> dict:
+def train_path(seed: int, dev, card: str, mp_dir: str | None = None) -> dict:
     """The train phase: ``lm_train``, ``recsys_train`` and ``gat_train``
     under deterministic algorithms (the resume check is bit for bit). No
     hand-written kernel lies on this path, as no Pallas kernel lies on the
-    reference's: the phase fails if any launched. Returns the peak device
-    memory before the phase and the phase's numbers."""
+    reference's: the phase fails if any launched. With ``mp_dir`` the LM
+    saves the model-parallel phase's answers there. Returns the peak
+    device memory before the phase and the phase's numbers."""
     import torch
     from repro_torch.kernels import ops
     peak_before = torch.cuda.max_memory_allocated()
@@ -1333,7 +1399,7 @@ def train_path(seed: int, dev, card: str) -> dict:
     torch.utils.deterministic.fill_uninitialized_memory = False
     ops.reset_launch_counts()
     try:
-        out = {"lm": lm_train(seed, dev)}
+        out = {"lm": lm_train(seed, dev, mp_dir)}
         out["recsys"] = recsys_train(seed, dev)
         out["gat"] = gat_train(seed, dev)
     finally:
@@ -2075,6 +2141,21 @@ MP_LONG_STEPS = 8        # long-context decode steps (cut from LM_STEPS)
 MP_CACHE_LAYERS = (0, 14, 27)   # qwen3 cache layers held (first, mid, last)
 MP_MOE_WORLD = (1, 2)    # olmoe's expert parallelism runs on this world
 MP_TIMEOUT = 300         # seconds a collective of a world may wait
+# model-parallel training: qwen3 layers whose gradients are held (with the
+# embedding, the head and the final norm); the depth of the resume from a
+# sharded checkpoint (full width: gathering and writing the 28-layer state
+# with AdamW's moments, ~7 GB a save, would take the phase past its time);
+# olmoe's EP train step at full width, cut to this depth; EP's backward
+# held against the per-shard composition within this share of each
+# gradient's largest magnitude (two bf16 ulps: the composition adds the
+# two shards' bf16 weight gradients where EP sums them in one product)
+MP_TRAIN_LAYERS = (0, 14, 27)
+MP_RESUME_LAYERS = 2
+MP_MOE_TRAIN_LAYERS = 2
+MP_EP_GRAD_TOL = 2.0 ** -7
+# a model-parallel gradient leaf's max distance to float32 over one
+# device's bf16 one (``grad_close``; mean and RMS stay at 1.25x)
+MP_GRAD_MAX_RATIO = 1.5
 MP_LABEL = ("ranks share one card; collectives staged through the host: "
             "not a multi-GPU speed")
 
@@ -2171,7 +2252,10 @@ def save_moe_answers(mp_dir: str, model, prompts, shares, share) -> None:
     prefill, and for each rank of ``MP_MOE_WORLD`` the single-device
     ``_moe_local`` of its sequence-parallel tokens at the local capacity
     (output, dropped assignments); the single-device phase's dropped
-    shares."""
+    shares. For the first of those layers also the backward of that
+    composition: the gradients of the router, the experts and the input
+    under the objective ``sum(out * cot) + aux_loss_weight * mean(aux)``
+    over the ranks' shares, ``cot`` a seeded bf16 cotangent."""
     import torch
     from repro_torch.models import moe
     from repro_torch.models import transformer as tf
@@ -2205,8 +2289,44 @@ def save_moe_answers(mp_dir: str, model, prompts, shares, share) -> None:
                 outs.append(out.cpu())
                 drops.append(int(stats["dropped"]))
             held[i] = {"h": h.cpu(), "outs": outs, "drops": drops}
+    held[layers[0]].update(moe_backward_answers(model, layers[0],
+                                                seen[layers[0]]))
     torch.save({"prompts": prompts.cpu(), "layers": held, "shares": shares,
                 "share": share}, mp_file(mp_dir, "moe"))
+
+
+MOE_GRADS = ("router", "w_in", "w_gate", "w_out")
+
+
+def moe_backward_answers(model, i: int, h) -> dict:
+    """The per-shard composition's gradients of layer ``i``'s MoE on its
+    input ``h`` (``save_moe_answers``), MP_MOE_WORLD's "model" shards at
+    the local capacity."""
+    import torch
+    from repro_torch.models import moe
+    cfg = model.cfg
+    blk = model.blocks[i].moe
+    gen = torch.Generator(device=h.device).manual_seed(i + 1)
+    cot = torch.randn(h.shape, generator=gen, device=h.device).to(h.dtype)
+    x = h.detach().clone().requires_grad_(True)
+    tp = MP_MOE_WORLD[1]
+    s_l = h.shape[1] // tp
+    total, auxes = 0.0, []
+    with torch.enable_grad():
+        for j in range(tp):
+            part = slice(j * s_l, (j + 1) * s_l)
+            xj = x[:, part].reshape(-1, h.shape[-1])
+            out, aux = moe._moe_local(xj, blk, cfg.moe,
+                                      moe.expert_capacity(cfg.moe,
+                                                          xj.shape[0]))
+            total = total + (out.float() * cot[:, part].reshape(
+                out.shape).float()).sum()
+            auxes.append(aux)
+        total = total + cfg.aux_loss_weight * torch.stack(auxes).mean()
+        grads = torch.autograd.grad(total, [x] + [getattr(blk, n)
+                                                  for n in MOE_GRADS])
+    return {"cot": cot.cpu(), "grads": {"x": grads[0].cpu(), **{
+        n: g.cpu() for n, g in zip(MOE_GRADS, grads[1:])}}}
 
 
 def mp_close(label: str, got, want, want32) -> dict:
@@ -2230,11 +2350,565 @@ def mp_close(label: str, got, want, want32) -> dict:
     return out
 
 
+def mp_held(model, layers) -> list[str]:
+    """The parameters whose gradients the model-parallel phase holds:
+    every leaf of blocks ``layers``, the embedding, the head and the
+    final norm."""
+    blocks = tuple(f"blocks.{i}." for i in layers)
+    return [n for n, _ in model.named_parameters()
+            if n.startswith(blocks) or n in ("embed", "head", "final_norm")]
+
+
+def mp_train_answers(mp_dir: str, model, batch, answers: dict, from_start,
+                     held) -> None:
+    """What the model-parallel phase holds qwen3-0.6b's training against,
+    for each world's global batch (its first ``dp`` sequences, one a data
+    rank): ``answers[dp]``, the bf16 loss, gradient norm and ``held``
+    gradients and the same from the float32 copy, and here the losses of
+    TRAIN_STEPS steps of chain(clip 1.0, adamw LM_LR) from the same
+    weights on that batch repeated; and the batch itself."""
+    import itertools
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.trainer import make_train_step, train_loop
+    opt = opt_lib.chain(opt_lib.clip_by_global_norm(1.0),
+                        opt_lib.adamw(LM_LR))
+    step = make_train_step(lambda p, b: tf.lm_loss(model, b), opt)
+    for n, rec in answers.items():
+        run = []
+        train_loop(from_start(), recorded(step, run),
+                   itertools.repeat({k: v[:n] for k, v in batch.items()}),
+                   n_steps=TRAIN_STEPS, log_every=10 ** 9, log_fn=print)
+        rec["losses"] = [r[0] for r in run]
+        rec["step_s"] = [r[2] for r in run]
+    n = max(answers)
+    torch.save({"tokens": batch["tokens"][:n].cpu(),
+                "labels": batch["labels"][:n].cpu(), "held": list(held),
+                **answers}, mp_file(mp_dir, "train"))
+    print("train lm: saved the model-parallel phase's answers: "
+          + "; ".join(f"{n} sequence(s): loss {r['loss16']!r} (float32 "
+                      f"{r['loss32']!r}), grad norm {r['norm16']!r} "
+                      f"(float32 {r['norm32']!r}), {TRAIN_STEPS} steps "
+                      f"{[round(x, 4) for x in r['losses']]}"
+                      for n, r in answers.items())
+          + f"; {len(held)} gradients held")
+
+
+def mp_moe_train_answers(mp_dir: str, seed: int, dev) -> None:
+    """What the model-parallel phase holds olmoe-1b-7b's EP train step
+    against: the model at full width cut to MP_MOE_TRAIN_LAYERS, at a
+    capacity factor where nothing drops (E / k) and aux weight 0 (EP's
+    aux is the mean of the shards', as the reference's ``shard_map``
+    computes it, not one device's), one sequence of TRAIN_SEQ tokens; its
+    bf16 loss, gradient norm and the gradients of every leaf but the
+    experts', embedding and head (and layer 1's ``w_in``), and the same
+    from the float32 copy."""
+    import torch
+    from repro_torch.data import synthetic
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import optimizer as opt_lib
+    cfg = mp_moe_train_config()
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    model = tf.init_params(cfg, gen, dev)
+    batch = next(synthetic.lm_token_batches(gen, 1, TRAIN_SEQ, cfg.vocab))
+    held = [n for n, _ in model.named_parameters()
+            if n not in ("embed", "head") and ".moe.w_" not in n] + [
+        "blocks.1.moe.w_in"]
+    out = {"tokens": batch["tokens"].cpu(), "labels": batch["labels"].cpu(),
+           "held": held}
+    model32 = float32_copy(model)
+    for tag, m in (("16", model), ("32", model32)):
+        loss = tf.lm_loss(m, batch)
+        named = dict(m.named_parameters())
+        grads = dict(zip(named, torch.autograd.grad(loss,
+                                                    list(named.values()))))
+        out[f"loss{tag}"] = float(loss.detach())
+        out[f"norm{tag}"] = float(opt_lib.global_norm(grads))
+        out[f"grads{tag}"] = {n: grads[n].cpu() for n in held}
+        del grads, loss
+    torch.save(out, mp_file(mp_dir, "moe_train"))
+    print(f"moe lm: saved the model-parallel EP train step's answers "
+          f"({cfg.n_layers} layers at full width, capacity factor "
+          f"{cfg.moe.capacity_factor}): loss {out['loss16']!r} (float32 "
+          f"{out['loss32']!r}), grad norm {out['norm16']!r} (float32 "
+          f"{out['norm32']!r}), {len(held)} gradients held")
+    del model, model32
+    torch.cuda.empty_cache()
+
+
+def mp_moe_train_config():
+    """olmoe-1b-7b at full width, MP_MOE_TRAIN_LAYERS deep, capacity
+    factor E / k (nothing drops), aux weight 0, chunked attention."""
+    import dataclasses
+    from repro_torch.configs import base
+    cfg = base.get("olmoe-1b-7b").make_config()
+    return dataclasses.replace(
+        cfg, n_layers=MP_MOE_TRAIN_LAYERS, aux_loss_weight=0.0,
+        moe=dataclasses.replace(cfg.moe, capacity_factor=float(
+            cfg.moe.n_experts // cfg.moe.top_k)))
+
+
+def grad_close(label: str, got, want, want32) -> dict:
+    """Hold a model-parallel gradient ``got`` against the float32 one
+    ``want32`` no further than the single-device bf16 gradient ``want``
+    is: mean and RMS distance within 1.25x one device's, the max within
+    MP_GRAD_MAX_RATIO times; and ``got`` within twice one device's max
+    distance of ``want``, plus one bf16 ulp of ``want``'s largest
+    magnitude (two bf16 gradients round the same sum apart by up to an
+    ulp). The max is held looser than ``mp_close`` holds a forward's
+    logits (1.25x): a gradient leaf's largest error is a few elements'
+    rounding, and two correct single-device bf16 paths already lie
+    1.253x apart there on the CPU (``grad_spread`` measures it at this
+    size on the card; PERF.md, Findings). Returns the distances."""
+    import math
+    g, w, w32 = got.float(), want.float(), want32.float()
+    e_mp, e_sd = (g - w32).abs(), (w - w32).abs()
+    top = float(w.abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+    out = {"max": float(e_mp.max()), "mean": float(e_mp.mean()),
+           "rms": float(e_mp.square().mean().sqrt()),
+           "sd_max": float(e_sd.max()), "sd_mean": float(e_sd.mean()),
+           "sd_rms": float(e_sd.square().mean().sqrt()),
+           "vs_sd": float((g - w).abs().max()), "ulp": ulp}
+    if out["mean"] > 1.25 * out["sd_mean"] or \
+            out["rms"] > 1.25 * out["sd_rms"] or \
+            out["max"] > MP_GRAD_MAX_RATIO * out["sd_max"] or \
+            out["vs_sd"] > 2 * out["sd_max"] + ulp:
+        fail(f"model parallel {label}: mean {out['mean']} rms {out['rms']} "
+             f"max {out['max']} from the float32 model, single-device bf16 "
+             f"{out['sd_mean']}, {out['sd_rms']} and {out['sd_max']}; "
+             f"{out['vs_sd']} from single-device bf16 (one ulp {ulp})")
+    return out
+
+
+def grad_spread(grads_a: dict, grads_b: dict, grads32: dict) -> dict:
+    """How far apart two correct single-device bf16 gradient paths lie
+    in ``grad_close``'s terms: for each statistic, the largest ratio of
+    one path's distance to float32 over the other's (either way round),
+    and the largest distance between the two over path a's max distance
+    to float32; each with its leaf."""
+    out = {}
+    for name, w32 in grads32.items():
+        a = (grads_a[name].float() - w32.float()).abs()
+        b = (grads_b[name].float() - w32.float()).abs()
+        if not (float(a.max()) and float(b.max())):
+            continue                # a path exact on this leaf: no ratio
+        gap = float((grads_a[name].float() - grads_b[name].float()).abs()
+                    .max()) / float(a.max())
+        for key, fa, fb in (
+                ("max", a.max(), b.max()), ("mean", a.mean(), b.mean()),
+                ("rms", a.square().mean().sqrt(),
+                 b.square().mean().sqrt())):
+            r = max(float(fa / fb), float(fb / fa))
+            if r > out.get(key, (0.0, ""))[0]:
+                out[key] = (r, name)
+        if gap > out.get("gap", (0.0, ""))[0]:
+            out["gap"] = (gap, name)
+    return out
+
+
+def mp_grads_close(label: str, grads: dict, pol, want: dict) -> dict:
+    """``grad_close`` of each held gradient (the rank's reduced share,
+    gathered whole) against the single-device bf16 and float32 ones, on
+    the card. Returns the distances by name."""
+    import torch
+    dev = next(iter(grads.values())).device
+    out = {}
+    for name in want["held"]:
+        got = pol.relayout(grads[name], pol.param_rule(name), ())
+        out[name] = grad_close(f"{label} gradient {name}", got,
+                               want["grads16"][name].to(dev),
+                               want["grads32"][name].to(dev))
+        del got
+    torch.cuda.empty_cache()
+    return out
+
+
+def recording(inner, names, store: dict):
+    """An optimizer that hands ``inner`` its gradients and keeps those of
+    ``names`` from its first update in ``store``: the reduced gradients a
+    train step computed."""
+    from repro_torch.train import optimizer as opt_lib
+
+    def update(grads, state, params):
+        if not store:
+            store.update({n: grads[n].detach().clone() for n in names})
+        return inner.update(grads, state, params)
+    return opt_lib.Optimizer(inner.init, update)
+
+
+def deterministic(fn):
+    """``fn()`` under deterministic algorithms, as the train phase runs."""
+    import torch
+    torch.use_deterministic_algorithms(True)
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        return fn()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
+class CollectiveClock:
+    """Host seconds inside the process group's collectives while active:
+    ``torch.distributed``'s all_gather, reduce_scatter, all_reduce and
+    all_to_all_single (the calls ``dist/collectives.py`` makes) wrapped to
+    synchronize the card first, so each call's time is its own
+    (host-staged by gloo), not the queued work's before it."""
+
+    NAMES = ("all_gather", "reduce_scatter", "all_reduce",
+             "all_to_all_single")
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as dist
+        self.s, self.n, self._saved = 0.0, 0, {}
+
+        def timed(fn):
+            def run(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    self.s += time.perf_counter() - t0
+                    self.n += 1
+            return run
+        for name in self.NAMES:
+            self._saved[name] = getattr(dist, name)
+            setattr(dist, name, timed(self._saved[name]))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for name, fn in self._saved.items():
+            setattr(dist, name, fn)
+        return False
+
+
+def mp_compressed(grad, pol) -> dict:
+    """``compressed_psum`` over "data" of this rank's unreduced share of a
+    gradient: the int32 sum exact against a host replay of the formula on
+    every data rank's share, the result within ``n_ranks * s_max / 2`` of
+    the float ``psum`` (plus the two float32 roundings of the sums)."""
+    import torch
+    from repro_torch.dist import collectives as coll
+    from repro_torch.train import compression
+    got = compression.compressed_psum(grad, pol, "data")
+    x = grad.float()
+    shares = pol.relayout(x[None], ("data",), ((),)).cpu()    # (dp, ...)
+    s_max = (torch.clamp(shares.reshape(shares.shape[0], -1).abs().amax(1),
+                         min=1e-12) / torch.tensor(127.0)).max()
+    q = torch.clamp(torch.round(shares / s_max), -127, 127).to(torch.int32)
+    replay = q.sum(0, dtype=torch.int32).to(torch.float32) * s_max
+    n = shares.shape[0]
+    dense = coll.psum(x, pol, "data")
+    err = float((got - dense).abs().max())
+    out = {"cp_numel": grad.numel(), "cp_ranks": n, "cp_s_max": float(s_max),
+           "cp_err": err, "cp_bound": n * float(s_max) / 2,
+           "cp_exact": bool(torch.equal(got.cpu(), replay))}
+    if not out["cp_exact"] or \
+            err > out["cp_bound"] + 2.0 ** -22 * float(dense.abs().max()):
+        fail(f"model parallel compressed_psum: {out}")
+    return out
+
+
+def mp_train_qwen3(mesh, seed: int, mp_dir: str, dev, wdir: str) -> dict:
+    """qwen3-0.6b at full width and depth trained on this rank under the
+    train rules (bf16, remat full, chunked attention): one sequence of
+    TRAIN_SEQ tokens a data rank, the single-device phase's first ``dp``.
+    The loss, the global gradient norm and the held gradients (reduced
+    over the replicated axes, gathered) against the single-device ones;
+    ``compressed_psum`` over "data" on the rank's share of layer 0's
+    ``wq`` gradient where "data" has two ranks; TRAIN_STEPS steps of
+    chain(clip 1.0, adamw LM_LR), each loss within LM_LOSS_RTOL of the
+    single-device run's and falling by LM_LOSS_DROP; then
+    ``mp_train_resume``."""
+    import itertools
+    import torch
+    from repro_torch.configs import base
+    from repro_torch.dist import ShardingPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.launch import cells
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import trainer
+    arch = base.get("qwen3-0.6b")
+    cfg = arch.make_config()
+    pol = ShardingPolicy(mesh=mesh, rules=cells._lm_rules(arch, "train",
+                                                          mesh))
+    pol = pol.with_params(tf.param_rules(cfg, pol))
+    want = torch.load(mp_file(mp_dir, "train"), mmap=True)
+    dp = pol.axis_size("data")
+    ref = want[dp] | {"held": want["held"]}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = tf.init_params(cfg, gen, dev, policy=pol)
+    params = dict(model.named_parameters())
+    rows = (pol.rules["act_btd"][0], None)
+    local = {k: pol.relayout(want[k][:dp].to(dev), (), rows).contiguous()
+             for k in ("tokens", "labels")}
+    out = {"tr_params": sum(p.numel() for p in params.values()),
+           "tr_tokens": int(local["tokens"].numel()),
+           "tr_sd": {k: ref[k] for k in ("loss16", "norm16", "loss32",
+                                          "norm32", "losses")}}
+    ops.reset_launch_counts()
+
+    def grad_check():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with CollectiveClock() as clock:
+            loss = tf.lm_loss(model, local, pol)
+            grads = dict(zip(params, torch.autograd.grad(
+                loss, list(params.values()))))
+            torch.cuda.synchronize()
+        out["tr_grad_s"] = time.perf_counter() - t0
+        out["tr_coll_s"], out["tr_coll_n"] = clock.s, clock.n
+        if dp > 1:
+            out.update(mp_compressed(grads["blocks.0.wq"], pol))
+        t0 = time.perf_counter()
+        grads = trainer.reduce_grads(grads, pol)
+        torch.cuda.synchronize()
+        out["tr_reduce_s"] = time.perf_counter() - t0
+        out["tr_loss"] = float(loss.detach())
+        out["tr_norm"] = float(opt_lib.global_norm(grads, pol))
+        out["tr_loss_rel"] = within("model parallel qwen3 loss",
+                                    out["tr_loss"], ref["loss16"],
+                                    LM_LOSS_RTOL)
+        out["tr_norm_rel"] = within("model parallel qwen3 grad norm",
+                                    out["tr_norm"], ref["norm16"],
+                                    LM_GNORM_RTOL)
+        out["tr_grads"] = mp_grads_close("qwen3", grads, pol, ref)
+
+    deterministic(grad_check)
+    if dp == 1:
+        out.update(mp_step_breakdown(model, local, pol))
+    opt = opt_lib.chain(
+        opt_lib.clip_by_global_norm(1.0, policy=pol),
+        opt_lib.adamw(LM_LR))
+    step = trainer.make_train_step(lambda p, b: tf.lm_loss(model, b, pol),
+                                   opt, policy=pol)
+    run = []
+    deterministic(lambda: trainer.train_loop(
+        trainer.init_state(params, opt), recorded(step, run),
+        itertools.repeat(local), n_steps=TRAIN_STEPS, log_every=10 ** 9,
+        log_fn=print, policy=pol))
+    out["tr_losses"] = loss_falls("model parallel qwen3", run, LM_LOSS_DROP)
+    out["tr_losses_rel"] = [
+        within(f"model parallel qwen3 step {i + 1} loss", x, y, LM_LOSS_RTOL)
+        for i, (x, y) in enumerate(zip(out["tr_losses"], ref["losses"]))]
+    out["tr_step_s"] = [r[2] for r in run]
+    out["tr_sd_step_s"] = ref["step_s"]
+    out["tr_peak"] = torch.cuda.max_memory_allocated()
+    del model, params, step, opt, want
+    torch.cuda.empty_cache()
+    out.update(mp_train_resume(cfg, pol, seed, local, dev, wdir))
+    launched = {k: v for k, v in ops.launch_counts.items() if v}
+    if launched:
+        fail(f"model parallel training launched kernels: {launched}")
+    return out
+
+
+def mp_step_breakdown(model, local: dict, pol) -> dict:
+    """Where a rank's forward + backward of ``lm_loss`` goes. The gradient
+    check ran it under deterministic algorithms with every collective
+    timed from a device sync (``CollectiveClock``); here it runs again
+    with neither, then under deterministic algorithms only, then so once
+    more with the mesh's first rank under ``torch.profiler`` (host and
+    device activity): its device busy share of the wall, top kernels and
+    the host operators with the most self time."""
+    import torch
+    from repro_torch.dist.policy import shard_rank
+    from repro_torch.models import transformer as tf
+    params = list(model.parameters())
+
+    def fwd_bwd():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = tf.lm_loss(model, local, pol)
+        torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    out = {"bd_plain_s": fwd_bwd(), "bd_det_s": deterministic(fwd_bwd)}
+    if shard_rank(pol) != 0:
+        out["bd_prof_s"] = deterministic(fwd_bwd)
+        return out
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out["bd_prof_s"] = deterministic(fwd_bwd)
+    dev_rows, host_rows = [], []
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+            if us > 0:
+                dev_rows.append((us / 1e6, ev.count, ev.key))
+        elif ev.self_cpu_time_total > 0:
+            host_rows.append((ev.self_cpu_time_total / 1e6, ev.count,
+                              ev.key))
+    out["bd_busy_s"] = sum(r[0] for r in dev_rows)
+    out["bd_kernels"] = sorted(dev_rows, reverse=True)[:6]
+    out["bd_host_s"] = sum(r[0] for r in host_rows)
+    out["bd_host"] = sorted(host_rows, reverse=True)[:10]
+    return out
+
+
+def mp_train_resume(cfg, pol, seed: int, local: dict, dev, wdir: str
+                    ) -> dict:
+    """The sharded checkpoint: ``cfg`` cut to MP_RESUME_LAYERS at full
+    width, TRAIN_STEPS steps uninterrupted, then a run that saves at
+    TRAIN_CKPT_AT (whole leaves gathered, the mesh's first rank writing)
+    and fails there, restored on every rank from the checkpoint (each
+    cutting its shards) and resumed: parameters and losses bit for bit
+    the uninterrupted run's."""
+    import dataclasses
+    import itertools
+    import torch
+    from repro_torch.models import convert
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import trainer
+    cfg = dataclasses.replace(cfg, n_layers=MP_RESUME_LAYERS)
+    pol = pol.with_params(tf.param_rules(cfg, pol))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = tf.init_params(cfg, gen, dev, policy=pol)
+    params = dict(model.named_parameters())
+    start = {k: p.detach().clone() for k, p in params.items()}
+    opt = opt_lib.chain(
+        opt_lib.clip_by_global_norm(1.0, policy=pol),
+        opt_lib.adamw(LM_LR))
+    step = trainer.make_train_step(lambda p, b: tf.lm_loss(model, b, pol),
+                                   opt, policy=pol)
+    loop = dict(n_steps=TRAIN_STEPS, log_every=10 ** 9, log_fn=print,
+                policy=pol)
+
+    def from_start():
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(start[k])
+        return trainer.init_state(params, opt)
+
+    def body():
+        run_a, run_b, run_c = [], [], []
+        trainer.train_loop(from_start(), recorded(step, run_a),
+                           itertools.repeat(local), **loop)
+        final = {k: p.detach().clone() for k, p in params.items()}
+        ck_dir = os.path.join(wdir, "ckpt")
+        t0 = time.perf_counter()
+        try:
+            trainer.train_loop(from_start(), recorded(step, run_b),
+                               itertools.repeat(local), ckpt_dir=ck_dir,
+                               ckpt_every=TRAIN_CKPT_AT,
+                               fail_at_step=TRAIN_CKPT_AT, **loop)
+            fail("model parallel resume: the simulated failure did not "
+                 "happen")
+        except RuntimeError as e:
+            if "simulated worker failure" not in str(e):
+                raise
+        save_s = time.perf_counter() - t0 - sum(r[2] for r in run_b)
+        last = ckpt.latest_step(ck_dir)
+        if last != TRAIN_CKPT_AT:
+            fail(f"model parallel resume: latest checkpoint {last}")
+        state = from_start()
+        t0 = time.perf_counter()
+        tree, _ = ckpt.restore(ck_dir, last,
+                               convert.train_state_to_numpy(state),
+                               cut=convert.shard_cut(state, pol))
+        convert.train_state_from_jax(tree, state)
+        del tree
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        trainer.train_loop(state, recorded(step, run_c),
+                           itertools.repeat(local), **loop)
+        differ = [k for k, p in params.items()
+                  if not torch.equal(p, final[k])]
+        losses = [r[0] for r in run_a]
+        if differ or [r[0] for r in run_c] != losses[last:]:
+            fail(f"model parallel resume: {len(differ)} of {len(params)} "
+                 f"parameters differ ({differ[:3]}); losses "
+                 f"{[r[0] for r in run_c]} against {losses[last:]}")
+        ck_bytes = sum(os.path.getsize(os.path.join(d, f))
+                       for d, _, fs in os.walk(ck_dir) for f in fs)
+        return {"rs_layers": cfg.n_layers, "rs_losses": losses,
+                "rs_ckpt_gib": ck_bytes / 2 ** 30, "rs_save_s": save_s,
+                "rs_restore_s": restore_s,
+                "rs_step_s": [r[2] for r in run_a]}
+
+    out = deterministic(body)
+    del model, params, start, step, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def mp_train_olmoe(mesh, seed: int, mp_dir: str, dev) -> dict:
+    """olmoe-1b-7b's training on this rank: one EP train step of
+    ``mp_moe_train_config`` (nothing drops, aux weight 0) on the
+    single-device phase's sequence, chain(clip 1.0, adamw LM_LR): its loss,
+    gradient norm and held gradients (as the optimizer received them)
+    against the single-device model by the rules of ``mp_train_qwen3``."""
+    import torch
+    from repro_torch.configs import base
+    from repro_torch.dist import ShardingPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.launch import cells
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import trainer
+    cfg = mp_moe_train_config()
+    pol = ShardingPolicy(mesh=mesh, rules=cells._lm_rules(
+        base.get("olmoe-1b-7b"), "train", mesh))
+    pol = pol.with_params(tf.param_rules(cfg, pol))
+    want = torch.load(mp_file(mp_dir, "moe_train"), mmap=True)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    model = tf.init_params(cfg, gen, dev, policy=pol)
+    params = dict(model.named_parameters())
+    rows = (pol.rules["act_btd"][0], None)
+    local = {k: pol.relayout(want[k].to(dev), (), rows).contiguous()
+             for k in ("tokens", "labels")}
+    got = {}
+    opt = recording(opt_lib.chain(
+        opt_lib.clip_by_global_norm(1.0, policy=pol),
+        opt_lib.adamw(LM_LR)), want["held"], got)
+    step = trainer.make_train_step(lambda p, b: tf.lm_loss(model, b, pol),
+                                   opt, policy=pol)
+    ops.reset_launch_counts()
+
+    def one_step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = step(trainer.init_state(params, opt), local)
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        return loss, norm, time.perf_counter() - t0
+
+    loss, norm, step_s = deterministic(one_step)
+    out = {"mt_loss": loss, "mt_norm": norm, "mt_step_s": step_s,
+           "mt_sd": {k: want[k] for k in ("loss16", "norm16", "loss32",
+                                           "norm32")},
+           "mt_params": sum(p.numel() for p in params.values()),
+           "mt_loss_rel": within("model parallel olmoe EP step loss", loss,
+                                 want["loss16"], LM_LOSS_RTOL),
+           "mt_norm_rel": within("model parallel olmoe EP step grad norm",
+                                 norm, want["norm16"], LM_GNORM_RTOL)}
+    out["mt_grads"] = mp_grads_close("olmoe EP step", got, pol, want)
+    out["mt_peak"] = torch.cuda.max_memory_allocated()
+    launched = {k: v for k, v in ops.launch_counts.items() if v}
+    if launched:
+        fail(f"model parallel olmoe training launched kernels: {launched}")
+    del model, params, step, opt, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
 def mp_qwen3(mesh, seed: int, mp_dir: str, dev) -> dict:
     """qwen3-0.6b at full width in bf16 on this rank: TP/SP flash prefill
-    of the LM phase's prompts, LM_STEPS greedy split-KV decode steps under
-    the decode rules and MP_LONG_STEPS under the long-context ones, each
-    fed the single-device phase's tokens; held against its answers."""
+    of the LM phase's prompts, LM_STEPS greedy split-KV decode
+    steps under the decode rules and MP_LONG_STEPS under the long-context
+    ones, each fed the single-device phase's tokens; held against its
+    answers."""
     import dataclasses
     import torch
     from repro_torch.configs import base
@@ -2315,7 +2989,8 @@ def mp_qwen3(mesh, seed: int, mp_dir: str, dev) -> dict:
         del whole
     out["lm_cache_err"] = cache_err
 
-    for kind, steps in (("decode", LM_STEPS), ("long_ctx", MP_LONG_STEPS)):
+    for kind, steps in (("decode", LM_STEPS),
+                        ("long_ctx", MP_LONG_STEPS)):
         dpol = pol[kind]
         dbatch = (dpol.rules["act_btd"][0],)
         drule = (dpol.rules["logits"][0], dpol.rules["logits"][2])
@@ -2352,6 +3027,58 @@ def mp_qwen3(mesh, seed: int, mp_dir: str, dev) -> dict:
     return out
 
 
+def mp_moe_backward(model, i: int, held: dict, pol, me: int) -> dict:
+    """EP's backward on layer ``i``'s MoE over this rank's tokens of the
+    single-device input, at the config's capacity factor: the objective
+    of ``moe_backward_answers`` on the rank's share (the aux through its
+    ``pmean``), the router's gradient summed over "model", each gradient
+    against the per-shard composition's within MP_EP_GRAD_TOL of its
+    largest magnitude (the rank's experts, its input rows), the drops
+    exact."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.train import trainer
+    cfg = model.cfg
+    dev = model.embed.device
+    blk = model.blocks[i].moe
+    x = pol.relayout(held["h"].to(dev), (), "act_btd").clone()
+    x.requires_grad_(True)
+    cot = pol.relayout(held["cot"].to(dev), (), "act_btd")
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        out, aux = moe.moe_ffn(x, blk, cfg.moe, pol, stats=stats)
+        total = (out.float() * cot.float()).sum() \
+            + cfg.aux_loss_weight * aux
+        grads = torch.autograd.grad(total, [x] + [getattr(blk, n)
+                                                  for n in MOE_GRADS])
+    got = dict(zip(("x",) + MOE_GRADS, grads))
+    got["router"] = trainer.reduce_grads(
+        {"router": got["router"]},
+        pol.with_params({"router": ()}))["router"]
+    torch.cuda.synchronize()
+    rec = {"s": time.perf_counter() - t0, "dropped": int(stats["dropped"]),
+           "want_dropped": held["drops"][me]}
+    want = held["grads"]
+    for name, g in got.items():
+        w = want[name].to(dev)
+        if name == "x":
+            w = pol.relayout(w, (), "act_btd")
+        elif name != "router":
+            w = pol.relayout(w, (), ("model", None, None))
+        err = float((g.float() - w.float()).abs().max())
+        top = float(w.float().abs().max())
+        rec[name] = {"max_abs_err": err, "max_abs": top}
+        if not err <= MP_EP_GRAD_TOL * top:
+            fail(f"model parallel olmoe layer {i} backward: {name} "
+                 f"gradient {err} from the per-shard composition's "
+                 f"(largest {top}; rule {MP_EP_GRAD_TOL} of it)")
+    if rec["dropped"] != rec["want_dropped"]:
+        fail(f"model parallel olmoe layer {i} backward: dropped {rec}")
+    return rec
+
+
 def mp_olmoe(mesh, seed: int, mp_dir: str, dev) -> dict:
     """olmoe-1b-7b at full width in bf16 on this rank: the MoE of
     ``moe_check_layers`` by expert parallelism on the rank's
@@ -2372,7 +3099,7 @@ def mp_olmoe(mesh, seed: int, mp_dir: str, dev) -> dict:
                               max_seq=LM_PROMPT + LM_STEPS)
     pol = ShardingPolicy(mesh=mesh, rules=cells._lm_rules(arch, "prefill",
                                                           mesh))
-    want = torch.load(mp_file(mp_dir, "moe"))
+    want = torch.load(mp_file(mp_dir, "moe"), mmap=True)
     gen = torch.Generator(device=dev).manual_seed(seed)
     t0 = time.perf_counter()
     model = tf.init_params(cfg, gen, dev, policy=pol)
@@ -2404,6 +3131,9 @@ def mp_olmoe(mesh, seed: int, mp_dir: str, dev) -> dict:
         out["moe_layers"][str(i)] = rec
         if rec["dropped"] != rec["want_dropped"] or bad:
             fail(f"model parallel olmoe layer {i}: {rec}")
+        if "grads" in held:
+            out["moe_backward"] = deterministic(lambda: mp_moe_backward(
+                model, i, held, pol, me))
 
     routes = RouteRecorder(model)
     routes.mark("prefill")
@@ -2508,11 +3238,14 @@ def mp_rank(rank: int, shape: tuple, seed: int, workdir: str,
     """One rank of a model-parallel world (``torch.multiprocessing.
     spawn``): gloo over CUDA tensors, every rank on cuda:0, a ("data",
     "model") ``DeviceMesh`` of ``shape``. Runs qwen3-0.6b (TP/SP prefill,
-    split-KV decode), olmoe-1b-7b's expert parallelism (on MP_MOE_WORLD)
-    and two-tower retrieval over row-sharded tables, each held against the
-    answers the single-device phases saved in ``mp_dir``; writes what it
-    saw to ``rank<r>.json`` in ``workdir``. A mismatch raises, and the
-    spawn fails the smoke."""
+    split-KV decode), olmoe-1b-7b's expert parallelism (on MP_MOE_WORLD;
+    layer 0's backward too) and two-tower retrieval over row-sharded
+    tables, then the training: qwen3-0.6b's train step, steps and
+    sharded-checkpoint resume (``mp_train_qwen3``; ``compressed_psum``
+    where "data" has two ranks) and olmoe's EP train step (on
+    MP_MOE_WORLD), each held against the answers the single-device phases
+    saved in ``mp_dir``; writes what it saw to ``rank<r>.json`` in
+    ``workdir``. A mismatch raises, and the spawn fails the smoke."""
     import datetime
     import math
     import torch
@@ -2535,11 +3268,113 @@ def mp_rank(rank: int, shape: tuple, seed: int, workdir: str,
             t0 = time.perf_counter()
             out.update(part(mesh, seed, mp_dir, dev))
             out[f"{part.__name__}_s"] = time.perf_counter() - t0
+        # training, after the serving checks, in the same world
+        for part, args in ((mp_train_qwen3, (workdir,)),
+                           (mp_train_olmoe, ())):
+            if part is mp_train_olmoe and tuple(shape) != MP_MOE_WORLD:
+                continue
+            dist.barrier()
+            t0 = time.perf_counter()
+            out.update(part(mesh, seed, mp_dir, dev, *args))
+            out[f"{part.__name__}_s"] = time.perf_counter() - t0
         out["peak"] = torch.cuda.max_memory_allocated()
         with open(os.path.join(workdir, f"rank{rank}.json"), "w") as fh:
             json.dump(out, fh)
     finally:
         dist.destroy_process_group()
+
+
+def worst_grad(errs: dict) -> str:
+    """The held gradients' distances to float32 against one device's
+    bf16 ones: the worst ratio of each statistic (``grad_close``'s
+    records), how many maxima lie past 1.25x (the rule of the
+    model-parallel serving checks), the worst distance to one device's
+    gradient over one device's max distance, and the rule."""
+    parts = []
+    for key in ("mean", "rms", "max"):
+        name = max(errs, key=lambda n: errs[n][key] / errs[n][f"sd_{key}"])
+        parts.append(f"{key} {errs[name][key] / errs[name][f'sd_{key}']:.3f}x"
+                     f" ({name})")
+    over = sum(e["max"] > 1.25 * e["sd_max"] for e in errs.values())
+    name = max(errs, key=lambda n: errs[n]["vs_sd"] / errs[n]["sd_max"])
+    e = errs[name]
+    return (f"{len(errs)} gradients, worst against one device " + ", ".join(
+        parts) + f"; {over} maxima past 1.25x; from one device's gradient "
+        f"up to {e['vs_sd'] / e['sd_max']:.3f}x its max distance ({name}, "
+        f"one ulp {e['ulp'] / e['sd_max']:.3f}x) (rule: mean and rms "
+        f"1.25x, max {MP_GRAD_MAX_RATIO}x, from one device 2x + one ulp)")
+
+
+def mp_train_lines(shape, ranks: list, each) -> None:
+    """The model-parallel phase's training lines of one world."""
+    lead = ranks[0]
+    sd = lead["tr_sd"]
+    share = ", ".join(f"{r['tr_coll_s'] / r['tr_grad_s']:.1%}" for r in ranks)
+    print(f"  mp world={shape} qwen3-0.6b training (train rules, bf16, "
+          f"remat full, chunked attention; {lead['tr_tokens']:,} tokens a "
+          f"rank, one sequence a data rank; {lead['tr_params']:,} "
+          f"parameters a rank): loss {lead['tr_loss']!r} (one device "
+          f"{sd['loss16']!r}, rel {lead['tr_loss_rel']:.3g} <= "
+          f"{LM_LOSS_RTOL}; float32 {sd['loss32']!r}), grad norm "
+          f"{lead['tr_norm']!r} (one device {sd['norm16']!r}, rel "
+          f"{lead['tr_norm_rel']:.3g} <= {LM_GNORM_RTOL}); forward + "
+          f"backward {each('tr_grad_s')} s a rank, of which "
+          f"{each('tr_coll_s')} s, a share of {share}, "
+          f"in {lead['tr_coll_n']} host-staged collectives (each timed "
+          f"from a device sync), gradient reduction {each('tr_reduce_s')} "
+          f"s; {worst_grad(lead['tr_grads'])}; {TRAIN_STEPS} steps of "
+          f"chain(clip 1.0, adamw "
+          f"{LM_LR}): losses {[round(x, 5) for x in lead['tr_losses']]} "
+          f"(one device {[round(x, 5) for x in sd['losses']]}), step s "
+          f"{[round(x, 2) for x in lead['tr_step_s']]} (one device "
+          f"{[round(x, 2) for x in lead['tr_sd_step_s']]}); peak "
+          f"{[round(r['tr_peak'] / 2**30, 2) for r in ranks]} GiB a rank")
+    if "bd_plain_s" in lead:
+        print(f"  mp world={shape} qwen3-0.6b forward + backward again: "
+              f"{each('bd_plain_s')} s a rank with no collective timed and "
+              f"deterministic algorithms off, {each('bd_det_s')} s with "
+              f"them on; profiled on rank 0 (deterministic, profiler on): "
+              f"wall {lead['bd_prof_s']:.3f} s, its kernels busy "
+              f"{lead['bd_busy_s']:.3f} s = "
+              f"{lead['bd_busy_s'] / lead['bd_prof_s']:.1%}, host operators' "
+              f"self time {lead['bd_host_s']:.3f} s")
+        for sec, count, key in lead["bd_kernels"]:
+            print(f"      device {sec * 1e3:9.2f} ms {count:7d} x  {key[:80]}")
+        for sec, count, key in lead["bd_host"]:
+            print(f"      host   {sec * 1e3:9.2f} ms {count:7d} x  {key[:80]}")
+    if "cp_exact" in lead:
+        print(f"  mp world={shape} compressed_psum over \"data\" of layer "
+              f"0's wq gradient shares ({lead['cp_numel']:,} values a rank, "
+              f"{lead['cp_ranks']} ranks): int32 sums equal the host replay "
+              f"on every rank, max error {each('cp_err', 6)} against the "
+              f"float psum (bound n * s_max / 2: {each('cp_bound', 6)})")
+    print(f"  mp world={shape} sharded checkpoint at {lead['rs_layers']} "
+          f"layers, full width: crashed at step {TRAIN_CKPT_AT}, "
+          f"{lead['rs_ckpt_gib']:.2f} GiB of whole leaves written by one "
+          f"rank (saved in {each('rs_save_s')} s, restored by every rank "
+          f"in {each('rs_restore_s')} s), resumed bit for bit equal to the "
+          f"uninterrupted run (losses "
+          f"{[round(x, 5) for x in lead['rs_losses']]})")
+    if "mt_loss" in lead:
+        sd = lead["mt_sd"]
+        back = lead["moe_backward"]
+        print(f"  mp world={shape} olmoe-1b-7b layer 0 EP backward at "
+              f"capacity factor 1.25 ({back['s']:.3f} s a rank): dropped "
+              f"{[r['moe_backward']['dropped'] for r in ranks]} = the "
+              f"per-shard composition's; gradients' max abs error against "
+              f"it (their largest) "
+              + ", ".join(f"{n} {back[n]['max_abs_err']:.4g} "
+                          f"({back[n]['max_abs']:.4g})"
+                          for n in ("x",) + MOE_GRADS)
+              + f" (rule {MP_EP_GRAD_TOL} of the largest); EP train step "
+              f"at {MP_MOE_TRAIN_LAYERS} layers, full width, nothing "
+              f"dropped ({lead['mt_params']:,} parameters a rank): loss "
+              f"{lead['mt_loss']!r} (one device {sd['loss16']!r}, rel "
+              f"{lead['mt_loss_rel']:.3g}), grad norm {lead['mt_norm']!r} "
+              f"(one device {sd['norm16']!r}, rel {lead['mt_norm_rel']:.3g})"
+              f", {worst_grad(lead['mt_grads'])}; step "
+              f"{each('mt_step_s')} s a rank, peak "
+              f"{[round(r['mt_peak'] / 2**30, 2) for r in ranks]} GiB")
 
 
 def mp_path(seed: int, mp_dir: str) -> dict:
@@ -2550,11 +3385,12 @@ def mp_path(seed: int, mp_dir: str) -> dict:
     import torch
     import torch.multiprocessing as mp
     torch.cuda.empty_cache()
-    moe_want = torch.load(mp_file(mp_dir, "moe"))
+    moe_want = torch.load(mp_file(mp_dir, "moe"), mmap=True)
     worlds = {}
     for shape in MP_WORLDS:
         world = shape[0] * shape[1]
-        with tempfile.TemporaryDirectory() as wdir:
+        # the world's checkpoint (~3.4 GB) lands here, beside the build
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as wdir:
             t0 = time.perf_counter()
             mp.spawn(mp_rank, args=(shape, seed, wdir, mp_dir), nprocs=world,
                      join=True)
@@ -2640,6 +3476,7 @@ def mp_path(seed: int, mp_dir: str) -> dict:
                   + ", ".join(f"{x:.4%}" for x in shares)
                   + " (single device "
                   + ", ".join(f"{x:.4%}" for x in moe_want["shares"]) + ")")
+        mp_train_lines(shape, ranks, each)
         print(f"  mp world={shape} two-tower retrieval ({RETR_REQUESTS} "
               f"sketch requests, {lead['tt_candidates']:,} candidates, "
               f"tables row-sharded: "
@@ -4392,8 +5229,9 @@ def main() -> int:
     phase_done("serving")
 
     # the single-device phases' answers that the model-parallel phase holds
-    # its ranks against
-    mp_dir = tempfile.TemporaryDirectory()
+    # its ranks against (~6 GB with the training's gradients: beside the
+    # build, not in the temporary directory)
+    mp_dir = tempfile.TemporaryDirectory(dir=ROOT / "build")
 
     # -- recsys serving at full width, counted; frees its tables -------------
     with torch.no_grad():           # the towers' parameters are trainable
@@ -4407,9 +5245,18 @@ def main() -> int:
 
     # -- MoE LM serving (olmoe-1b-7b), then mistral-nemo-12b, counted -------
     moe_out = moe_path(args.seed, dev, mp_dir.name)
+    # under deterministic algorithms, as the ranks train (without them the
+    # bf16 gradient norm came out 14% below float32's, the ranks' within
+    # 0.1% of it)
+    deterministic(lambda: mp_moe_train_answers(mp_dir.name, args.seed, dev))
     phase_done("moe lm")
     nemo_out = nemo_path(args.seed, dev)
     phase_done("nemo lm")
+
+    # -- training: the LM, recsys and GAT through the trainer, no kernel;
+    # the LM saves the model-parallel phase's training answers -------------
+    train_out = train_path(args.seed, dev, smi, mp_dir.name)
+    phase_done("train")
 
     # -- model parallelism: gloo worlds (1, 2) and (2, 2) on the card ---------
     mp_worlds = mp_path(args.seed, mp_dir.name)
@@ -4643,10 +5490,6 @@ def main() -> int:
     profile_query(eng, queries, 10, steps[10])
     profile_query(eng8, queries, 10, steps[10])
     phase_done("profiles")
-
-    # -- training: the LM, recsys and GAT through the trainer, no kernel ---
-    train_out = train_path(args.seed, dev, smi)
-    phase_done("train")
 
     # -- the cell catalogue through the dry run, counted -----------------
     # the cells are reckoned for the card less what the process holds:

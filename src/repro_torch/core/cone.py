@@ -65,13 +65,24 @@ def pad_users(users_unit: torch.Tensor, leaf_size: int
     return padded, mask, n_leaves
 
 
+def angle(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """The angle between each row of x (..., n, d) and c (..., d) as
+    ``atan2(|x - (x.c^)c^|, x.c^)``: accurate to float32 rounding at every
+    angle, where ``arccos`` of a float32 cosine resolves only ~3.45e-4 rad
+    near 0 (one ulp of the cosine), more than Lemma 3's slack covers at
+    low d (PORT.md, "The cone bounds")."""
+    c_hat = c / torch.clamp(torch.linalg.norm(c, dim=-1, keepdim=True),
+                            min=1e-12)
+    par = torch.einsum("...nd,...d->...n", x, c_hat)
+    orth = torch.linalg.norm(x - par[..., None] * c_hat[..., None, :],
+                             dim=-1)
+    return torch.atan2(orth, par)
+
+
 def _leaf_stats(xl: torch.Tensor):
     """center, omega, theta of leaves xl (n_blocks, leaf, d)."""
     center = xl.mean(dim=1)
-    cnorm = torch.linalg.norm(center, dim=-1, keepdim=True)
-    cos = torch.einsum("bld,bd->bl", xl, center) / torch.clamp(cnorm,
-                                                                min=1e-12)
-    theta = torch.arccos(torch.clamp(cos, -1.0, 1.0))
+    theta = angle(xl, center)
     return center, theta.amax(dim=-1), theta.reshape(-1)
 
 
@@ -140,13 +151,8 @@ def node_upper_bound(q: torch.Tensor, blocks: ConeBlocks
     by fixed-shape row chunks (``core/rows.py``), so a block's bound has
     the same bits in a shard's slice of the blocks as in all of them."""
     qn = torch.linalg.norm(q)
-
-    def cosine(center):
-        cnorm = torch.linalg.norm(center, dim=-1)
-        return (center @ q) / torch.clamp(cnorm * qn, min=1e-12)
-
-    cos_phi = by_rows(cosine, blocks.center)
-    phi = torch.arccos(torch.clamp(cos_phi, -1.0, 1.0))
+    phi = by_rows(lambda center: angle(center[:, None, :], q)[:, 0],
+                  blocks.center)
     return qn * torch.cos(torch.clamp(phi - blocks.omega, min=0.0)), phi
 
 

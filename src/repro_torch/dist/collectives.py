@@ -18,6 +18,23 @@ and ``psum``/``pmax``/``pmean`` over a tuple of axes (one axis after the
 other). A chunk's place is the rank's coordinate along the axis, not its
 rank within the axis group.
 
+Model-parallel training (slice 17) differentiates through them: each is a
+``torch.autograd.Function`` whose backward is its conjugate collective,
+under one convention for a tensor replicated along an axis (PORT.md,
+"Model parallelism (training)"): a gathered tensor's gradient on a rank
+is that rank's *partial* share (the ranks use the gathered tensor each
+for their own work, and the shares sum to the true gradient), while a
+``psum``'s replicated result carries the *full* gradient on every rank
+(the ranks then compute the same thing, as the loss does). So
+``all_gather`` <-> ``reduce_scatter`` on the same dim,
+``all_to_all(split a, concat b)`` <-> ``all_to_all(split b, concat a)``,
+``psum`` <-> the identity (``pmean``: the identity over the rank count),
+and a slice of a replicated tensor (``ShardingPolicy.relayout``) <-> its
+zero-padded gradient, which autograd's own slice gives. ``pmax`` carries
+no gradient (the loss uses it as a constant shift). The backward runs its
+collectives in the order autograd visits the nodes, the same on every
+rank, since every rank builds the same graph.
+
 The caller initializes the process group and so picks the backend: NCCL
 on a multi-GPU host, gloo on the CPU, and gloo over CUDA tensors where
 several ranks share one card (NCCL refuses two ranks on one device).
@@ -203,11 +220,8 @@ def _axis_group(policy: ShardingPolicy, axis: str):
                    for r in _axis_ranks(policy, axis)]
 
 
-def all_gather(t: torch.Tensor, policy: ShardingPolicy, axis: str,
-               dim: int) -> torch.Tensor:
-    """The shards of ``t`` along mesh axis ``axis`` concatenated along
-    ``dim`` in coordinate order: JAX's ``all_gather(t, axis, axis=dim,
-    tiled=True)``."""
+def _all_gather(t: torch.Tensor, policy: ShardingPolicy, axis: str,
+                dim: int) -> torch.Tensor:
     dist = _dist()
     group, order = _axis_group(policy, axis)
     if len(order) == 1:
@@ -218,11 +232,8 @@ def all_gather(t: torch.Tensor, policy: ShardingPolicy, axis: str,
     return torch.cat([parts[g] for g in order], dim=dim)
 
 
-def reduce_scatter(t: torch.Tensor, policy: ShardingPolicy, axis: str,
-                   dim: int) -> torch.Tensor:
-    """The sum of every rank's ``t`` along mesh axis ``axis``, of which
-    this rank keeps its coordinate's chunk of ``dim``: JAX's
-    ``psum_scatter(t, axis, scatter_dimension=dim, tiled=True)``."""
+def _reduce_scatter(t: torch.Tensor, policy: ShardingPolicy, axis: str,
+                    dim: int) -> torch.Tensor:
     dist = _dist()
     group, order = _axis_group(policy, axis)
     n = len(order)
@@ -240,13 +251,8 @@ def reduce_scatter(t: torch.Tensor, policy: ShardingPolicy, axis: str,
     return out
 
 
-def all_to_all(t: torch.Tensor, policy: ShardingPolicy, axis: str, *,
-               split_axis: int, concat_axis: int) -> torch.Tensor:
-    """JAX's ``all_to_all(t, axis, split_axis, concat_axis, tiled=True)``:
-    ``t`` cut into as many chunks along ``split_axis`` as the axis has
-    ranks, chunk c sent to coordinate c, and the chunks received from
-    coordinates 0, 1, ... concatenated along ``concat_axis``. One
-    ``all_to_all_single`` (module docstring)."""
+def _all_to_all(t: torch.Tensor, policy: ShardingPolicy, axis: str,
+                split_axis: int, concat_axis: int) -> torch.Tensor:
     dist = _dist()
     group, order = _axis_group(policy, axis)
     n = len(order)
@@ -278,15 +284,91 @@ def _reduce(t: torch.Tensor, policy: ShardingPolicy, axes, op):
     return out
 
 
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, policy, axis, dim):
+        ctx.args = (policy, axis, dim)
+        return _all_gather(t, policy, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce_scatter(grad, *ctx.args), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, policy, axis, dim):
+        ctx.args = (policy, axis, dim)
+        return _reduce_scatter(t, policy, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_gather(grad, *ctx.args), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, policy, axis, split_axis, concat_axis):
+        ctx.args = (policy, axis, split_axis, concat_axis)
+        return _all_to_all(t, policy, axis, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        policy, axis, split_axis, concat_axis = ctx.args
+        return (_all_to_all(grad, policy, axis, concat_axis, split_axis),
+                None, None, None, None)
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, policy, axes):
+        return _reduce(t, policy, axes, _dist().ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+def all_gather(t: torch.Tensor, policy: ShardingPolicy, axis: str,
+               dim: int) -> torch.Tensor:
+    """The shards of ``t`` along mesh axis ``axis`` concatenated along
+    ``dim`` in coordinate order: JAX's ``all_gather(t, axis, axis=dim,
+    tiled=True)``. Backward: ``reduce_scatter`` of the ranks' partial
+    gradients (module docstring)."""
+    return _AllGather.apply(t, policy, axis, dim)
+
+
+def reduce_scatter(t: torch.Tensor, policy: ShardingPolicy, axis: str,
+                   dim: int) -> torch.Tensor:
+    """The sum of every rank's ``t`` along mesh axis ``axis``, of which
+    this rank keeps its coordinate's chunk of ``dim``: JAX's
+    ``psum_scatter(t, axis, scatter_dimension=dim, tiled=True)``.
+    Backward: ``all_gather``."""
+    return _ReduceScatter.apply(t, policy, axis, dim)
+
+
+def all_to_all(t: torch.Tensor, policy: ShardingPolicy, axis: str, *,
+               split_axis: int, concat_axis: int) -> torch.Tensor:
+    """JAX's ``all_to_all(t, axis, split_axis, concat_axis, tiled=True)``:
+    ``t`` cut into as many chunks along ``split_axis`` as the axis has
+    ranks, chunk c sent to coordinate c, and the chunks received from
+    coordinates 0, 1, ... concatenated along ``concat_axis``. One
+    ``all_to_all_single`` (module docstring). Backward: the
+    ``all_to_all`` with the two axes swapped."""
+    return _AllToAll.apply(t, policy, axis, split_axis, concat_axis)
+
+
 def psum(t: torch.Tensor, policy: ShardingPolicy, axes) -> torch.Tensor:
     """The sum of ``t`` over the mesh axes ``axes`` (a name or a tuple),
-    as a new tensor: JAX's ``psum``."""
-    return _reduce(t, policy, axes, _dist().ReduceOp.SUM)
+    as a new tensor: JAX's ``psum``. Backward: the identity (the
+    replicated sum carries the full gradient on every rank)."""
+    return _Psum.apply(t, policy, axes)
 
 
 def pmax(t: torch.Tensor, policy: ShardingPolicy, axes) -> torch.Tensor:
-    """The elementwise max of ``t`` over the mesh axes ``axes``."""
-    return _reduce(t, policy, axes, _dist().ReduceOp.MAX)
+    """The elementwise max of ``t`` over the mesh axes ``axes``; no
+    gradient flows through it."""
+    return _reduce(t.detach(), policy, axes, _dist().ReduceOp.MAX)
 
 
 def pmean(t: torch.Tensor, policy: ShardingPolicy, axes) -> torch.Tensor:
@@ -295,3 +377,50 @@ def pmean(t: torch.Tensor, policy: ShardingPolicy, axes) -> torch.Tensor:
     for axis in _axes(axes):
         n *= policy.axis_size(axis)
     return psum(t, policy, axes) / n
+
+
+def gather_to_first(t: torch.Tensor, policy: ShardingPolicy,
+                    rule) -> torch.Tensor | None:
+    """The whole tensor of the rank-local ``t`` in layout ``rule``, on the
+    host of the mesh's first rank (``shard_rank`` 0, the rank that writes
+    checkpoints); None on every other rank. One rank of each distinct
+    chunk (the one at coordinate 0 along every axis the rule leaves
+    replicated) sends it point to point, so the first rank receives each
+    element once and no other rank holds more than its own shard. Every
+    rank calls it, in the same order. Over gloo the chunks travel from
+    the host (gloo's send and recv take CPU tensors); over NCCL from the
+    device."""
+    import itertools
+    dist = _dist()
+    names = tuple(policy.mesh.mesh_dim_names or ())
+    grid = policy.mesh.mesh                   # global ranks by coordinate
+    axes = policy.axes(tuple(rule) + (None,) * (t.dim() - len(rule)))
+    used = {a for dim_axes in axes for a in dim_axes}
+    me, first = dist.get_rank(), int(grid.reshape(-1)[0])
+    host = "nccl" not in str(dist.get_backend(policy.group))
+    local = t.detach().contiguous()
+    if host:
+        local = local.cpu()
+    holders = [(int(grid[c]), dict(zip(names, c)))
+               for c in itertools.product(*map(range, grid.shape))
+               if not any(i and names[d] not in used
+                          for d, i in enumerate(c))]
+    if me != first:
+        if any(r == me for r, _ in holders):
+            dist.send(local, first, group=policy.group)
+        return None
+    whole = local.new_empty(tuple(n * policy.axes_size(a)
+                                  for n, a in zip(local.shape, axes)))
+    for r, coord in holders:
+        part = local
+        if r != me:
+            part = torch.empty_like(local)
+            dist.recv(part, r, group=policy.group)
+        at = []
+        for n, dim_axes in zip(local.shape, axes):
+            c = 0
+            for a in dim_axes:
+                c = c * policy.axis_size(a) + coord.get(a, 0)
+            at.append(slice(c * n, (c + 1) * n))
+        whole[tuple(at)] = part
+    return whole.cpu()

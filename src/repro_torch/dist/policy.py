@@ -52,8 +52,8 @@ DP_AXIS_NAMES = ("pod", "data")
 TP_AXIS_NAME = "model"
 
 # the mesh work still to port, named in the NotImplementedError it raises
-MODEL_SLICE = ("the multi-GPU slice 17 of the port (model-parallel training "
-               "and the cells under a mesh)")
+CELLS_SLICE = ("the cells half of the multi-GPU slice 17 of the port (the "
+               "cells, ZeRO-1 and GAT partitioning under a mesh)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,8 +68,25 @@ class ShardingPolicy:
     mesh: Any = None          # torch.distributed.device_mesh.DeviceMesh
     rules: Mapping[str, tuple] = dataclasses.field(default_factory=dict)
     group: Any = None         # torch.distributed.ProcessGroup or None
+    # each parameter's layout rule by name (``with_params``)
+    params: Mapping[str, tuple] = dataclasses.field(default_factory=dict)
 
     # -- rule lookup -------------------------------------------------------
+
+    def with_params(self, rules: Mapping[str, tuple]) -> "ShardingPolicy":
+        """This policy carrying each parameter's layout rule by name
+        (``transformer.param_rules(cfg, policy)``): what the train step's
+        gradient reduction, the optimizers' statistics over whole leaves
+        and the checkpoints of a sharded state read (``param_rule``)."""
+        return dataclasses.replace(self, params=dict(rules))
+
+    def param_rule(self, name: str) -> tuple:
+        """The layout rule of parameter ``name`` (``with_params``)."""
+        if name not in self.params:
+            raise KeyError(f"the policy carries no rule for parameter "
+                           f"{name!r}: make it with policy.with_params("
+                           f"transformer.param_rules(cfg, policy))")
+        return tuple(self.params[name])
 
     def spec(self, name: str) -> tuple | None:
         """The layout rule registered under ``name`` (None if absent)."""
@@ -166,7 +183,9 @@ class ShardingPolicy:
         an all-reduce. Then each dim is gathered over the axes ``src``
         has and ``dst`` has not, and sliced over the axes ``dst`` adds;
         slicing alone needs no communication. The identity without a
-        mesh."""
+        mesh. Differentiable: each collective has its conjugate backward
+        and a slice's gradient is zero outside the rank's chunk
+        (``dist/collectives.py``)."""
         if self.mesh is None:
             return x
         from repro_torch.dist import collectives as coll
@@ -201,6 +220,24 @@ class ShardingPolicy:
                                      f"ranks)")
                 x = x.chunk(n, dim=d)[self.axis_index(extra)]
         return x
+
+    def sharded_over(self, spec) -> tuple[str, ...]:
+        """The mesh axes of more than one rank that layout ``spec`` tiles
+        some dim over, in mesh order: a tensor in ``spec`` is a different
+        chunk on each rank along them."""
+        used = {a for axes in self.axes(spec) for a in axes}
+        return tuple(a for a in self._names()
+                     if a in used and self.axis_size(a) > 1)
+
+    def replicated_over(self, spec) -> tuple[str, ...]:
+        """The mesh axes of more than one rank that layout ``spec`` tiles
+        no dim over, in mesh order: a tensor in ``spec`` is the same on
+        every rank along them (``()`` without a mesh)."""
+        if self.mesh is None:
+            return ()
+        used = {a for axes in self.axes(spec) for a in axes}
+        return tuple(a for a in self._names()
+                     if a not in used and self.axis_size(a) > 1)
 
     # -- mesh geometry -----------------------------------------------------
 

@@ -11,10 +11,11 @@ What differs from the reference:
 
 * No mesh: a cell is for one device. ``_lm_rules`` (the prefill and
   decode rule sets) is ported, since the model-parallel serving path
-  runs under it (slice 16); the other sharding specs (``_shardings``,
-  ``opt_state_specs``, ``_zero1_opt_specs``, ``_recsys_param_specs``),
-  the cells under a mesh and the ``zero1`` variant wait for slice 17 of
-  the port's multi-GPU work.
+  runs under it (slice 16) and so does model-parallel training (slice
+  17's training half: ``lm_loss`` and ``make_train_step`` under a
+  policy); the other sharding specs (``_shardings``, ``opt_state_specs``,
+  ``_zero1_opt_specs``, ``_recsys_param_specs``), the cells under a mesh
+  and the ``zero1`` variant wait for the cells half of slice 17.
 * A step takes the model first: the port's models are modules where the
   reference passes a params pytree. ``abstract_args`` are meta tensors
   and a meta model; a train cell's args are (model, ``TrainState`` of the
@@ -80,13 +81,17 @@ def materialize(cell: Cell, device, generator: torch.Generator) -> tuple:
     return cell.make_args(torch.device(device), generator)
 
 
-def default_optimizer(family: str = "recsys") -> opt_lib.Optimizer:
+def default_optimizer(family: str = "recsys", *,
+                      policy=None) -> opt_lib.Optimizer:
+    """The cells' optimizer of a family; under a mesh ``policy`` (carrying
+    each parameter's layout rule) its statistics span whole leaves
+    (``train/optimizer.py``)."""
     if family == "lm":
         # Factored second moment: 132B-param AdamW f32 m+v would be
         # 8.25 GB/chip at 256 chips (the reference's reason)
-        return opt_lib.chain(opt_lib.clip_by_global_norm(1.0),
-                             opt_lib.adafactor(3e-4))
-    return opt_lib.chain(opt_lib.clip_by_global_norm(1.0),
+        return opt_lib.chain(opt_lib.clip_by_global_norm(1.0, policy=policy),
+                             opt_lib.adafactor(3e-4, policy=policy))
+    return opt_lib.chain(opt_lib.clip_by_global_norm(1.0, policy=policy),
                          opt_lib.adamw(3e-4, weight_decay=0.01))
 
 

@@ -10,9 +10,9 @@ Twin of ``src/repro/launch/perf.py``. Variants:
                   (``launch/serve.py::build_sah_retrieval_cell``)
   qwen3_zero1     qwen3-0.6b train_4k, pure-DP + ZeRO-1 optimizer sharding
   gat_dstpart     gat-cora ogb_products, dst-partitioned aggregation
-The last two shard over a device mesh and wait for slice 17 of the port's
-multi-GPU work, model-parallel training and the cells under a mesh
-(ROADMAP.md, queue 1 item 4): asking for one raises.
+The last two shard over a device mesh and wait for the cells half of the
+port's multi-GPU slice 17 (ROADMAP.md, queue 1 item 1): asking for one
+raises.
 """
 
 from __future__ import annotations
@@ -30,10 +30,10 @@ def run_variant(variant: str, out_dir: str, *, measure: bool = False
     """Reckon ``variant`` (and run it on the card with ``measure``); write
     and return its record."""
     if variant in MESH_VARIANTS:
+        from repro_torch.dist.policy import CELLS_SLICE
         raise NotImplementedError(
             f"perf variant {variant!r} shards over a device mesh: it waits "
-            f"for the multi-GPU slice 17 of the port, model-parallel training "
-            f"(ROADMAP.md, queue 1 item 4)")
+            f"for {CELLS_SLICE} (ROADMAP.md, queue 1 item 1)")
     if variant != "retrieval_sah":
         raise ValueError(f"unknown perf variant {variant!r}")
     from repro_torch.launch import dryrun

@@ -32,6 +32,19 @@ the same object is the stack's one leaf, not a row of it: Adafactor's
 ``c`` of a 1-D stack (the norm scales), shared by the layers as the
 reference shares it (``train/optimizer.py``).
 
+Under a mesh (``policy=``, carrying each parameter's layout rule:
+``policy.with_params(transformer.param_rules(cfg, policy))``) a rank's
+``TrainState`` holds its shards. ``train_state_to_numpy`` gathers each
+leaf whole, in mesh order, onto the mesh's first rank, the one that
+writes checkpoints, so the tree is the reference's whatever the mesh;
+the other ranks only send their shards. ``state_rules`` gives every
+leaf's rule by its checkpoint path (an optimizer moment takes its
+parameter's, Adafactor's ``r`` and ``c`` the rule less the dim they
+average), and ``shard_cut`` cuts a rank's shard from a whole leaf by it:
+the one cut of the elastic restore, which ``train/checkpoint.py::
+restore(..., cut=)`` applies leaf by leaf as it reads.
+``train_state_from_jax`` then copies the rank's tree as it is.
+
 It reads numpy only: a JAX array passes through ``np.asarray``, and a
 bf16 array arrives as numpy dtype ``bfloat16`` (``ml_dtypes``), which
 ``torch.from_numpy`` rejects; it travels as its ``uint16`` bits instead.
@@ -187,11 +200,24 @@ def _put(out: dict, name: str, leaf) -> None:
     node[parts[-1]] = leaf
 
 
+class _Rule:
+    """A layout rule standing as a leaf of a state's nest
+    (``state_rules``)."""
+
+    __slots__ = ("rule",)
+
+    def __init__(self, rule):
+        self.rule = tuple(rule)
+
+
 def _stack_rows(*rows, leaf=_host):
     """The layers' rows as the reference's stacked leaf; one tensor held
-    by every layer is the stack's leaf as it is."""
+    by every layer is the stack's leaf as it is (a row's rule, under the
+    stack's leading None)."""
     if len(rows) > 1 and all(r is rows[0] for r in rows):
         return leaf(rows[0])
+    if isinstance(rows[0], _Rule):
+        return _Rule((None,) + rows[0].rule)
     return leaf(torch.stack(rows))
 
 
@@ -226,12 +252,98 @@ def _to_ref(tree, names: set, leaf=_host):
     return leaf(tree)
 
 
-def train_state_to_numpy(state):
+def _meshed(policy) -> bool:
+    return policy is not None and policy.mesh is not None
+
+
+def _leaf_rules(sub, rule: tuple, ndim: int, memo: dict):
+    """The rules of a parameter's state subtree ``sub``: a moment the
+    parameter's ``rule`` (padded to its ``ndim`` dims), Adafactor's ``r``
+    the rule less its last dim, ``c`` less its second to last (a 1-D
+    stack's ``r`` is 0-d, its shared ``c`` has the layer's shape). A
+    tensor held by several layers gets one rule object, as
+    ``_stack_rows`` expects."""
+    if isinstance(sub, dict):
+        out = {}
+        for k, t in sub.items():
+            if k == "r":
+                out[k] = _leaf_rules(t, rule[:-1] if t.ndim else (), t.ndim,
+                                     memo)
+            elif k == "c" and ndim > 1:
+                out[k] = _leaf_rules(t, rule[:-2] + rule[-1:], t.ndim, memo)
+            else:
+                out[k] = _leaf_rules(t, rule, ndim, memo)
+        return out
+    return memo.setdefault(id(sub), _Rule(rule))
+
+
+def _rules_tree(tree, params: dict, policy, memo: dict):
+    if isinstance(tree, dict) and set(tree) == set(params):
+        out = {}
+        for k, sub in tree.items():
+            rule = policy.param_rule(k)
+            out[k] = _leaf_rules(sub, rule + (None,) * (
+                params[k].ndim - len(rule)), params[k].ndim, memo)
+        return out
+    if isinstance(tree, dict):
+        return {k: _rules_tree(v, params, policy, memo)
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_rules_tree(v, params, policy, memo)
+                            for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rules_tree(v, params, policy, memo) for v in tree)
+    return _Rule(())
+
+
+def state_rules(state, policy) -> dict[str, tuple]:
+    """{checkpoint path: layout rule} of every leaf of the reference's
+    nest of ``state`` (``train_state_to_numpy``'s), from the parameters'
+    rules the ``policy`` carries: a stacked layer leaf's rule has the
+    stack's None first; the step counters are replicated."""
+    from repro_torch.train.checkpoint import flatten_with_paths
+    tree = _to_ref(_rules_tree(state, state.params, policy, {}),
+                   set(state.params), leaf=lambda r: r)
+    return {path: r.rule for path, r in flatten_with_paths(tree)}
+
+
+def train_state_to_numpy(state, policy=None):
     """A port ``TrainState`` -> the reference's (``TrainState`` of the
     port's class, with the reference's nesting and numpy leaves; bf16
     leaves as CPU tensors), ready for ``train/checkpoint.save`` or for
-    ``jax.tree.map(jnp.asarray, ...)``."""
-    return _to_ref(state, set(state.params))
+    ``jax.tree.map(jnp.asarray, ...)``. Under a mesh ``policy`` it is a
+    collective (every rank calls it): each leaf is gathered whole, in
+    mesh order, onto the mesh's first rank, which gets the tree; every
+    other rank sends the shards only it holds and gets None."""
+    if not _meshed(policy):
+        return _to_ref(state, set(state.params))
+    from repro_torch.dist import collectives as coll
+    from repro_torch.train.checkpoint import _unflatten, flatten_with_paths
+    rules = state_rules(state, policy)
+    tree = _to_ref(state, set(state.params), leaf=lambda t: t)
+    leaves = [coll.gather_to_first(t.detach(), policy, rules[path])
+              for path, t in flatten_with_paths(tree)]
+    if any(x is None for x in leaves):
+        return None
+    return _unflatten(tree, iter(_host(x) for x in leaves))
+
+
+def shard_cut(state, policy):
+    """The elastic restore's cut for the rank's ``state`` under
+    ``policy`` (``train/checkpoint.py::restore(..., cut=)``): a function
+    of (checkpoint path, whole leaf as read: numpy, or a bf16 CPU tensor)
+    to the rank's shard of it, of the same kind. None without a mesh."""
+    if not _meshed(policy):
+        return None
+    rules = state_rules(state, policy)
+
+    def cut(path, leaf):
+        if not policy.sharded_over(rules[path]):
+            return leaf
+        part = policy.relayout(torch.as_tensor(leaf), (), rules[path])
+        return part.clone() if isinstance(leaf, torch.Tensor) else \
+            part.numpy().copy()
+    return cut
 
 
 def reference_layout(tree, names: set):
@@ -300,7 +412,9 @@ def train_state_from_jax(tree, state):
     numpy, e.g. ``jax.device_get`` of it or a restored checkpoint) into
     the port's ``state`` in place: the model's parameters, the optimizer's
     buffers and the step. ``state`` gives the port's layout (a model's
-    parameters and ``optimizer.init`` of them). Raises unless every leaf
-    lands on a tensor of the same shape and dtype. Returns ``state``."""
+    parameters and ``optimizer.init`` of them); under a mesh ``tree``
+    holds the rank's shards (``checkpoint.restore(..., cut=shard_cut(
+    state, policy))``). Raises unless every leaf lands on a tensor of the
+    same shape and dtype. Returns ``state``."""
     _from_ref(state, tree, set(state.params))
     return state

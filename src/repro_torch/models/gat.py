@@ -22,7 +22,8 @@ The model is a ``GATModel`` holding one ``GATLayer`` a layer, with ``w``
 (d_in, heads, d_out), ``a_src`` and ``a_dst`` (heads, d_out) named as the
 reference's pytree, so ``models/convert.py`` copies its arrays as they
 are. The reference's edge sharding over a mesh (``agg_mode``) goes with
-slice 17 of the port's multi-GPU work: a policy with a mesh raises.
+the cells half of the multi-GPU slice 17 of the port: a policy with a
+mesh raises.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from repro_torch.dist.policy import MODEL_SLICE
+from repro_torch.dist.policy import CELLS_SLICE
 from repro_torch.engine.artifact import device_of
 from repro_torch.engine.sharding import check_policy
 
@@ -138,7 +139,7 @@ def forward(model: GATModel, graph: dict, cfg: GATConfig,
             policy=None) -> torch.Tensor:
     """graph = {x (N, F), src (E,), dst (E,), edge_mask (E,)} -> logits
     (N, C)."""
-    check_policy(policy, "gat forward", MODEL_SLICE)
+    check_policy(policy, "gat forward", CELLS_SLICE)
     src, dst = graph["src"].long(), graph["dst"].long()
     x = graph["x"]
     for li, p in enumerate(model.layers):

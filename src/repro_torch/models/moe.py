@@ -38,7 +38,12 @@ experts, sends the rows home by a second ``all_to_all`` and combines; the
 aux loss is the ``pmean`` over "model" and the data axes. Since the
 capacity is per shard, an answer under a mesh differs from one device's
 where an expert overflows (as in the reference); with nothing dropped
-they agree.
+they agree. Under autograd (slice 17) the same path is the backward's:
+each ``all_to_all`` sends the gradient rows back by the transposed
+exchange, a dropped assignment's row is the cut spare row, so it gets no
+gradient, and the ``pmean``'d aux hands every rank the full gradient of
+its own share (``dist/collectives.py``); the router's gradient is the
+rank's share, summed by the trainer.
 """
 
 from __future__ import annotations

@@ -44,8 +44,15 @@ identity without a mesh, so one code path runs both:
     merged by log-sum-exp over the cache's sequence axes
     (``models/attention.py``).
 
-Training under a mesh (``lm_loss``, a forward that records for autograd)
-waits for slice 17: the collectives have no backward yet.
+Training under a mesh (slice 17) runs the same layers under autograd:
+the collectives differentiate (``dist/collectives.py``), a layer under
+``remat="full"`` re-runs its forward's collectives in the backward (every
+rank recomputes the same layers in the same order; the call check runs
+once, at the entry), and ``lm_loss`` takes the cross-entropy over the
+vocabulary shards (its docstring). The parameters' gradients come out
+per rank, each the rank's share: ``train/trainer.py`` sums them over the
+axes a parameter is replicated along (PORT.md, "Model parallelism
+(training)").
 
 With ``moe`` set each layer's FFN is ``models/moe.py``'s and
 ``forward``'s aux is the mean of the layers' load-balance losses.
@@ -75,7 +82,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.dist.policy import MODEL_SLICE, NO_SHARDING
+from repro_torch.dist.policy import NO_SHARDING
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models import embedding as emb_lib
@@ -239,7 +246,7 @@ def init_params(cfg: LMConfig, generator: torch.Generator,
     specs = None
     if _meshed(policy):
         _local_shapes(cfg, policy)           # raises on an indivisible dim
-        specs = _param_spec_map(cfg, policy)
+        specs = param_rules(cfg, policy)
 
     def keep(name, value):
         if specs is not None:
@@ -287,9 +294,12 @@ def param_specs(cfg: LMConfig, policy) -> dict:
             "final_norm": (None,), "layers": layer}
 
 
-def _param_spec_map(cfg: LMConfig, policy) -> dict[str, tuple]:
+def param_rules(cfg: LMConfig, policy) -> dict[str, tuple]:
     """``param_specs`` keyed by the ``LM``'s parameter names: a block's
-    leaf takes its layer rule less the stacked (L,) axis."""
+    leaf takes its layer rule less the stacked (L,) axis. A training
+    policy carries them (``policy.with_params(param_rules(cfg, policy))``)
+    for the train step, the optimizers and the checkpoints under a
+    mesh."""
     specs = param_specs(cfg, policy)
     out = {name: specs[name] for name in ("embed", "head", "final_norm")}
     for i in range(cfg.n_layers):
@@ -309,7 +319,7 @@ def _global_shapes(cfg: LMConfig) -> dict[str, tuple]:
 
 
 def _local_shapes(cfg: LMConfig, policy) -> dict[str, tuple]:
-    specs = _param_spec_map(cfg, policy)
+    specs = param_rules(cfg, policy)
     return {name: policy.local_shape(shape, specs[name], name)
             for name, shape in _global_shapes(cfg).items()}
 
@@ -321,7 +331,7 @@ def shard_lm(model: LM, policy) -> LM:
     communication), on the parameter's device. A dim that a rule's axes
     do not divide raises, naming the parameter and the dim."""
     cfg = model.cfg
-    specs = _param_spec_map(cfg, policy)
+    specs = param_rules(cfg, policy)
     _local_shapes(cfg, policy)               # raises on an indivisible dim
     shard = LM(cfg, "meta")
     for name, p in model.named_parameters():
@@ -335,12 +345,7 @@ def _meshed(policy) -> bool:
 
 
 def _check_shard(model: LM, policy, who: str) -> None:
-    """Raise unless ``model`` is ``policy``'s shard and nothing records
-    for autograd (the collectives have no backward yet)."""
-    if torch.is_grad_enabled():
-        raise NotImplementedError(
-            f"{who} under a mesh records for autograd; the backward through "
-            f"the collectives waits for {MODEL_SLICE}")
+    """Raise unless ``model`` is ``policy``'s shard."""
     want = _local_shapes(model.cfg, policy)
     for name, p in model.named_parameters():
         if tuple(p.shape) != want[name]:
@@ -353,7 +358,7 @@ def _check_shard(model: LM, policy, who: str) -> None:
 def _entry(model: LM, tokens: torch.Tensor, policy, who: str, *,
            decode: bool = False, check=None, step: int = 0) -> "_Layout":
     """The call's ``_Layout`` after its checks: the heads' split, the
-    rank's shard, no autograd, and ``check(lay)``. Without a mesh a check
+    rank's shard, and ``check(lay)``. Without a mesh a check
     raises at once. Under one every rank runs them before its first
     collective and all raise together (``collectives.agree``, which also
     holds every rank at the same ``step`` and the tokens the same along
@@ -451,11 +456,14 @@ class _Layout:
 def _mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``a @ w`` with a float32 result. On the card bf16 operands stay on
     the tensor cores with a float32 output (``torch.mm``'s ``out_dtype``:
-    no float32 copy of the weight, no float32 product); elsewhere, and for
-    float32 operands, the operands are upcast (exact for bf16), which
-    gives the same sums up to their order."""
-    if a.is_cuda and a.dtype == w.dtype and a.dtype in (torch.bfloat16,
-                                                          torch.float16):
+    no float32 copy of the weight, no float32 product); elsewhere, for
+    float32 operands, and where autograd records (``out_dtype`` has no
+    derivative), the operands are upcast (exact for bf16), which gives the
+    same sums up to their order."""
+    records = torch.is_grad_enabled() and (a.requires_grad or
+                                           w.requires_grad)
+    if a.is_cuda and not records and a.dtype == w.dtype and \
+            a.dtype in (torch.bfloat16, torch.float16):
         out = torch.mm(a.reshape(-1, a.shape[-1]), w,
                        out_dtype=torch.float32)
         return out.reshape(*a.shape[:-1], w.shape[-1])
@@ -583,7 +591,7 @@ def forward(model: LM, tokens: torch.Tensor, policy=None, *,
     autograd when grad is enabled, each layer under a checkpoint with
     ``remat="full"``. Under a mesh ``policy``: the rank's tokens and
     hidden states in ``act_btd`` (the sequence-parallel shard) and its
-    heads of the cache; no autograd (module docstring).
+    heads of the cache (module docstring).
 
     Returns hidden states, not logits: (B, S, V) float32 logits are GiBs
     at vocab 152k; the loss and serving project only what they need."""
@@ -622,22 +630,44 @@ def full_logits(model: LM, hidden: torch.Tensor) -> torch.Tensor:
     return (hidden @ model.head).to(torch.float32)
 
 
-def _chunk_nll(h_c: torch.Tensor, y_c: torch.Tensor,
-               head: torch.Tensor) -> torch.Tensor:
+def _chunk_nll(h_c: torch.Tensor, y_c: torch.Tensor, head: torch.Tensor,
+               lay: _Layout) -> torch.Tensor:
     """Summed cross-entropy of one chunk: logsumexp(h @ head) - <h,
     head[:, y]>, from the model-dtype inputs with float32 logits. A bf16
     product of two bf16 values is exact in float32, so upcasting the
     operands and multiplying in float32 gives the reference's bf16-input,
     float32-accumulated ``jnp.dot(..., preferred_element_type=float32)``
     up to the order of the sums. The float32 copy of the head lives only
-    while the chunk runs."""
+    while the chunk runs.
+
+    Under a mesh ``head`` holds the rank's vocabulary columns (``p_head``)
+    and h_c the rank's batch with its whole sequence: the logsumexp is the
+    ``pmax`` of the local maxima plus the log of the ``psum`` of the local
+    exp sums over the vocabulary's axes, and the label term is taken on
+    the rank whose columns hold the label, then ``psum``'d. The result is
+    the same on every rank of those axes."""
     logits = torch.matmul(h_c.to(torch.float32), head.to(torch.float32))
-    lse = torch.logsumexp(logits, dim=-1)                      # (bc, S)
-    # the label columns of the (D, V) head, not a gather on the logits
-    w_y = head.index_select(1, y_c.reshape(-1)).reshape(
-        head.shape[0], *y_c.shape)                             # (D, bc, S)
+    vocab = lay.vocab_out
+    if lay.policy.axes_size(vocab) == 1:
+        lse = torch.logsumexp(logits, dim=-1)                  # (bc, S)
+        # the label columns of the (D, V) head, not a gather on the logits
+        w_y = head.index_select(1, y_c.reshape(-1)).reshape(
+            head.shape[0], *y_c.shape)                         # (D, bc, S)
+        correct = torch.einsum("bsd,dbs->bs", h_c.to(torch.float32),
+                               w_y.to(torch.float32))
+        return (lse - correct).sum()
+    from repro_torch.dist import collectives as coll
+    pol, v_local = lay.policy, head.shape[1]
+    top = coll.pmax(logits.amax(dim=-1), pol, vocab)
+    lse = top + torch.log(coll.psum(
+        torch.exp(logits - top[..., None]).sum(dim=-1), pol, vocab))
+    lid = y_c - pol.axis_index(vocab) * v_local
+    mine = (lid >= 0) & (lid < v_local)
+    w_y = head.index_select(1, torch.clamp(lid, 0, v_local - 1).reshape(
+        -1)).reshape(head.shape[0], *y_c.shape)
     correct = torch.einsum("bsd,dbs->bs", h_c.to(torch.float32),
                            w_y.to(torch.float32))
+    correct = coll.psum(torch.where(mine, correct, 0.0), pol, vocab)
     return (lse - correct).sum()
 
 
@@ -651,28 +681,40 @@ def lm_loss(model: LM, batch: dict, policy=None, *, loss_chunk: int = 512
     when B is a multiple of 8 and ``loss_chunk < S * B``, else over one,
     and with several chunks each runs under a checkpoint, so a chunk's
     (bc, S, V) float32 logits never outlive it in either pass. The chunk
-    sums are added in order to a float32 total. Under a mesh (a
-    vocabulary-sharded cross-entropy and the backward through the
-    collectives) it waits for slice 17 and raises."""
-    if _meshed(policy):
-        raise NotImplementedError(f"lm_loss under a mesh waits for "
-                                  f"{MODEL_SLICE}")
+    sums are added in order to a float32 total.
+
+    Under a mesh ``policy`` (the train rules, ``launch/cells.py::
+    _lm_rules``) tokens and labels are the rank's batch (B over
+    ``act_btd``'s batch axes, the whole sequence): the hidden states are
+    gathered from the sequence-parallel residual, each chunk (of the
+    rank's B) takes the vocabulary-sharded cross-entropy (``_chunk_nll``),
+    and the total is ``psum``'d over the batch axes and divided by the
+    global B * S. Every rank returns the same loss, and its backward gives
+    each parameter the rank's share of the gradient (module
+    docstring)."""
     cfg = model.cfg
-    hidden, aux, _ = forward(model, batch["tokens"])
+    tokens, labels = batch["tokens"], batch["labels"]
+    lay = _entry(model, tokens, policy, "lm_loss")
+    hidden, aux, _ = _forward(model, tokens, lay, return_cache=False)
+    batch_axes = lay.btd[0]
+    hidden = lay.relayout(hidden, lay.btd, (batch_axes, (), ()))
     b, s, _ = hidden.shape
-    labels = batch["labels"]
     n_chunks = 8 if (b % 8 == 0 and loss_chunk < s * b) else 1
     bc = b // n_chunks
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c in range(n_chunks):
         h_c, y_c = hidden[c * bc:(c + 1) * bc], labels[c * bc:(c + 1) * bc]
         if n_chunks == 1:
-            total = total + _chunk_nll(h_c, y_c, model.head)
+            total = total + _chunk_nll(h_c, y_c, model.head, lay)
         else:
-            total = total + checkpoint(_chunk_nll, h_c, y_c, model.head,
+            total = total + checkpoint(_chunk_nll, h_c, y_c, model.head, lay,
                                        use_reentrant=False,
                                        preserve_rng_state=False)
-    return total / (b * s) + cfg.aux_loss_weight * aux
+    n_tokens = b * s * lay.policy.axes_size(batch_axes)
+    if lay.mesh and lay.policy.axes_size(batch_axes) > 1:
+        from repro_torch.dist import collectives as coll
+        total = coll.psum(total, lay.policy, batch_axes)
+    return total / n_tokens + cfg.aux_loss_weight * aux
 
 
 def init_cache(cfg: LMConfig, batch: int, dtype=None, device="cuda") -> dict:

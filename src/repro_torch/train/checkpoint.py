@@ -25,6 +25,15 @@ bytes as uint8 with a trailing axis of 2, the manifest naming the dtype
 such a leaf as a CPU bfloat16 tensor (numpy has no bfloat16 of its own);
 every other leaf comes back as a numpy array. ``save`` takes a bfloat16
 leaf as a torch tensor; other ml_dtypes (fp8) are refused both ways.
+
+Under a mesh the layout on disk stays the reference's: whole leaves
+(``models/convert.py::train_state_to_numpy`` gathers a sharded state in
+mesh order onto the mesh's first rank), written by that rank (``save(...,
+policy=)``; the others wait for the write). ``restore(..., cut=)`` is the
+elastic restore, the twin of the reference's ``shardings=``: every rank
+reads the whole leaves one at a time and keeps its shard of each
+(``convert.shard_cut``: cut by the leaf's rule on whatever mesh it runs),
+so a state saved on one mesh restores on another, or on one device.
 """
 
 from __future__ import annotations
@@ -33,7 +42,7 @@ import json
 import os
 import shutil
 import time
-from typing import Mapping
+from typing import Callable, Mapping
 
 import numpy as np
 import torch
@@ -100,10 +109,38 @@ def _stored(key: str, leaf) -> tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
-def save(ckpt_dir: str, step: int, tree, metadata: dict | None = None
-         ) -> str:
+def _writer(policy) -> bool:
+    """Whether this rank writes: always without a mesh, else the mesh's
+    first rank."""
+    if policy is None or policy.mesh is None:
+        return True
+    from repro_torch.dist.policy import shard_rank
+    return shard_rank(policy) == 0
+
+
+def _barrier(policy) -> None:
+    if policy is not None and policy.mesh is not None:
+        import torch.distributed as dist
+        dist.barrier(group=policy.group)
+
+
+def save(ckpt_dir: str, step: int, tree, metadata: dict | None = None,
+         policy=None) -> str:
     """Atomically save a tree (module docstring). Returns the final
-    directory path."""
+    directory path. Under a mesh ``policy`` every rank calls it: the
+    mesh's first rank with the whole tree, which it writes, the others
+    with anything (``convert.train_state_to_numpy`` gives them None);
+    every rank returns once the step is complete."""
+    if not _writer(policy):
+        _barrier(policy)
+        return _step_dir(ckpt_dir, step)
+    try:
+        return _save(ckpt_dir, step, tree, metadata)
+    finally:
+        _barrier(policy)
+
+
+def _save(ckpt_dir: str, step: int, tree, metadata: dict | None) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     final = _step_dir(ckpt_dir, step)
     tmp = os.path.join(ckpt_dir, f".tmp_step_{step:08d}")
@@ -159,10 +196,16 @@ def read_manifest(ckpt_dir: str, step: int) -> dict:
         return json.load(f)
 
 
-def restore(ckpt_dir: str, step: int, like) -> tuple[object, dict]:
+def restore(ckpt_dir: str, step: int, like,
+            cut: Callable | None = None) -> tuple[object, dict]:
     """Restore a tree shaped as ``like`` (its leaves' values ignored,
     their shapes checked): numpy arrays, bfloat16 leaves as CPU tensors.
-    Returns (tree, metadata)."""
+    Returns (tree, metadata).
+
+    ``cut(path, whole leaf)`` (the elastic restore, ``convert.shard_cut``)
+    gives the part of each leaf to keep as it is read: under a mesh
+    ``like`` is the rank's tree, shaped as its shards
+    (``convert.train_state_to_numpy(state)`` of the rank's state)."""
     manifest = read_manifest(ckpt_dir, step)
     data = np.load(os.path.join(_step_dir(ckpt_dir, step),
                                 "arrays_00000.npz"))
@@ -174,24 +217,31 @@ def restore(ckpt_dir: str, step: int, like) -> tuple[object, dict]:
         arr = data[entry["file"]]
         want = tuple(leaf_like.shape)
         bits = entry["dtype"] == "bfloat16"
+        whole = tuple(arr.shape[:-1] if bits else arr.shape)
         if str(arr.dtype) != ("uint8" if bits else entry["dtype"]):
             raise ValueError(f"leaf {key!r} is stored as {arr.dtype} for "
                              f"dtype {entry['dtype']}; of the ml_dtypes "
                              f"the port reads bfloat16 only")
-        if tuple(arr.shape) != (want + (2,) if bits else want):
-            raise ValueError(f"leaf {key!r}: checkpoint shape {arr.shape} "
-                             f"!= {want}")
         if bits:
             arr = torch.from_numpy(np.ascontiguousarray(arr).reshape(-1)
-                                   ).view(torch.bfloat16).reshape(want)
+                                   ).view(torch.bfloat16).reshape(whole)
+        if cut is not None:
+            arr = cut(key, arr)
+        if tuple(arr.shape) != want:
+            raise ValueError(f"leaf {key!r}: checkpoint shape {whole}"
+                             + (f" cut to {tuple(arr.shape)}" if cut else "")
+                             + f" != {want}")
         leaves.append(arr)
     return _unflatten(like, iter(leaves)), manifest["metadata"]
 
 
 def prune(ckpt_dir: str, keep: int = 3,
-          protect: tuple | list | set = ()) -> None:
+          protect: tuple | list | set = (), policy=None) -> None:
     """Delete all but the newest ``keep`` complete checkpoints; steps in
-    ``protect`` are never deleted, on top of the keep budget."""
+    ``protect`` are never deleted, on top of the keep budget. Under a
+    mesh ``policy`` the writing rank deletes (``save``)."""
+    if not _writer(policy):
+        return
     steps = _complete_steps(ckpt_dir)
     doomed = steps if keep <= 0 else steps[:-keep]
     for s in doomed:

@@ -9,9 +9,9 @@ quantization error is kept in a residual buffer and added back the next
 step, which keeps the compressed optimizer convergent (Seide et al. 2014,
 Tang et al. 2021).
 
-The reference's ``compressed_psum`` (quantize, psum in int32 over a mesh
-axis, dequantize) is a collective of training under a mesh; it waits for
-slice 17 of the port's multi-GPU work (ROADMAP.md).
+``compressed_psum`` is the reference's collective (``compression.py:
+36-50``) on a ``ShardingPolicy``'s mesh axes: the sum over those axes of
+int8 payloads quantized at one shared scale, added in int32.
 """
 
 from __future__ import annotations
@@ -22,7 +22,9 @@ from repro_torch.train.optimizer import Optimizer, layer_stacks
 
 
 def _scale_of(amax: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(amax, min=1e-12) / 127.0
+    # a tensor divisor: CUDA divides by a Python scalar as a product with
+    # its rounded reciprocal, one ulp off the reference's division
+    return torch.clamp(amax, min=1e-12) / amax.new_tensor(127.0)
 
 
 def _quantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -38,6 +40,23 @@ def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
+
+
+def compressed_psum(x: torch.Tensor, policy, axes) -> torch.Tensor:
+    """The sum of ``x`` over the mesh axes ``axes`` (a name or a tuple) at
+    int8 precision, ``x`` taken in float32 (the reference's float32
+    gradients): every rank quantizes at the shared scale ``s_max =
+    pmax(max(max|x|, 1e-12) / 127)``, the int8 values are summed in int32
+    (exact for up to 2**24 ranks) and the sum dequantized, ``total *
+    s_max``. The result is the same on every rank along ``axes``, within
+    ``n_ranks * s_max / 2`` of the float sum. No gradient flows through
+    it: it reduces gradients, it is not differentiated."""
+    from repro_torch.dist import collectives as coll
+    xf = x.detach().to(torch.float32)
+    s_max = coll.pmax(_scale_of(xf.abs().max()), policy, axes)
+    q = _quantize(xf, s_max)
+    total = coll.psum(q.to(torch.int32), policy, axes)
+    return total.to(torch.float32) * s_max
 
 
 def error_feedback(inner: Optimizer) -> Optimizer:

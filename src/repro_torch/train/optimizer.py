@@ -17,6 +17,19 @@ spans a whole leaf (Adafactor's factoring and update-RMS clip,
 grouped by ``layer_stacks``, the rule ``models/convert.py`` stacks them by
 for checkpoints.
 
+Under a mesh (explicit SPMD, ``models/transformer.py``) each rank holds
+its shard of every parameter, and of its gradient and moments. The
+statistics that span a leaf span the whole leaf, as GSPMD gives the
+reference: ``global_norm``, ``clip_by_global_norm`` and ``adafactor``
+take the ``policy``, which carries each name's layout rule
+(``ShardingPolicy.with_params``), and reduce over the axes a leaf is
+sharded on: the squares of ``global_norm`` are summed there (a
+replicated leaf counted once), Adafactor's factored means over a sharded
+dim are ``pmean``'d, and its update-RMS clip is a ``psum`` of local sums
+over the global count. AdamW and SGD are elementwise and need neither.
+The gradients must already be reduced (``trainer.make_train_step(...,
+policy=)``), so a replicated leaf's is the same on every rank.
+
 ``update(grads, state, params)`` returns ``(updates, state)``. It writes
 the new moments into the state's own buffers, so the state passed in is
 consumed: the reference's train loop donates its state the same way
@@ -72,12 +85,45 @@ def _f32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
-def global_norm(tree: dict) -> torch.Tensor:
+def _meshed(policy) -> bool:
+    return policy is not None and policy.mesh is not None
+
+
+def _dim_axes(policy, rule, ndim: int, dim: int) -> tuple[str, ...]:
+    """The mesh axes (of more than one rank) that dim ``dim`` of a leaf of
+    ``ndim`` dims is tiled over under ``rule`` (trailing dims absent from
+    a rule are replicated)."""
+    axes = policy.axes(tuple(rule) + (None,) * (ndim - len(rule)))[dim]
+    return tuple(a for a in axes if policy.axis_size(a) > 1)
+
+
+def _pmean(x: torch.Tensor, policy, axes) -> torch.Tensor:
+    if not axes:
+        return x
+    from repro_torch.dist import collectives as coll
+    return coll.pmean(x, policy, axes)
+
+
+def global_norm(tree: dict, policy=None) -> torch.Tensor:
     """sqrt of the float32 sum of squares, summed leaf by leaf in the
-    dict's order."""
+    dict's order. Under a mesh ``policy`` each leaf is the rank's shard in
+    layout ``policy.param_rule(name)``: the local sums of the leaves
+    sharded over the same axes are added, then ``psum``'d over those
+    axes, so each leaf counts once (a replicated leaf is the same on
+    every rank)."""
+    if not _meshed(policy):
+        total = 0
+        for x in tree.values():
+            total = total + _f32(x).square().sum()
+        return torch.sqrt(total)
+    from repro_torch.dist import collectives as coll
+    groups: dict[tuple, torch.Tensor] = {}
+    for name, x in tree.items():
+        axes = policy.sharded_over(policy.param_rule(name))
+        groups[axes] = groups.get(axes, 0) + _f32(x).square().sum()
     total = 0
-    for x in tree.values():
-        total = total + _f32(x).square().sum()
+    for axes, part in groups.items():
+        total = total + (coll.psum(part, policy, axes) if axes else part)
     return torch.sqrt(total)
 
 
@@ -86,14 +132,16 @@ def _step_of(state) -> tuple[torch.Tensor, torch.Tensor]:
     return step, step.to(torch.float32)
 
 
-def clip_by_global_norm(max_norm: float) -> Optimizer:
+def clip_by_global_norm(max_norm: float, *, policy=None) -> Optimizer:
+    """Scale the gradients so their global norm is at most ``max_norm``;
+    under a mesh the norm of the whole leaves (``global_norm``)."""
     def init(params):
         del params
         return ()
 
     def update(grads, state, params=None):
         del params
-        g = global_norm(grads)
+        g = global_norm(grads, policy)
         scale = torch.clamp(max_norm / torch.clamp(g, min=1e-9), max=1.0)
         # a bf16 gradient times the float32 scale is float32, as jnp
         # promotes it
@@ -144,7 +192,7 @@ def _factored(shape) -> bool:
 def adafactor(lr: float | Callable = 1e-3, *, b1: float | None = 0.9,
               decay: float = 0.999, eps: float = 1e-30,
               clip_threshold: float = 1.0,
-              momentum_dtype=torch.bfloat16) -> Optimizer:
+              momentum_dtype=torch.bfloat16, policy=None) -> Optimizer:
     """Adafactor (Shazeer & Stern 2018): for a leaf of two or more axes
     the second moment is kept as row and column means (``r``, ``c``);
     other leaves keep it whole (``full``). The first moment is kept in
@@ -156,7 +204,31 @@ def adafactor(lr: float | Callable = 1e-3, *, b1: float | None = 0.9,
     its last two axes, so each layer keeps its own ``r`` and ``c``; a
     stack of 1-D layers (norm scales, biases) is factored as (L, d): layer
     i keeps ``r`` as a 0-d tensor (row i of the reference's (L,)) and
-    every layer holds the one ``c`` (d,) tensor."""
+    every layer holds the one ``c`` (d,) tensor.
+
+    Under a mesh ``policy`` (carrying each name's layout rule) a mean
+    over a sharded dim is the local mean ``pmean``'d over that dim's axes
+    (the shards are equal): ``r`` of a column-parallel leaf, ``c`` and
+    ``denom`` of a row-parallel or vocabulary-row leaf; the update-RMS
+    clip's mean is a ``psum`` of the local sums over the leaf's sharded
+    axes, over the global count."""
+    meshed = _meshed(policy)
+
+    def leaf_shape(name, p):
+        """The whole leaf's shape of the rank's ``p`` (its own without a
+        mesh): factoring is decided on the reference's shapes."""
+        if not meshed:
+            return tuple(p.shape)
+        rule = policy.param_rule(name)
+        axes = policy.axes(rule + (None,) * (p.ndim - len(rule)))
+        return tuple(n * policy.axes_size(a) for n, a in zip(p.shape, axes))
+
+    def dim_axes(name, ndim, dim, stacked=False):
+        if not meshed:
+            return ()
+        rule = policy.param_rule(name)
+        return _dim_axes(policy, (None,) + rule if stacked else rule,
+                         ndim, dim)
 
     def zeros(shape, device):
         return torch.zeros(shape, dtype=torch.float32, device=device)
@@ -167,7 +239,7 @@ def adafactor(lr: float | Callable = 1e-3, *, b1: float | None = 0.9,
             p = params[group[0]]
             # the reference's leaf: (L,) + the layer's shape for a stack
             shape = ((len(group),) if LAYER_LEAF.fullmatch(group[0])
-                     else ()) + tuple(p.shape)
+                     else ()) + leaf_shape(group[0], p)
             if len(group) > 1 and p.ndim == 1 and _factored(shape):
                 c = zeros(p.shape, p.device)          # shared by the layers
                 v.update({k: {"r": zeros((), p.device), "c": c}
@@ -196,13 +268,17 @@ def adafactor(lr: float | Callable = 1e-3, *, b1: float | None = 0.9,
         # the beta2 schedule, capped by the configured decay
         beta2 = torch.clamp(1.0 - step_f ** -0.8, max=decay)
 
-        def second_moment(v, g2):
+        def second_moment(v, g2, name, stacked=False):
             """Update v in place from g2; returns vhat."""
             if "r" in v:
-                v["r"].mul_(beta2).add_((1 - beta2) * g2.mean(dim=-1))
-                v["c"].mul_(beta2).add_((1 - beta2) * g2.mean(dim=-2))
-                denom = torch.clamp(v["r"].mean(dim=-1, keepdim=True),
-                                    min=eps)
+                last = dim_axes(name, g2.ndim, -1, stacked)
+                rows = dim_axes(name, g2.ndim, -2, stacked)
+                v["r"].mul_(beta2).add_((1 - beta2) * _pmean(
+                    g2.mean(dim=-1), policy, last))
+                v["c"].mul_(beta2).add_((1 - beta2) * _pmean(
+                    g2.mean(dim=-2), policy, rows))
+                denom = torch.clamp(_pmean(v["r"].mean(dim=-1, keepdim=True),
+                                           policy, rows), min=eps)
                 return (v["r"][..., None] * v["c"][..., None, :]
                         ) / denom[..., None]
             return v["full"].mul_(beta2).add_((1 - beta2) * g2)
@@ -216,19 +292,27 @@ def adafactor(lr: float | Callable = 1e-3, *, b1: float | None = 0.9,
                 g = torch.stack(gs)
                 v = {"r": torch.stack([v["r"] for v in vs]),
                      "c": vs[0]["c"]}
-                u = g * torch.rsqrt(second_moment(v, g * g + eps) + eps)
+                u = g * torch.rsqrt(second_moment(
+                    v, g * g + eps, group[0], stacked=True) + eps)
                 for vi, r in zip(vs, v["r"]):
                     vi["r"].copy_(r)
                 us = list(u)
             else:
-                us = [g * torch.rsqrt(second_moment(v, g * g + eps) + eps)
-                      for g, v in zip(gs, vs)]
+                us = [g * torch.rsqrt(second_moment(v, g * g + eps, k) + eps)
+                      for g, v, k in zip(gs, vs, group)]
             # relative update clipping, by the RMS over the whole leaf
-            if len(us) == 1:
+            sharded = (policy.sharded_over(policy.param_rule(group[0]))
+                       if meshed else ())
+            if len(us) == 1 and not sharded:
                 ms = (us[0] * us[0]).mean()
             else:
-                ms = torch.stack([(u * u).sum() for u in us]).sum() / sum(
-                    u.numel() for u in us)
+                ss = torch.stack([(u * u).sum() for u in us]).sum()
+                count = sum(u.numel() for u in us)
+                if sharded:
+                    from repro_torch.dist import collectives as coll
+                    ss = coll.psum(ss, policy, sharded)
+                    count *= policy.axes_size(sharded)
+                ms = ss / count
             rms_u = torch.sqrt(ms + 1e-12)
             for k, u in zip(group, us):
                 u = u / torch.clamp(rms_u / clip_threshold, min=1.0)

@@ -18,6 +18,21 @@ the one returned holds the same tensors. The state's ``step`` is an int32
 Checkpoints are written in the reference's layout
 (``models/convert.py::train_state_to_numpy``), so either package resumes
 the other's run.
+
+Under a mesh (``policy=`` with a ``DeviceMesh``, explicit SPMD) every rank
+holds its shard of each parameter, in the layout the policy carries for
+it (``policy.with_params(transformer.param_rules(cfg, policy))``), and
+runs the step on its own batch. Its backward gives each parameter the
+rank's share of the gradient (PORT.md, "Model parallelism
+(training)"), so the step does what GSPMD does for
+the reference: it sums each gradient over the mesh axes its parameter is
+replicated along (the data axes, where each rank saw other sequences;
+"model" for the norms, biases, qk-norm scales and the router, which each
+rank applied to its own tokens or features), in one float32 ``psum`` a
+group of parameters sharing those axes. The optimizer must be built
+with the same ``policy`` (its statistics span whole leaves), and
+``train_loop`` saves whole leaves (``models/convert.py``,
+``train/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -72,8 +87,36 @@ def _split(batch, grad_accum: int, i: int):
     return batch[i * rows:(i + 1) * rows]
 
 
+def reduce_grads(grads: dict, policy=None) -> dict:
+    """Each rank's gradient shares summed over the mesh axes their
+    parameter is replicated along (module docstring): one flat ``psum``
+    a group of parameters with the same axes, in the dict's order. The
+    sum runs in float32 and stays float32 (as Megatron's
+    ``accumulate_allreduce_grads_in_fp32``): bf16 shares added in bf16
+    would round the sum once more than one device's product rounds its
+    gradient, and the optimizers take float32 anyway. The identity
+    without a mesh."""
+    if policy is None or policy.mesh is None:
+        return grads
+    from repro_torch.dist import collectives as coll
+    groups: dict[tuple, list[str]] = {}
+    for name in grads:
+        axes = policy.replicated_over(policy.param_rule(name))
+        if axes:
+            groups.setdefault(axes, []).append(name)
+    out = dict(grads)
+    for axes, names in groups.items():
+        flat = coll.psum(torch.cat([grads[k].reshape(-1).to(torch.float32)
+                                    for k in names]), policy, axes)
+        for k, part in zip(names, flat.split([grads[k].numel()
+                                              for k in names])):
+            out[k] = part.view(grads[k].shape)
+    return out
+
+
 def make_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
-                    *, grad_accum: int = 1, grad_barrier: bool = False):
+                    *, grad_accum: int = 1, grad_barrier: bool = False,
+                    policy=None):
     """Returns step(state, batch) -> (state, metrics).
 
     With grad_accum > 1 the batch's leading axis is split into
@@ -84,7 +127,14 @@ def make_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
 
     grad_barrier: the reference's XLA scheduling knob (an optimization
     barrier between the backward and the optimizer, which orders a
-    data-parallel all-reduce); on one device it does nothing.
+    data-parallel all-reduce); eager PyTorch runs in order, so it does
+    nothing.
+
+    Under a mesh ``policy`` (carrying each parameter's layout rule) the
+    batch is the rank's, micro-batches split its leading axis, and the
+    accumulated gradients are reduced once (``reduce_grads``) before the
+    optimizer and ``grad_norm``: ``loss_fn`` must return the global loss
+    (``transformer.lm_loss(model, batch, policy)`` does).
     """
     del grad_barrier
 
@@ -107,10 +157,13 @@ def make_train_step(loss_fn: Callable, optimizer: opt_lib.Optimizer,
                 del g
             loss = loss / grad_accum
             grads = {k: g.div_(grad_accum) for k, g in grads.items()}
+        with torch.no_grad():
+            grads = reduce_grads(grads, policy)
 
         updates, opt_state = optimizer.update(grads, state.opt_state, params)
         opt_lib.apply_updates(params, updates)
-        metrics = {"loss": loss, "grad_norm": opt_lib.global_norm(grads),
+        metrics = {"loss": loss,
+                   "grad_norm": opt_lib.global_norm(grads, policy),
                    "step": state.step + 1}
         return TrainState(params, opt_state, state.step + 1), metrics
 
@@ -144,9 +197,13 @@ def train_loop(state: TrainState, step_fn, data_iter, *, n_steps: int,
                ckpt_dir: str | None = None, ckpt_every: int = 100,
                log_every: int = 10, metadata: dict | None = None,
                fail_at_step: int | None = None,
-               log_fn: Callable[[str], None] = print) -> TrainState:
+               log_fn: Callable[[str], None] = print,
+               policy=None) -> TrainState:
     """Run from ``state.step`` to ``n_steps`` with periodic checkpoints
-    (the newest 3 kept) and the watchdog.
+    (the newest 3 kept) and the watchdog. Under a mesh ``policy`` every
+    rank runs the loop on its own batches; a checkpoint gathers the whole
+    leaves onto the mesh's first rank, which writes them
+    (``convert.train_state_to_numpy``, ``checkpoint.save``).
 
     fail_at_step: raise a simulated failure once at the given step (the
     launcher's recovery path restarts from the latest checkpoint; see
@@ -171,6 +228,7 @@ def train_loop(state: TrainState, step_fn, data_iter, *, n_steps: int,
                    f"dt={dt*1e3:.1f}ms")
         if ckpt_dir and (i + 1) % ckpt_every == 0:
             ckpt_lib.save(ckpt_dir, i + 1,
-                          convert.train_state_to_numpy(state), metadata)
-            ckpt_lib.prune(ckpt_dir, keep=3)
+                          convert.train_state_to_numpy(state, policy),
+                          metadata, policy=policy)
+            ckpt_lib.prune(ckpt_dir, keep=3, policy=policy)
     return state

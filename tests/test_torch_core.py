@@ -29,7 +29,9 @@ from repro.core import sa_alsh as jalsh
 from repro.core import sah as jsah
 from repro.core import simpfer as jsimpfer
 from repro.core import srp as jsrp
-from repro_torch.core import cone, partitions, sa_alsh, sah, simpfer, srp
+from repro_torch import RkMIPSEngine, get_config
+from repro_torch.core import (cone, exact, partitions, sa_alsh, sah, simpfer,
+                              srp)
 
 RTOL, ATOL = 1e-5, 1e-6
 INT_FIELDS = {"item_ids", "part_id", "n_parts", "item_mask", "user_ids",
@@ -288,3 +290,60 @@ def test_srp_helpers():
     np.testing.assert_array_equal(
         srp.hamming_distance(codes, codes[:2]).numpy(),
         np.asarray(jsrp.hamming_distance(want, want[:2])))
+
+
+# The cases of the reference property ``test_cone_bounds_hold``
+# (tests/test_core_properties.py) swept over m 10-200, d 2-3, seeds 0-3
+# with the reference's draws (users, q, the cone permutation) where an
+# ``arccos`` angle broke the property's tolerance: at d = 2 the bound is
+# tight, and arccos near 1 resolves only ~3.45e-4 rad (PORT.md, "The cone
+# bounds").
+ARCCOS_CASES = [(83, 2, 0), (85, 2, 0), (89, 2, 0), (90, 2, 0),
+                (130, 2, 2), (131, 2, 2), (176, 2, 3), (177, 2, 3),
+                (178, 2, 3), (179, 2, 3), (180, 2, 3), (182, 2, 3),
+                (190, 2, 3), (191, 2, 3), (194, 2, 3), (195, 2, 3)]
+
+
+@pytest.mark.parametrize("m,d,seed", ARCCOS_CASES)
+def test_cone_bounds_hold_at_low_d(m, d, seed):
+    """Lemmas 2-3 on the reference property's draws: every user's float64
+    inner product lies under its node and vector bounds within the plan's
+    own slack, 2e-4 * ||q|| (``core/sah.py::_plan_one``)."""
+    ku, kq, kb = jax.random.split(jax.random.PRNGKey(seed), 3)
+    users = jax.random.normal(ku, (m, d))
+    unit = np.asarray(users / jnp.linalg.norm(users, axis=-1,
+                                              keepdims=True))
+    q = np.asarray(jax.random.normal(kq, (d,)) * 3.0)
+    m_pad, _ = cone.padded_size(m, 8)
+    perm = np.array(jax.random.permutation(kb, m_pad))
+    blocks, padded, _ = cone.build_cone_blocks(
+        torch.from_numpy(unit.copy()), torch.from_numpy(perm), leaf_size=8)
+    tq = torch.from_numpy(q.copy())
+    node_ub, phi = cone.node_upper_bound(tq, blocks)
+    vec_ub = cone.vector_upper_bound(torch.linalg.norm(tq), phi, blocks)
+    ips = padded.double()[blocks.perm.long()] @ tq.double()
+    slack = 2e-4 * float(np.linalg.norm(q))
+    node = torch.repeat_interleave(node_ub, blocks.leaf_size).double()
+    assert float((ips - node).max()) <= slack
+    assert float((ips - vec_ub.double()).max()) <= slack
+
+
+@pytest.mark.parametrize("seed", [30, 124, 177, 184, 199, 243])
+def test_low_d_reverse_answers_equal_the_oracle(seed):
+    """A d = 2 build (64 items, 400 users, the port's own draws) at k 1,
+    5, 10, queried with its 8 top-norm items: the reverse answers equal
+    the exact oracle but for traced float ties. These seeds are builds
+    where an ``arccos`` angle pruned a true pair."""
+    g = torch.Generator().manual_seed(seed)
+    items = torch.randn(64, 2, generator=g)
+    users = torch.randn(400, 2, generator=g)
+    queries = items[torch.argsort(-items.norm(dim=1))[:8]]
+    cfg = get_config("sah").replace(k_max=10, tile=64)
+    eng = RkMIPSEngine(cfg, device="cpu").build(
+        items, users, torch.Generator().manual_seed(100 + seed))
+    unit = users / users.norm(dim=1, keepdim=True)
+    for k in (1, 5, 10):
+        got, truth = eng.query_batch(queries, k), eng.oracle(queries, k)
+        for qi, u in torch.nonzero(got.predictions != truth).tolist():
+            assert exact.float_tie(items, unit[u], queries[qi], k,
+                                   cfg.tie_eps), (k, qi, u)

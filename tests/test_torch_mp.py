@@ -34,6 +34,28 @@ mesh changes the answer (EP's capacity is per shard). Held, float32:
   the single-device tower's, and the ids bitwise the single-device
   composition of the sharded scan (each shard's ``n_cand`` nearest,
   merged).
+
+Training (slice 17's training half), under the train rules of
+``_lm_rules`` and held against the reference's single-device functions:
+
+* ``lm_loss`` against ``jtf.lm_loss`` (rtol 1e-5) and every gradient,
+  reduced by the trainer's rule and gathered whole, against ``jax.grad``
+  of it (rtol 1e-4, atol 1e-6): the dense LM with head TP and with
+  replicated heads, and the MoE LM (capacity where nothing drops; aux
+  weight 0, since a mesh's aux is the mean of the shards' as the
+  reference's ``shard_map`` has it, not one device's);
+* two steps of ``default_optimizer("lm")`` (clip + Adafactor) and of clip
+  + AdamW: losses and gradient norms (rtol 1e-5) and the gathered
+  parameters (rtol 1e-4) against the reference's ``make_train_step``;
+  ``grad_accum=2`` under the mesh against ``grad_accum=1``;
+* EP ``moe_ffn``'s gradients at capacity factor 1.25 against
+  ``jax.grad`` of the per-shard composition at the local capacity (drop
+  counts exact);
+* ``compressed_psum`` against a numpy replay of the reference's formula
+  (bitwise: the int32 sums are exact);
+* the checkpoint each world saves read by the reference's ``restore``
+  and the port's single-device one bit for bit, and the (2, 2) world's
+  restored on a (1, 2) mesh of two of its ranks bit for bit.
 """
 
 import dataclasses
@@ -57,6 +79,9 @@ from repro.models import embedding as jemb
 from repro.models import moe as jmoe
 from repro.models import recsys as jrec
 from repro.models import transformer as jtf
+from repro.train import checkpoint as jckpt
+from repro.train import optimizer as jopt
+from repro.train import trainer as jtrainer
 
 from repro_torch.configs import base
 from repro_torch.dist import ShardingPolicy, lm_rules
@@ -66,8 +91,11 @@ from repro_torch.kernels import ref as kref
 from repro_torch.launch import serve
 from repro_torch.models import convert, recsys
 from repro_torch.models import transformer as tf
+from repro_torch.train import checkpoint as ckpt
 
 LM_TOL = dict(rtol=1e-4, atol=1e-5)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
+EP_AUX_WEIGHT = 0.5
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -203,9 +231,69 @@ def reference(tmp_path_factory):
          tcfg.user_embedding.vocab_sizes], axis=1).astype(np.int32)
     want["tt/params"] = tparams
 
+    _train_reference(inputs, want, tmp_path_factory)
     path = tmp_path_factory.mktemp("mp_inputs") / "inputs.npz"
     np.savez(path, **inputs)
     return str(path), inputs, want
+
+
+def _jax_train(**kw):
+    return jtf.LMConfig(**{**W.DENSE, "qkv_bias": False, **kw},
+                        dtype=jnp.float32, max_seq=W.MAX_SEQ)
+
+
+def _batch(tokens) -> dict:
+    t = jnp.asarray(tokens)
+    return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+
+def _train_reference(inputs, want, tmp_path_factory):
+    """The training checks' inputs (their own rng, so the serving draws
+    stay as they were) and the reference's answers: loss and gradients of
+    the dense and MoE LMs, and two steps of each optimizer."""
+    rng = np.random.default_rng(W.SEED + 1)
+    b, s = W.TRAIN_BATCH
+    inputs["train/tokens"] = rng.integers(
+        0, W.DENSE["vocab"], (W.TRAIN_STEPS, b, s + 1)).astype(np.int32)
+    moe_cfg = dataclasses.replace(_jax_moe_lm(), aux_loss_weight=0.0)
+    inputs["train/moe_tokens"] = rng.integers(
+        0, moe_cfg.vocab, (1, b, s + 1)).astype(np.int32)
+    tcfg = _jax_train()
+    tparams = _draw(jax.eval_shape(lambda k: jtf.init_params(k, tcfg),
+                                   jax.random.PRNGKey(0)), rng)
+    _flat(tparams, "train/params", inputs)
+    inputs["train/ckpt_dir"] = np.array(str(tmp_path_factory.mktemp(
+        "mp_ckpt")))
+    inputs["moe/cot"] = rng.standard_normal(W.EP_TOKENS).astype(np.float32)
+    inputs["moe/aux_weight"] = np.array(EP_AUX_WEIGHT)
+    inputs["cp/x"] = (rng.standard_normal(W.CP_SHAPE)
+                      * np.array([1.0, 3.0, 0.5, 2.0])[:, None]
+                      ).astype(np.float32)
+
+    for prefix, cfg, params, tokens in (
+            ("grad_lm", _jax_dense(), "lm/params", "train/tokens"),
+            ("grad_moe_lm", moe_cfg, "moe_lm/params", "train/moe_tokens")):
+        tree = jax.tree.map(jnp.asarray, W.unflatten(inputs, params))
+        loss, grads = jax.jit(jax.value_and_grad(
+            lambda p, bt, c=cfg: jtf.lm_loss(
+                p, bt, c, loss_chunk=W.TRAIN_LOSS_CHUNK)))(
+            tree, _batch(inputs[tokens][0]))
+        want[prefix] = (float(loss), jax.tree.map(np.asarray, grads))
+
+    jp = jax.tree.map(jnp.asarray, tparams)
+    for name, opt in (("adafactor", jcells.default_optimizer("lm")),
+                      ("adamw", jopt.chain(jopt.clip_by_global_norm(1.0),
+                                           jopt.adamw(**W.ADAMW)))):
+        step = jax.jit(jtrainer.make_train_step(
+            lambda p, bt: jtf.lm_loss(p, bt, tcfg,
+                                      loss_chunk=W.TRAIN_LOSS_CHUNK), opt))
+        state = jtrainer.TrainState(jp, opt.init(jp),
+                                    jnp.zeros((), jnp.int32))
+        seen = []
+        for tokens in inputs["train/tokens"]:
+            state, m = step(state, _batch(tokens))
+            seen.append((float(m["loss"]), float(m["grad_norm"])))
+        want[name] = (np.array(seen), jax.tree.map(np.asarray, state))
 
 
 @pytest.fixture(scope="module", params=list(W.WORLDS))
@@ -302,7 +390,7 @@ def test_refusals(world):
         msg = str(got["refuse/indivisible"])
         assert "embed" in msg and "dim 0" in msg and "127" in msg
         assert "mesh's order" in str(got["refuse/order"])
-        assert "slice 17" in str(got["refuse/train"])
+        assert "slice 17" in str(got["refuse/cells"])
 
 
 def test_mismatched_calls_raise_on_every_rank(world):
@@ -464,3 +552,190 @@ def test_sah_retrieve_step_is_bitwise(world, reference):
             reference[2]["tt/params"]["user_table"].shape[0]
         np.testing.assert_array_equal(got["tt/u"], u_want)
         np.testing.assert_array_equal(got["tt/ids"], ids_want)
+
+
+# -- training: lm_loss, the train step, EP's backward, compressed_psum, -----
+# -- checkpoints --------------------------------------------------------------
+
+
+def _ref_of(tree, name: str):
+    """The reference's leaf (or row of a stacked leaf) for the port's
+    parameter ``name``."""
+    m = convert._BLOCK.fullmatch(name)
+    if not m:
+        return tree[name]
+    node = tree["layers"]
+    for part in m[2].split("."):
+        node = node[part]
+    return node[int(m[1])]
+
+
+@pytest.mark.parametrize("prefix,ref", [("grad_lm", "grad_lm"),
+                                        ("grad_lm_heads", "grad_lm"),
+                                        ("grad_moe_lm", "grad_moe_lm")])
+def test_mesh_lm_loss_and_every_gradient_match_the_reference(
+        world, reference, prefix, ref):
+    """Both head layouts (head TP; heads replicated, so the gathered q/k/v
+    carry each rank's share of the gradient) and the MoE LM: every
+    parameter's gradient, summed over the axes it is replicated along."""
+    loss, grads = reference[2][ref]
+    names = [k[len(prefix) + 1:] for k in world[2][0]
+             if k.startswith(prefix + "/") and k != f"{prefix}/loss"]
+    stacks = convert._named_leaves(grads["layers"])
+    n_layers = len(next(iter(stacks.values())))
+    assert len(names) == 3 + n_layers * len(stacks)
+    for got in world[2]:
+        np.testing.assert_allclose(got[f"{prefix}/loss"], loss, rtol=1e-5)
+        for name in names:
+            np.testing.assert_allclose(got[f"{prefix}/{name}"],
+                                       _ref_of(grads, name), **GRAD_TOL,
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("name", ["adafactor", "adamw"])
+def test_mesh_train_steps_match_the_reference(world, reference, name):
+    """Two steps from the same parameters on the same global batches: a
+    factored statistic that missed its ``pmean`` over a sharded dim, or a
+    norm that counted a replicated leaf twice, moves every parameter."""
+    seen, state = reference[2][name]
+    for got in world[2]:
+        np.testing.assert_allclose(got[f"{name}/metrics"], seen, rtol=1e-5)
+        for key in got:
+            if key.startswith(f"{name}/params/"):
+                pname = key[len(name) + 8:]
+                np.testing.assert_allclose(
+                    got[key], _ref_of(state.params, pname), rtol=1e-4,
+                    atol=1e-6, err_msg=pname)
+
+
+def test_grad_accum_under_a_mesh_equals_one_batch(world):
+    """One SGD step with ``grad_accum=2`` (each rank's batch in two
+    halves, the gradients reduced once) against ``grad_accum=1``."""
+    for got in world[2]:
+        np.testing.assert_allclose(got["accum2/metrics"],
+                                   got["accum1/metrics"], rtol=1e-5)
+        for key in got:
+            if key.startswith("accum1/params/"):
+                np.testing.assert_allclose(
+                    got[key.replace("accum1", "accum2", 1)], got[key],
+                    rtol=1e-5, atol=1e-7, err_msg=key)
+
+
+def test_expert_parallel_backward_is_the_per_shard_composition(world,
+                                                               reference):
+    """EP at capacity factor 1.25, under grad: the gradients of the
+    output (times a fixed cotangent) plus the aux loss against ``jax.grad``
+    of each rank's tokens through the reference's ``_moe_local`` at the
+    local capacity, the aux the shards' mean; dropped assignments get no
+    gradient, and the drops are exact."""
+    _, shape, ranks = world
+    inputs, want = reference[1], reference[2]
+    cfg = jmoe.MoEConfig(**W.MOE, capacity_factor=1.25)
+    x, cot = want["moe/x"], inputs["moe/cot"]
+    xs, cs = _shards(x, shape), _shards(cot, shape)
+    t = xs[0].shape[0] * xs[0].shape[1]
+    cap = max(cfg.top_k, int(cfg.capacity_factor * t * cfg.top_k
+                             / cfg.n_experts))
+
+    def objective(params, xs):
+        total, auxes = 0.0, []
+        for x_s, c_s in zip(xs, cs):
+            o, aux = jmoe._moe_local(x_s.reshape(-1, x_s.shape[-1]), params,
+                                     cfg, cap, params["w_in"],
+                                     params["w_gate"], params["w_out"])
+            total = total + jnp.sum(o.reshape(c_s.shape) * c_s)
+            auxes.append(aux)
+        return total + EP_AUX_WEIGHT * jnp.mean(jnp.stack(auxes))
+
+    gp, gx = jax.jit(jax.grad(objective, argnums=(0, 1)))(
+        jax.tree.map(jnp.asarray, want["moe/params"]),
+        [jnp.asarray(a) for a in xs])
+    dp, tp = shape
+    gx = np.concatenate([np.concatenate([np.asarray(g) for g in
+                                         gx[i * tp:(i + 1) * tp]], 1)
+                         for i in range(dp)], 0)
+    assert sum(int(got["ep/dropped"]) for got in ranks) > 0
+    for got in ranks:
+        assert int(got["ep/dropped"]) == int(got["moe1.25/dropped"])
+        np.testing.assert_allclose(got["ep/grad/x"], gx, rtol=1e-4,
+                                   atol=1e-6)
+        for name in ("router", "w_in", "w_gate", "w_out"):
+            np.testing.assert_allclose(got[f"ep/grad/{name}"],
+                                       np.asarray(gp[name]), rtol=1e-4,
+                                       atol=1e-6, err_msg=name)
+
+
+def _compressed_psum_replay(rows: np.ndarray) -> np.ndarray:
+    """The reference's ``compressed_psum`` formula in numpy over the
+    ranks' rows: the shared scale, int8 values, an int32 sum."""
+    s_max = np.float32(max(np.maximum(np.abs(r).max(), np.float32(1e-12))
+                           / np.float32(127.0) for r in rows))
+    q = [np.clip(np.round(r / s_max), -127, 127).astype(np.int8)
+         for r in rows]
+    total = np.sum([a.astype(np.int32) for a in q], axis=0, dtype=np.int32)
+    return total.astype(np.float32) * s_max
+
+
+def test_compressed_psum_replays_the_reference_formula(world, reference):
+    _, (dp, tp), ranks = world
+    rows = reference[1]["cp/x"]
+    for r, got in enumerate(ranks):
+        np.testing.assert_array_equal(got["cp/all"],
+                                      _compressed_psum_replay(rows[:dp * tp]))
+        i = r // tp
+        np.testing.assert_array_equal(
+            got["cp/model"],
+            _compressed_psum_replay(rows[i * tp:(i + 1) * tp]))
+        s_max = max(np.abs(rows[:dp * tp]).max(), 1e-12) / 127.0
+        dense = rows[:dp * tp].sum(0)
+        assert np.abs(got["cp/all"] - dense).max() <= \
+            dp * tp * s_max / 2 + 2.0 ** -22 * np.abs(dense).max()
+
+
+def _host(leaf) -> np.ndarray:
+    """A restored leaf as numpy: a bf16 CPU tensor as ml_dtypes' bf16."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.view(torch.uint16).numpy().view(jnp.bfloat16)
+    return np.asarray(leaf)
+
+
+def test_sharded_checkpoint_restores_elsewhere(world, reference):
+    """Each world's Adafactor run saved at step 2 (whole leaves, one rank
+    writing): the reference's ``restore`` and the port's single-device
+    ``restore`` read the same bits, which lie within the trajectory
+    tolerance of the reference's own state; restored on its own mesh
+    (``convert.shard_cut``) it gives every rank its shards bit for bit
+    and the writing rank the tree it wrote; the (2, 2) save restored on
+    a (1, 2) mesh of two of its ranks does the same."""
+    name, shape, ranks = world
+    _, jstate = reference[2]["adafactor"]
+    cdir = str(reference[1]["train/ckpt_dir"]) + "/" + "x".join(
+        map(str, shape))
+    step = ckpt.latest_step(cdir)
+    assert step == W.TRAIN_STEPS
+    from_ref, _ = jckpt.restore(cdir, step, jax.tree.map(jnp.asarray,
+                                                         jstate))
+    from_port, _ = ckpt.restore(cdir, step, jstate)
+    for (path, a), (_, b), (_, c) in zip(
+            jckpt._flatten_with_paths(jax.tree.map(np.asarray, from_ref)),
+            ckpt.flatten_with_paths(from_port),
+            jckpt._flatten_with_paths(jstate)):
+        a, b = np.asarray(a), _host(b)
+        assert a.tobytes() == b.tobytes(), path
+        want = np.asarray(c).astype(np.float32)
+        # Adafactor's bf16 momentum rounds at each step: two runs whose
+        # float32 updates differ in the last bits may round an element a
+        # few ulps apart, so it is held at one ulp of the leaf's largest
+        atol = (2 ** -8 * float(np.abs(want).max())
+                if a.dtype == jnp.bfloat16 else 1e-6)
+        np.testing.assert_allclose(a.astype(np.float32), want, rtol=1e-4,
+                                   atol=atol, err_msg=path)
+    for got in ranks:       # the save restored on its own mesh
+        assert got["convert/same"].all()
+    if name == "2x2":
+        for got in ranks[:2]:
+            assert got["ckpt/elastic_same"].all()
+            assert tuple(got["ckpt/elastic_local"]) == (
+                W.DENSE["d_model"], W.DENSE["n_heads"] * W.DENSE["d_head"]
+                // 2)
+        assert all("ckpt/elastic_same" not in got for got in ranks[2:])

@@ -1,5 +1,6 @@
 """The rank body of the gloo worlds that tests/test_torch_mp.py spawns:
-the port's model-parallel serving paths (slice 16) on the CPU.
+the port's model-parallel serving paths (slice 16) and training (slice
+17's training half) on the CPU.
 
 JAX-free on purpose: ``torch.multiprocessing.spawn`` re-imports this module
 in every rank, and a rank runs the port alone. The test writes the inputs
@@ -39,6 +40,15 @@ EP_TOKENS = (4, 8, 16)   # (B, S, D) of the standalone EP checks
 TT_CAND = 600            # two-tower candidates; n_cand < a shard's rows
 TT_USERS = 6
 TT_NCAND, TT_K = 64, 10
+# training: the global batch (B, S) of a step (B a multiple of 8 and
+# TRAIN_LOSS_CHUNK < B * S, so the loss runs in 8 checkpointed chunks),
+# the steps of a trajectory, the learning rates
+TRAIN_BATCH = (16, 16)
+TRAIN_LOSS_CHUNK = 64
+TRAIN_STEPS = 2
+ADAMW = dict(lr=1e-3, eps=1e-6)
+SGD_LR = 0.1
+CP_SHAPE = (4, 64)       # compressed_psum: one row a rank, by mesh position
 # the rules whose placements are held against the reference: lm_rules
 # (both sets), and _lm_rules' prefill (tp_heads and not), decode and
 # long-context decode sets
@@ -120,7 +130,7 @@ def rank_checks(shape: tuple, inputs: dict) -> dict:
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.dist import ShardingPolicy, collectives as coll
     from repro_torch.launch import serve
-    from repro_torch.models import convert, embedding, moe, recsys
+    from repro_torch.models import convert, embedding, gat, moe, recsys
     from repro_torch.models import transformer as tf
 
     mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
@@ -183,8 +193,8 @@ def rank_checks(shape: tuple, inputs: dict) -> dict:
             "cpu", policy=tp)))
     out["refuse/order"] = np.array(raises(ValueError, lambda: ShardingPolicy(
         mesh=mesh, rules={"r": (("model", "data"),)}).sharding("r")))
-    out["refuse/train"] = np.array(raises(
-        NotImplementedError, lambda: tf.lm_loss(None, {}, tp)))
+    out["refuse/cells"] = np.array(raises(
+        NotImplementedError, lambda: gat.forward(None, {}, None, tp)))
     # the shard init_params draws equals shard_lm of the whole model
     whole = tf.init_params(dense_config(), torch.Generator().manual_seed(3),
                            "cpu")
@@ -301,7 +311,208 @@ def rank_checks(shape: tuple, inputs: dict) -> dict:
     out["tt/u"] = torch.stack(us).numpy()
     out["tt/ids"] = torch.stack(ids).numpy()
     out["tt/vals"] = torch.stack(vals).numpy()
+    out.update(train_checks(shape, mesh, inputs))
     return out
+
+
+def train_rules(arch: str, mesh) -> dict:
+    from repro_torch.configs import base
+    from repro_torch.launch import cells
+    return cells._lm_rules(base.get(arch), "train", mesh)
+
+
+def train_config(**kw):
+    """The trajectories' LM: the dense config without QKV biases (a K
+    bias shifts a whole softmax row, so its true gradient is 0 and an
+    optimizer step turns its rounding noise into a full-size update)."""
+    return dense_config(qkv_bias=False, **kw)
+
+
+def local_batch(pol, tokens) -> dict:
+    """The rank's batch of a global (B, S + 1) token array: tokens and
+    labels shifted by one, the rows of its data coordinate."""
+    seqs = torch.from_numpy(tokens).long()
+    rows = (pol.rules["act_btd"][0], None)
+    return {"tokens": pol.relayout(seqs[:, :-1], (), rows).contiguous(),
+            "labels": pol.relayout(seqs[:, 1:], (), rows).contiguous()}
+
+
+def whole(pol, tensors: dict, prefix: str) -> dict:
+    """Each rank-local parameter-keyed tensor gathered whole (by the
+    parameter rules ``pol`` carries), keyed ``prefix/name``."""
+    return {f"{prefix}/{n}": pol.relayout(t.detach(), pol.param_rule(n),
+                                          ()).numpy()
+            for n, t in tensors.items()}
+
+
+def train_checks(shape: tuple, mesh, inputs: dict) -> dict:
+    """Slice 17's training half on this rank: lm_loss and its reduced
+    gradients (both head layouts, the MoE LM), trajectories of
+    clip + Adafactor and clip + AdamW, grad_accum, EP's backward,
+    compressed_psum, and the sharded checkpoint with its elastic
+    restore. Every tensor is gathered whole for the test."""
+    import dataclasses
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.dist import ShardingPolicy
+    from repro_torch.launch import cells
+    from repro_torch.models import convert, moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import compression
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import trainer
+
+    out = {}
+    pol = {arch: ShardingPolicy(mesh=mesh, rules=train_rules(arch, mesh))
+           for arch in ("qwen3-0.6b", "qwen2-1.5b")}
+
+    # -- lm_loss and every reduced gradient --------------------------------
+    moe_cfg = dataclasses.replace(moe_lm_config(), aux_loss_weight=0.0)
+    for prefix, cfg, params, arch in (
+            ("grad_lm", dense_config(), "lm/params", "qwen3-0.6b"),
+            ("grad_lm_heads", dense_config(), "lm/params", "qwen2-1.5b"),
+            ("grad_moe_lm", moe_cfg, "moe_lm/params", "qwen3-0.6b")):
+        p = pol[arch]
+        p = p.with_params(tf.param_rules(cfg, p))
+        model = convert.params_from_jax(unflatten(inputs, params), cfg,
+                                        "cpu", policy=p)
+        tokens = inputs["train/moe_tokens" if "moe" in prefix
+                        else "train/tokens"][0]
+        loss = tf.lm_loss(model, local_batch(p, tokens), p,
+                          loss_chunk=TRAIN_LOSS_CHUNK)
+        named = dict(model.named_parameters())
+        grads = dict(zip(named, torch.autograd.grad(loss,
+                                                    list(named.values()))))
+        grads = trainer.reduce_grads(grads, p)
+        out[f"{prefix}/loss"] = loss.detach().numpy()
+        out.update(whole(p, grads, prefix))
+
+    # -- trajectories: clip + Adafactor (the cells' LM optimizer), clip +
+    # AdamW; the Adafactor run through train_loop, checkpointed -----------
+    cfg = train_config()
+    p = pol["qwen3-0.6b"].with_params(tf.param_rules(cfg, pol["qwen3-0.6b"]))
+    tree = unflatten(inputs, "train/params")
+    batches = [local_batch(p, t) for t in inputs["train/tokens"]]
+    ckpt_dir = os.path.join(str(inputs["train/ckpt_dir"]),
+                            "x".join(map(str, shape)))
+
+    def loss_fn(model):
+        return lambda params, b: tf.lm_loss(model, b, p,
+                                            loss_chunk=TRAIN_LOSS_CHUNK)
+
+    def run(name, optimizer, n_batches, grad_accum=1, **loop):
+        model = convert.params_from_jax(tree, cfg, "cpu", policy=p)
+        params = dict(model.named_parameters())
+        step = trainer.make_train_step(loss_fn(model), optimizer,
+                                       grad_accum=grad_accum, policy=p)
+        seen = []
+
+        def recorded(state, batch):
+            state, m = step(state, batch)
+            seen.append((float(m["loss"]), float(m["grad_norm"])))
+            return state, m
+
+        state = trainer.train_loop(
+            trainer.init_state(params, optimizer), recorded,
+            iter(batches[:n_batches]), n_steps=n_batches, log_every=10 ** 9,
+            log_fn=lambda _: None, policy=p, **loop)
+        out[f"{name}/metrics"] = np.array(seen)
+        out.update(whole(p, params, f"{name}/params"))
+        return state, optimizer
+
+    ada = cells.default_optimizer("lm", policy=p)
+    state, _ = run("adafactor", ada, TRAIN_STEPS, ckpt_dir=ckpt_dir,
+                   ckpt_every=TRAIN_STEPS)
+    mine = ckpt.flatten_with_paths(convert.train_state_to_numpy(state))
+    saved = convert.train_state_to_numpy(state, p)   # None but on rank 0
+    # the save restored into a fresh state's shards on the same mesh: each
+    # rank's shards bit for bit its own, and on the writing rank the
+    # whole tree gathered again bit for bit the one it wrote
+    fresh = trainer.init_state(dict(convert.params_from_jax(
+        tree, cfg, "cpu", policy=p).named_parameters()), ada)
+    got, _ = ckpt.restore(ckpt_dir, ckpt.latest_step(ckpt_dir),
+                          convert.train_state_to_numpy(fresh),
+                          cut=convert.shard_cut(fresh, p))
+    convert.train_state_from_jax(got, fresh)
+    same = [_bytes(a) == _bytes(b) for (_, a), (_, b) in zip(
+        ckpt.flatten_with_paths(convert.train_state_to_numpy(fresh)), mine)]
+    back = convert.train_state_to_numpy(fresh, p)
+    if saved is not None:
+        same += [_bytes(a) == _bytes(b) for (_, a), (_, b) in zip(
+            ckpt.flatten_with_paths(back), ckpt.flatten_with_paths(saved))]
+    out["convert/same"] = np.array(same)
+    run("adamw", opt_lib.chain(
+        opt_lib.clip_by_global_norm(1.0, policy=p),
+        opt_lib.adamw(ADAMW["lr"], eps=ADAMW["eps"])), TRAIN_STEPS)
+    for accum in (1, 2):
+        run(f"accum{accum}", opt_lib.sgd(SGD_LR), 1, grad_accum=accum)
+
+    # -- the checkpoint restored on a (1, 2) mesh of ranks 0 and 1 ---------
+    sub = DeviceMesh("cpu", [[0, 1]], mesh_dim_names=("data", "model"))
+    if sub.get_coordinate() is not None:
+        sp = ShardingPolicy(mesh=sub, rules=train_rules("qwen3-0.6b", sub))
+        sp = sp.with_params(tf.param_rules(cfg, sp))
+        model = convert.params_from_jax(tree, cfg, "cpu", policy=sp)
+        opt = cells.default_optimizer("lm", policy=sp)
+        fresh = trainer.init_state(dict(model.named_parameters()), opt)
+        got, _ = ckpt.restore(ckpt_dir, ckpt.latest_step(ckpt_dir),
+                              convert.train_state_to_numpy(fresh),
+                              cut=convert.shard_cut(fresh, sp))
+        convert.train_state_from_jax(got, fresh)
+        # ranks 0 and 1 hold the same chunks on (1, 2) as on (2, 2)
+        same = [_bytes(a) == _bytes(b) for (_, a), (_, b) in zip(
+            ckpt.flatten_with_paths(convert.train_state_to_numpy(fresh)),
+            mine)]
+        back = convert.train_state_to_numpy(fresh, sp)
+        if back is not None:
+            same += [_bytes(a) == _bytes(b) for (_, a), (_, b) in zip(
+                ckpt.flatten_with_paths(back),
+                ckpt.flatten_with_paths(saved))]
+        out["ckpt/elastic_same"] = np.array(same)
+        out["ckpt/elastic_local"] = np.array(
+            tuple(fresh.params["blocks.0.wq"].shape))
+    dist.barrier()
+
+    # -- EP's backward at capacity factor 1.25 (experts overflow) ----------
+    tp = ShardingPolicy(mesh=mesh, rules=rule_set("tp", mesh))
+    mcfg = moe_config(1.25)
+    moe_p = unflatten(inputs, "moe/params")
+    m = moe.MoE(EP_TOKENS[2], mcfg, torch.float32, "cpu")
+    with torch.no_grad():
+        m.router.copy_(torch.from_numpy(moe_p["router"]))
+        for w in ("w_in", "w_gate", "w_out"):
+            setattr(m, w, torch.nn.Parameter(tp.relayout(
+                torch.from_numpy(moe_p[w]), (), ("model", None, None))
+                .clone()))
+    x_l = tp.relayout(torch.from_numpy(inputs["moe/x"]), (), "act_btd")
+    x_l.requires_grad_(True)
+    cot = tp.relayout(torch.from_numpy(inputs["moe/cot"]), (), "act_btd")
+    stats = {}
+    o, aux = moe.moe_ffn(x_l, m, mcfg, tp, stats=stats)
+    objective = (o * cot).sum() + float(inputs["moe/aux_weight"]) * aux
+    named = dict(m.named_parameters())
+    grads = torch.autograd.grad(objective, [x_l, *named.values()])
+    tp = tp.with_params({"router": (), "w_in": ("model",),
+                         "w_gate": ("model",), "w_out": ("model",)})
+    reduced = trainer.reduce_grads(dict(zip(named, grads[1:])), tp)
+    out.update(whole(tp, reduced, "ep/grad"))
+    out["ep/grad/x"] = tp.relayout(grads[0], "act_btd", ()).numpy()
+    out["ep/dropped"] = np.array(int(stats["dropped"]))
+
+    # -- compressed_psum over every axis and over "model" ------------------
+    row = torch.from_numpy(inputs["cp/x"][p.axis_index(("data", "model"))])
+    out["cp/all"] = compression.compressed_psum(row, p,
+                                                ("data", "model")).numpy()
+    out["cp/model"] = compression.compressed_psum(row, p, "model").numpy()
+    return out
+
+
+def _bytes(a) -> bytes:
+    """A host leaf's bytes (a bf16 leaf is a CPU tensor)."""
+    if isinstance(a, torch.Tensor):
+        return a.contiguous().view(torch.uint8).numpy().tobytes()
+    return np.ascontiguousarray(a).tobytes()
 
 
 def rank_main(rank: int, shape: tuple, workdir: str, inputs: str) -> None:
