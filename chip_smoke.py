@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the port's fourteen paths through their entry points, each with
+Drives the port's paths through their entry points, each with
 every launch count set to 0 just before it and read just after. The first
 seven run at the paper's Netflix scale (n = 17,770 items, m = 480,189 users,
 d = 100, synthetic MF-like factors from ``--seed``):
@@ -112,6 +112,11 @@ d = 100, synthetic MF-like factors from ``--seed``):
                 sequences, and the losses of 3 steps on each, and how far
                 a second correct bf16 path (half the attention chunk)
                 lies from the first against float32;
+  bf16 repair   olmoe-1b-7b at full width cut to 2 layers, one Zipf
+                sequence of 4,096 tokens: ``lm_loss``'s gradient norm
+                without and with deterministic algorithms and from the
+                float32 copy, each pair within 5e-2 (the gathers of a
+                frequent token's rows add their gradients in float32);
   model         gloo worlds ("data", "model") of (1, 2) and (2, 2) ranks
   parallel      on the one card, weights from ``--seed`` as above, each
                 rank held against answers the recsys, LM, MoE and train
@@ -160,6 +165,28 @@ d = 100, synthetic MF-like factors from ``--seed``):
                 width, nothing dropped, against one device by the same
                 rules. Its times are of ranks that share one card: not a
                 multi-GPU speed;
+  mesh cells    then, in the (1, 2) world, the cells under a mesh through
+                ``cells.build_cell(..., mesh=)`` and ``materialize``: (a)
+                ``qwen3_zero1``, qwen3-0.6b ``train_4k`` at full width cut
+                to 8 layers and 2 sequences (one a rank), ZeRO-1 over
+                both ranks, 2 steps of clip + Adafactor against one
+                device's unsharded cell on the same sequences (loss 1e-2,
+                gradient norm 5e-2; the held parameters and each rank's
+                state shards against the cut of one device's by
+                ``grad_close``), (b) gat-cora ``ogb_products`` cut to
+                8,388,608 edges, both aggregations, a step's loss and
+                gradient norm within 1e-4 of one device's on the same
+                graph, (c) the SAH retrieval cell over 2^20 candidates,
+                ids and values bitwise the single-device composition of
+                the sharded scan (``srp_hash`` and the dense Hamming
+                kernel), (d) qwen3-0.6b ``prefill_32k`` cut to one
+                8,192-token prompt at TP-2, flash on each rank's heads,
+                its gathered logits by the model-parallel LM rule; and,
+                beside them on the host, (e) the mesh dry run (one rank
+                of the 16x16 mesh on the meta device) of ``perf.py``'s
+                ``qwen3_zero1`` and ``gat_dstpart`` and of dbrx-132b
+                ``train_4k``, their per-device bytes printed. The cuts
+                keep two ranks on one card within the phase's ~2 minutes;
   cells         the reference's cell catalogue at full width through
                 ``launch/dryrun.py::run_cell(..., measure_it=True)``:
                 each cell reckoned on the meta device, then one warm and
@@ -3176,6 +3203,7 @@ def mp_two_tower(mesh, seed: int, mp_dir: str, dev) -> dict:
     import torch
     from repro_torch.configs import base
     from repro_torch.dist import ShardingPolicy, lm_rules
+    from repro_torch.dist.policy import shard_rank
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import recsys as rec
@@ -3188,12 +3216,15 @@ def mp_two_tower(mesh, seed: int, mp_dir: str, dev) -> dict:
                                                           device=dev), pol)
     torch.cuda.empty_cache()
     want = torch.load(mp_file(mp_dir, "retrieval"))
-    cand, codes = want["cand"].to(dev), want["codes"].to(dev)
+    # the rank's equal slice of the candidates, in mesh order
+    per = want["cand"].shape[0] // pol.device_count
+    mine = slice(shard_rank(pol) * per, (shard_rank(pol) + 1) * per)
+    cand, codes = want["cand"][mine].to(dev), want["codes"][mine].to(dev)
     proj, users = want["proj"].to(dev), want["users"].to(dev)
     torch.cuda.synchronize()
     out = {"tt_setup_s": time.perf_counter() - t0,
            "tt_table_rows": model.user_table.shape[0],
-           "tt_candidates": cand.shape[0]}
+           "tt_candidates": want["cand"].shape[0]}
     with torch.no_grad():
         head = rec.item_tower(model, want["items_head"].to(dev), cfg, pol)
         if not torch.equal(head.cpu(), want["cand"][:head.shape[0]]):
@@ -3277,11 +3308,394 @@ def mp_rank(rank: int, shape: tuple, seed: int, workdir: str,
             t0 = time.perf_counter()
             out.update(part(mesh, seed, mp_dir, dev, *args))
             out[f"{part.__name__}_s"] = time.perf_counter() - t0
+        # the cells under a mesh, after the training, in MC_WORLD
+        if tuple(shape) == MC_WORLD:
+            t0 = time.perf_counter()
+            out.update(mp_cells(mesh, seed, mp_dir, dev))
+            out["mp_cells_s"] = time.perf_counter() - t0
         out["peak"] = torch.cuda.max_memory_allocated()
         with open(os.path.join(workdir, f"rank{rank}.json"), "w") as fh:
             json.dump(out, fh)
     finally:
         dist.destroy_process_group()
+
+
+# -- the cells under a mesh (run in the (1, 2) world) -----------------------
+
+MC_WORLD = (1, 2)        # the world of MP_WORLDS the mesh cells run in
+ZERO1_CUT = {"n_layers": 8, "global_batch": 2}   # qwen3_zero1 on 2 ranks
+ZERO1_STEPS = 2
+ZERO1_HELD = ("blocks.0.wq", "blocks.0.w_out", "blocks.0.ln1",
+              "blocks.7.w_in", "final_norm", "head")
+GAT_MESH_CUT = {"n_edges": 1 << 23}   # ogb_products: two ranks share a card
+GAT_MESH_RTOL = 1e-4     # PERF.md section 2's GAT rule
+MC_PREFILL_CUT = {"global_batch": 1, "seq_len": 8192}
+# (label, the command's module and arguments, the record it writes)
+MC_DRYRUNS = (("qwen3_zero1", ("repro_torch.launch.perf", "--variant",
+                               "qwen3_zero1"), "qwen3_zero1.json"),
+              ("gat_dstpart", ("repro_torch.launch.perf", "--variant",
+                               "gat_dstpart"), "gat_dstpart.json"),
+              ("dbrx-132b train_4k", ("repro_torch.launch.dryrun", "--arch",
+                                      "dbrx-132b", "--shape", "train_4k",
+                                      "--mesh", "single"),
+               "dbrx-132b__train_4k__single.json"))
+MC_DRYRUN_TIMEOUT = 600
+REPAIR_LAYERS = 2        # the bf16 repair's olmoe-1b-7b, cut from 16
+
+
+def bf16_repair(seed: int, dev) -> dict:
+    """The bf16 gradients' repair on the card: olmoe-1b-7b at full width
+    cut to REPAIR_LAYERS layers, one Zipf sequence of TRAIN_SEQ tokens,
+    ``lm_loss``'s gradient norm with deterministic algorithms off and on
+    and from the float32 copy; each pair within LM_GNORM_RTOL (a gather
+    of a frequent token's rows, added in bf16 by CUDA's nondeterministic
+    atomics, once put the norm 14% below float32's). The control, printed
+    and not held: the same sequence through plain indexing's backward
+    (``embed[tokens]`` and ``head.index_select``, as before the repair)
+    without deterministic algorithms, against float32."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import base
+    from repro_torch.data import synthetic
+    from repro_torch.models import embedding as emb_lib
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import optimizer as opt_lib
+    cfg = dataclasses.replace(base.get("olmoe-1b-7b").make_config(),
+                              n_layers=REPAIR_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = tf.init_params(cfg, gen, dev)
+    batch = next(synthetic.lm_token_batches(gen, 1, TRAIN_SEQ, cfg.vocab))
+
+    def norm(m):
+        loss = tf.lm_loss(m, batch)
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        return float(opt_lib.global_norm(dict(enumerate(grads))))
+
+    out = {"off": norm(model), "on": deterministic(lambda: norm(model))}
+    repaired = emb_lib.gather_rows
+    emb_lib.gather_rows = lambda t, i, dim=0: (t[i] if dim == 0
+                                               else t.index_select(dim, i))
+    try:
+        out["plain_off"] = norm(model)
+    finally:
+        emb_lib.gather_rows = repaired
+    out["f32"] = norm(float32_copy(model))
+    out["plain_off_f32"] = abs(out["plain_off"] - out["f32"]) / abs(
+        out["f32"])
+    out["off_on"] = within("bf16 repair: norm without against with "
+                           "deterministic algorithms", out["off"], out["on"],
+                           LM_GNORM_RTOL)
+    out["off_f32"] = within("bf16 repair: norm without deterministic "
+                            "algorithms against float32", out["off"],
+                            out["f32"], LM_GNORM_RTOL)
+    out["on_f32"] = within("bf16 repair: norm with deterministic "
+                           "algorithms against float32", out["on"],
+                           out["f32"], LM_GNORM_RTOL)
+    top = int(batch["tokens"].flatten().bincount().max())
+    print(f"bf16 repair: olmoe-1b-7b at {REPAIR_LAYERS} layers, full width, "
+          f"one Zipf sequence of {TRAIN_SEQ} tokens (the most frequent "
+          f"token {top} times): gradient norm {out['off']!r} without "
+          f"deterministic algorithms, {out['on']!r} with them (rel "
+          f"{out['off_on']:.3g}), float32 {out['f32']!r} (rel "
+          f"{out['off_f32']:.3g} and {out['on_f32']:.3g}; rule "
+          f"{LM_GNORM_RTOL}); control, plain indexing's backward without "
+          f"deterministic algorithms: {out['plain_off']!r} (rel "
+          f"{out['plain_off_f32']:.3g} to float32, "
+          f"{'outside' if out['plain_off_f32'] > LM_GNORM_RTOL else 'within'}"
+          f" the rule)")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def zero1_answers(mp_dir: str, seed: int, dev) -> None:
+    """What the mesh cells' ``qwen3_zero1`` is held against: one device's
+    unsharded ``train_4k`` cell (the same cut and seed: the same weights
+    and sequences) and a float32 copy through the same cell step, each
+    ZERO1_STEPS steps: losses, norms, and the held parameters and their
+    Adafactor state after the steps."""
+    import torch
+    from repro_torch.launch import cells
+    cell = cells.build_cell("qwen3-0.6b", "train_4k", ZERO1_CUT)
+    model, state, batch = cells.materialize(
+        cell, dev, torch.Generator(device=dev).manual_seed(seed))
+    model32 = float32_copy(model)
+    opt = cells.default_optimizer("lm")
+    state32 = cells.init_state(dict(model32.named_parameters()), opt)
+    out = {"bf16": [], "f32": []}
+    for _ in range(ZERO1_STEPS):
+        state, m = cell.step(model, state, batch)
+        state32, m32 = cell.step(model32, state32, batch)
+        out["bf16"].append((float(m["loss"]), float(m["grad_norm"])))
+        out["f32"].append((float(m32["loss"]), float(m32["grad_norm"])))
+    for tag, mod, st in (("16", model, state), ("32", model32, state32)):
+        params = dict(mod.named_parameters())
+        ada = st.opt_state[1]
+        out[f"p{tag}"] = {k: params[k].detach().cpu() for k in ZERO1_HELD}
+        out[f"m{tag}"] = {k: ada["m"][k].cpu() for k in ZERO1_HELD}
+        out[f"v{tag}"] = {k: {n: t.cpu() for n, t in ada["v"][k].items()}
+                          for k in ZERO1_HELD}
+    torch.save(out, mp_file(mp_dir, "zero1"))
+    print(f"mesh cells: saved qwen3_zero1's one-device answers ("
+          f"{ZERO1_CUT}, {ZERO1_STEPS} steps): losses and norms "
+          f"{[tuple(round(x, 5) for x in r) for r in out['bf16']]}, float32 "
+          f"{[tuple(round(x, 5) for x in r) for r in out['f32']]}")
+    del model, model32, state, state32
+    torch.cuda.empty_cache()
+
+
+def mc_zero1(mesh, seed: int, mp_dir: str, dev) -> dict:
+    """(a) ``qwen3_zero1``: the mesh cell's two steps against
+    ``zero1_answers``."""
+    import torch
+    from repro_torch.launch import cells
+    from repro_torch.train import optimizer as opt_lib
+    cell = cells.build_cell("qwen3-0.6b", "train_4k", ZERO1_CUT, mesh=mesh,
+                            variant="zero1")
+    pol = cell.policy
+    model, state, batch = cells.materialize(
+        cell, dev, torch.Generator(device=dev).manual_seed(seed))
+    want = torch.load(mp_file(mp_dir, "zero1"))
+    seen = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ZERO1_STEPS):
+        state, m = cell.step(model, state, batch)
+        seen.append((float(m["loss"]), float(m["grad_norm"])))
+    out = {"z1_s": time.perf_counter() - t0, "z1_seen": seen,
+           "z1_want": want["bf16"], "z1_tokens": int(batch["tokens"].numel())}
+    for i, ((loss, norm), (wl, wn)) in enumerate(zip(seen, want["bf16"])):
+        within(f"mesh cells qwen3_zero1 step {i + 1} loss", loss, wl,
+               LM_LOSS_RTOL)
+        within(f"mesh cells qwen3_zero1 step {i + 1} grad norm", norm, wn,
+               LM_GNORM_RTOL)
+    params = dict(model.named_parameters())
+    ada = state.opt_state[1]
+    errs, shards = {}, {}
+
+    def cut(t):
+        return pol.relayout(t.to(dev), (), opt_lib.zero1_rule(
+            tuple(t.shape), pol))
+
+    for k in ZERO1_HELD:
+        errs[f"param {k}"] = grad_close(f"zero1 parameter {k}",
+                                        params[k].detach(),
+                                        want["p16"][k].to(dev),
+                                        want["p32"][k].to(dev))
+        leaves = {"m": (ada["m"][k], want["m16"][k], want["m32"][k])}
+        leaves.update({f"v.{n}": (t, want["v16"][k][n], want["v32"][k][n])
+                       for n, t in ada["v"][k].items()})
+        for n, (got, w16, w32) in leaves.items():
+            w16, w32 = cut(w16), cut(w32)
+            if got.shape != w16.shape:
+                fail(f"mesh cells qwen3_zero1: {k} {n} shard {tuple(got.shape)}"
+                     f", the cut of one device's {tuple(w16.shape)}")
+            shards[f"{k} {n}"] = [tuple(got.shape), tuple(w32.shape)]
+            errs[f"{k} {n}"] = grad_close(f"zero1 state {k} {n}", got, w16,
+                                          w32)
+    whole = sum(int(t.numel()) * t.element_size()
+                for t in cells.init_state(dict(cells.tf_lib.LM(
+                    model.cfg, "meta").named_parameters()),
+                    cells.default_optimizer("lm")).opt_state[1]["m"].values())
+    out.update({"z1_errs": errs, "z1_shards": shards,
+                "z1_m_bytes": sum(int(t.numel()) * t.element_size()
+                                  for t in ada["m"].values()),
+                "z1_m_whole_bytes": whole,
+                "z1_peak": torch.cuda.max_memory_allocated()})
+    del model, state, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def mc_gat(mesh, seed: int, dev) -> dict:
+    """(b) gat-cora ``ogb_products`` (GAT_MESH_CUT), each aggregation: one
+    step of the mesh cell against one device's cell on the same graph."""
+    import torch
+    from repro_torch.launch import cells
+    out = {}
+    for variant in ("", "dst_partitioned"):
+        runs = []
+        for m in (None, mesh):
+            cell = cells.build_cell("gat-cora", "ogb_products", GAT_MESH_CUT,
+                                    mesh=m, variant=variant)
+            args = cells.materialize(
+                cell, dev, torch.Generator(device=dev).manual_seed(seed))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, met = cell.step(*args)
+            runs.append((float(met["loss"]), float(met["grad_norm"]),
+                         time.perf_counter() - t0,
+                         int(args[2]["src"].shape[0])))
+            del args, cell
+            torch.cuda.empty_cache()
+        tag = variant or "allreduce"
+        (l1, n1, s1, e1), (l2, n2, s2, e2) = runs
+        out[f"gat_{tag}"] = {
+            "loss": l2, "norm": n2, "loss1": l1, "norm1": n1, "s": s2,
+            "s1": s1, "edges": e2, "edges1": e1,
+            "loss_rel": within(f"mesh cells gat {tag} loss", l2, l1,
+                               GAT_MESH_RTOL),
+            "norm_rel": within(f"mesh cells gat {tag} grad norm", n2, n1,
+                               GAT_MESH_RTOL)}
+    return out
+
+
+def mc_sah(mesh, seed: int, dev) -> dict:
+    """(c) the SAH retrieval cell over ``cells.CAND_PAD`` candidates: its
+    ids and values bitwise the single-device composition of the sharded
+    scan, from the same draws (the cell's ``materialize``, redrawn
+    whole)."""
+    import torch
+    from repro_torch.configs import base
+    from repro_torch.engine import sharding
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import cells, serve
+    from repro_torch.models import recsys as rec
+    cell = serve.build_sah_retrieval_cell(mesh=mesh)
+    pol = cell.policy
+    args = cells.materialize(cell, dev,
+                             torch.Generator(device=dev).manual_seed(seed))
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vals, ids = cell.step(*args)
+    torch.cuda.synchronize()
+    out = {"sah_ms": (time.perf_counter() - t0) * 1e3,
+           "sah_launches": {k: v for k, v in ops.launch_counts.items() if v},
+           "sah_rows": int(args[2].shape[0])}
+    for name in ("srp_hash", "hamming_scores"):
+        if out["sah_launches"].get(name, 0) < 1:
+            fail(f"mesh cells SAH retrieval: {name} was not launched "
+                 f"({out['sah_launches']})")
+    del args
+    # the same draws whole, in the cell's order, then the composition
+    cfg = base.get("two-tower-retrieval").make_config()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        model = rec.init_twotower_params(gen, cfg, device=dev,
+                                         table_pad=pol.model_axis_size)
+        feats = cells._fields(gen, cfg.user_embedding.vocab_sizes, 1, dev)
+        cand = torch.randn(cells.CAND_PAD, cfg.out_dim, generator=gen,
+                           device=dev)
+        s = int(torch.randint(2 ** 62, (1,), generator=gen, device=dev))
+        codes, proj = serve.build_candidate_index(
+            cand, torch.Generator().manual_seed(s), device=dev)
+        u = rec.user_tower(model, feats, cfg)
+        qcode = ops.srp_hash(u, proj)
+        n, per = cand.shape[0], cand.shape[0] // pol.device_count
+        parts = [sharding.kmips_flat_arrays(
+            cand[i:i + per], torch.arange(i, i + per, dtype=torch.int32,
+                                          device=dev),
+            torch.ones(per, dtype=torch.bool, device=dev), codes[i:i + per],
+            qcode, u, cells.N_RETRIEVE, n_cand=512)
+            for i in range(0, n, per)]
+        best, pos = ref.topk_stable(torch.cat([v for v, _ in parts], 1),
+                                    cells.N_RETRIEVE)
+        want_ids = torch.cat([i for _, i in parts], 1).gather(1, pos)[0]
+    if not (torch.equal(ids, want_ids) and torch.equal(vals, best[0])):
+        fail(f"mesh cells SAH retrieval: {int((ids != want_ids).sum())} ids "
+             f"differ from the single-device composition")
+    del model, cand, codes
+    torch.cuda.empty_cache()
+    return out
+
+
+def mc_prefill(mesh, seed: int, dev) -> dict:
+    """(d) qwen3-0.6b ``prefill_32k`` (MC_PREFILL_CUT) at TP-2: the mesh
+    cell (flash on the rank's heads) against one device's cell on the same
+    weights and prompt, and its float32 copy, by ``mp_close``."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import cells
+    cell = cells.build_cell("qwen3-0.6b", "prefill_32k", MC_PREFILL_CUT,
+                            mesh=mesh)
+    pol = cell.policy
+    args = cells.materialize(cell, dev,
+                             torch.Generator(device=dev).manual_seed(seed))
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = cell.step(*args)
+    torch.cuda.synchronize()
+    out = {"pf_ms": (time.perf_counter() - t0) * 1e3,
+           "pf_launches": {k: v for k, v in ops.launch_counts.items() if v}}
+    if out["pf_launches"].get("flash_attention", 0) < 1:
+        fail(f"mesh cells prefill: flash_attention was not launched "
+             f"({out['pf_launches']})")
+    got = pol.relayout(logits, (pol.rules["logits"][0],
+                                pol.rules["logits"][2]), ())
+    del args, logits
+    one = cells.build_cell("qwen3-0.6b", "prefill_32k", MC_PREFILL_CUT)
+    model, tokens = cells.materialize(
+        one, dev, torch.Generator(device=dev).manual_seed(seed))
+    want = one.step(model, tokens)[0]
+    with torch.no_grad():
+        from repro_torch.models import transformer as tf
+        want32 = tf.prefill(float32_copy(model), tokens)[0]
+    out["pf_err"] = mp_close("cells prefill", got, want, want32)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def mp_cells(mesh, seed: int, mp_dir: str, dev) -> dict:
+    """The mesh cells (a)-(d) on this rank (module docstring)."""
+    import torch.distributed as dist
+    out = {}
+    for part, args in ((mc_zero1, (mp_dir,)), (mc_gat, ()), (mc_sah, ()),
+                       (mc_prefill, ())):
+        dist.barrier()
+        t0 = time.perf_counter()
+        out.update(part(mesh, seed, *args, dev) if args
+                   else part(mesh, seed, dev))
+        out[f"{part.__name__}_s"] = time.perf_counter() - t0
+    return out
+
+
+def start_mesh_dryruns(out_dir: str) -> dict:
+    """(e) the mesh dry runs (``MC_DRYRUNS``), started in the background
+    on the host (meta tensors, no card): {label: Popen}."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    return {label: (subprocess.Popen(
+        [sys.executable, "-m", *cmd, "--out", out_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=str(ROOT)), name) for label, cmd, name in MC_DRYRUNS}
+
+
+def finish_mesh_dryruns(procs: dict, out_dir: str) -> dict:
+    """Wait for the mesh dry runs (killing any past MC_DRYRUN_TIMEOUT) and
+    print each one's per-device bytes; a failure fails the smoke."""
+    t_end = time.perf_counter() + MC_DRYRUN_TIMEOUT
+    recs = {}
+    for label, (proc, name) in procs.items():
+        try:
+            stdout, stderr = proc.communicate(
+                timeout=max(1.0, t_end - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            for p, _ in procs.values():
+                p.kill()
+                p.communicate()
+            fail(f"mesh dry run {label}: not done in {MC_DRYRUN_TIMEOUT} s")
+        if proc.returncode:
+            fail(f"mesh dry run {label} failed:\n{stdout}{stderr}")
+        with open(os.path.join(out_dir, name)) as fh:
+            rec = json.load(fh)
+        mem = rec.get("memory_per_device",
+                      rec.get("memory", {}).get("per_device_total"))
+        roof = rec["roofline"]
+        recs[label] = {"bytes": mem, "fits": rec["fits_one_h100"],
+                       "coll": roof["coll_bytes_per_dev"],
+                       "collective_s": roof["collective_s"],
+                       "compute_s": roof["compute_s"]}
+        print(f"  mesh cells (e) dry run {label}, one rank of the 16x16 mesh "
+              f"on the meta device: {mem:,} bytes a device "
+              f"({mem / 2**30:.2f} GiB, fits one H100: "
+              f"{rec['fits_one_h100']}); collective bytes a device "
+              f"{roof['coll_bytes_per_dev']}; compute "
+              f"{roof['compute_s'] * 1e3:.2f} ms, collective "
+              f"{roof['collective_s'] * 1e3:.2f} ms")
+    return recs
 
 
 def worst_grad(errs: dict) -> str:
@@ -3375,6 +3789,48 @@ def mp_train_lines(shape, ranks: list, each) -> None:
               f", {worst_grad(lead['mt_grads'])}; step "
               f"{each('mt_step_s')} s a rank, peak "
               f"{[round(r['mt_peak'] / 2**30, 2) for r in ranks]} GiB")
+
+
+def mc_lines(shape, ranks: list, each) -> None:
+    """The mesh cells' lines of one world (a)-(d)."""
+    lead = ranks[0]
+    worst = max(lead["z1_errs"], key=lambda n: lead["z1_errs"][n]["max"]
+                / max(lead["z1_errs"][n]["sd_max"], 1e-30))
+    e = lead["z1_errs"][worst]
+    print(f"  mesh cells world={shape} (a) qwen3_zero1 ({ZERO1_CUT}, "
+          f"{lead['z1_tokens']:,} tokens a rank, ZeRO-1 over "
+          f"{len(ranks)} ranks): {ZERO1_STEPS} steps' loss and grad norm "
+          f"{[tuple(round(x, 5) for x in r) for r in lead['z1_seen']]} "
+          f"(one device {[tuple(round(x, 5) for x in r) for r in lead['z1_want']]}"
+          f"; rules {LM_LOSS_RTOL}, {LM_GNORM_RTOL}); {len(lead['z1_errs'])} "
+          f"held parameters and state shards by grad_close, the worst max "
+          f"{e['max'] / max(e['sd_max'], 1e-30):.3f}x one device's ({worst}); "
+          f"shards {lead['z1_shards']}; Adafactor momentum a rank "
+          f"{lead['z1_m_bytes']:,} bytes of {lead['z1_m_whole_bytes']:,}; "
+          f"steps {each('z1_s', 2)} s a rank, peak "
+          f"{[round(r['z1_peak'] / 2**30, 2) for r in ranks]} GiB")
+    for tag in ("allreduce", "dst_partitioned"):
+        g = lead[f"gat_{tag}"]
+        print(f"  mesh cells world={shape} (b) gat-cora ogb_products "
+              f"{tag} ({g['edges']:,} edges a rank of {g['edges1']:,}): "
+              f"loss {g['loss']!r} (one device {g['loss1']!r}, rel "
+              f"{g['loss_rel']:.3g}), grad norm {g['norm']!r} (one device "
+              f"{g['norm1']!r}, rel {g['norm_rel']:.3g}; rule "
+              f"{GAT_MESH_RTOL}); step {[round(r[f'gat_{tag}']['s'], 3) for r in ranks]} "
+              f"s a rank, one device {g['s1']:.3f} s")
+    print(f"  mesh cells world={shape} (c) retrieval_cand_sah over "
+          f"{lead['sah_rows'] * len(ranks):,} candidates "
+          f"({lead['sah_rows']:,} a rank): ids and values bitwise the "
+          f"single-device composition of the sharded scan; launches "
+          f"{lead['sah_launches']} a rank; {each('sah_ms', 2)} ms a rank")
+    pe = lead["pf_err"]
+    print(f"  mesh cells world={shape} (d) qwen3-0.6b prefill_32k cut to "
+          f"{MC_PREFILL_CUT} at TP-2: launches {lead['pf_launches']} a "
+          f"rank, {each('pf_ms', 1)} ms a rank (the first, cold); last "
+          f"logits from float32 max {pe['max']:.6f} mean {pe['mean']:.6f} "
+          f"(one device's bf16 {pe['sd_max']:.6f}, {pe['sd_mean']:.6f}), "
+          f"from one device's bf16 max {pe['vs_sd']:.6f}; phase "
+          f"{each('mp_cells_s', 1)} s a rank")
 
 
 def mp_path(seed: int, mp_dir: str) -> dict:
@@ -3477,6 +3933,8 @@ def mp_path(seed: int, mp_dir: str) -> dict:
                   + " (single device "
                   + ", ".join(f"{x:.4%}" for x in moe_want["shares"]) + ")")
         mp_train_lines(shape, ranks, each)
+        if shape == MC_WORLD:
+            mc_lines(shape, ranks, each)
         print(f"  mp world={shape} two-tower retrieval ({RETR_REQUESTS} "
               f"sketch requests, {lead['tt_candidates']:,} candidates, "
               f"tables row-sharded: "
@@ -5258,9 +5716,19 @@ def main() -> int:
     train_out = train_path(args.seed, dev, smi, mp_dir.name)
     phase_done("train")
 
-    # -- model parallelism: gloo worlds (1, 2) and (2, 2) on the card ---------
+    # -- the bf16 gradients of a frequent token, repaired -------------------
+    bf16_repair(args.seed, dev)
+    phase_done("bf16 repair")
+
+    # -- model parallelism: gloo worlds (1, 2) and (2, 2) on the card, then
+    # the cells under a mesh; the mesh dry runs beside them on the host ----
+    dry_dir = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    dry = start_mesh_dryruns(dry_dir.name)
+    zero1_answers(mp_dir.name, args.seed, dev)
     mp_worlds = mp_path(args.seed, mp_dir.name)
     mp_dir.cleanup()
+    finish_mesh_dryruns(dry, dry_dir.name)
+    dry_dir.cleanup()
     phase_done("model parallel")
 
     # -- kernels against their plain versions, at main-path inputs -----------
@@ -5514,6 +5982,13 @@ def main() -> int:
 
     flash_entry["launches_mp"] = mp_launches("lm_prefill_launches",
                                              "flash_attention")
+
+    def mc_launches(key, name):
+        """The mesh cells' launches, a rank."""
+        return [r[key].get(name, 0) for r in mp_worlds[MC_WORLD]]
+
+    flash_entry["launches_mesh_cells"] = mc_launches("pf_launches",
+                                                     "flash_attention")
     moe_out["entry"]["launches_mp"] = mp_launches(
         "moe_prefill_launches", "flash_attention", (MP_MOE_WORLD,))
     for entry, key, worlds in ((qwen_tp_entry, "lm_prefill_launches",
@@ -5549,6 +6024,7 @@ def main() -> int:
              "two-tower-retrieval/retrieval_cand_sah"]["launches"][
              "srp_hash"],
          "launches_mp_retrieval": mp_launches("tt_launches", "srp_hash"),
+         "launches_mesh_cells": mc_launches("sah_launches", "srp_hash"),
          **serve_out["srp"], **rec_out["srp"]},
         {"name": "hamming_nearest", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hamming_scan.cu",
@@ -5582,6 +6058,8 @@ def main() -> int:
                  "hamming_scores"],
              "launches_mp_retrieval": mp_launches("tt_launches",
                                                   "hamming_scores"),
+             "launches_mesh_cells": mc_launches("sah_launches",
+                                                "hamming_scores"),
              "max_abs_err": ham_err, "ms": ham_ms, "plain_ms": ham_plain,
              "bound_ms": ham_bound, "bound_by": ham_by, "call_ms": ham_call,
              "library_ms": None, **serve_out["dense"],

@@ -35,6 +35,19 @@ no gradient (the loss uses it as a constant shift). The backward runs its
 collectives in the order autograd visits the nodes, the same on every
 rank, since every rank builds the same graph.
 
+Where the ranks go on to use a ``psum``'s result each for work of its own
+(GAT's edge shards, ``models/gat.py``), its gradient arrives as the
+ranks' partial shares: ``psum_fanout`` is that sum, its backward the
+``psum`` of the shares.
+
+Every collective of the data path adds the bytes of its output to the
+kind's count while ``counting()`` is open (``all-gather``,
+``all-reduce``, ``reduce-scatter``, ``all-to-all``): the reference's
+output-shape proxy of its HLO (``src/repro/launch/roofline.py:61-69``),
+which the mesh dry run records per device. On meta tensors (the dry run
+over a fake process group, which moves no values) the call checks
+(``check_same_call``, ``agree``) decide nothing and return.
+
 The caller initializes the process group and so picks the backend: NCCL
 on a multi-GPU host, gloo on the CPU, and gloo over CUDA tensors where
 several ranks share one card (NCCL refuses two ranks on one device).
@@ -49,14 +62,38 @@ written on ``all_to_all_single``, which NCCL takes as well.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch.dist.policy import ShardingPolicy
+
+KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+         "collective-permute")
+_COUNTS: list[dict] = []          # the open ``counting()`` records
 
 
 def _dist():
     import torch.distributed as dist
     return dist
+
+
+@contextlib.contextmanager
+def counting():
+    """Count the output bytes of every data-path collective run inside,
+    by kind (module docstring): ``with counting() as c: ...`` leaves
+    ``c`` = {kind: bytes} for the kinds of ``KINDS``."""
+    rec = {k: 0 for k in KINDS}
+    _COUNTS.append(rec)
+    try:
+        yield rec
+    finally:
+        _COUNTS.remove(rec)
+
+
+def _count(kind: str, out: torch.Tensor) -> None:
+    for rec in _COUNTS:
+        rec[kind] += out.numel() * out.element_size()
 
 
 def check_mesh(policy: ShardingPolicy) -> None:
@@ -83,7 +120,9 @@ def all_gather_cat(t: torch.Tensor, policy: ShardingPolicy,
              for _ in range(dist.get_world_size(policy.group))]
     dist.all_gather(parts, t, group=policy.group)
     order = policy.mesh.mesh.flatten().tolist()
-    return torch.cat([parts[r] for r in order], dim=dim)
+    out = torch.cat([parts[r] for r in order], dim=dim)
+    _count("all-gather", out)
+    return out
 
 
 def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
@@ -91,6 +130,7 @@ def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     ``group`` (None: the default group), as a new tensor."""
     out = t.clone()
     _dist().all_reduce(out, group=group)
+    _count("all-reduce", out)
     return out
 
 
@@ -100,7 +140,10 @@ def check_same_call(queries: torch.Tensor, k: int, who: str,
     queries and the same k. Ranks compare the shape and k first, then
     their queries with rank 0's, and all raise together on a mismatch
     (a rank that raised alone would leave the others waiting in the next
-    collective). ``group`` spans the world (None: the default group)."""
+    collective). ``group`` spans the world (None: the default group).
+    Meta queries hold no values: nothing to compare."""
+    if queries.is_meta:
+        return
     dist = _dist()
     dev = queries.device
     head = torch.tensor([queries.shape[0], queries.shape[-1], k],
@@ -133,8 +176,12 @@ def agree(policy: ShardingPolicy, who: str, error: Exception | None,
     mismatch every rank raises together, a rank that failed its own
     ``error``, the others a ``ValueError`` naming the ranks at fault (a
     rank that raised alone would leave the others waiting in the next
-    collective)."""
+    collective). Meta tokens hold no values: only ``error`` decides."""
     import numpy as np
+    if tokens.is_meta:
+        if error is not None:
+            raise error
+        return
     t = tokens.reshape(tokens.shape[0], -1).to(torch.int64)
     weights = torch.arange(1, t.numel() + 1, dtype=torch.int64,
                            device=t.device).reshape(t.shape)
@@ -229,7 +276,9 @@ def _all_gather(t: torch.Tensor, policy: ShardingPolicy, axis: str,
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in order]
     dist.all_gather(parts, t, group=group)
-    return torch.cat([parts[g] for g in order], dim=dim)
+    out = torch.cat([parts[g] for g in order], dim=dim)
+    _count("all-gather", out)
+    return out
 
 
 def _reduce_scatter(t: torch.Tensor, policy: ShardingPolicy, axis: str,
@@ -248,6 +297,7 @@ def _reduce_scatter(t: torch.Tensor, policy: ShardingPolicy, axis: str,
         send[g] = chunks[c]
     out = torch.empty_like(chunks[0])
     dist.reduce_scatter(out, send, group=group)
+    _count("reduce-scatter", out)
     return out
 
 
@@ -270,6 +320,7 @@ def _all_to_all(t: torch.Tensor, policy: ShardingPolicy, axis: str,
     send = chunks[by_group].contiguous()        # row g goes to group rank g
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=group)
+    _count("all-to-all", recv)
     parts = [recv[g].movedim(0, split_axis) for g in order]
     return torch.cat(parts, dim=concat_axis)
 
@@ -281,7 +332,19 @@ def _reduce(t: torch.Tensor, policy: ShardingPolicy, axes, op):
         group, order = _axis_group(policy, axis)
         if len(order) > 1:
             dist.all_reduce(out, op=op, group=group)
+            _count("all-reduce", out)
     return out
+
+
+class _PsumFanout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, policy, axes):
+        ctx.args = (policy, axes)
+        return _reduce(t, policy, axes, _dist().ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce(grad, *ctx.args, _dist().ReduceOp.SUM), None, None
 
 
 class _AllGather(torch.autograd.Function):
@@ -363,6 +426,16 @@ def psum(t: torch.Tensor, policy: ShardingPolicy, axes) -> torch.Tensor:
     as a new tensor: JAX's ``psum``. Backward: the identity (the
     replicated sum carries the full gradient on every rank)."""
     return _Psum.apply(t, policy, axes)
+
+
+def psum_fanout(t: torch.Tensor, policy: ShardingPolicy,
+                axes) -> torch.Tensor:
+    """``psum`` for a sum the ranks then use each for work of its own
+    (module docstring): the same value, and the backward the ``psum`` of
+    the ranks' partial gradients, so that each rank's summand gets the
+    whole gradient of the sum. (Megatron's pair: an all-reduce forward
+    and an all-reduce backward.)"""
+    return _PsumFanout.apply(t, policy, axes)
 
 
 def pmax(t: torch.Tensor, policy: ShardingPolicy, axes) -> torch.Tensor:

@@ -51,10 +51,6 @@ import torch
 DP_AXIS_NAMES = ("pod", "data")
 TP_AXIS_NAME = "model"
 
-# the mesh work still to port, named in the NotImplementedError it raises
-CELLS_SLICE = ("the cells half of the multi-GPU slice 17 of the port (the "
-               "cells, ZeRO-1 and GAT partitioning under a mesh)")
-
 
 @dataclasses.dataclass(frozen=True)
 class ShardingPolicy:

@@ -456,9 +456,10 @@ class RetrievalServer(_TicketQueue):
                         tuple(state.items.shape), tuple(state.codes.shape)))
         ucodes = kops.srp_hash(qs, state.proj_q) if scan == "sketch" \
             else None
-        return _sharding.kmips_flat_arrays(
-            state.items, state.item_ids, mask, state.codes, ucodes, qs, k,
-            self.policy, n_cand=n_cand, scan=scan)
+        rows = _sharding.rank_rows(state.items, state.item_ids, mask,
+                                   state.codes, self.policy, k)
+        return _sharding.kmips_flat_arrays(*rows, ucodes, qs, k, self.policy,
+                                           n_cand=n_cand, scan=scan)
 
     def _merge(self, vals, ids, qs, d_items, d_mask, k: int, n_base: int):
         self._sigs.add(("merge", qs.shape[0], k, n_base,

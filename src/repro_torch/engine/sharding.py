@@ -63,16 +63,6 @@ _USER_AXIS_FIELDS = ("users", "user_ids", "user_mask", "theta", "user_lb")
 _BLOCK_AXIS_FIELDS = ("center", "omega", "block_lb")
 
 
-def check_policy(policy, who: str, waits: str) -> None:
-    """Raise ``NotImplementedError`` unless ``policy`` is single-device
-    (None, or an object whose ``mesh`` is None): for the paths whose mesh
-    branch waits for a later slice, named by ``waits``."""
-    if policy is not None and getattr(policy, "mesh", policy) is not None:
-        raise NotImplementedError(
-            f"{who}: sharding over a device mesh waits for {waits}; pass "
-            f"policy=None")
-
-
 def policy_device(policy, device, who: str) -> torch.device:
     """Where ``who`` computes under ``policy``: ``device`` without a mesh
     (None means "cuda", ``artifact.device_of``); under a mesh the rank's
@@ -236,6 +226,22 @@ def _flat_candidates(items, item_ids, item_mask, codes, ucodes, queries,
     return vals, item_ids[cand.gather(1, pos)]
 
 
+def rank_rows(items: torch.Tensor, item_ids: torch.Tensor,
+              item_mask: torch.Tensor, codes: torch.Tensor, policy,
+              k: int = 1):
+    """The rank's slice of whole item-axis arrays for ``kmips_flat_arrays``
+    under a mesh: padded with dead rows (``pad_item_rows``; a serving
+    state padded at build has nothing left to add) and cut into equal
+    slices in mesh order. The arrays themselves without a mesh."""
+    if not _meshed(policy):
+        return items, item_ids, item_mask, codes
+    s = n_shards(policy)
+    rows = pad_item_rows(items, item_ids, item_mask, codes, s, k)
+    per = rows[0].shape[0] // s
+    lo = shard_rank(policy) * per
+    return tuple(r[lo:lo + per] for r in rows)
+
+
 def kmips_flat_arrays(items: torch.Tensor, item_ids: torch.Tensor,
                       item_mask: torch.Tensor, codes: torch.Tensor,
                       ucodes: torch.Tensor | None, queries: torch.Tensor,
@@ -247,26 +253,19 @@ def kmips_flat_arrays(items: torch.Tensor, item_ids: torch.Tensor,
     ``scan="exact"``), queries (Q, d) -> (vals (Q, k) descending, ids
     (Q, k)). ``n_cand`` is raised to k and capped at the rows scanned.
 
-    Under a mesh the rows are padded with dead rows (``pad_item_rows``;
-    a serving state padded at build has nothing left to add), each rank
-    scans its slice with ``n_cand`` per shard, and the local
-    winners are gathered and merged by a stable top-k; every rank gets
-    the answer. A query's answer does not depend on the rest of the
-    batch (module docstring)."""
+    Under a mesh the row arrays are the rank's rows (at least k of them,
+    ``item_ids`` global; ``rank_rows`` cuts them from whole arrays, as the
+    reference's ``shard_map`` does): each rank scans them with ``n_cand``
+    per shard, and the local winners are gathered and merged in mesh
+    order by a stable top-k; every rank gets the answer. A query's answer
+    does not depend on the rest of the batch (module docstring)."""
+    n_c = min(max(n_cand, k), items.shape[0])
     if not _meshed(policy):
-        n_c = min(max(n_cand, k), items.shape[0])
         return _flat_candidates(items, item_ids, item_mask, codes, ucodes,
                                 queries, k, n_c, scan)
     _coll.check_same_call(queries, k, "kmips_flat_arrays", policy.group)
-    s = n_shards(policy)
-    items, item_ids, item_mask, codes = pad_item_rows(
-        items, item_ids, item_mask, codes, s, k)
-    per = items.shape[0] // s
-    lo = shard_rank(policy) * per
-    vals_l, ids_l = _flat_candidates(
-        items[lo:lo + per], item_ids[lo:lo + per], item_mask[lo:lo + per],
-        codes[lo:lo + per], ucodes, queries, k, min(max(n_cand, k), per),
-        scan)
+    vals_l, ids_l = _flat_candidates(items, item_ids, item_mask, codes,
+                                     ucodes, queries, k, n_c, scan)
     vals = _coll.all_gather_cat(vals_l, policy, dim=1)
     ids = _coll.all_gather_cat(ids_l, policy, dim=1)
     best, pos = kref.topk_stable(vals, k)
@@ -278,10 +277,11 @@ def kmips_flat(index: _alsh.SAALSHIndex, queries: torch.Tensor, k: int,
     """Single-pass kMIPS over a forward index (``sharding.py:326-342``):
     queries (Q, d) -> (vals (Q, k) descending, ids (Q, k) original item
     rows). ``n_cand`` at least the rows a shard scans makes the sketch
-    exact. Under a mesh the rows shard as ``kmips_flat_arrays`` says; the
+    exact. Under a mesh each rank scans its ``rank_rows``; the
     engine's single-device ``kmips`` takes the tiled, early-terminating
     ``sa_alsh.kmips_topk`` instead."""
     ucodes = _alsh.user_codes(index, queries) if scan == "sketch" else None
-    return kmips_flat_arrays(index.items, index.item_ids, index.item_mask,
-                             index.codes, ucodes, queries, k, policy,
+    rows = rank_rows(index.items, index.item_ids, index.item_mask,
+                     index.codes, policy, k)
+    return kmips_flat_arrays(*rows, ucodes, queries, k, policy,
                              n_cand=n_cand, scan=scan)

@@ -1,6 +1,7 @@
-"""Dry run of the port's cells on one device: trace every (arch x shape)
-cell's step on the meta device and reckon its memory and roofline; with
-``--measure``, run it on the card.
+"""Dry run of the port's cells: trace every (arch x shape) cell's step on
+the meta device and reckon its memory and roofline, on one device or as
+one rank of the reference's production mesh; with ``--measure``, run a
+one-device cell on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b \\
         --shape train_4k --out results/dryrun
@@ -9,6 +10,9 @@ cell's step on the meta device and reckon its memory and roofline; with
         --arch two-tower-retrieval --shape retrieval_cand --sah
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gat-cora \\
         --shape molecule --measure                                # the card
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b \\
+        --shape train_4k --mesh single --variant zero1
 
 Twin of ``src/repro/launch/dryrun.py``. The reference lowers and compiles
 each cell ahead of time on a mesh of fake devices and reads XLA's memory
@@ -19,6 +23,21 @@ FLOPs and the bytes it holds (PORT.md, "Launchers and cells"). Each cell
 writes ``<out>/<arch>__<shape>__one.json``: the reference's record less
 its XLA-only keys (``lower_s``, ``compile_s``, ``alias_bytes``,
 ``generated_code_bytes``), with ``trace_s`` and ``fits_one_h100``.
+
+``--mesh single|multi|both`` reckons one rank (the first) of the
+reference's production mesh, 16x16 ("data", "model") or 2x16x16 with
+"pod" (``launch/mesh.py``), in this one process, on the meta device: the
+cell under the mesh (``cells.build_cell(..., mesh=)``: the rank's shards
+and its collectives) over a fake process group of 256 or 512 ranks
+(``fake_world``: torch's ``"fake"`` backend, whose collectives return at
+once and move no values, so no check on the path may decide anything on
+meta tensors, ``dist/collectives.py``). The record adds the collectives'
+output bytes by kind (``collectives.counting``, the reference's
+output-shape proxy; ``collective_s`` takes an all-reduce twice, over the
+port's NVLink rate) and writes ``<arch>__<shape>__<mesh>.json``;
+``--mesh one`` (the default) is the one-device record. ``--variant``
+(``zero1`` of an LM train cell, ``dst_partitioned`` of a GNN cell) is
+``launch/perf.py``'s.
 
 Without ``--measure`` nothing is allocated and no card is needed.
 ``--measure`` needs one: it draws the cell's inputs on the card
@@ -31,6 +50,7 @@ exits nonzero.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -41,6 +61,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.dist import collectives as coll
 from repro_torch.launch import cells as cells_lib
 from repro_torch.launch import roofline as rl
 
@@ -64,7 +85,7 @@ def reckon(cell: cells_lib.Cell) -> tuple[dict, Any]:
     output) of one traced step."""
     args = cell.abstract_args
     t0 = time.perf_counter()
-    with rl.Reckoner(args) as r:
+    with coll.counting() as moved, rl.Reckoner(args) as r:
         out = cell.step(*args)
     trace_s = time.perf_counter() - t0
     arg_b = rl.storage_bytes(args)
@@ -72,7 +93,8 @@ def reckon(cell: cells_lib.Cell) -> tuple[dict, Any]:
     new_out_b = rl.storage_bytes(out, exclude=args)
     total = arg_b + r.peak_bytes
     roof = rl.from_counts(r.flops, r.bytes_read + out_b, total,
-                          tensor_core_flops=r.tensor_core_flops)
+                          tensor_core_flops=r.tensor_core_flops,
+                          coll_bytes=moved)
     rec = {
         "trace_s": round(trace_s, 2),
         "memory": {"temp_bytes": r.peak_bytes - new_out_b,
@@ -164,22 +186,55 @@ def measure(cell: cells_lib.Cell, seed: int,
     return rec, args, out
 
 
+MESHES = ("single", "multi")
+
+
+@contextlib.contextmanager
+def fake_world(kind: str, rank: int = 0):
+    """Rank ``rank`` of the production mesh ``kind`` ("single": 16x16,
+    "multi": 2x16x16) over a fake process group in this process: yields
+    the ``DeviceMesh``, and destroys the group on exit. For meta tensors
+    only (its collectives move no values). Raises if this process has a
+    process group already."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.launch import mesh as mesh_lib
+    if dist.is_initialized():
+        raise RuntimeError("the mesh dry run makes a fake world of its own; "
+                           "this process has a process group already")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=512 if kind == "multi" else 256)
+    try:
+        yield mesh_lib.make_production_mesh(multi_pod=kind == "multi",
+                                            device_type="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
 def run_cell(arch_id: str, shape_name: str, out_dir: str | None = None, *,
              sah_variant: bool = False, measure_it: bool = False,
              cut: dict | None = None, seed: int = 0,
-             on_args: Callable | None = None) -> CellRun:
+             on_args: Callable | None = None, mesh=None,
+             mesh_kind: str = "one", variant: str = "") -> CellRun:
     """Build, trace and reckon one cell (``sah_variant``: the SAH sketch
     retrieval cell), with ``cut`` (a ``FIT`` value: the largest that fits,
     ``fit_cut``); with ``measure_it``, run it on the card unless the
-    reckoning says it does not fit. Writes the record to ``out_dir``
-    when given."""
+    reckoning says it does not fit. Under ``mesh`` (a ``fake_world``'s,
+    named ``mesh_kind``) the cell is one rank's, uncut, and is not run.
+    Writes the record to ``out_dir`` when given."""
+    if mesh is not None and (measure_it or cut):
+        raise ValueError("a mesh cell is reckoned whole, and not run")
     if sah_variant:
         from repro_torch.launch.serve import build_sah_retrieval_cell
-        cell = build_sah_retrieval_cell()
+        cell = build_sah_retrieval_cell(mesh=mesh)
         shape_name = cell.shape_name
+    elif mesh is not None:
+        cell = cells_lib.build_cell(arch_id, shape_name, mesh=mesh,
+                                    variant=variant)
     else:
         cell = cells_lib.build_cell(arch_id, shape_name,
-                                    fit_cut(arch_id, shape_name, cut or {}))
+                                    fit_cut(arch_id, shape_name, cut or {}),
+                                    variant=variant)
     reckoned, abstract_out = reckon(cell)
     flops_cut = {k: v[1] for k, v in cell.reduced.items()}
     try:
@@ -187,13 +242,19 @@ def run_cell(arch_id: str, shape_name: str, out_dir: str | None = None, *,
                                 flops_cut)
     except KeyError:
         mflops = None
-    rec = {"arch": arch_id, "shape": shape_name, "mesh": "one",
-           "n_devices": 1, "mesh_shape": {},
+    n_dev = 1 if mesh is None else int(mesh.size())
+    rec = {"arch": arch_id, "shape": shape_name, "mesh": mesh_kind,
+           "n_devices": n_dev,
+           "mesh_shape": {} if mesh is None else {
+               name: int(mesh.size(i))
+               for i, name in enumerate(mesh.mesh_dim_names)},
            "reduced": {k: list(v) for k, v in cell.reduced.items()},
            **reckoned, "model_flops_global": mflops, "note": cell.note}
+    if variant:
+        rec["variant"] = variant
     flops = rec["roofline"]["flops_per_dev"]
     if mflops is not None and flops > 0:
-        rec["useful_flops_ratio"] = mflops / flops
+        rec["useful_flops_ratio"] = mflops / (flops * n_dev)
     run = CellRun(cell, rec, abstract_out)
     if measure_it and rec["fits_one_h100"]:
         m, run.args, run.out = measure(cell, seed, on_args)
@@ -202,7 +263,8 @@ def run_cell(arch_id: str, shape_name: str, out_dir: str | None = None, *,
         rec["measured"] = m
     if out_dir is not None:
         os.makedirs(out_dir, exist_ok=True)
-        path = os.path.join(out_dir, f"{arch_id}__{shape_name}__one.json")
+        path = os.path.join(out_dir,
+                            f"{arch_id}__{shape_name}__{mesh_kind}.json")
         with open(path, "w") as f:
             json.dump(rec, f, indent=2)
     return run
@@ -215,7 +277,10 @@ def summary(rec: dict) -> str:
     line = (f"mem/dev={rec['memory']['per_device_total'] / gib:.2f}GiB "
             f"fits={rec['fits_one_h100']} trace={rec['trace_s']:.1f}s "
             f"compute={r['compute_s'] * 1e3:.2f}ms "
-            f"memory={r['memory_s'] * 1e3:.2f}ms dom={r['dominant']}")
+            f"memory={r['memory_s'] * 1e3:.2f}ms ")
+    if rec["n_devices"] > 1:
+        line += f"coll={r['collective_s'] * 1e3:.2f}ms "
+    line += f"dom={r['dominant']}"
     if rec["reduced"]:
         line += f" reduced={rec['reduced']}"
     m = rec.get("measured")
@@ -224,6 +289,32 @@ def summary(rec: dict) -> str:
                  f"peak={m['peak_bytes'] / gib:.2f}GiB "
                  f"step/bound={m['step_over_bound']:.2f}")
     return line
+
+
+def _run_jobs(jobs, args, kind: str, mesh) -> list[str]:
+    """Run the CLI's jobs on one mesh kind; returns the failed tags."""
+    failures = []
+    for arch_id, shape_name, sah in jobs:
+        tag = (f"{arch_id} x {shape_name}" + (" [sah]" if sah else "")
+               + (f" x {kind}" if kind != "one" else "")
+               + (f" [{args.variant}]" if args.variant else ""))
+        run = None
+        try:
+            run = run_cell(arch_id, shape_name, args.out, sah_variant=sah,
+                           measure_it=args.measure, seed=args.seed,
+                           mesh=mesh, mesh_kind=kind, variant=args.variant)
+            skip = (" (not run: does not fit one H100)" if args.measure
+                    and "measured" not in run.record else "")
+            print(f"OK   {tag}: {summary(run.record)}{skip}", flush=True)
+        except Exception as e:  # noqa: BLE001 -- report every cell
+            failures.append(tag)
+            print(f"FAIL {tag}: {type(e).__name__}: {e}", flush=True)
+            traceback.print_exc()
+        finally:
+            run = None              # frees the measured inputs
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+    return failures
 
 
 def main() -> int:
@@ -235,9 +326,17 @@ def main() -> int:
                     help="SAH sketch variant of two-tower retrieval_cand")
     ap.add_argument("--measure", action="store_true",
                     help="also run each cell that fits on the card")
+    ap.add_argument("--mesh", choices=("one",) + MESHES + ("both",),
+                    default="one",
+                    help="one device, or one rank of the production mesh")
+    ap.add_argument("--variant", default="",
+                    choices=("", "zero1", "dst_partitioned"),
+                    help="a perf variant of the cell (launch/perf.py)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="results/dryrun")
     args = ap.parse_args()
+    if args.measure and args.mesh != "one":
+        ap.error("--measure runs one device's cells: give --mesh one")
     if args.measure and not torch.cuda.is_available():
         print("dryrun: --measure needs a CUDA device; there is none",
               file=sys.stderr)
@@ -254,24 +353,12 @@ def main() -> int:
     else:
         ap.error("give --arch and --shape, or --all")
 
+    kinds = {"one": ("one",), "both": MESHES}.get(args.mesh, (args.mesh,))
     failures = []
-    for arch_id, shape_name, sah in jobs:
-        tag = f"{arch_id} x {shape_name}" + (" [sah]" if sah else "")
-        run = None
-        try:
-            run = run_cell(arch_id, shape_name, args.out, sah_variant=sah,
-                           measure_it=args.measure, seed=args.seed)
-            skip = (" (not run: does not fit one H100)" if args.measure
-                    and "measured" not in run.record else "")
-            print(f"OK   {tag}: {summary(run.record)}{skip}", flush=True)
-        except Exception as e:  # noqa: BLE001 -- report every cell
-            failures.append(tag)
-            print(f"FAIL {tag}: {type(e).__name__}: {e}", flush=True)
-            traceback.print_exc()
-        finally:
-            run = None              # frees the measured inputs
-            if torch.cuda.is_available():
-                torch.cuda.empty_cache()
+    for kind in kinds:
+        with (contextlib.nullcontext() if kind == "one"
+              else fake_world(kind)) as mesh:
+            failures += _run_jobs(jobs, args, kind, mesh)
     if failures:
         print(f"\n{len(failures)} FAILURES:\n  " + "\n  ".join(failures))
         return 1

@@ -6,7 +6,8 @@ seconds:
 
     compute    = FLOPs in bf16 / 989 TFLOP/s + other FLOPs / 67 TFLOP/s
     memory     = bytes / 3.35 TB/s
-    collective = collective bytes / 900 GB/s (NVLink; 0 on one card)
+    collective = collective bytes / 900 GB/s (NVLink; 0 on one card;
+                 an all-reduce's bytes counted twice)
 
 The rates are the H100 SXM5 data sheet's (dense, no sparsity, at the 700 W
 limit): bf16 on the tensor cores, float32 outside them (the port keeps
@@ -17,8 +18,10 @@ The reference reads FLOPs and bytes from XLA's ``cost_analysis`` of the
 compiled program and collective bytes from its HLO text (``cost_dict``,
 ``from_compiled``, ``collective_bytes``). Eager PyTorch compiles nothing,
 so those have no twin; ``from_counts`` takes their place, fed by a
-``Reckoner``: the step traced once on the meta device, which allocates
-nothing, counting
+``Reckoner`` and, under a mesh, by the collective wrappers' own count of
+their output bytes (``dist/collectives.py::counting``, the reference's
+output-shape proxy): the step traced once on the meta device, which
+allocates nothing, counting
 
 * FLOPs op by op with ``torch.utils.flop_counter``'s registry (the counts
   ``FlopCounterMode`` gives), split by the dtype of the op's first
@@ -51,6 +54,8 @@ from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
+from repro_torch.dist.collectives import KINDS
+
 # H100 SXM5 data sheet: dense peaks at the 700 W limit
 PEAK_FLOPS_BF16 = 989e12      # tensor cores, bf16 (and fp16) inputs
 PEAK_FLOPS_F32 = 67e12        # float32 outside the tensor cores
@@ -64,8 +69,7 @@ _GATHERS = (torch.ops.aten.index_select, torch.ops.aten.index,
             torch.ops.aten.embedding, torch.ops.aten.gather,
             torch.ops.aten.take)
 
-_COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
-                "collective-permute")
+_COLLECTIVES = KINDS         # the reference's kinds, as the wrappers count
 
 
 @dataclasses.dataclass
@@ -117,11 +121,16 @@ class Roofline:
 
 
 def from_counts(flops: float, bytes_accessed: float, peak_memory: float, *,
-                tensor_core_flops: float = 0.0) -> Roofline:
-    """A one-device roofline (no collectives) from a ``Reckoner``'s
-    counts, in place of the reference's ``from_compiled``."""
+                tensor_core_flops: float = 0.0,
+                coll_bytes: dict | None = None) -> Roofline:
+    """A device's roofline from a ``Reckoner``'s counts and the output
+    bytes of its collectives by kind (``dist/collectives.py::counting``;
+    none on one device), in place of the reference's
+    ``from_compiled``."""
+    coll_bytes = coll_bytes or {}
     return Roofline(flops=float(flops), bytes_accessed=float(bytes_accessed),
-                    coll_bytes={k: 0 for k in _COLLECTIVES},
+                    coll_bytes={k: coll_bytes.get(k, 0)
+                                for k in _COLLECTIVES},
                     peak_memory=float(peak_memory),
                     tensor_core_flops=float(tensor_core_flops))
 

@@ -22,7 +22,9 @@ kmips_flat_arrays``, ``n_cand`` a shard): one ``srp_hash`` and one dense
 ``hamming_scores`` a request on every rank.
 ``build_sah_retrieval_cell``
 returns the dry-run ``Cell`` of this path (two-tower-retrieval x
-retrieval_cand, variant "sah"; ``launch/cells.py``). Each entry point
+retrieval_cand, variant "sah"; ``launch/cells.py``), under a mesh one
+rank's: ``CAND_PAD`` candidates tiled over every axis, the rank holding
+only its rows. Each entry point
 runs under ``torch.no_grad()``: the towers' parameters are trainable,
 and serving records nothing for autograd.
 """
@@ -32,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs import base as cfg_base
+from repro_torch.dist.policy import shard_rank
 from repro_torch.engine import sharding as eng_sharding
 from repro_torch.engine.artifact import IndexArtifact
 from repro_torch.engine.config import get_config
@@ -50,11 +53,14 @@ def retrieve_for_user(u: torch.Tensor, cand_vecs: torch.Tensor,
     """The discrete part of ``sah_retrieve_step`` for one user vector u
     (D,): its SRP code (one ``srp_hash`` launch) and the sketch scan over
     every candidate -> (vals (k,) descending, ids (k,) int32 candidate
-    rows)."""
+    rows). Under a mesh the candidates are the rank's equal slice, in mesh
+    order, of the whole set (``eng_sharding.rank_rows``)."""
     qcode = kops.srp_hash(u[None, :].contiguous(), proj)          # (1, W)
     n = cand_vecs.shape[0]
+    first = n * shard_rank(policy)
     vals, ids = eng_sharding.kmips_flat_arrays(
-        cand_vecs, torch.arange(n, dtype=torch.int32, device=u.device),
+        cand_vecs, torch.arange(first, first + n, dtype=torch.int32,
+                                device=u.device),
         torch.ones(n, dtype=torch.bool, device=u.device), cand_codes, qcode,
         u[None, :], k, policy, n_cand=n_cand)
     return vals[0], ids[0]
@@ -69,51 +75,71 @@ def sah_retrieve_step(model, user_feats: torch.Tensor,
 
     user_feats (1, Fu) int; cand_vecs (N, D) f32; cand_codes (N, W) int32
     bit views of the reference's uint32 codes (``build_candidate_index``);
-    proj (D, B) f32, the first D rows of the SRP projection (query side).
+    proj (D, B) f32, the first D rows of the SRP projection (query side);
+    under a mesh the candidates and codes are the rank's rows
+    (``retrieve_for_user``).
     Returns (vals (k,), ids (k,) int32)."""
     u = rec_lib.user_tower(model, user_feats, cfg, policy)[0]    # (D,)
     return retrieve_for_user(u, cand_vecs, cand_codes, proj, policy,
                              n_cand=n_cand, k=k)
 
 
-def build_sah_retrieval_cell(cand_dtype=torch.float32) -> cells_lib.Cell:
-    """The dry-run ``Cell`` of the sketch path (``serve.py:56-112``) on
-    one device: one user's features through ``sah_retrieve_step`` against
+def build_sah_retrieval_cell(cand_dtype=torch.float32,
+                             mesh=None) -> cells_lib.Cell:
+    """The dry-run ``Cell`` of the sketch path (``serve.py:56-112``): one
+    user's features through ``sah_retrieve_step`` against
     ``SAH_CELL_CANDIDATES`` candidates of ``cand_dtype`` (float32, or
     bfloat16 to halve the re-rank's bytes) with ``N_BITS``-bit codes and
     the (out_dim, N_BITS) query projection. ``materialize`` draws the
     towers and N(0, 1) candidate vectors and indexes them with
     ``build_candidate_index`` (from their float32 values), so the codes
-    are the candidates' own."""
+    are the candidates' own. Under ``mesh`` one rank's: ``cells.
+    CAND_PAD`` candidates tiled over every mesh axis, the tables
+    row-sharded over "model" (``cells.recsys_mesh``), the scan over the
+    rank's rows merged across ranks; ``materialize`` draws and indexes
+    the whole set and keeps the rank's rows."""
     arch = cfg_base.get("two-tower-retrieval")
     cfg = arch.make_config()
-    init, _, _ = cells_lib.recsys_fns(arch, cfg)
     n, w = SAH_CELL_CANDIDATES, N_BITS // 32
+    policy, pad = None, 1
+    model = rec_lib.model_for(cfg, cells_lib.META)
+    if mesh is not None:
+        policy, pad, model = cells_lib.recsys_mesh(arch, cfg, mesh)
+        n = cells_lib.CAND_PAD
+    init = cells_lib.recsys_fns(arch, cfg, policy, pad)[0]
+    axes = tuple(mesh.mesh_dim_names) if mesh is not None else ()
+    n_local = n // (policy.device_count if policy is not None else 1)
 
     def step(model, user_feats, cand_vecs, cand_codes, proj):
         return sah_retrieve_step(model, user_feats, cand_vecs, cand_codes,
-                                 proj, cfg)
+                                 proj, cfg, policy)
 
     def make(dev, gen):
-        model = init(gen, dev)
+        model = rec_lib.shard_tables(init(gen, dev), policy)
         feats = cells_lib._fields(gen, cfg.user_embedding.vocab_sizes, 1, dev)
         cand = torch.randn(n, cfg.out_dim, generator=gen, device=dev)
         seed = int(torch.randint(2 ** 62, (1,), generator=gen, device=dev))
         codes, proj = build_candidate_index(
             cand, torch.Generator().manual_seed(seed), device=dev)
+        if mesh is not None:
+            cand, codes = (cells_lib._rows(policy, t, axes)
+                           for t in (cand, codes))
         return model, feats, cand.to(cand_dtype), codes, proj
 
     meta = cells_lib._meta
-    abstract = (rec_lib.model_for(cfg, cells_lib.META),
+    abstract = (model,
                 meta((1, cfg.user_embedding.n_fields), torch.int32),
-                meta((n, cfg.out_dim), cand_dtype),
-                meta((n, w), torch.int32),
+                meta((n_local, cfg.out_dim), cand_dtype),
+                meta((n_local, w), torch.int32),
                 meta((cfg.out_dim, N_BITS), torch.float32))
+    where = (f"sharded over the mesh ({n:,} candidates)" if mesh is not None
+             else "on one device")
     return cells_lib.Cell(
         "two-tower-retrieval", "retrieval_cand_sah", "retrieval", step,
         abstract, make,
-        note="paper technique in serving: SAT+SRP sketch scan (hamming "
-             "kernel) + exact rerank, on one device")
+        note=f"paper technique in serving: SAT+SRP sketch scan (hamming "
+             f"kernel) + exact rerank, {where}",
+        policy=policy if policy is not None else cells_lib.pol.NO_SHARDING)
 
 
 @torch.no_grad()

@@ -18,6 +18,12 @@ for the sign of a zero). The rank looks up the rows it was given (the
 reference splits the rows over the data axes when they divide; under
 explicit SPMD a rank's rows are its own). The LM's vocabulary-sharded
 ``embed`` uses the same ``local_take``.
+
+Every gather of rows that may repeat goes through ``gather_rows``: its
+backward adds the gradients of a repeated row in float32 and rounds the
+sum once, where autograd's own (``index_put_``/``index_add_``) adds them
+in the table's dtype, which for bf16 loses a row that appears hundreds of
+times in a batch (a frequent token).
 """
 
 from __future__ import annotations
@@ -48,6 +54,35 @@ class EmbeddingConfig:
     def offsets(self) -> np.ndarray:
         return np.concatenate([[0], np.cumsum(self.vocab_sizes)[:-1]]
                               ).astype(np.int32)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, index, dim):
+        ctx.save_for_backward(index)
+        ctx.meta = (tuple(table.shape), table.dtype, dim)
+        return torch.index_select(table, dim, index)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (index,) = ctx.saved_tensors
+        shape, dtype, dim = ctx.meta
+        acc = torch.zeros(shape, dtype=torch.promote_types(
+            dtype, torch.float32), device=grad.device)
+        acc.index_add_(dim, index, grad.to(acc.dtype))
+        return acc.to(dtype), None, None
+
+
+def gather_rows(table: torch.Tensor, index: torch.Tensor,
+                dim: int = 0) -> torch.Tensor:
+    """``torch.index_select(table, dim, index)`` (index 1-D), the same
+    bits forward; backward, the gradients of each selected slice added
+    into a float32 buffer and cast once to ``table``'s dtype (module
+    docstring). Deterministic or not, the sum is float32: nondeterministic
+    CUDA ``index_add_`` on a bf16 table adds in bf16."""
+    if not (torch.is_grad_enabled() and table.requires_grad):
+        return torch.index_select(table, dim, index)
+    return _GatherRows.apply(table, index, dim)
 
 
 def init_table(generator: torch.Generator, cfg: EmbeddingConfig,
@@ -91,8 +126,7 @@ def local_take(table: torch.Tensor, rows: torch.Tensor, policy,
     r_local = table.shape[0]
     lid = rows - policy.axis_index(axes) * r_local
     valid = (lid >= 0) & (lid < r_local)
-    emb = torch.index_select(table, 0, torch.clamp(lid, 0, r_local - 1)
-                             .reshape(-1)).reshape(*rows.shape,
+    emb = gather_rows(table, torch.clamp(lid, 0, r_local - 1).reshape(-1)).reshape(*rows.shape,
                                                    table.shape[1])
     return torch.where(valid[..., None], emb, 0.0)
 
@@ -112,7 +146,7 @@ def embedding_bag(table: torch.Tensor, rows: torch.Tensor, policy=None,
         out = coll.psum(local_take(table, rows, policy), policy,
                         TP_AXIS_NAME)
     else:
-        out = torch.index_select(table, 0, rows.reshape(-1)).reshape(
+        out = gather_rows(table, rows.reshape(-1)).reshape(
             *rows.shape, table.shape[1])
     if weights is not None:
         out = out * weights[..., None]

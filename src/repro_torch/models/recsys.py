@@ -40,7 +40,15 @@ of the "model" axis, as in the reference.
 
 Parameters are trainable ``nn.Parameter``s and the losses (``ctr_loss``,
 ``din_loss``, ``twotower_loss``) record for autograd; a table's gradient
-is dense, as the reference's ``jnp.take`` gives it. The serving entry
+is dense, as the reference's ``jnp.take`` gives it. Under a mesh a
+loss takes the rank's rows of the batch (split over the data axes, the
+cells' ``act_btd``) and returns the global loss on every rank, as GSPMD
+gives the reference: the CTR losses ``pmean`` the ranks' means over the
+data axes, and the two-tower loss gathers every rank's item vectors and
+``log_q`` over them, so each user row is scored against the whole
+global batch. The ranks along "model" hold the same rows and do the same
+work, which is why the trainer sums gradients over the batch axes only
+(``train/trainer.py::reduce_grads``). The serving entry
 points (``launch/serve.py``) run under ``torch.no_grad()``.
 """
 
@@ -331,9 +339,28 @@ def ctr_forward(model: CTRModel, batch: dict, cfg: CTRConfig,
     return logit + deep
 
 
+def _dp_axes(policy) -> tuple[str, ...]:
+    """The data axes of more than one rank a mesh ``policy``'s batch is
+    split over (none without a mesh)."""
+    if policy is None or policy.mesh is None:
+        return ()
+    return tuple(a for a in policy.dp_axes() if policy.axis_size(a) > 1)
+
+
+def _global_mean(loss: torch.Tensor, policy) -> torch.Tensor:
+    """The mean of the ranks' equal-sized batch means over the data axes
+    (the loss itself without a mesh)."""
+    axes = _dp_axes(policy)
+    if not axes:
+        return loss
+    from repro_torch.dist import collectives as coll
+    return coll.pmean(loss, policy, axes)
+
+
 def ctr_loss(model: CTRModel, batch: dict, cfg: CTRConfig,
              policy=None) -> torch.Tensor:
-    return bce_loss(ctr_forward(model, batch, cfg, policy), batch["label"])
+    return _global_mean(bce_loss(ctr_forward(model, batch, cfg, policy),
+                                 batch["label"]), policy)
 
 
 def din_forward(model: DINModel, batch: dict, cfg: DINConfig,
@@ -365,7 +392,8 @@ def din_forward(model: DINModel, batch: dict, cfg: DINConfig,
 
 def din_loss(model: DINModel, batch: dict, cfg: DINConfig,
              policy=None) -> torch.Tensor:
-    return bce_loss(din_forward(model, batch, cfg, policy), batch["label"])
+    return _global_mean(bce_loss(din_forward(model, batch, cfg, policy),
+                                 batch["label"]), policy)
 
 
 def user_tower(model: TwoTowerModel, user_feats: torch.Tensor,
@@ -387,14 +415,24 @@ def twotower_loss(model: TwoTowerModel, batch: dict, cfg: TwoTowerConfig,
     """In-batch sampled softmax with logQ correction.
 
     batch = {"user_feats" (B,Fu), "item_feats" (B,Fi), "log_q" (B,)}.
-    Row i's positive is item i; all other rows are negatives.
+    Row i's positive is item i; all other rows are negatives. Under a
+    mesh the rank's user rows against the items of the whole global batch
+    (module docstring).
     """
     u = user_tower(model, batch["user_feats"], cfg, policy)
     v = item_tower(model, batch["item_feats"], cfg, policy)
+    log_q = batch["log_q"]
+    axes, first = _dp_axes(policy), 0
+    if axes:
+        rows = (axes,) + (None,) * (v.dim() - 1)
+        first = policy.axis_index(axes) * v.shape[0]
+        v = policy.relayout(v, rows, ())
+        log_q = policy.relayout(log_q, (axes,), ())
     logits = (u @ v.T).to(torch.float32)                # (B, B)
-    logits = logits - batch["log_q"][None, :]           # logQ correction
+    logits = logits - log_q[None, :]                    # logQ correction
     logp = torch.log_softmax(logits, dim=-1)
-    return -torch.mean(torch.diagonal(logp))
+    own = torch.diagonal(logp, offset=first)
+    return _global_mean(-torch.mean(own), policy)
 
 
 def retrieval_scores(user_vec: torch.Tensor,

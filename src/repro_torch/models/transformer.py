@@ -399,7 +399,10 @@ class _Layout:
             self.heads = self.col_attn = self.row_attn = self.col_ffn = \
                 self.row_ffn = self.vocab_in = self.vocab_out = ()
             return
-        ax = self.policy.axes
+        def ax(name):               # a rule's axes, one entry a dim
+            axes = self.policy.axes(name)
+            return axes + ((),) * (5 - len(axes))   # () replicates
+
         self.btd = ax("act_btd")
         self.attn_in = self.btd if decode else ax("act_attn_in")
         self.kv = ax("kv_cache")
@@ -568,7 +571,8 @@ def _embed(model: LM, tokens: torch.Tensor, lay: _Layout) -> torch.Tensor:
     take of the rank's vocabulary rows, the partial sums reduced onto the
     residual's layout (a reduce-scatter of the sequence in prefill)."""
     if not lay.mesh:
-        return model.embed[tokens]
+        return emb_lib.gather_rows(model.embed, tokens.reshape(-1)).reshape(
+            *tokens.shape, model.embed.shape[1])
     part = emb_lib.local_take(model.embed, tokens, lay.policy, lay.vocab_in)
     return lay.relayout(part, (lay.btd[0], (), ()), lay.btd,
                         partial=lay.vocab_in)
@@ -651,7 +655,7 @@ def _chunk_nll(h_c: torch.Tensor, y_c: torch.Tensor, head: torch.Tensor,
     if lay.policy.axes_size(vocab) == 1:
         lse = torch.logsumexp(logits, dim=-1)                  # (bc, S)
         # the label columns of the (D, V) head, not a gather on the logits
-        w_y = head.index_select(1, y_c.reshape(-1)).reshape(
+        w_y = emb_lib.gather_rows(head, y_c.reshape(-1), 1).reshape(
             head.shape[0], *y_c.shape)                         # (D, bc, S)
         correct = torch.einsum("bsd,dbs->bs", h_c.to(torch.float32),
                                w_y.to(torch.float32))
@@ -663,8 +667,8 @@ def _chunk_nll(h_c: torch.Tensor, y_c: torch.Tensor, head: torch.Tensor,
         torch.exp(logits - top[..., None]).sum(dim=-1), pol, vocab))
     lid = y_c - pol.axis_index(vocab) * v_local
     mine = (lid >= 0) & (lid < v_local)
-    w_y = head.index_select(1, torch.clamp(lid, 0, v_local - 1).reshape(
-        -1)).reshape(head.shape[0], *y_c.shape)
+    w_y = emb_lib.gather_rows(head, torch.clamp(lid, 0, v_local - 1).reshape(
+        -1), 1).reshape(head.shape[0], *y_c.shape)
     correct = torch.einsum("bsd,dbs->bs", h_c.to(torch.float32),
                            w_y.to(torch.float32))
     correct = coll.psum(torch.where(mine, correct, 0.0), pol, vocab)

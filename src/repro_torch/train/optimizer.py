@@ -330,6 +330,117 @@ def adafactor(lr: float | Callable = 1e-3, *, b1: float | None = 0.9,
     return Optimizer(init, update)
 
 
+def zero1_rule(shape, policy) -> tuple:
+    """ZeRO-1's layout of a leaf of the whole ``shape``
+    (``cells.py:146-158``): tiled over every mesh axis, in mesh order, on
+    its first dim that the device count divides; replicated (``()``)
+    when none does."""
+    from repro_torch.dist.policy import _spec
+    n = policy.device_count
+    axes = tuple(policy.mesh.mesh_dim_names)
+    for i, d in enumerate(shape):
+        if d > 0 and d % n == 0:
+            return _spec(*((None,) * i + (axes,)))
+    return ()
+
+
+def zero1_rules(params: dict, policy) -> dict[str, tuple]:
+    """Each whole parameter's ZeRO-1 rule by name: the layout its
+    moments are held in (``zero1``)."""
+    return {k: zero1_rule(tuple(p.shape), policy) for k, p in params.items()}
+
+
+def zero1(inner: Optimizer, policy) -> Optimizer:
+    """ZeRO-1 over ``policy``'s mesh (the reference's ``variant="zero1"``:
+    ``_zero1_opt_specs``): the parameters and their gradients whole on
+    every rank (the gradients summed already, ``trainer.reduce_grads``),
+    each optimizer-state leaf only the rank's shard.
+
+    ``policy`` carries each parameter's ZeRO-1 rule (``policy.
+    with_params(zero1_rules(params, policy))``) and ``inner`` is built
+    with the same policy, so it reads each parameter as sharded by that
+    rule: ``update`` cuts every gradient (and parameter) to the rank's
+    slice, runs ``inner`` on the slices, where every statistic over a
+    whole leaf is a collective (``global_norm``'s ``psum``, Adafactor's
+    ``pmean``'d factored means and ``psum``'d update RMS: PORT.md, "The
+    cells under a mesh"), and all-gathers the sliced updates into whole
+    ones. A state leaf is stored as ``zero1_rule`` of its own whole shape
+    says; where that differs from the layout ``inner`` keeps it in
+    (Adafactor's column statistic ``c`` of a leaf sharded on its rows:
+    ZeRO-1 shards ``c`` on its own dim), ``update`` gathers the small
+    vector for ``inner`` and keeps the rank's slice of the new one."""
+    def cut(tree):
+        return {k: policy.relayout(v, (), policy.param_rule(k))
+                for k, v in tree.items()}
+
+    def layouts(state, params_local):
+        """[(path, inner rule, stored rule)] of the state leaves whose
+        stored layout differs from ``inner``'s."""
+        from repro_torch.models import convert
+        rules = convert._rules_tree(state, params_local, policy, {})
+        out = []
+
+        def walk(node, rule, path):
+            if isinstance(node, torch.Tensor):
+                axes = policy.axes(rule.rule + (None,) * (
+                    node.ndim - len(rule.rule)))
+                whole = tuple(n * policy.axes_size(a)
+                              for n, a in zip(node.shape, axes))
+                stored = zero1_rule(whole, policy)
+                if policy.axes(stored) + ((),) * (node.ndim - len(stored)) \
+                        != axes:
+                    out.append((path, rule.rule, stored))
+                return
+            items = (node.items() if isinstance(node, dict)
+                     else enumerate(node))
+            for k, sub in items:
+                walk(sub, rule[k], path + (k,))
+
+        walk(state, rules, ())
+        return out
+
+    def swap(state, diffs, src: int, dst: int):
+        """Relayout the leaves of ``diffs`` from their ``src`` rule to
+        their ``dst`` rule (0 inner, 1 stored), in place in ``state``'s
+        dicts; a tensor several paths share moves once."""
+        moved = {}
+        for path, *rules in diffs:
+            node = state
+            for k in path[:-1]:
+                node = node[k]
+            t = node[path[-1]]
+            if id(t) not in moved:
+                moved[id(t)] = policy.relayout(t, rules[src],
+                                               rules[dst]).clone()
+            node[path[-1]] = moved[id(t)]
+
+    def diffs_of(local):
+        """``layouts`` of ``inner``'s state of the rank's slices, read on
+        the meta device (a state in the stored layout hides the inner
+        shapes)."""
+        meta = {k: torch.empty_like(v, device="meta")
+                for k, v in local.items()}
+        return layouts(inner.init(meta), meta)
+
+    def init(params):
+        local = cut(params)
+        state = inner.init(local)
+        swap(state, diffs_of(local), 0, 1)
+        return state
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        local = cut(params)
+        diffs = diffs_of(local)
+        swap(state, diffs, 1, 0)
+        updates, state = inner.update(cut(grads), state, local)
+        swap(state, diffs, 0, 1)
+        return {k: policy.relayout(u, policy.param_rule(k), ())
+                for k, u in updates.items()}, state
+
+    return Optimizer(init, update)
+
+
 def sgd(lr: float, momentum: float = 0.9) -> Optimizer:
     def init(params):
         return {"mom": {k: torch.zeros(p.shape, dtype=torch.float32,

@@ -26,13 +26,15 @@ runs the step on its own batch. Its backward gives each parameter the
 rank's share of the gradient (PORT.md, "Model parallelism
 (training)"), so the step does what GSPMD does for
 the reference: it sums each gradient over the mesh axes its parameter is
-replicated along (the data axes, where each rank saw other sequences;
-"model" for the norms, biases, qk-norm scales and the router, which each
-rank applied to its own tokens or features), in one float32 ``psum`` a
-group of parameters sharing those axes. The optimizer must be built
-with the same ``policy`` (its statistics span whole leaves), and
-``train_loop`` saves whole leaves (``models/convert.py``,
-``train/checkpoint.py``).
+replicated along and the ranks' work differs along (``batch_axes``: the
+data axes, where each rank saw other sequences; "model" for the norms,
+biases, qk-norm scales and the router, which each rank applied to its
+own tokens or features; every axis for GAT's edge shards), in one
+float32 ``psum`` a group of parameters sharing those axes. The optimizer
+must be built with the same ``policy`` (its statistics span whole
+leaves), or be ZeRO-1's (``optimizer.zero1``: parameters whole, the
+state sharded), and ``train_loop`` saves whole leaves
+(``models/convert.py``, ``train/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -87,10 +89,23 @@ def _split(batch, grad_accum: int, i: int):
     return batch[i * rows:(i + 1) * rows]
 
 
+def batch_axes(policy) -> tuple[str, ...]:
+    """The mesh axes along which the ranks' work differs: those the
+    policy's ``act_btd`` rule tiles (the batch, and the sequence under
+    sequence parallelism), or every axis of more than one rank for a
+    policy without one (GAT's edge shards). Along any other axis the
+    ranks hold the same rows and do the same work (a recsys model's dense
+    part along "model"), so each already holds the whole gradient."""
+    if "act_btd" in policy.rules:
+        return policy.sharded_over("act_btd")
+    return policy.replicated_over(())
+
+
 def reduce_grads(grads: dict, policy=None) -> dict:
     """Each rank's gradient shares summed over the mesh axes their
-    parameter is replicated along (module docstring): one flat ``psum``
-    a group of parameters with the same axes, in the dict's order. The
+    parameter is replicated along and the work differs along
+    (``batch_axes``; module docstring): one flat ``psum`` a group of
+    parameters with the same axes, in the dict's order. The
     sum runs in float32 and stays float32 (as Megatron's
     ``accumulate_allreduce_grads_in_fp32``): bf16 shares added in bf16
     would round the sum once more than one device's product rounds its
@@ -100,8 +115,10 @@ def reduce_grads(grads: dict, policy=None) -> dict:
         return grads
     from repro_torch.dist import collectives as coll
     groups: dict[tuple, list[str]] = {}
+    differ = batch_axes(policy)
     for name in grads:
-        axes = policy.replicated_over(policy.param_rule(name))
+        axes = tuple(a for a in policy.replicated_over(
+            policy.param_rule(name)) if a in differ)
         if axes:
             groups.setdefault(axes, []).append(name)
     out = dict(grads)

@@ -428,9 +428,53 @@ def test_dryrun_measure_needs_the_card(monkeypatch, capsys):
 
 
 def test_perf_variants(tmp_path):
+    """The one-device variant, and both mesh variants reckoned on one rank
+    of the 16x16 production mesh by the mesh dry run (in a process of its
+    own): each record written, the mesh ones with their per-device bytes
+    and counted collectives, ZeRO-1's state sharded (a rank holds less
+    than the replicated parameters and Adafactor state would take)."""
     rec = perf.run_variant("retrieval_sah", str(tmp_path))
     assert rec["memory_per_device"] > 0 and "measured" not in rec
+    assert rec["mesh"] == "one" and rec["n_devices"] == 1
     assert json.loads((tmp_path / "retrieval_sah.json").read_text()) == rec
     for variant in perf.MESH_VARIANTS:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            perf.run_variant(variant, str(tmp_path))
+        rec = perf.run_variant(variant, str(tmp_path))
+        assert json.loads((tmp_path / f"{variant}.json").read_text()) == rec
+        assert rec["mesh"] == "single" and rec["n_devices"] == 256
+        assert rec["fits_one_h100"] and rec["memory_per_device"] > 0
+        coll = rec["roofline"]["coll_bytes_per_dev"]
+        assert coll["all-reduce"] > 0 and rec["roofline"]["collective_s"] > 0
+    # dst_partitioned: one all-gather of the owned rows a layer and its
+    # backward's reduce-scatter, no segment-max pmax
+    assert coll["all-gather"] > 0 and coll["reduce-scatter"] > 0
+    with pytest.raises(ValueError, match="reckoned"):
+        perf.run_variant("qwen3_zero1", str(tmp_path), measure=True)
+
+
+def test_mesh_dryrun_cli_writes_one_ranks_record(tmp_path):
+    """``dryrun --mesh single`` in a process of its own (its fake process
+    group must not touch this one): one rank of the 16x16 mesh, the
+    reference's mesh keys, the per-device fit and the collectives' output
+    bytes by kind."""
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "gat-cora", "--shape", "molecule", "--mesh", "single", "--out",
+         str(tmp_path)],
+        capture_output=True, text=True, env={"PYTHONPATH": SRC,
+                                             "PATH": "/usr/bin:/bin"},
+        timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("OK   gat-cora x molecule x single")
+    rec = json.loads((tmp_path / "gat-cora__molecule__single.json")
+                     .read_text())
+    assert rec["mesh"] == "single" and rec["n_devices"] == 256
+    assert rec["mesh_shape"] == {"data": 16, "model": 16}
+    assert rec["memory"]["per_device_total"] > 0 and rec["fits_one_h100"]
+    coll = rec["roofline"]["coll_bytes_per_dev"]
+    assert set(coll) == set(jroof.collective_bytes(""))
+    # the all-reduce mode: pmax, num and den forward, their psums again
+    # backward, plus the gradients' psum
+    assert coll["all-reduce"] > 0 and coll["all-gather"] == 0
+    assert rec["roofline"]["collective_s"] == pytest.approx(
+        2 * coll["all-reduce"] / roofline.LINK_BW)
+    assert "tiled over 256 ranks" in rec["note"]

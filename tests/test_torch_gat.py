@@ -171,6 +171,18 @@ def test_a_node_without_incoming_edges_aggregates_zero(pair):
 
 
 def test_a_mesh_policy_is_refused(pair):
+    """GAT under a policy: one without a mesh (``NO_SHARDING``) is the
+    single-device layer bit for bit, in both aggregation modes; a policy
+    whose mesh is not a torch ``DeviceMesh`` over the world is refused
+    before any collective. The mesh paths themselves run in the gloo
+    worlds of ``tests/test_torch_mp.py``."""
+    from repro_torch.dist.policy import NO_SHARDING
     _, cfg, _, model = pair
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        gat.forward(model, {}, cfg, policy=type("P", (), {"mesh": "m"})())
+    _, (_, sub, _) = _graph_pairs(1)
+    tb = {k: torch.from_numpy(v) for k, v in sub.items()}
+    want = gat.loss_fn(model, tb, cfg)
+    for mode in ("allreduce", "dst_partitioned"):
+        c = dataclasses.replace(cfg, agg_mode=mode)
+        assert torch.equal(gat.loss_fn(model, tb, c, NO_SHARDING), want)
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        gat.forward(model, tb, cfg, policy=type("P", (), {"mesh": "m"})())

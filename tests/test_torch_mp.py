@@ -76,6 +76,7 @@ from repro.dist.policy import ShardingPolicy as JaxPolicy
 from repro.dist.policy import lm_rules as jax_lm_rules
 from repro.launch import cells as jcells
 from repro.models import embedding as jemb
+from repro.models import gat as jgat
 from repro.models import moe as jmoe
 from repro.models import recsys as jrec
 from repro.models import transformer as jtf
@@ -232,6 +233,8 @@ def reference(tmp_path_factory):
     want["tt/params"] = tparams
 
     _train_reference(inputs, want, tmp_path_factory)
+    _gat_reference(inputs, want)
+    _recsys_reference(inputs, want)
     path = tmp_path_factory.mktemp("mp_inputs") / "inputs.npz"
     np.savez(path, **inputs)
     return str(path), inputs, want
@@ -294,6 +297,97 @@ def _train_reference(inputs, want, tmp_path_factory):
             state, m = step(state, _batch(tokens))
             seen.append((float(m["loss"]), float(m["grad_norm"])))
         want[name] = (np.array(seen), jax.tree.map(np.asarray, state))
+
+
+def _gat_reference(inputs, want):
+    """GAT's inputs (their own rng) and the reference's single-device
+    loss and gradients: a node-level graph for each aggregation, the
+    dst-partitioned one drawn in owner blocks (every edge of block b
+    points into the b-th block of nodes), the all-reduce one with a
+    masked tail (dead edges at node 0) and a node no edge reaches."""
+    rng = np.random.default_rng(W.SEED + 2)
+    jcfg = jbase.get("gat-cora").make_smoke_config()
+    g = W.GAT_GRAPH
+    n, e, blocks = g["n"], g["e"], g["blocks"]
+    params = _draw(jax.eval_shape(lambda k: jgat.init_params(k, jcfg),
+                                  jax.random.PRNGKey(0)), rng)
+    _flat(params, "gat/params", inputs)
+    x = rng.standard_normal((n, jcfg.d_in)).astype(np.float32)
+    labels = rng.integers(0, jcfg.n_classes, n).astype(np.int32)
+    label_mask = rng.random(n) < 0.7
+    src = rng.integers(0, n, e).astype(np.int32)
+    dst = {"allreduce": rng.integers(0, n - 1, e).astype(np.int32),
+           "dst_partitioned": ((np.arange(e) // (e // blocks))
+                               * (n // blocks)
+                               + rng.integers(0, n // blocks, e)
+                               ).astype(np.int32)}
+    for mode, d in dst.items():
+        emask = np.ones(e, bool)
+        s_ = src.copy()
+        if mode == "allreduce":
+            emask[-e // 8:] = False
+            s_[-e // 8:], d = 0, np.where(emask, d, 0).astype(np.int32)
+        graph = {"x": x, "src": s_, "dst": d, "edge_mask": emask,
+                 "labels": labels, "label_mask": label_mask}
+        inputs.update({f"gat/{mode}/{k}": v for k, v in graph.items()})
+        jc = dataclasses.replace(jcfg, agg_mode=mode)
+        loss, grads = jax.jit(jax.value_and_grad(
+            lambda p, gr, c=jc: jgat.loss_fn(p, gr, c)))(
+            jax.tree.map(jnp.asarray, params),
+            {k: jnp.asarray(v) for k, v in graph.items()})
+        want[f"gat_{mode}"] = (float(loss), jax.tree.map(np.asarray, grads))
+
+
+_RECSYS_INIT = {"deepfm": (jrec.init_ctr_params, jrec.ctr_loss),
+                "din": (jrec.init_din_params, jrec.din_loss),
+                "two-tower-retrieval": (jrec.init_twotower_params,
+                                        jrec.twotower_loss)}
+
+
+def _recsys_reference(inputs, want):
+    """The recsys training checks' inputs (their own rng): the
+    reference's parameters with tables padded to 8 rows, a global batch of
+    ``W.RECSYS_BATCH`` rows (ids uniform over each field, DIN histories of
+    a uniform prefix length, labels in {0, 1}, a non-zero ``log_q``), and
+    ``jax.value_and_grad`` of the reference's single-device loss."""
+    rng = np.random.default_rng(W.SEED + 3)
+    b = W.RECSYS_BATCH
+
+    def fields(vocab):
+        return np.stack([rng.integers(0, v, b) for v in vocab],
+                        axis=1).astype(np.int32)
+
+    for arch_id in W.RECSYS_TRAIN:
+        init, loss_fn = _RECSYS_INIT[arch_id]
+        cfg = jbase.get(arch_id).make_smoke_config()
+        params = _draw(jax.eval_shape(lambda k, c=cfg, f=init: f(
+            k, c, table_pad=8), jax.random.PRNGKey(0)), rng)
+        if arch_id == "deepfm":
+            batch = {"sparse": fields(cfg.embedding.vocab_sizes)}
+        elif arch_id == "din":
+            t, vocab = cfg.seq_len, cfg.embedding.vocab_sizes
+            batch = {"hist": fields((vocab[0],) * t),
+                     "hist_mask": (np.arange(t)
+                                   < rng.integers(1, t + 1, (b, 1))),
+                     "target": rng.integers(0, vocab[0], b).astype(
+                         np.int32),
+                     "profile": fields(vocab[1:])}
+        else:
+            batch = {"user_feats": fields(cfg.user_embedding.vocab_sizes),
+                     "item_feats": fields(cfg.item_embedding.vocab_sizes),
+                     "log_q": (0.1 * rng.standard_normal(b)).astype(
+                         np.float32)}
+        if arch_id != "two-tower-retrieval":
+            batch["label"] = rng.integers(0, 2, b).astype(np.float32)
+        _flat(params, f"rs/{arch_id}/params", inputs)
+        inputs.update({f"rs/{arch_id}/batch/{k}": v
+                       for k, v in batch.items()})
+        loss, grads = jax.jit(jax.value_and_grad(
+            lambda p, bt, c=cfg, f=loss_fn: f(p, bt, c)))(
+            jax.tree.map(jnp.asarray, params),
+            {k: jnp.asarray(v) for k, v in batch.items()})
+        want[f"rs_{arch_id}"] = (float(loss), convert._named_leaves(
+            jax.tree.map(np.asarray, grads)))
 
 
 @pytest.fixture(scope="module", params=list(W.WORLDS))
@@ -390,7 +484,6 @@ def test_refusals(world):
         msg = str(got["refuse/indivisible"])
         assert "embed" in msg and "dim 0" in msg and "127" in msg
         assert "mesh's order" in str(got["refuse/order"])
-        assert "slice 17" in str(got["refuse/cells"])
 
 
 def test_mismatched_calls_raise_on_every_rank(world):
@@ -739,3 +832,386 @@ def test_sharded_checkpoint_restores_elsewhere(world, reference):
                 W.DENSE["d_model"], W.DENSE["n_heads"] * W.DENSE["d_head"]
                 // 2)
         assert all("ckpt/elastic_same" not in got for got in ranks[2:])
+
+
+# -- the cells under a mesh ---------------------------------------------------
+
+
+def _zero1_dim(whole_shape, n: int):
+    """ZeRO-1's sharded dim of a leaf (``cells.py:146``): the first the
+    device count divides, else None."""
+    return next((i for i, d in enumerate(whole_shape) if d and d % n == 0),
+                None)
+
+
+@pytest.mark.parametrize("name", ["adafactor", "adamw"])
+def test_zero1_train_steps_match_the_reference(world, reference, name):
+    """ZeRO-1 under pure data parallelism over every axis: two steps from
+    the reference's parameters on its batches (the trajectories' inputs)
+    against its single-device ``make_train_step``: losses and norms rtol
+    1e-5, the parameters (whole on every rank) rtol 1e-4, and each rank's
+    optimizer-state shard against the rank's cut of the reference's state
+    (each per-layer leaf sharded on its first dim the rank count divides:
+    the stack's own dim never, since the port's leaves are per layer), a
+    bf16 momentum within one ulp of the leaf's largest."""
+    _, shape, ranks = world
+    seen, jstate = reference[2][name]
+    n = shape[0] * shape[1]
+    ref_state = dict(jckpt._flatten_with_paths(jstate.opt_state))
+    for r, got in enumerate(ranks):
+        np.testing.assert_allclose(got[f"zero1_{name}/metrics"], seen,
+                                   rtol=1e-5)
+        for key in got:
+            if key.startswith(f"zero1_{name}/params/"):
+                pname = key[len(f"zero1_{name}/params/"):]
+                np.testing.assert_allclose(
+                    got[key], _ref_of(jstate.params, pname), rtol=1e-4,
+                    atol=1e-6, err_msg=pname)
+        held = [k for k in got if k.startswith(f"zero1_{name}/state/")]
+        assert len(held) == len(ref_state)
+        for key in held:
+            path = key[len(f"zero1_{name}/state/"):]
+            want = np.asarray(ref_state[path])
+            stacked = "layers/" in path and not (path.endswith("/c")
+                                                 and want.ndim == 1)
+            d0 = _zero1_dim(want.shape[1:] if stacked else want.shape, n)
+            if d0 is not None:
+                d0 += int(stacked)
+                per = want.shape[d0] // n
+                # rank r is flat mesh position r: the worlds' meshes are
+                # built over ranks 0..n-1 in order
+                want = np.take(want, range(r * per, (r + 1) * per), axis=d0)
+            top = float(np.abs(want.astype(np.float32)).max()) or 1.0
+            ulp = 2 ** -8 if want.dtype == jnp.bfloat16 else 1e-6
+            np.testing.assert_allclose(got[key], want.astype(np.float32),
+                                       rtol=1e-4, atol=ulp * top,
+                                       err_msg=path)
+
+
+@pytest.mark.parametrize("mode", ["allreduce", "dst_partitioned"])
+def test_mesh_gat_loss_and_gradients_match_the_reference(world, reference,
+                                                         mode):
+    """GAT over the rank's edge shard, each aggregation: the loss (rtol
+    1e-5) and every parameter's gradient, the ranks' shares summed by the
+    trainer's rule (rtol 1e-4, atol 1e-6), against ``jax.value_and_grad``
+    of the reference's ``loss_fn`` on one device. A share counted twice,
+    or a sum's gradient not handed to each summand, would show as a factor
+    of the rank count."""
+    loss, grads = reference[2][f"gat_{mode}"]
+    for got in world[2]:
+        np.testing.assert_allclose(got[f"gat_{mode}/loss"], loss, rtol=1e-5)
+        names = [k for k in got if k.startswith(f"gat_{mode}/grad/")]
+        assert len(names) == 3 * len(grads["layers"])
+        for key in names:
+            _, i, leaf = key[len(f"gat_{mode}/grad/"):].split(".")
+            np.testing.assert_allclose(got[key], grads["layers"][int(i)][leaf],
+                                       rtol=1e-4, atol=1e-6, err_msg=key)
+
+
+@pytest.mark.parametrize("arch_id", W.RECSYS_TRAIN)
+def test_mesh_recsys_loss_and_gradients_match_the_reference(world, reference,
+                                                           arch_id):
+    """A recsys model's training loss under the mesh, through the recsys
+    cells' policy (``cells.recsys_mesh``: the batch over the data axes,
+    the tables row-sharded over "model"): each rank's loss of its rows
+    (rtol 1e-5) and every gradient, summed by the trainer's rule and the
+    tables gathered whole (rtol 1e-4, atol 1e-6), against
+    ``jax.value_and_grad`` of the reference's loss on the whole batch on
+    one device. A gradient summed over "model", along which the ranks do
+    the same work, would show as a factor of that axis's size; a global
+    mean or a two-tower item gather off by the data ranks, as a factor
+    of theirs."""
+    loss, grads = reference[2][f"rs_{arch_id}"]
+    pre = f"rs_{arch_id}/grad/"
+    for got in world[2]:
+        np.testing.assert_allclose(got[f"rs_{arch_id}/loss"], loss,
+                                   rtol=1e-5)
+        names = sorted(k[len(pre):] for k in got if k.startswith(pre))
+        assert names == sorted(grads)
+        for name in names:
+            np.testing.assert_allclose(got[pre + name], grads[name],
+                                       **GRAD_TOL, err_msg=name)
+
+
+def _reference_two_tower(got, tag) -> dict:
+    """The cell's towers, gathered whole by the ranks, as the reference's
+    ``init_twotower_params`` tree."""
+    def mlp(t):
+        n = len([k for k in got if k.startswith(f"retr_{tag}/{t}/")
+                 and k.endswith("/w")])
+        return [{"w": jnp.asarray(got[f"retr_{tag}/{t}/{i}/w"]),
+                 "b": jnp.asarray(got[f"retr_{tag}/{t}/{i}/b"])}
+                for i in range(n)]
+    return {"user_table": jnp.asarray(got[f"retr_{tag}/user_table"]),
+            "item_table": jnp.asarray(got[f"retr_{tag}/item_table"]),
+            "user_mlp": mlp("user_mlp"), "item_mlp": mlp("item_mlp")}
+
+
+@pytest.mark.parametrize("tag", ["exact", "sah"])
+def test_mesh_retrieval_cells_are_the_single_device_composition(world, tag):
+    """The two-tower retrieval cells under the mesh (the exact cell and the
+    SAH sketch cell, at the test's size: ``W.RETR_CAND`` candidates tiled
+    as ``W.RETR_PAD`` rows, the rows past them dead), against the
+    reference's single-device functions on the cell's inputs (its towers,
+    features, candidates, codes and projection, gathered whole): the
+    reference's ``user_tower``, then on each shard's rows the exact scores'
+    ``lax.top_k`` (the reference cell's body) or the reference's
+    ``kmips_flat_arrays`` without a mesh on ``ref.srp_hash``'s query code
+    (``n_cand`` 512 a shard), the shards' winners merged by ``lax.top_k``
+    as the reference's ``shard_map`` merges them. Every rank's ids equal
+    the reference's; its values within float32 rounding of the two
+    frameworks' products."""
+    from repro.engine import sharding as jsharding
+    from repro.kernels import ref as jref
+    from repro_torch.launch import cells
+    _, shape, ranks = world
+    shards = shape[0] * shape[1]
+    lead = ranks[0]
+    jcfg = jbase.get("two-tower-retrieval").make_smoke_config()
+    feats = jnp.asarray(lead[f"retr_{tag}/feats"])
+    u = jrec.user_tower(_reference_two_tower(lead, tag), feats, jcfg)
+    cand = jnp.asarray(lead[f"retr_{tag}/arg0"])
+    assert cand.shape[0] == W.RETR_PAD
+    per = cand.shape[0] // shards
+    n = cells.N_RETRIEVE
+    parts = []
+    for s in range(shards):
+        rows = slice(s * per, (s + 1) * per)
+        ids = jnp.arange(s * per, (s + 1) * per, dtype=jnp.int32)
+        if tag == "exact":
+            sc = jnp.where(ids < W.RETR_CAND, cand[rows] @ u[0], -jnp.inf)
+            v, p = jax.lax.top_k(sc, n)
+            parts.append((v[None], ids[p][None]))
+        else:
+            codes = jnp.asarray(lead[f"retr_{tag}/arg1"].view(np.uint32))
+            proj = jnp.asarray(lead[f"retr_{tag}/arg2"])
+            parts.append(jsharding.kmips_flat_arrays(
+                cand[rows], ids, jnp.ones(per, bool), codes[rows],
+                jref.srp_hash(u, proj), u, n, JAX_NO_SHARDING, n_cand=512))
+    best, pos = jax.lax.top_k(jnp.concatenate([v for v, _ in parts], 1), n)
+    ids = jnp.take_along_axis(jnp.concatenate([i for _, i in parts], 1),
+                              pos, axis=1)
+    for got in ranks:
+        np.testing.assert_array_equal(got[f"retr_{tag}/ids"],
+                                      np.asarray(ids[0]))
+        np.testing.assert_allclose(got[f"retr_{tag}/vals"],
+                                   np.asarray(best[0]), rtol=1e-5)
+
+
+class _Mesh:
+    """A mesh stand-in for the reference's spec functions (they read
+    ``shape`` and ``axis_names``)."""
+
+    def __init__(self, shape):
+        names = ("data", "model") if len(shape) == 2 else ("pod", "data",
+                                                            "model")
+        self.shape = dict(zip(names, shape))
+        self.axis_names = names
+
+
+def _local(shape, spec, sizes: dict) -> tuple:
+    out = list(shape)
+    for d, entry in enumerate(tuple(spec)):
+        for a in ((entry,) if isinstance(entry, str) else entry or ()):
+            out[d] //= sizes[a]
+    return tuple(out)
+
+
+def _spec_paths(specs) -> dict:
+    """{path: PartitionSpec} of a spec tree, paths as the checkpoints'."""
+    flat, _ = jax.tree_util.tree_flatten_with_path(
+        specs, is_leaf=lambda x: isinstance(x, P))
+    return {"/".join(jckpt._path_str(e) for e in path): spec
+            for path, spec in flat}
+
+
+def _reference_cell_specs(arch_id, sname, variant, shape) -> dict:
+    """{path: the rank's shape} of the reference's cell (arch, shape) on a
+    (data, model) mesh of ``shape``: its abstract shapes (``jax.
+    eval_shape``) with its specs applied (``_lm_rules``, ``param_specs``,
+    ``opt_state_specs``, ``_zero1_opt_specs``, ``_recsys_param_specs``,
+    the batch and graph specs of ``build_*_cell``)."""
+    mesh = _Mesh(shape)
+    sizes = mesh.shape
+    arch = jbase.get(arch_id)
+    sh = arch.shape(sname)
+    cfg = arch.make_config()
+    dp = ("data",)
+    out = {}
+
+    def add(prefix, shapes, specs):
+        sp = _spec_paths(specs)
+        for path, leaf in jckpt._flatten_with_paths(shapes):
+            if not path.endswith("length"):
+                out["/".join(x for x in (prefix, path) if x)] = _local(
+                    leaf.shape, sp[path], sizes)
+
+    def train_state(params, opt):
+        return jax.eval_shape(lambda p: jtrainer.TrainState(
+            p, opt.init(p), jnp.zeros((), jnp.int32)), params)
+
+    if arch.family == "lm":
+        seq, batch = sh.dims["seq_len"], sh.dims["global_batch"]
+        if sh.kind == "decode":
+            cfg = dataclasses.replace(cfg, max_seq=seq)
+        if variant == "zero1":
+            rules = jax_lm_rules(dp, "model", pure_dp=True)
+        else:
+            rules = jcells._lm_rules(arch, sh.kind, mesh,
+                                     long_ctx=sname.startswith("long"))
+        pspecs = jtf.param_specs(cfg, JaxPolicy(rules=rules))
+        params = jax.eval_shape(lambda k: jtf.init_params(k, cfg),
+                                jax.random.PRNGKey(0))
+        if sh.kind == "train":
+            state = train_state(params, jcells.default_optimizer("lm"))
+            if variant != "zero1":
+                add("0", state, jtrainer.TrainState(
+                    pspecs, jcells.opt_state_specs(state.opt_state, pspecs),
+                    P()))
+            else:
+                add("0/.params", state.params, pspecs)
+                out["0/.step"] = ()
+                # the reference's function on one layer's leaves: the
+                # port's leaves are per layer (the stack's dim is never
+                # the sharded one), a 1-D stack's c whole
+                per = {}
+                for p, leaf in jckpt._flatten_with_paths(state.opt_state):
+                    strip = "layers/" in p and not (p.endswith("/c")
+                                                    and len(leaf.shape) == 1)
+                    per[p] = (strip, leaf.shape, jax.ShapeDtypeStruct(
+                        leaf.shape[int(strip):], leaf.dtype))
+                specs = jcells._zero1_opt_specs(
+                    {p: v[2] for p, v in per.items()}, mesh)
+                for p, (strip, whole, leaf) in per.items():
+                    loc = _local(leaf.shape, specs[p], sizes)
+                    out[f"0/.opt_state/{p}"] = (whole[:1] + loc if strip
+                                                else loc)
+            tok = P(rules["act_btd"][0], None)
+            for k in ("tokens", "labels"):
+                out[f"1/{k}"] = _local((batch, seq), tok, sizes)
+            return out
+        add("0", params, pspecs)
+        if sh.kind == "prefill":
+            out["1"] = _local((batch, seq), P(dp, None), sizes)
+            return out
+        cache = jax.eval_shape(lambda: jtf.init_cache(cfg, batch))
+        add("1", {"k": cache["k"], "v": cache["v"]},
+            {"k": rules["kv_cache"], "v": rules["kv_cache"]})
+        out["2"] = _local((batch,), P() if sname.startswith("long")
+                          else P(dp), sizes)
+        return out
+    if arch.family == "gnn":
+        dims = dict(sh.dims)
+        if variant:
+            dims["n_nodes"] = -(-dims["n_nodes"] // 512) * 512
+        jc = dataclasses.replace(cfg, d_in=dims["d_feat"],
+                                 n_classes=dims["n_classes"])
+        params = jax.eval_shape(lambda k: jgat.init_params(k, jc),
+                                jax.random.PRNGKey(0))
+        state = train_state(params, jcells.default_optimizer())
+        add("0", state, jax.tree.map(lambda _: P(), state))
+        n, e = dims["n_nodes"], dims["n_edges"]
+        out.update({"1/x": (n, dims["d_feat"]), "1/labels": (n,),
+                    "1/label_mask": (n,)})
+        for k in ("src", "dst", "edge_mask"):
+            out[f"1/{k}"] = _local((e,), P(("data", "model")), sizes)
+        return out
+    # recsys
+    init = {"deepfm": jrec.init_ctr_params,
+            "two-tower-retrieval": jrec.init_twotower_params}[arch_id]
+    tables = (("table",) if arch_id == "deepfm"
+              else ("user_table", "item_table"))
+    params = jax.eval_shape(lambda k: init(k, cfg,
+                                           table_pad=sizes["model"]),
+                            jax.random.PRNGKey(0))
+    pspecs = jcells._recsys_param_specs(params, tables, mesh)
+    if sh.kind == "train":
+        state = train_state(params, jcells.default_optimizer())
+        add("0", state, jtrainer.TrainState(
+            pspecs, jcells.opt_state_specs(state.opt_state, pspecs), P()))
+        bshape, bspec = jcells._recsys_batch(arch, cfg, sh.dims["batch"],
+                                             dp)
+        add("1", bshape, bspec)
+        return out
+    add("0", params, pspecs)
+    out["1"] = (1, cfg.user_embedding.n_fields)
+    out["2"] = _local((jcells.CAND_PAD, cfg.out_dim),
+                      P(("data", "model"), None), sizes)
+    return out
+
+
+def test_specs_read_back_as_placements_and_local_shapes(world):
+    """``cells._shardings`` and ``local_shapes`` of a recsys mesh cell's
+    parameter rules: the placements read back as the rules, and the
+    local shapes of the whole (padded) shapes are the rank's shards."""
+    for got in world[2]:
+        assert bool(got["specs/placed_ok"]) and bool(got["specs/local_ok"])
+
+
+@pytest.mark.parametrize("arch_id,sname,variant", W.SPEC_CELLS)
+def test_mesh_cells_hold_the_reference_specs_local_shapes(
+        world, arch_id, sname, variant):
+    """Each rank's ``build_cell(..., mesh=)`` abstract arguments, leaf for
+    leaf, have the shapes the reference's specs give its abstract shapes
+    on the same mesh (a stand-in for its ``Mesh``)."""
+    _, shape, ranks = world
+    want = _reference_cell_specs(arch_id, sname, variant, shape)
+    prefix = f"spec/{arch_id}/{sname}/{variant}/"
+    for got in ranks:
+        mine = {k[len(prefix):]: tuple(v.tolist()) for k, v in got.items()
+                if k.startswith(prefix)}
+        assert mine == want
+
+
+def test_cell_specs_as_data_match_the_reference():
+    """The cells' specs as data, on the production meshes (stand-ins: the
+    specs read only the axis names and sizes): ``_zero1_opt_specs`` of
+    qwen3-0.6b's whole clip + Adafactor state and ``opt_state_specs``
+    under the TP rules, path by path in the reference's nest (the port's
+    layers stacked), and ``_recsys_param_specs`` of each recsys model
+    against the reference's on its abstract shapes."""
+    import math
+    from repro_torch.launch import cells
+    from repro_torch.train.trainer import init_state
+    arch, jarch = base.get("qwen3-0.6b"), jbase.get("qwen3-0.6b")
+    cfg, jcfg = arch.make_config(), jarch.make_config()
+    model = tf.LM(cfg, "meta")
+    state = init_state(dict(model.named_parameters()),
+                       cells.default_optimizer("lm"))
+    jparams = jax.eval_shape(lambda k: jtf.init_params(k, jcfg),
+                             jax.random.PRNGKey(0))
+    jopt = jcells.default_optimizer("lm")
+    jstate = jax.eval_shape(lambda p: jtrainer.TrainState(
+        p, jopt.init(p), jnp.zeros((), jnp.int32)), jparams)
+    norm = lambda specs: {k: _norm(v) for k, v in specs.items()}  # noqa
+    for shape in ((16, 16), (2, 16, 16)):
+        jm = _Mesh(shape)
+        names, n = jm.axis_names, math.prod(shape)
+        pm = type("M", (), {"mesh_dim_names": names,
+                            "size": lambda self, n=n: n})()
+        got = cells._zero1_opt_specs(state, ShardingPolicy(mesh=pm))
+        want = norm(_spec_paths(jcells._zero1_opt_specs(jstate, jm)))
+        assert got == want, shape
+        assert any(r for r in got.values())          # some leaf shards
+        dp = names[:-1]
+        pol = ShardingPolicy(mesh=pm, rules=lm_rules(dp, "model"))
+        pol = pol.with_params(tf.param_rules(cfg, pol))
+        got = cells.opt_state_specs(state, pol)
+        want = norm(_spec_paths(jcells.opt_state_specs(
+            jstate.opt_state, jtf.param_specs(jcfg, JaxPolicy(
+                rules=jax_lm_rules(dp, "model"))))))
+        assert got == want, shape
+    for arch_id in ("deepfm", "din", "two-tower-retrieval"):
+        jcfg = jbase.get(arch_id).make_smoke_config()
+        cfg = base.get(arch_id).make_smoke_config()
+        init = {"deepfm": jrec.init_ctr_params, "din": jrec.init_din_params,
+                "two-tower-retrieval": jrec.init_twotower_params}[arch_id]
+        jp = jax.eval_shape(lambda k: init(k, jcfg, table_pad=16),
+                            jax.random.PRNGKey(0))
+        model = recsys.model_for(cfg, "cpu")
+        tables = recsys.TABLES[type(model).__name__]
+        want = norm(_spec_paths(jcells._recsys_param_specs(jp, tables,
+                                                           None)))
+        got = {k.replace(".", "/"): v for k, v in
+               cells._recsys_param_specs(model, tables).items()}
+        assert got == want, arch_id

@@ -817,3 +817,56 @@ def test_new_modules_import_neither_jax_nor_the_reference():
                          text=True, env={"PYTHONPATH": SRC, "PATH": ""},
                          timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+# -- bf16 gathers of repeated rows: the backward adds in float32 ------------
+
+
+def _repeated_rows(n_rows: int, n_take: int, hot: int, repeats: int):
+    rng = np.random.default_rng(7)
+    index = rng.integers(0, n_rows, n_take)
+    index[rng.choice(n_take, repeats, replace=False)] = hot
+    return torch.from_numpy(index)
+
+
+@pytest.mark.parametrize("site", ["embed", "head", "embedding_bag"])
+def test_bf16_gather_backward_adds_in_float32(site):
+    """A row taken ~500 times (a frequent token): each gather site's bf16
+    backward against float64 on the same bf16 values. The float32 sum
+    rounded once to bf16 lies within one bf16 ulp (2^-8 relative) of the
+    float64 gradient; adding the 500 terms in bf16, as autograd's own
+    ``index_put_``/``index_add_`` do, lands several percent off."""
+    from repro_torch.models import embedding
+    gen = torch.Generator().manual_seed(3)
+    table = torch.randn(300, 16, generator=gen).to(torch.bfloat16)
+    index = _repeated_rows(300, 2048, hot=5, repeats=500)
+    cot = torch.randn(2048, 16, generator=gen).to(torch.bfloat16)
+    dim = 0
+    if site == "embed":
+        cfg = dataclasses.replace(base.get(LM).make_smoke_config(),
+                                  vocab=300, d_model=16)
+        model = tf.LM(cfg, "cpu")
+        with torch.no_grad():
+            model.embed = torch.nn.Parameter(table.clone())
+        lay = tf._Layout(cfg, None)
+        take = lambda t: tf._embed(model, index[None], lay)[0]  # noqa: E731
+        leaf = model.embed
+    elif site == "head":
+        table, dim, cot = table.t().contiguous(), 1, cot.t().contiguous()
+        take = lambda t: embedding.gather_rows(t, index, 1)    # noqa: E731
+    else:
+        take = lambda t: embedding.embedding_bag(t, index)     # noqa: E731
+    if site != "embed":
+        leaf = table.requires_grad_(True)
+    got = torch.autograd.grad((take(leaf).float() * cot.float()).sum(),
+                              leaf)[0]
+    t64 = leaf.detach().double().requires_grad_(True)
+    want = torch.autograd.grad(
+        (torch.index_select(t64, dim, index) * cot.double()).sum(), t64)[0]
+    assert got.dtype == torch.bfloat16
+    hot = got.select(dim, 5).double()
+    rel = float((hot - want.select(dim, 5)).norm()
+                / want.select(dim, 5).norm())
+    assert rel <= 2.0 ** -8, rel
+    assert torch.equal(take(leaf.detach()), torch.index_select(
+        leaf.detach(), dim, index).reshape(take(leaf.detach()).shape))

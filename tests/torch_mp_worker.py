@@ -130,7 +130,7 @@ def rank_checks(shape: tuple, inputs: dict) -> dict:
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.dist import ShardingPolicy, collectives as coll
     from repro_torch.launch import serve
-    from repro_torch.models import convert, embedding, gat, moe, recsys
+    from repro_torch.models import convert, embedding, moe, recsys
     from repro_torch.models import transformer as tf
 
     mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
@@ -193,8 +193,6 @@ def rank_checks(shape: tuple, inputs: dict) -> dict:
             "cpu", policy=tp)))
     out["refuse/order"] = np.array(raises(ValueError, lambda: ShardingPolicy(
         mesh=mesh, rules={"r": (("model", "data"),)}).sharding("r")))
-    out["refuse/cells"] = np.array(raises(
-        NotImplementedError, lambda: gat.forward(None, {}, None, tp)))
     # the shard init_params draws equals shard_lm of the whole model
     whole = tf.init_params(dense_config(), torch.Generator().manual_seed(3),
                            "cpu")
@@ -295,8 +293,12 @@ def rank_checks(shape: tuple, inputs: dict) -> dict:
     model = convert.recsys_params_from_jax(unflatten(inputs, "tt/params"),
                                            tcfg, "cpu", policy=tp)
     out["tt/table_rows"] = np.array(model.user_table.shape[0])
-    cand = torch.from_numpy(inputs["tt/cand"])
-    codes = torch.from_numpy(inputs["tt/codes"])
+    # the rank's equal slice of the candidates, in mesh order
+    from repro_torch.dist.policy import shard_rank
+    per = TT_CAND // tp.device_count
+    mine = slice(shard_rank(tp) * per, (shard_rank(tp) + 1) * per)
+    cand = torch.from_numpy(inputs["tt/cand"])[mine]
+    codes = torch.from_numpy(inputs["tt/codes"])[mine]
     proj = torch.from_numpy(inputs["tt/proj"])
     users = torch.from_numpy(inputs["tt/users"]).long()
     us, ids, vals = [], [], []
@@ -312,6 +314,7 @@ def rank_checks(shape: tuple, inputs: dict) -> dict:
     out["tt/ids"] = torch.stack(ids).numpy()
     out["tt/vals"] = torch.stack(vals).numpy()
     out.update(train_checks(shape, mesh, inputs))
+    out.update(cells_checks(shape, mesh, inputs))
     return out
 
 
@@ -506,6 +509,228 @@ def train_checks(shape: tuple, mesh, inputs: dict) -> dict:
                                                 ("data", "model")).numpy()
     out["cp/model"] = compression.compressed_psum(row, p, "model").numpy()
     return out
+
+
+# -- the cells under a mesh -------------------------------------------------
+
+# the GAT checks' graph: N nodes, E edges in GAT_BLOCKS owner blocks (a
+# dst-partitioned graph for any world of up to GAT_BLOCKS ranks)
+GAT_GRAPH = dict(n=64, e=256, blocks=4)
+RETR_CAND = 3000         # the retrieval cells' candidates (the test's size)
+RETR_PAD = 4096          # ... tiled over the ranks (CAND_PAD's stand-in)
+# the recsys archs whose loss and reduced gradients under the mesh the
+# test holds against the reference's single-device ones, on a global
+# batch of RECSYS_BATCH rows split over the data axes
+RECSYS_TRAIN = ("deepfm", "din", "two-tower-retrieval")
+RECSYS_BATCH = 16
+# the cells whose rank-local abstract shapes the test holds against the
+# reference's specs: (arch, shape, variant)
+SPEC_CELLS = (("qwen3-0.6b", "train_4k", ""), ("qwen3-0.6b", "train_4k",
+                                                 "zero1"),
+              ("qwen3-0.6b", "prefill_32k", ""),
+              ("qwen3-0.6b", "decode_32k", ""),
+              ("qwen3-0.6b", "long_500k", ""),
+              ("olmoe-1b-7b", "train_4k", ""),
+              ("gat-cora", "ogb_products", ""),
+              ("gat-cora", "ogb_products", "dst_partitioned"),
+              ("deepfm", "train_batch", ""),
+              ("two-tower-retrieval", "train_batch", ""),
+              ("two-tower-retrieval", "retrieval_cand", ""))
+
+
+def gat_config(agg_mode: str = "allreduce"):
+    import dataclasses as dc
+    from repro_torch.configs import base
+    return dc.replace(base.get("gat-cora").make_smoke_config(),
+                      agg_mode=agg_mode)
+
+
+def abstract_shapes(cell) -> dict:
+    """{reference path: shape} of a cell's abstract arguments, the model's
+    parameters standing for the params pytree (``tests/
+    test_torch_cells.py::_port_layout``)."""
+    from repro_torch.models import convert
+    from repro_torch.train import checkpoint as ckpt
+    model, *rest = cell.abstract_args
+    names = set(dict(model.named_parameters()))
+    args = tuple(rest) if cell.kind == "train" else (
+        dict(model.named_parameters()), *rest)
+    tree = convert.reference_layout(args, names)
+    return {p: tuple(t.shape) for p, t in ckpt.flatten_with_paths(tree)
+            if isinstance(t, torch.Tensor)}
+
+
+class smoke_registry:
+    """``configs.base.get`` answering each arch with its smoke config as
+    ``make_config``, and ``cells.CAND_PAD`` at ``RETR_PAD``, inside the
+    block: the retrieval cells at the test's size."""
+
+    def __enter__(self):
+        import dataclasses as dc
+        from repro_torch.configs import base
+        from repro_torch.launch import cells
+        self.saved = base.get, cells.CAND_PAD
+        real = base.get
+        base.get = lambda a: dc.replace(real(a),
+                                        make_config=real(a).make_smoke_config)
+        cells.CAND_PAD = RETR_PAD
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.configs import base
+        from repro_torch.launch import cells
+        base.get, cells.CAND_PAD = self.saved
+
+
+def cells_checks(shape: tuple, mesh, inputs: dict) -> dict:
+    """The cells under a mesh on this rank: ZeRO-1 trajectories, GAT's
+    two aggregations with their gradients, the recsys losses with their
+    reduced gradients, the retrieval cells' answers, and the rank-local
+    shapes of ``build_cell(mesh=)``."""
+    import dataclasses
+    from repro_torch.configs import base
+    from repro_torch.dist import ShardingPolicy, lm_rules
+    from repro_torch.launch import cells, serve
+    from repro_torch.models import convert, gat
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import trainer
+
+    out = {}
+    axes = tuple(mesh.mesh_dim_names)
+
+    # -- ZeRO-1: pure data parallelism, the state sharded ------------------
+    cfg = train_config()
+    pol = ShardingPolicy(mesh=mesh, rules=lm_rules(("data",), "model",
+                                                   pure_dp=True))
+    pol = pol.with_params(tf.param_rules(cfg, pol))
+    tree = unflatten(inputs, "train/params")
+    batches = [local_batch(pol, t) for t in inputs["train/tokens"]]
+    for name in ("adafactor", "adamw"):
+        model = convert.params_from_jax(tree, cfg, "cpu", policy=pol)
+        params = dict(model.named_parameters())
+        zpol = pol.with_params(opt_lib.zero1_rules(params, pol))
+        inner = (cells.default_optimizer("lm", policy=zpol)
+                 if name == "adafactor" else opt_lib.chain(
+                     opt_lib.clip_by_global_norm(1.0, policy=zpol),
+                     opt_lib.adamw(ADAMW["lr"], eps=ADAMW["eps"])))
+        opt = opt_lib.zero1(inner, zpol)
+        step = trainer.make_train_step(
+            lambda p, b, m=model: tf.lm_loss(m, b, pol,
+                                             loss_chunk=TRAIN_LOSS_CHUNK),
+            opt, policy=pol)
+        state = trainer.init_state(params, opt)
+        seen = []
+        for batch in batches:
+            state, m = step(state, batch)
+            seen.append((float(m["loss"]), float(m["grad_norm"])))
+        out[f"zero1_{name}/metrics"] = np.array(seen)
+        out.update({f"zero1_{name}/params/{k}": v.detach().numpy()
+                    for k, v in params.items()})
+        local = convert.train_state_to_numpy(state)
+        from repro_torch.train import checkpoint as ckpt
+        for path, leaf in ckpt.flatten_with_paths(local.opt_state):
+            out[f"zero1_{name}/state/{path}"] = _f32(leaf)
+
+    # -- GAT: both aggregations over the rank's edge shard -----------------
+    gparams = unflatten(inputs, "gat/params")
+    n_dev, me = mesh.size(), pol.axis_index(axes)
+    for mode in ("allreduce", "dst_partitioned"):
+        gcfg = gat_config(mode)
+        model = convert.gat_params_from_jax(gparams, gcfg, "cpu")
+        gpol = ShardingPolicy(mesh=mesh, rules={}).with_params(
+            {k: () for k, _ in model.named_parameters()})
+        graph = {k[len(f"gat/{mode}/"):]: torch.from_numpy(v)
+                 for k, v in inputs.items() if k.startswith(f"gat/{mode}/")}
+        per = graph["src"].shape[0] // n_dev
+        for k in ("src", "dst", "edge_mask"):
+            graph[k] = graph[k][me * per:(me + 1) * per]
+        loss = gat.loss_fn(model, graph, gcfg, gpol)
+        named = dict(model.named_parameters())
+        grads = trainer.reduce_grads(dict(zip(named, torch.autograd.grad(
+            loss, list(named.values())))), gpol)
+        out[f"gat_{mode}/loss"] = loss.detach().numpy()
+        out.update({f"gat_{mode}/grad/{k}": g.numpy()
+                    for k, g in grads.items()})
+
+    # -- recsys training: the rank's rows of the batch, its table rows ----
+    for arch_id in RECSYS_TRAIN:
+        arch = base.get(arch_id)
+        rcfg = arch.make_smoke_config()
+        rpol = cells.recsys_mesh(arch, rcfg, mesh)[0]
+        model = convert.recsys_params_from_jax(
+            unflatten(inputs, f"rs/{arch_id}/params"), rcfg, "cpu",
+            policy=rpol)
+        pre = f"rs/{arch_id}/batch/"
+        batch = {k[len(pre):]: cells._rows(rpol, torch.from_numpy(v),
+                                           rpol.dp_axes())
+                 for k, v in inputs.items() if k.startswith(pre)}
+        loss = cells.recsys_fns(arch, rcfg, rpol)[1](model, batch)
+        named = dict(model.named_parameters())
+        grads = trainer.reduce_grads(dict(zip(named, torch.autograd.grad(
+            loss, list(named.values())))), rpol)
+        out[f"rs_{arch_id}/loss"] = loss.detach().numpy()
+        out.update({f"rs_{arch_id}/grad/{k}": rpol.relayout(
+            g, rpol.param_rule(k), ()).numpy() for k, g in grads.items()})
+
+    # -- the retrieval cells at the test's size ------------------------------
+    with smoke_registry():
+        arch = base.get("two-tower-retrieval")
+        rshape = base.ShapeSpec("retrieval_cand", "retrieval",
+                                {"batch": 1, "n_candidates": RETR_CAND})
+        for tag, cell in (("exact", cells.build_recsys_cell(arch, rshape,
+                                                            mesh=mesh)),
+                          ("sah", serve.build_sah_retrieval_cell(
+                              mesh=mesh))):
+            args = cells.materialize(cell, "cpu",
+                                     torch.Generator().manual_seed(SEED))
+            vals, ids = cell.step(*args)
+            out[f"retr_{tag}/vals"] = vals.numpy()
+            out[f"retr_{tag}/ids"] = ids.numpy()
+            cp = cell.policy
+            model = args[0]
+            for t in ("user_table", "item_table"):
+                out[f"retr_{tag}/{t}"] = cp.relayout(
+                    getattr(model, t).detach(), (("model",), None),
+                    ()).numpy()
+            for t in ("user_mlp", "item_mlp"):
+                for i, layer in enumerate(getattr(model, t)):
+                    out[f"retr_{tag}/{t}/{i}/w"] = layer.w.detach().numpy()
+                    out[f"retr_{tag}/{t}/{i}/b"] = layer.b.detach().numpy()
+            out[f"retr_{tag}/feats"] = args[1].numpy()
+            for i, a in enumerate(args[2:]):
+                if a.shape[0] * n_dev == cells.CAND_PAD:   # row shards
+                    a = cp.relayout(a, (axes,) + (None,) * (a.dim() - 1),
+                                    ())
+                out[f"retr_{tag}/arg{i}"] = a.numpy()
+
+    # -- build_cell(mesh=): each rank's abstract shapes --------------------
+    for arch_id, sname, variant in SPEC_CELLS:
+        cell = cells.build_cell(arch_id, sname, mesh=mesh, variant=variant)
+        for path, shp in abstract_shapes(cell).items():
+            out[f"spec/{arch_id}/{sname}/{variant}/{path}"] = np.array(shp)
+
+    # -- the specs as placements and local shapes (a recsys cell's) --------
+    cell = cells.build_cell("deepfm", "train_batch", mesh=mesh)
+    specs = dict(cell.policy.params)
+    model = cell.abstract_args[0]
+    whole = {k: (p.shape[0] * (mesh.size(1) if specs[k] else 1),)
+             + tuple(p.shape[1:]) for k, p in model.named_parameters()}
+    local = cells.local_shapes(cell.policy, specs, whole)
+    placed = cells._shardings(cell.policy, specs)
+    out["specs/local_ok"] = np.array(all(
+        local[k] == tuple(p.shape) for k, p in model.named_parameters()))
+    out["specs/placed_ok"] = np.array(all(
+        spec_of(placed[k], mesh.mesh_dim_names, len(specs[k])) == specs[k]
+        for k in specs))
+    return out
+
+
+def _f32(leaf) -> np.ndarray:
+    """A host leaf as float32 numpy (a bf16 leaf is a CPU tensor)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.float().numpy()
+    return np.asarray(leaf, dtype=np.float32)
 
 
 def _bytes(a) -> bytes:
