@@ -5,7 +5,7 @@
 
 Drives the port's paths through their entry points, each with
 every launch count set to 0 just before it and read just after. The first
-seven run at the paper's Netflix scale (n = 17,770 items, m = 480,189 users,
+eight run at the paper's Netflix scale (n = 17,770 items, m = 480,189 users,
 d = 100, synthetic MF-like factors from ``--seed``):
 
   f32 reverse   ``RkMIPSEngine("sah").build(...)`` on the card, then
@@ -70,6 +70,29 @@ d = 100, synthetic MF-like factors from ``--seed``):
                 a synchronous server on the same version; forward: the
                 4,096 users), and a gateway of three tenants in one pool
                 (reverse, reverse under a scan budget, forward);
+  examples      the example twins (``repro_torch.examples``) through
+                their ``run``: quickstart for each of the paper's
+                baselines (``sah``, ``sa-simpfer``, ``h2-cone``,
+                ``h2-simpfer``, ``simpfer``) and ``exact`` on the Netflix
+                data and the 16 queries (reverse recall 1.0 against the
+                oracle but for traced float ties); update_stream (4
+                promoted items from the top 2%, the reference's 24 inserts
+                and 8 retirements), serve_async (64 queries) and
+                serve_multitenant (the 16 queries at the reference's k =
+                5; its blitz probes' users to scan, and one probe's first
+                ``EX_MT_PROBE_CHUNKS`` chunks timed) at the Netflix
+                scale, each with its own checks; reverse_recommend and
+                serve_retrieval on two-tower-retrieval at its published
+                config (20 and 30 steps at batch 256; 17,770 items and
+                480,189 users embedded, and a corpus of 1,000,000; the
+                forward top-k ids against ``torch.topk(torch.matmul(...))``
+                but for traced ties, no new signature after the warm
+                flush); train_lm ``100m`` (50 steps at 8 x 256 under
+                deterministic algorithms, once whole, once crashed at step
+                30 and resumed from its step-25 checkpoint: bit for bit
+                the whole run, no kernel); then ``ip_topk`` and the dense
+                ``hamming_scores`` at the shapes these runs gave them,
+                each against its plain version and timed;
   recsys        the recsys archs at full width, weights and feature ids
                 (uniform per field) from ``--seed``: two-tower-retrieval
                 (10M-row tables, towers 1024-512 -> 256) embeds 1,000,000
@@ -218,7 +241,14 @@ It
      that one call; on the retrieval path exactly one ``srp_hash`` for the
      build and one a request, one dense ``hamming_scores`` a sketch
      request, one ``ip_topk`` an exact request, and nothing else; in the
-     train phase no kernel at all; in the cells phase ``flash_attention``
+     train phase no kernel at all; in the examples phase, for each sketch
+     preset of quickstart one ``srp_hash`` for the build and one a chunk
+     and ``hamming_nearest`` once a tile step (chunks and tile steps
+     counted at ``sa_alsh.decide_count``), for ``simpfer`` and ``exact``
+     the build's ``srp_hash`` alone, in serve_retrieval one ``srp_hash``
+     for the build, one ``srp_hash`` and one dense ``hamming_scores`` a
+     dispatch and two ``ip_topk``, in reverse_recommend one ``ip_topk``,
+     in train_lm none; in the cells phase ``flash_attention``
      once a layer in each of the 32k prefill's two steps, all ``wgmma``,
      one ``srp_hash`` and one dense ``hamming_scores`` in each step of the
      SAH retrieval cell, and no kernel in any other cell; on each rank of
@@ -274,8 +304,9 @@ It
      exact ids against ``torch.topk(torch.matmul(...))`` but for traced
      ties, and the train cells' first loss against float32 (olmoe) or
      float64 (GAT) where that copy fits;
-  8. splits a query batch into plan and execute, and profiles it, one
-     LM prefill (qwen3 and olmoe), 4 decode steps, and one LM train step
+  8. splits a query batch into plan and execute, and profiles it (its
+     first ``PROFILE_CHUNKS`` chunks), one LM prefill (qwen3 and olmoe),
+     4 decode steps, and one LM train step
      for the device's busy share, their top kernels and the
      device launches per tile step (the f32 profile must hold no
      ``gatherTopK`` or ``radixSortKVInPlace`` row: the selection is in
@@ -314,6 +345,7 @@ FP32_INSTR_PER_S = FP32_FLOP_PER_S / 2
 
 NQ = 16              # promoted items per query batch
 TOP_FRAC = 0.02      # queries come from this top share of items by norm
+PROFILE_CHUNKS = 128  # chunks of a reverse batch its profile records
 ITERS = 200          # timed launches per kernel
 N_FWD = 4096         # users per forward top-k batch
 TILE_LARGE = 4096    # fused_scan also checked and timed at the largest tile
@@ -427,11 +459,29 @@ def ip_tie_check(queries, items, got_ids, want_ids):
     return diff[0].numel()
 
 
-def profile_query(eng, queries, k: int, tile_steps: int) -> None:
+def traced_misses(what: str, items, users_unit, queries, pred, truth,
+                  k: int, tie_eps: float) -> int:
+    """Fail unless every user the exact oracle puts in an audience and
+    ``pred`` leaves out lies within float32 rounding of its threshold
+    (``exact.float_tie``, at most 1,000 of them); returns the misses."""
+    import torch
+    from repro_torch.core import exact
+    missed = torch.nonzero(truth & ~pred).tolist()
+    ties = sum(exact.float_tie(items, users_unit[u], queries[q], k, tie_eps)
+               for q, u in missed[:1000])
+    if len(missed) > 1000 or ties != len(missed):
+        fail(f"{what}: {len(missed) - ties} missed users are not float "
+             f"ties")
+    return len(missed)
+
+
+def profile_query(eng, queries, k: int) -> None:
     """Where one ``query_batch`` spends its time: the plan and execute
     phases on the host clock, and the device's busy share, top kernels and
-    launches per tile step (``tile_steps`` of the batch) from
-    ``torch.profiler`` over a second run."""
+    launches per tile step from ``torch.profiler`` over a second run of the
+    same batch, recorded over its first PROFILE_CHUNKS chunks (the
+    profiler's processing of a whole batch's ~110,000 launches at k = 10
+    took ~25 s a profile)."""
     import torch
     from repro_torch.core import sah
     cfg = eng.config
@@ -444,17 +494,29 @@ def profile_query(eng, queries, k: int, tile_steps: int) -> None:
                        chunk=cfg.chunk, scan_precision=cfg.scan_precision)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    print(f"breakdown {cfg.scan_precision} k={k}: plan {(t1 - t0) * 1e3:.1f} ms, execute "
-          f"{(t2 - t1) * 1e3:.1f} ms ({plan.n_work} lanes)")
-    rows = device_profile(f"{cfg.scan_precision} k={k}",
-                          lambda: eng.query_batch(queries, k))
+    print(f"breakdown {cfg.scan_precision} k={k}: plan {(t1 - t0) * 1e3:.1f} "
+          f"ms, execute {(t2 - t1) * 1e3:.1f} ms ({plan.n_work} lanes)")
+    window = {"chunks": 0, "tile_steps": 0}
+
+    def until(stop):            # ends the recording after PROFILE_CHUNKS
+        def each(counts):
+            if counts["chunks"] <= PROFILE_CHUNKS:
+                window.update(counts)
+            if counts["chunks"] == PROFILE_CHUNKS:
+                stop()
+        return chunk_counter(each)[1]
+
+    rows = device_profile(
+        f"{cfg.scan_precision} k={k}, the first {PROFILE_CHUNKS} chunks of "
+        f"the batch", lambda: eng.query_batch(queries, k), until)
     if rows:
         launches = sum(r[1] for r in rows)
         topk = [r for r in rows if "gatherTopK" in r[2]
                 or "radixSortKVInPlace" in r[2]]
-        print(f"  {launches} device launches, {launches / tile_steps:.2f} "
-              f"per tile step ({tile_steps} tile steps); gatherTopK / "
-              f"radixSortKVInPlace rows: {len(topk)}")
+        print(f"  {launches} device launches, "
+              f"{launches / max(window['tile_steps'], 1):.2f} per tile step "
+              f"({window['tile_steps']} tile steps in {window['chunks']} "
+              f"chunks); gatherTopK / radixSortKVInPlace rows: {len(topk)}")
         if topk and cfg.scan_precision == "f32":
             fail("the f32 tile scan still runs a torch.topk selection")
 
@@ -474,21 +536,38 @@ def kernel_launches(fn) -> int | None:
     return n or None
 
 
-def device_profile(label: str, fn) -> list:
+def device_profile(label: str, fn, until=None) -> list:
     """Run ``fn`` once under ``torch.profiler`` and print the device's busy
     share of the wall time (to a device sync) and the top kernels. Returns
     the kernel rows (device us, launches, name); empty when the profiler
-    recorded no device time."""
+    recorded no device time. ``until``, where given, is called before the
+    run with a function that ends the recording at a device sync (a window
+    of the run: the wall time is then the window's) and returns a function
+    to call after the run."""
     import torch
     # device activity only: the busy share reads kernel rows, and recording
     # every host operator as well made each profile take minutes
     acts = [torch.profiler.ProfilerActivity.CUDA]
+    prof = torch.profiler.profile(activities=acts)
+    span = []
+
+    def stop():
+        if not span:
+            torch.cuda.synchronize()
+            span.append(time.perf_counter() - t0)
+            prof.stop()
+
+    after = until(stop) if until else None
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
+    prof.start()
+    t0 = time.perf_counter()
+    try:
         fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        stop()
+    finally:
+        if after:
+            after()
+    wall_us = span[0] * 1e6
     rows = []
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -595,7 +674,7 @@ def recsys_path(seed: int, dev, mp_dir: str | None = None) -> dict:
     from repro_torch.configs import base
     from repro_torch.core import sa_alsh
     from repro_torch.engine.config import get_config
-    from repro_torch.kernels import ip_topk, ops, ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.launch import serve
     from repro_torch.models import recsys as rec
 
@@ -730,82 +809,31 @@ def recsys_path(seed: int, dev, mp_dir: str | None = None) -> dict:
     kw = get_config("sah").replace(n_bits=serve.N_BITS).kmips_build_kwargs(n)
     del kw["n_bits"]
     prep = sa_alsh.prepare_items(cand, **kw)
-    rows = prep.transformed.contiguous()
-    kproj = kproj.to(dev)
-    item_codes = ops.srp_hash(rows, kproj)
     live = prep.item_mask
-    if not torch.equal(codes[prep.item_ids[live].long()], item_codes[live]):
-        fail("srp_hash at the build shape is not deterministic against the "
-             "candidate index's codes")
-    srpb_err = codes_equal("srp_hash at the retrieval build shape",
-                           item_codes, ref.srp_hash(rows, kproj))
+    index_codes = torch.zeros(live.shape[0], codes.shape[1],
+                              dtype=codes.dtype, device=codes.device)
+    index_codes[live] = codes[prep.item_ids[live].long()]
+    srp_b = srp_at("retrieval", prep.transformed.contiguous(),
+                   kproj.to(dev), index_codes, build_launches["srp_hash"],
+                   live)
     u1 = uu[:1].contiguous()
     qcode = ops.srp_hash(u1, proj)
     srpq_err = codes_equal("srp_hash at the retrieval query shape", qcode,
                            ref.srp_hash(u1, proj))
-    ham_err = codes_equal("hamming_scores at the retrieval shape",
-                          ops.hamming_scores(qcode, codes),
-                          ref.hamming_scores(qcode, codes))
-    ipv, ipi = ops.ip_topk(u1, cand, RETR_K)
-    plain_v, plain_i = ref.ip_topk(u1, cand, RETR_K)
-    if not torch.equal(ipi, plain_i):
-        fail(f"ip_topk at the retrieval shape: "
-             f"{int((ipi != plain_i).sum())} ids differ from its plain "
-             f"version")
-    ip_err = float((ipv - plain_v).abs().max())
-    if ip_err != 0.0:
-        fail(f"ip_topk at the retrieval shape: values differ from its "
-             f"plain version by {ip_err}")
-    raw_v, raw_i = ip_topk.ip_topk_tiles(u1, cand, RETR_K)
-    splits = raw_v.shape[1]
-    part_v, part_i = ref.ip_topk_partials(u1, cand, RETR_K, splits)
-    if not (torch.equal(raw_i, part_i) and torch.equal(raw_v, part_v)):
-        fail("ip_topk at the retrieval shape: the kernel's per-split lists "
-             "differ from ref.ip_topk_partials")
-    (nr, dr), b = rows.shape, kproj.shape[1]
-    w = codes.shape[1]
-    print(f"check at the retrieval shapes: srp_hash build rows {(nr, dr)} "
-          f"x {(dr, b)} and query {(1, d)} x {(d, b)} bit for bit; dense "
-          f"hamming_scores {(1, w)} x {(n, w)} exact; ip_topk {(1, d)} x "
-          f"{(n, d)} k {RETR_K} ids exact, values bitwise, its {splits} "
-          f"per-split lists equal ref.ip_topk_partials")
-    mark("retrieval-shape checks")
-
-    srpb = {"ms": device_ms(lambda: ops.srp_hash(rows, kproj), 20),
-            "plain_ms": device_ms(lambda: ref.srp_hash(rows, kproj), 1,
-                                  replays=1)}
     srpq = {"ms": device_ms(lambda: ops.srp_hash(u1, proj), ITERS),
             "plain_ms": device_ms(lambda: ref.srp_hash(u1, proj), 20),
             "call_ms": call_ms(lambda: ops.srp_hash(u1, proj), ITERS)}
-    ham = {"ms": device_ms(lambda: ops.hamming_scores(qcode, codes), ITERS),
-           "plain_ms": device_ms(lambda: ref.hamming_scores(qcode, codes),
-                                 20),
-           "call_ms": call_ms(lambda: ops.hamming_scores(qcode, codes),
-                              ITERS)}
-    ipk = {"ms": device_ms(lambda: ops.ip_topk(u1, cand, RETR_K), 20),
-           "kernel_only_ms": device_ms(
-               lambda: ip_topk.ip_topk_tiles(u1, cand, RETR_K), 20),
-           "plain_ms": device_ms(lambda: ref.ip_topk(u1, cand, RETR_K), 2,
-                                 replays=3),
-           "library_ms": device_ms(lambda: torch.topk(
-               torch.matmul(u1, cand.T), RETR_K), 20),
-           "call_ms": call_ms(lambda: ops.ip_topk(u1, cand, RETR_K), 20)}
-    srpb["bound_ms"], srpb["bound_by"] = bound(
-        4 * (nr * dr + dr * b + nr * b // 32),
-        2 * nr * dr * b / FP32_FLOP_PER_S)
+    b = proj.shape[1]
     srpq["bound_ms"], srpq["bound_by"] = bound(
         4 * (d + d * b + b // 32), 2 * d * b / FP32_FLOP_PER_S)
-    ham["bound_ms"], ham["bound_by"] = bound(
-        4 * (w + n * w + n), 3 * n * w / INT32_OP_PER_S)
-    ipk["bound_ms"], ipk["bound_by"] = bound(
-        4 * (1 + n) * d + 8 * RETR_K, 2 * n * d / FP32_FLOP_PER_S)
-    for name, t in (("srp_hash build", srpb), ("srp_hash query", srpq),
-                    ("hamming_scores (dense)", ham), ("ip_topk", ipk)):
-        print(f"time {name} at the retrieval shape: " + ", ".join(
-            f"{key} {val:.6f}" if isinstance(val, float) else f"{key} {val}"
-            for key, val in t.items()))
-    del prep, rows, item_codes
-    mark("retrieval-shape times")
+    print(f"check srp_hash at the retrieval query shape {(1, d)}x{(d, b)}: "
+          f"bit for bit; time " + ", ".join(
+              f"{key} {val:.6f}" if isinstance(val, float) else
+              f"{key} {val}" for key, val in srpq.items()))
+    dense = dense_at("retrieval", qcode, codes, launches["hamming_scores"])
+    ipk = topk_at("retrieval", u1, cand, RETR_K, launches["ip_topk"])
+    del prep, index_codes
+    mark("retrieval-shape checks and times")
 
     if mp_dir is not None:
         save_retrieval_answers(mp_dir, cand, codes, proj, users, uu,
@@ -864,28 +892,13 @@ def recsys_path(seed: int, dev, mp_dir: str | None = None) -> dict:
     print(f"recsys phase: {time.perf_counter() - t_start:.1f} s host "
           f"({parts}), peak device memory {peak / 2**30:.2f} GiB")
 
-    def entry(prefix, t, launched, shape, err):
-        out = {f"{prefix}_{key}": val for key, val in t.items()}
-        out.update({f"{prefix}_launches": launched, f"{prefix}_shape": shape,
-                    f"{prefix}_max_abs_err": err})
-        return out
-
-    return {
-        "peak_before": peak_before, "peak": peak,
-        "srp": {**entry("retrieval_build", srpb, build_launches["srp_hash"],
-                        f"{(nr, dr)}x{(dr, b)}", srpb_err),
-                **entry("retrieval_query", srpq,
-                        launches["srp_hash"] - build_launches["srp_hash"],
-                        f"{(1, d)}x{(d, b)}", srpq_err)},
-        "dense": entry("retrieval", ham, launches["hamming_scores"],
-                       f"{(1, w)}x{(n, w)}", ham_err),
-        "ip_topk": {**entry("retrieval", ipk, launches["ip_topk"],
-                            f"{(1, d)}x{(n, d)}, k {RETR_K}", ip_err),
-                    "retrieval_splits": splits,
-                    "retrieval_library_call":
-                        f"torch.topk(torch.matmul(u, cand.T), {RETR_K}), "
-                        f"two calls"},
-    }
+    srp_q = {f"retrieval_query_{key}": val for key, val in srpq.items()}
+    srp_q.update({"retrieval_query_launches":
+                  launches["srp_hash"] - build_launches["srp_hash"],
+                  "retrieval_query_shape": f"{(1, d)}x{(d, b)}",
+                  "retrieval_query_max_abs_err": srpq_err})
+    return {"peak_before": peak_before, "peak": peak,
+            "srp": {**srp_b, **srp_q}, "dense": dense, "ip_topk": ipk}
 
 
 # -- the train phase -----------------------------------------------------------
@@ -4314,7 +4327,7 @@ def artifact_path(seed: int, eng, eng_ex, build_state, items, users,
     import tempfile
     import torch
     from repro_torch import RkMIPSEngine
-    from repro_torch.core import exact, metrics, sah
+    from repro_torch.core import metrics, sah
     from repro_torch.engine import IndexArtifact
     from repro_torch.kernels import ops, ref
 
@@ -4390,12 +4403,8 @@ def artifact_path(seed: int, eng, eng_ex, build_state, items, users,
                            resd["f32"][k].stats.tiles_scanned):
             fail(f"delta k={k}: int8 tiles_scanned differ from f32")
         truth = engd.oracle(queries, k)
-        missed = torch.nonzero(truth & ~pred).tolist()
-        ties = sum(exact.float_tie(eff, unit[u], queries[q], k, cfg.tie_eps)
-                   for q, u in missed[:1000])
-        if len(missed) > 1000 or ties != len(missed):
-            fail(f"delta k={k}: {len(missed) - ties} missed users are not "
-                 f"float ties")
+        missed = traced_misses(f"delta k={k}", eff, unit, queries, pred,
+                               truth, k, cfg.tie_eps)
         moved = (pred != results[k].predictions).any(-1)
         if not bool(moved.any()):
             fail(f"delta k={k}: no audience changed with the catalogue")
@@ -4407,8 +4416,8 @@ def artifact_path(seed: int, eng, eng_ex, build_state, items, users,
         print(f"delta k={k}: f32 {ms(resd['f32'][k])} ms/query, int8 "
               f"{ms(resd['int8'][k])} (without the delta: f32 "
               f"{ms(results[k])}, int8 {ms(results8[k])}); recall min "
-              f"{float(rec.min()):.6f}, misses {len(missed)} (float ties "
-              f"{ties}); audience {int(truth.sum())} true / "
+              f"{float(rec.min()):.6f}, misses {missed} (float ties "
+              f"{missed}); audience {int(truth.sum())} true / "
               f"{int(pred.sum())} predicted, changed in "
               f"{int(moved.sum())} of {NQ} queries; int8 == f32 bitwise")
         print(f"  funnel: {resd['f32'][k].funnel.format()}")
@@ -5431,6 +5440,519 @@ def serving_path(seed: int, eng, queries, users_fwd, exact_ids, items,
     return {"peak_before": peak_before, "dense": dense, "srp": srp}
 
 
+EX_K = 10                # quickstart's k
+EX_PRESETS = ("sah", "sa-simpfer", "h2-cone", "h2-simpfer", "simpfer",
+              "exact")   # PAPER_BASELINES and the in-engine oracle preset
+EX_INSERTS = 24          # update_stream's trending rows (the reference's)
+EX_ASYNC_QUERIES = 64    # serve_async's queries (the reference's)
+# serve_multitenant at the reference's k = 5 over the smoke's 16 queries,
+# in draw order (the reference's own draw, 24 from the top 20% by norm,
+# leaves no user to scan at this scale, so no scan would be truncated),
+# without its 4 "promo blitz" probes: each leaves ~450,000 users to scan,
+# ~57,000 chunks of its chunk=8, at 2 to 4 ms a chunk through the gateway
+# on the H100 (PERF.md section 6) minutes a probe; the first
+# EX_MT_PROBE_CHUNKS chunks of one probe are timed instead, through the
+# engine's host loop
+EX_MT_K = 5
+EX_MT_PROBE_CHUNKS = 1024
+EX_RR_STEPS = 20         # reverse_recommend's training steps
+EX_SR_STEPS = 30         # serve_retrieval's training steps
+EX_SR_CORPUS = 1_000_000
+EX_SR_REQUESTS = 64
+EX_SR_K = 20
+# train_lm --model 100m at batch 8 x 256: the reference's --steps 50 and
+# --ckpt-every 25, once whole and once crashed with --fail-at 30
+EX_LM_STEPS = 50
+EX_LM_CKPT_EVERY = 25
+EX_LM_FAIL_AT = 30
+
+
+def chunk_counter(each=None):
+    """Count the reverse query's chunks and tile steps independently of
+    the kernels: ``sa_alsh.decide_count`` runs once a chunk and returns
+    the tile steps it took; ``each(counts)``, where given, is called after
+    every chunk. Returns (counts, restore)."""
+    from repro_torch.core import sa_alsh
+    inner = sa_alsh.decide_count
+    counts = {"chunks": 0, "tile_steps": 0}
+
+    def counted(*args, **kw):
+        yes, t = inner(*args, **kw)
+        counts["chunks"] += 1
+        counts["tile_steps"] += int(t)
+        if each is not None:
+            each(counts)
+        return yes, t
+
+    sa_alsh.decide_count = counted
+
+    def restore():
+        sa_alsh.decide_count = inner
+
+    return counts, restore
+
+
+def launches_only(what: str, launches: dict, want: dict) -> None:
+    """Fail unless each kernel launched as often as ``want`` says: a count
+    there, True for some launches, and none for the kernels it leaves
+    out."""
+    for name, got in launches.items():
+        need = want.get(name, 0)
+        if (got <= 0) if need is True else (got != need):
+            fail(f"{what}: launch counts {launches}, want {want}")
+
+
+def counted_run(what: str, fn):
+    """``fn()`` with every launch count set to 0 just before it and read
+    just after. Returns (its result, the counts)."""
+    import torch
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = dict(ops.launch_counts)
+    print(f"examples {what}: launch_counts {launches}")
+    return out, launches
+
+
+def examples_path(seed: int, dev, eng, items, users, queries) -> dict:
+    """The example twins (``repro_torch.examples``) through their
+    ``run``, each with every launch count set to 0 just before it and read
+    just after: quickstart for each of ``EX_PRESETS`` on the Netflix data
+    and ``queries`` (reverse recall 1.0 against the oracle but for traced
+    float ties; ``srp_hash`` = the build's one + chunks and
+    ``hamming_nearest`` = tile steps for the sketch presets, neither in
+    the query for the exact ones), update_stream, serve_async and
+    serve_multitenant (``ex_multitenant``) at the Netflix scale (their own
+    checks), reverse_recommend and serve_retrieval on two-tower at its
+    published config (recall 1.0 traced; ``ip_topk``'s ids against
+    ``torch.topk(torch.matmul(...))``'s but for traced ties; no new
+    signature after the warm flush), and train_lm ``100m``
+    (``ex_train_lm``). Then ``ip_topk`` and the dense ``hamming_scores``
+    at the shapes these runs gave them, each against its plain version,
+    and timed. Each model and engine is freed before the next run.
+    Returns the kernels' entries and the phase's figures."""
+    import torch
+    from repro_torch.configs import base
+    from repro_torch.core import metrics, sah
+    from repro_torch.data import synthetic
+    from repro_torch.engine import get_config
+    from repro_torch.examples import (quickstart, reverse_recommend,
+                                      serve_async, serve_retrieval,
+                                      update_stream)
+    from repro_torch.kernels import ops
+
+    t_start = t_mark = time.perf_counter()
+    parts, figures = {}, {}
+
+    def mark(name):                 # host seconds of each run of the phase
+        nonlocal t_mark
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        parts[name] = round(now - t_mark, 2)
+        t_mark = now
+        print(f"examples {name}: {parts[name]} s")
+
+    peak_before = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    users_unit = sah.unit_rows(users)
+
+    # -- quickstart: every paper baseline and "exact" ---------------------
+    steps, restore = chunk_counter()
+    try:
+        for method in EX_PRESETS:
+            steps.update(chunks=0, tile_steps=0)
+            out, launches = counted_run(f"quickstart {method}", lambda: (
+                quickstart.run(items, users, queries, k=EX_K, method=method,
+                               generator=torch.Generator().manual_seed(seed),
+                               device=dev)))
+            cfg = get_config(method)
+            missed = traced_misses(
+                f"quickstart {method}", items, users_unit, queries,
+                out["predictions"], out["truth"], EX_K, cfg.tie_eps)
+            rec = float(metrics.recall(out["predictions"],
+                                       out["truth"]).min())
+            sketch = cfg.scan == "sketch"
+            launches_only(f"quickstart {method}", launches, {
+                "srp_hash": 1 + (steps["chunks"] if sketch else 0),
+                "hamming_nearest": steps["tile_steps"] if sketch else 0})
+            print(f"examples quickstart {method}: {NQ} queries at "
+                  f"k={EX_K}, build {out['build_seconds']:.3f} s, "
+                  f"{out['ms_per_query']:.3f} ms/query, F1 mean "
+                  f"{out['f1_mean']:.4f}, recall min {rec:.6f} ({missed} "
+                  f"misses, all float ties), {steps['chunks']} chunks, "
+                  f"{steps['tile_steps']} tile steps; funnel: "
+                  f"{out['funnel'].format()}")
+            figures[f"quickstart {method}"] = {
+                "queries": NQ, "build_s": out["build_seconds"],
+                "ms_per_query": out["ms_per_query"],
+                "f1_mean": out["f1_mean"], "recall_min": rec,
+                "chunks": steps["chunks"], "tile_steps": steps["tile_steps"],
+                "launches": launches}
+            del out
+            torch.cuda.empty_cache()
+            mark(f"quickstart {method}")
+    finally:
+        restore()
+
+    # -- the artifact lifecycle under a live ReverseServer ----------------
+    gen = torch.Generator().manual_seed(seed)
+    promoted = synthetic.queries_from_items(gen, items, 4,
+                                            top_frac=TOP_FRAC)
+    pick = torch.randint(0, items.shape[0], (2, EX_INSERTS), generator=gen)
+    trending = 0.65 * (items[pick[0].to(dev)] + items[pick[1].to(dev)])
+    out, launches = counted_run("update_stream", lambda: update_stream.run(
+        items, users, promoted, trending, k=EX_K, generator=gen,
+        device=dev))
+    launches_only("update_stream", launches,
+                  {"srp_hash": True, "hamming_nearest": True})
+    figures["update_stream"] = {
+        "audiences_v1": out["audiences_v1"],
+        "audiences_v2": out["audiences_v2"],
+        "audience_v3": out["audience_v3"], "compiles": out["compiles"],
+        "launches": launches}
+    mark("update_stream")
+
+    # -- the threaded runtime over the forward server ----------------------
+    async_q = synthetic.queries_from_items(gen, items, EX_ASYNC_QUERIES)
+    pick = torch.randint(0, items.shape[0], (2, 40), generator=gen)
+    trending = 0.65 * (items[pick[0].to(dev)] + items[pick[1].to(dev)])
+    out, launches = counted_run("serve_async", lambda: serve_async.run(
+        items, users, async_q, trending, k=EX_K, generator=gen, device=dev))
+    st = out["stats"]
+    launches_only("serve_async", launches,
+                  {"srp_hash": True, "hamming_scores": True})
+    if st.compactions != 1 or st.failed:
+        fail(f"serve_async: stats {st}")
+    print(f"examples serve_async: p50 {out['p50_ms']:.3f} ms, compaction "
+          f"{out['compaction_s']:.3f} s, {st.batches} runtime dispatches "
+          f"(dense hamming_scores {launches['hamming_scores']})")
+    figures["serve_async"] = {"p50_ms": out["p50_ms"],
+                              "compaction_s": out["compaction_s"],
+                              "batches": st.batches, "launches": launches}
+    mark("serve_async")
+
+    # -- two tenants on one pool -------------------------------------------
+    figures["serve_multitenant"] = ex_multitenant(seed, dev, eng, items,
+                                                  users, queries)
+    mark("serve_multitenant")
+
+    # -- two-tower embeddings at the published config ----------------------
+    tt = base.get("two-tower-retrieval").make_config()
+    ds = synthetic.PAPER_DATASETS["netflix"]
+    out, launches = counted_run("reverse_recommend", lambda: (
+        reverse_recommend.run(tt, steps=EX_RR_STEPS, n_items=ds.n_items,
+                              m_users=ds.m_users, k=EX_K, seed=seed,
+                              device=dev)))
+    missed = traced_misses(
+        "reverse_recommend", out["items"], out["users_unit"],
+        out["queries"], out["predictions"], out["truth"], EX_K,
+        out["tie_eps"])
+    rec = float(metrics.recall(out["predictions"], out["truth"]).min())
+    rq, uu = out["queries"], out["users_unit"]
+    lib_ids = torch.topk(torch.matmul(rq, uu.T), EX_K).indices
+    ties_rr = ip_tie_check(rq, uu, out["fwd_top"], lib_ids.to(torch.int32))
+    launches_only("reverse_recommend", launches, {
+        "srp_hash": True, "hamming_nearest": True, "ip_topk": 1})
+    print(f"examples reverse_recommend: recall min {rec:.6f} ({missed} "
+          f"misses, all float ties); forward ids equal torch.topk("
+          f"torch.matmul(...))'s but for {ties_rr} float ties; overlaps "
+          f"{out['overlaps']} of {EX_K}; losses {out['losses'][0]:.4f} -> "
+          f"{out['losses'][-1]:.4f}")
+    figures["reverse_recommend"] = {
+        "recall_min": rec, "overlaps": out["overlaps"],
+        "audiences": out["audiences"], "seconds": out["seconds"],
+        "launches": launches}
+    rr_entry = topk_at("reverse_recommend", rq.contiguous(), uu, EX_K,
+                       launches["ip_topk"])
+    del out, rq, uu, lib_ids
+    torch.cuda.empty_cache()
+    mark("reverse_recommend")
+
+    out, launches = counted_run("serve_retrieval", lambda: (
+        serve_retrieval.run(tt, steps=EX_SR_STEPS, corpus=EX_SR_CORPUS,
+                            batch=256, requests=EX_SR_REQUESTS, k=EX_SR_K,
+                            seed=seed, device=dev)))
+    u, cand = out["users"], out["cand_vecs"]
+    lib_ids = torch.topk(torch.matmul(u, cand.T), EX_SR_K).indices
+    ties_sr = ip_tie_check(u, cand, out["exact_ids"],
+                           lib_ids.to(torch.int32))
+    if out["compiles"] != out["compiles_warm"]:
+        fail(f"serve_retrieval: {out['compiles'] - out['compiles_warm']} "
+             f"new signatures after the warm flush")
+    disp = 2 * EX_SR_REQUESTS // out["batch_size"]
+    launches_only("serve_retrieval", launches, {
+        "srp_hash": 1 + disp, "hamming_scores": disp, "ip_topk": 2})
+    print(f"examples serve_retrieval: recall@{EX_SR_K} {out['recall']:.4f};"
+          f" exact {out['exact_qps']:.1f} QPS, SAH {out['sah_qps']:.1f} QPS;"
+          f" exact ids equal torch.topk(torch.matmul(...))'s but for "
+          f"{ties_sr} float ties; {out['compiles']} signature(s), none "
+          f"after the warm flush")
+    figures["serve_retrieval"] = {
+        "recall": out["recall"], "exact_qps": out["exact_qps"],
+        "sah_qps": out["sah_qps"], "build_s": out["build_seconds"],
+        "launches": launches}
+    sr_entry = topk_at("serve_retrieval", u, cand, EX_SR_K,
+                       launches["ip_topk"])
+    del lib_ids
+    art = out["engine"].artifact
+    codes, proj_q = art.serving_codes()
+    ucodes = ops.srp_hash(u[:out["batch_size"]].contiguous(), proj_q)
+    ham_entry = dense_at("serve_retrieval", ucodes, codes,
+                         launches["hamming_scores"])
+    del out, u, cand, art, codes, ucodes
+    torch.cuda.empty_cache()
+    mark("serve_retrieval")
+
+    # -- the LM trainer with a crash and a resume ---------------------------
+    figures["train_lm"] = ex_train_lm(seed, dev)
+    mark("train_lm")
+
+    peak = torch.cuda.max_memory_allocated()
+    print(f"examples phase: {time.perf_counter() - t_start:.1f} s host "
+          f"({parts}), peak device memory {peak / 2**30:.2f} GiB")
+    return {"peak_before": peak_before, "peak": peak, "parts": parts,
+            "figures": figures,
+            "ip_topk": {**rr_entry, **sr_entry}, "dense": ham_entry}
+
+
+class _Window(Exception):
+    """Ends a timed window of a reverse query's host loop."""
+
+
+def ex_multitenant(seed: int, dev, eng, items, users, queries) -> dict:
+    """serve_multitenant's ``run`` at the Netflix scale over ``queries`` at
+    k = EX_MT_K from both tenants, without the blitz probes (its checks;
+    traces_after_warmup 0 after live traffic; each prod ticket's users to
+    scan, chunks and seconds), then the first EX_MT_PROBE_CHUNKS chunks of
+    its first blitz probe through the f32 engine ``eng``'s host loop at
+    the example's chunk, timed, beside the probes' users to scan. Returns
+    its figures."""
+    import torch
+    from repro_torch.core import sah
+    from repro_torch.examples import serve_multitenant as mt
+    gen = torch.Generator().manual_seed(seed)
+    out, launches = counted_run("serve_multitenant", lambda: mt.run(
+        items, users, queries, items[:0], k=EX_MT_K, generator=gen,
+        device=dev))
+    if out["traces_after_warmup"] != 0 or out["traces_after_warmup_0"]:
+        fail(f"serve_multitenant: traces_after_warmup "
+             f"{out['traces_after_warmup']} after live traffic")
+    launches_only("serve_multitenant", launches,
+                  {"srp_hash": True, "hamming_nearest": True})
+    lat, scan = out["prod_latency_ms"], out["prod_scan"]
+    print(f"examples serve_multitenant: {out['tickets']} tickets, "
+          f"{out['n_truncated']} truncated (trial), traces_after_warmup 0 "
+          f"after live traffic; prod tickets (users to scan, chunks of "
+          f"their dispatch, ms): "
+          f"{[(n, c, round(t)) for (n, c), t in zip(scan, lat)]}")
+
+    # -- a blitz probe's scan, timed over a window of its chunks ---------
+    cfg = eng.config
+    probes = mt.blitz_probes(items)
+    plan = sah.rkmips_plan(eng.index, probes, EX_MT_K, tie_eps=cfg.tie_eps)
+    lanes = plan.n_scan.tolist()
+    one = sah.rkmips_plan(eng.index, probes[:1], EX_MT_K,
+                          tie_eps=cfg.tie_eps)
+
+    def each(counts):
+        if counts["chunks"] == EX_MT_PROBE_CHUNKS:
+            raise _Window
+
+    counts, restore = chunk_counter(each)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        sah.rkmips_execute(eng.index, one, EX_MT_K, n_cand=cfg.n_cand,
+                           scan=cfg.scan, chunk=mt.CHUNK,
+                           scan_precision=cfg.scan_precision)
+    except _Window:
+        pass
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    per = secs / max(counts["chunks"], 1)
+    need = -(-lanes[0] // mt.CHUNK)
+    print(f"examples serve_multitenant: the reference's {mt.BLITZ} blitz "
+          f"probes leave {lanes} users to scan at k={EX_MT_K}, not served "
+          f"here; probe 0's first {counts['chunks']} of its {need} chunks "
+          f"of {mt.CHUNK} ({counts['tile_steps']} tile steps) took "
+          f"{secs:.3f} s, {per * 1e3:.3f} ms a chunk: the whole probe "
+          f"~{need * per:.1f} s at that rate")
+    return {"truncated": out["n_truncated"], "prod_latency_ms": lat,
+            "prod_scan": scan, "probe_lanes": lanes,
+            "probe_window": {**counts, "seconds": secs},
+            "probe_chunks": need, "launches": launches}
+
+
+def ex_train_lm(seed: int, dev) -> dict:
+    """train_lm's ``run`` on ``100m`` under deterministic algorithms: once
+    whole, once crashed at EX_LM_FAIL_AT and resumed from its checkpoint
+    (every parameter and optimizer state tensor bit for bit the whole
+    run's, the resumed losses the whole run's; the loss falls; no kernel).
+    Returns its figures."""
+    import shutil
+    import torch
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.examples import train_lm
+    cfg = train_lm.MODELS["100m"]
+    ck = ROOT / "build" / "example_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    kw = dict(steps=EX_LM_STEPS, batch=8, seq=256,
+              ckpt_every=EX_LM_CKPT_EVERY, seed=seed, device=dev)
+    whole, launches = counted_run("train_lm", lambda: deterministic(
+        lambda: train_lm.run(cfg, **kw)))
+    final = {n: p.detach().clone()
+             for n, p in whole["model"].named_parameters()}
+    final_opt = [t.clone() for t in tree_leaves(whole["state"].opt_state)]
+    losses = whole["losses"]
+    del whole
+    try:
+        deterministic(lambda: train_lm.run(cfg, ckpt_dir=str(ck),
+                                           fail_at=EX_LM_FAIL_AT, **kw))
+        fail("train_lm: the simulated failure did not happen")
+    except RuntimeError as e:
+        if "simulated worker failure" not in str(e):
+            raise
+    resumed, launches_r = counted_run("train_lm resumed", lambda: (
+        deterministic(lambda: train_lm.run(cfg, ckpt_dir=str(ck), **kw))))
+    shutil.rmtree(ck, ignore_errors=True)
+    launches_only("train_lm", launches, {})
+    launches_only("train_lm resumed", launches_r, {})
+    if not losses[-1] < losses[0]:
+        fail(f"train_lm: the loss did not fall ({losses[0]} -> "
+             f"{losses[-1]})")
+    differ = [n for n, p in resumed["model"].named_parameters()
+              if not torch.equal(p, final[n])]
+    opt_leaves = tree_leaves(resumed["state"].opt_state)
+    opt_differ = len(opt_leaves) != len(final_opt) or not all(
+        torch.equal(a, b) for a, b in zip(opt_leaves, final_opt))
+    since = resumed["resumed_from"]
+    if since is None or differ or opt_differ \
+            or resumed["losses"] != losses[since:]:
+        fail(f"train_lm: the resumed run differs from the uninterrupted "
+             f"one in {len(differ)} parameters ({differ[:3]}), its "
+             f"optimizer state differs: {opt_differ}")
+    print(f"examples train_lm 100m: {cfg.n_params / 1e6:.1f}M parameters, "
+          f"losses {losses[0]:.4f} -> {losses[-1]:.4f} over {EX_LM_STEPS} "
+          f"steps; crashed at {EX_LM_FAIL_AT}, resumed from step {since}: "
+          f"all {len(final)} parameters and {len(final_opt)} optimizer "
+          f"state tensors bit for bit the uninterrupted run's; no kernel "
+          f"launched")
+    del resumed, final, final_opt
+    torch.cuda.empty_cache()
+    return {"first_loss": losses[0], "last_loss": losses[-1]}
+
+
+def topk_at(prefix: str, q, items, k: int, launched: int) -> dict:
+    """``ip_topk`` at a shape an example gave it: the merged answer and
+    the kernel's per-split lists against their plain versions (one query
+    at a time: the plain product of all of them would not fit), then
+    timed beside its plain version and the library call."""
+    import torch
+    from repro_torch.kernels import ip_topk, ops, ref
+
+    def plain(fn, *args):
+        outs = [fn(q[i:i + 1], items, *args) for i in range(q.shape[0])]
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+
+    vals, ids = ops.ip_topk(q, items, k)
+    pv, pi = plain(ref.ip_topk, k)
+    if not torch.equal(ids, pi):
+        fail(f"ip_topk at the {prefix} shape: {int((ids != pi).sum())} ids "
+             f"differ from its plain version")
+    err = float((vals - pv).abs().max())
+    if err != 0.0:
+        fail(f"ip_topk at the {prefix} shape: values differ from its plain "
+             f"version by {err}")
+    raw_v, raw_i = ip_topk.ip_topk_tiles(q, items, k)
+    splits = raw_v.shape[1]
+    part_v, part_i = plain(ref.ip_topk_partials, k, splits)
+    if not (torch.equal(raw_i, part_i) and torch.equal(raw_v, part_v)):
+        fail(f"ip_topk at the {prefix} shape: the kernel's per-split lists "
+             f"differ from ref.ip_topk_partials")
+    (nq, d), n = q.shape, items.shape[0]
+    t = {"ms": device_ms(lambda: ops.ip_topk(q, items, k), 20),
+         "kernel_only_ms": device_ms(
+             lambda: ip_topk.ip_topk_tiles(q, items, k), 20),
+         "plain_ms": device_ms(lambda: plain(ref.ip_topk, k), 1, replays=2),
+         "library_ms": device_ms(
+             lambda: torch.topk(torch.matmul(q, items.T), k), 20),
+         "call_ms": call_ms(lambda: ops.ip_topk(q, items, k), 20)}
+    t["bound_ms"], t["bound_by"] = bound(4 * (nq + n) * d + 8 * nq * k,
+                                         2 * nq * n * d / FP32_FLOP_PER_S)
+    shape = f"{(nq, d)}x{(n, d)}, k {k}"
+    print(f"check ip_topk at the {prefix} shape {shape}: ids exact, values "
+          f"bitwise, its {splits} per-split lists equal "
+          f"ref.ip_topk_partials; time " + ", ".join(
+              f"{key} {val:.6f}" if isinstance(val, float) else
+              f"{key} {val}" for key, val in t.items()))
+    out = {f"{prefix}_{key}": val for key, val in t.items()}
+    out.update({f"{prefix}_launches": launched, f"{prefix}_shape": shape,
+                f"{prefix}_max_abs_err": err, f"{prefix}_splits": splits,
+                f"{prefix}_library_call":
+                    f"torch.topk(torch.matmul(q, items.T), {k}), two calls"})
+    return out
+
+
+def dense_at(prefix: str, ucodes, codes, launched: int) -> dict:
+    """The dense ``hamming_scores`` at a serving dispatch's shape, bitwise
+    against its plain version, and timed."""
+    from repro_torch.kernels import ops, ref
+    err = codes_equal(f"hamming_scores at the {prefix} shape",
+                      ops.hamming_scores(ucodes, codes),
+                      ref.hamming_scores(ucodes, codes))
+    (c, w), n = ucodes.shape, codes.shape[0]
+    t = {"ms": device_ms(lambda: ops.hamming_scores(ucodes, codes), ITERS),
+         "plain_ms": device_ms(lambda: ref.hamming_scores(ucodes, codes), 20),
+         "call_ms": call_ms(lambda: ops.hamming_scores(ucodes, codes),
+                            ITERS)}
+    t["bound_ms"], t["bound_by"] = bound(4 * (c * w + n * w + c * n),
+                                         3 * c * n * w / INT32_OP_PER_S)
+    shape = f"{(c, w)}x{(n, w)}"
+    print(f"check hamming_scores (dense) at the {prefix} shape {shape}: "
+          f"exact; time " + ", ".join(f"{key} {val:.6f}" if isinstance(
+              val, float) else f"{key} {val}" for key, val in t.items()))
+    out = {f"{prefix}_{key}": val for key, val in t.items()}
+    out.update({f"{prefix}_launches": launched, f"{prefix}_shape": shape,
+                f"{prefix}_max_abs_err": err})
+    return out
+
+
+def srp_at(prefix: str, rows, proj, index_codes, launched: int,
+           live=None) -> dict:
+    """``srp_hash`` at a forward build's shape, bit for bit against its
+    plain version and, in the rows ``live`` marks (all by default), the
+    built index's codes, and timed."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    codes = ops.srp_hash(rows, proj)
+    if live is None:
+        live = torch.ones(rows.shape[0], dtype=torch.bool, device=rows.device)
+    if not torch.equal(codes[live], index_codes[live]):
+        fail(f"srp_hash at the {prefix} build shape is not deterministic "
+             f"against the built index's codes")
+    err = codes_equal(f"srp_hash at the {prefix} build shape", codes,
+                      ref.srp_hash(rows, proj))
+    (n, d), b = rows.shape, proj.shape[1]
+    t = {"ms": device_ms(lambda: ops.srp_hash(rows, proj), 20),
+         "plain_ms": device_ms(lambda: ref.srp_hash(rows, proj), 1,
+                               replays=1)}
+    t["bound_ms"], t["bound_by"] = bound(4 * (n * d + d * b + n * b // 32),
+                                         2 * n * d * b / FP32_FLOP_PER_S)
+    t["no_fma_floor_ms"] = 2 * n * d * b / FP32_INSTR_PER_S * 1e3
+    shape = f"{(n, d)}x{(d, b)}"
+    print(f"check srp_hash at the {prefix} build shape {shape}: bit for "
+          f"bit; time " + ", ".join(f"{key} {val:.6f}" if isinstance(
+              val, float) else f"{key} {val}" for key, val in t.items()))
+    out = {f"{prefix}_build_{key}": val for key, val in t.items()}
+    out.update({f"{prefix}_build_launches": launched,
+                f"{prefix}_build_shape": shape,
+                f"{prefix}_build_max_abs_err": err})
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -5446,7 +5968,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import RkMIPSEngine, get_config
-    from repro_torch.core import exact, metrics, sa_alsh, sah
+    from repro_torch.core import metrics, sa_alsh, sah
     from repro_torch.data import synthetic
     from repro_torch.kernels import _build, ip_topk, ops, ref
 
@@ -5524,19 +6046,15 @@ def main() -> int:
         if pred.shape != (NQ, ds.m_users) or pred.dtype != torch.bool:
             fail(f"predictions have shape {tuple(pred.shape)} {pred.dtype}")
         truth = eng.oracle(queries, k)
-        missed = torch.nonzero(truth & ~pred).tolist()
-        ties = sum(exact.float_tie(items, users_unit[u], queries[q], k,
-                                   cfg.tie_eps) for q, u in missed[:1000])
-        if len(missed) > 1000 or ties != len(missed):
-            fail(f"k={k}: {len(missed) - ties} missed users are not float "
-                 f"ties")
+        missed = traced_misses(f"k={k}", items, users_unit, queries, pred,
+                               truth, k, cfg.tie_eps)
         rec = metrics.recall(pred, truth)
         f1 = metrics.f1_score(pred, truth)
         print(f"oracle k={k}: recall min {float(rec.min()):.6f} mean "
               f"{float(rec.mean()):.6f}; F1 mean {float(f1.mean()):.4f} "
               f"min {float(f1.min()):.4f}; audience {int(truth.sum())} true "
-              f"/ {int(pred.sum())} predicted; misses {len(missed)} "
-              f"(all float ties: {ties})")
+              f"/ {int(pred.sum())} predicted; misses {missed} "
+              f"(all float ties: {missed})")
 
     phase_done("oracle")
 
@@ -5685,6 +6203,10 @@ def main() -> int:
     serve_out = serving_path(args.seed, eng, queries, users_fwd, exact_ids,
                              items, results)
     phase_done("serving")
+
+    # -- the example twins through their run(), counted -------------------
+    ex_out = examples_path(args.seed, dev, eng, items, users, queries)
+    phase_done("examples")
 
     # the single-device phases' answers that the model-parallel phase holds
     # its ranks against (~6 GB with the training's gradients: beside the
@@ -5955,8 +6477,8 @@ def main() -> int:
     qwen_tp_entry["row_parallel"] = row_parallel_times(
         lm["model"], lm["prompts"], MP_TP)
     phase_done("kernel times")
-    profile_query(eng, queries, 10, steps[10])
-    profile_query(eng8, queries, 10, steps[10])
+    profile_query(eng, queries, 10)
+    profile_query(eng8, queries, 10)
     phase_done("profiles")
 
     # -- the cell catalogue through the dry run, counted -----------------
@@ -5972,6 +6494,7 @@ def main() -> int:
                nemo_out["peak_before"], nemo_out["peak"],
                serve_out["peak_before"], rec_out["peak_before"],
                rec_out["peak"], train_out["peak_before"], train_out["peak"],
+               ex_out["peak_before"], ex_out["peak"],
                torch.cuda.max_memory_allocated())
     print(f"peak device memory: {peak / 2**30:.2f} GiB")
 
@@ -6063,7 +6586,7 @@ def main() -> int:
              "max_abs_err": ham_err, "ms": ham_ms, "plain_ms": ham_plain,
              "bound_ms": ham_bound, "bound_by": ham_by, "call_ms": ham_call,
              "library_ms": None, **serve_out["dense"],
-             **rec_out["dense"]}},
+             **rec_out["dense"], **ex_out["dense"]}},
         {"name": "fused_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_scan.cu",
          "replaces": "src/repro/kernels/fused_scan.py:113",
@@ -6086,7 +6609,7 @@ def main() -> int:
          "kernel_only_ms": ipk_pass, "no_fma_floor_ms": ipk_floor,
          "splits": splits, "call_ms": ipk_call,
          "shape": f"{tuple(users_fwd.shape)}x{tuple(items.shape)}, k "
-                  f"{K_FWD}", **rec_out["ip_topk"]},
+                  f"{K_FWD}", **rec_out["ip_topk"], **ex_out["ip_topk"]},
         flash_entry, moe_out["entry"], nemo_out["entry"],
         cells_out["flash"], qwen_tp_entry, moe_out["tp_entry"],
     ]

@@ -1,5 +1,5 @@
-"""Exact (brute-force) RkMIPS oracle, and the float-tie test its
-comparisons need.
+"""Exact (brute-force) kMIPS and RkMIPS oracles, and the float-tie test
+their comparisons need.
 
 Port of ``src/repro/core/exact.py``. Convention shared by every method:
 q is in the kMIPS result of u over P u {q} iff
@@ -10,8 +10,32 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import ref as _ref
+
 # Elements of (nq, users, items) compared per step of the chunked oracle.
 _ORACLE_BLOCK = 1 << 27
+
+
+def kmips(items: torch.Tensor, queries: torch.Tensor, k: int
+          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k MIPS: items (n, d), queries (q, d) -> (values, int64
+    indices), each (q, k), the lower index first among equal values (as
+    ``lax.top_k`` breaks ties). One product and a stable top-k: the
+    reference's oracle, off the kernels as the reference's is off
+    Pallas."""
+    return _ref.topk_stable(queries @ items.T, k)
+
+
+def rkmips_decision(items: torch.Tensor, users: torch.Tensor,
+                    query: torch.Tensor, k: int,
+                    tie_eps: float = 0.0) -> torch.Tensor:
+    """Exact RkMIPS for one query -> bool (m,): q is in kMIPS_k(u, P u
+    {q}). Items beat tau only when ip > tau + tie_eps * ||q|| (the strict
+    rule at tie_eps = 0)."""
+    eps = tie_eps * torch.linalg.norm(query)
+    tau = users @ query
+    beat = ((users @ items.T) > (tau + eps)[:, None]).sum(dim=-1)
+    return beat <= k - 1
 
 
 def rkmips_batch(items: torch.Tensor, users: torch.Tensor,

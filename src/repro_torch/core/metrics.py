@@ -1,5 +1,5 @@
-"""Accuracy metrics for RkMIPS results (port of
-``src/repro/core/metrics.py:8-29``)."""
+"""Accuracy metrics for RkMIPS and kMIPS results (port of
+``src/repro/core/metrics.py``)."""
 
 from __future__ import annotations
 
@@ -29,3 +29,16 @@ def recall(pred: torch.Tensor, truth: torch.Tensor) -> torch.Tensor:
     tp = (pred & truth).sum(dim=-1).to(torch.float32)
     nt = truth.sum(dim=-1).to(torch.float32)
     return torch.where(nt > 0, tp / torch.clamp(nt, min=1.0), 1.0)
+
+
+def recall_at_k(pred_idx: torch.Tensor, true_idx: torch.Tensor
+                ) -> torch.Tensor:
+    """Set recall of predicted top-k ids against the true top-k ids, per
+    row: (..., k) and (..., k) -> (...,) float32 in [0, 1]. The hit count
+    is multiplied by the float32 reciprocal of k, as the reference's mean
+    is computed, so the two agree bit for bit (9 * (1/10) is not 9 / 10
+    in float32)."""
+    hits = (pred_idx[..., :, None] == true_idx[..., None, :]).any(dim=-1)
+    k = hits.shape[-1]
+    return hits.to(torch.float32).sum(dim=-1) * torch.tensor(
+        1.0 / k, dtype=torch.float32)

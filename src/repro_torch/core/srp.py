@@ -35,6 +35,14 @@ def pack_signs(signs: torch.Tensor) -> torch.Tensor:
     return _ref.pack_signs(signs)
 
 
+def srp_codes(x: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
+    """SRP codes of the rows of x (n, dim) under proj (dim, B) -> int32
+    (n, B // 32): the reference's ``pack_signs(x @ proj >= 0)``, one
+    product and the plain packing (the build's codes go through the
+    ``srp_hash`` kernel instead)."""
+    return pack_signs(x @ proj >= 0.0)
+
+
 def hamming_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """All-pairs Hamming distance: (na, W) x (nb, W) int32 -> (na, nb)."""
     return _ref.hamming_scores(a, b)
