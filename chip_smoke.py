@@ -25,8 +25,10 @@ d = 100, synthetic MF-like factors from ``--seed``):
                 items), under the "sah" and the "exact" presets, and the
                 exact answer from ``ops.ip_topk``;
   mesh          gloo worlds of 2 and 3 ranks, every rank a process on the
-                one card (``torch.multiprocessing.spawn``, a ``file://``
-                rendezvous, the kernels this process built): each rank
+                one card (``spawn_worlds``, a ``file://`` rendezvous, the
+                kernels this process built), run late, beside the
+                model-parallel worlds (below; this process saves their
+                answers here, ``mesh_answers``). Each rank
                 rebuilds the index from ``--seed`` under a 1-D
                 ``DeviceMesh`` (the row-parallel build stages), answers the
                 16 queries at k = 10 in f32 and int8 on its shard of the
@@ -188,8 +190,9 @@ d = 100, synthetic MF-like factors from ``--seed``):
                 width, nothing dropped, against one device by the same
                 rules. Its times are of ranks that share one card: not a
                 multi-GPU speed;
-  mesh cells    then, in the (1, 2) world, the cells under a mesh through
-                ``cells.build_cell(..., mesh=)`` and ``materialize``: (a)
+  mesh cells    in a (1, 2) world of their own, the cells under a mesh
+                through ``cells.build_cell(..., mesh=)`` and
+                ``materialize``: (a)
                 ``qwen3_zero1``, qwen3-0.6b ``train_4k`` at full width cut
                 to 8 layers and 2 sequences (one a rank), ZeRO-1 over
                 both ranks, 2 steps of clip + Adafactor against one
@@ -223,6 +226,21 @@ d = 100, synthetic MF-like factors from ``--seed``):
                 seq 32,768 against its plain version at the cell's
                 shape, one (batch, head) pair at a time, and timed
                 beside SDPA.
+
+The gloo worlds run side by side, after the single-device phases, the
+kernel times and the profiles, with no other work on the card
+(``worlds_path``), and a memory reckoning decides when each starts
+(``spawn_worlds``): in the order model-parallel (1, 2) and (2, 2), the
+mesh cells' (1, 2), then the mesh worlds of 2 and 3 ranks, a world
+starts as soon as its ranks' peaks (``WORLD_PEAK``, each rank's
+allocator capped there), a CUDA context a rank and what this process
+holds fit 80 GiB less 8 beside the worlds alive. Each start prints its
+reckoning, and each rank's measured peak is printed beside its cap. The
+mesh dry runs run beside them on the host. Each rank takes its share of
+the host's cores as torch threads. A failing rank ends every rank of
+every world and fails the smoke. The worlds' seconds and ms are taken
+side by side. A line ``phase <name>: <s> s, <total> s since start``
+ends each phase as it ends (stdout is line-buffered).
 
 It
 
@@ -322,6 +340,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import os
 import statistics
@@ -2173,6 +2192,170 @@ def nemo_path(seed: int, dev) -> dict:
     return out
 
 
+# -- gloo worlds side by side ------------------------------------------------
+
+GIB = 2 ** 30
+# the most one rank of each world may reserve on the card: its allocator's
+# cap (``_world_rank``), a quarter GiB above the largest rank's
+# max_memory_allocated in runs on an H100 80GB HBM3, given beside it
+# ((1, 2)'s before the cells and the cells' after them, from runs that
+# held both in one world)
+WORLD_PEAK = {"mp (1, 2)": 11.2 * GIB,           # 10.96 GiB allocated
+              "mp (2, 2)": 8.4 * GIB,            # 8.10, and 8.14 alone
+              "mesh cells (1, 2)": 15.1 * GIB,   # 14.85
+              "mesh 2": 3.4 * GIB,               # 3.13
+              "mesh 3": 4.9 * GIB}               # 4.64
+# the ranks' allocator: segments that grow in place and give back free
+# pages, so a capped rank reserves little more than it allocates
+RANK_ALLOC_CONF = "expandable_segments:True"
+
+
+@dataclasses.dataclass
+class World:
+    """One gloo world of ``spawn_worlds``: ``fn(rank, workdir, *args)`` in
+    each of ``nprocs`` processes, each writing its record to
+    ``rank<r>.json`` in ``workdir`` (the world's own directory, which also
+    holds its ``file://`` rendezvous). ``peak``: the most bytes one rank
+    may reserve on the card (0: not capped)."""
+    name: str
+    fn: object
+    nprocs: int
+    args: tuple = ()
+    peak: float = 0
+
+
+def reckon(worlds: list, held: int, context: int) -> int:
+    """The card's memory while ``worlds`` run: each rank's peak and one
+    CUDA context, and what this process holds (its own context
+    included)."""
+    return held + sum(w.nprocs * (w.peak + context) for w in worlds)
+
+
+def reckoning_line(starting: World, alive: list, held: int, context: int,
+                   budget: int) -> str:
+    """The line a start prints: ``reckon`` of ``starting`` beside
+    ``alive``, its parts and the budget."""
+    worlds = alive + [starting]
+    parts = " + ".join(f"{w.name} {w.nprocs} x {w.peak / GIB:.2f}"
+                       for w in worlds)
+    return (f"memory reckoning, starting {starting.name!r} beside "
+            f"{[w.name for w in alive]}: rank peaks {parts} GiB, "
+            f"{sum(w.nprocs for w in worlds)} contexts x "
+            f"{context / GIB:.2f} GiB, this process {held / GIB:.2f} GiB: "
+            f"{reckon(worlds, held, context) / GIB:.2f} GiB of a budget of "
+            f"{budget / GIB:.2f} GiB")
+
+
+def _world_rank(rank: int, fn, threads: int, peak: float, workdir: str,
+                args: tuple) -> None:
+    """A rank of ``spawn_worlds``: its share of the cores and, on the
+    card, its allocator capped at ``peak`` bytes; then ``fn``."""
+    import torch
+    torch.set_num_threads(threads)
+    if peak and torch.cuda.is_available():
+        total = torch.cuda.get_device_properties(0).total_memory
+        torch.cuda.set_per_process_memory_fraction(min(1.0, peak / total),
+                                                   0)
+    fn(rank, workdir, *args)
+
+
+def start_world(w: World, threads: int, wdir: str):
+    """``w``'s ranks, started (``torch.multiprocessing.start_processes``,
+    spawned with ``RANK_ALLOC_CONF`` in their environment); returns the
+    context."""
+    import torch.multiprocessing as mp
+    prior = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = RANK_ALLOC_CONF
+    try:
+        return mp.start_processes(
+            _world_rank, args=(w.fn, threads, w.peak, wdir, w.args),
+            nprocs=w.nprocs, join=False, start_method="spawn")
+    finally:
+        if prior is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = prior
+
+
+def spawn_worlds(worlds: list, root: str, held: int, context: int,
+                 budget: int, watch=None) -> dict:
+    """Run gloo worlds side by side, each in its own ``torch.
+    multiprocessing.start_processes`` context and directory under
+    ``root``. The memory reckoning decides the schedule: a world starts,
+    in list order, as soon as ``reckon`` of it and the worlds alive (at
+    ``held`` bytes for this process and ``context`` a process) fits
+    ``budget``; the line of each start shows its reckoning, and a world
+    that does not fit even alone fails the smoke. Each rank takes its
+    share of this process's cores as torch threads, ``RANK_ALLOC_CONF``
+    as its allocator's settings and its world's ``peak`` as its cap.
+    ``watch()`` runs about every 0.2 s while a world runs. If any rank
+    raises or dies, every rank of every world is terminated and waited
+    for, and the smoke fails naming the world. Returns {name: {"ranks":
+    the ranks' records, "s": the world's wall seconds}}."""
+    import torch.multiprocessing as mp
+    from multiprocessing.connection import wait
+    for w in worlds:
+        if reckon([w], held, context) > budget:
+            fail(reckoning_line(w, [], held, context, budget)
+                 + ": past the budget even alone")
+    cores = len(os.sched_getaffinity(0))
+    pending, running, out = list(worlds), {}, {}
+    try:
+        while pending or running:
+            starting = []
+            for w in list(pending):
+                alive = [r[0] for r in running.values()] + starting
+                if reckon(alive + [w], held, context) <= budget:
+                    print(reckoning_line(w, alive, held, context, budget))
+                    pending.remove(w)
+                    starting.append(w)
+            if starting:
+                threads = max(1, cores // sum(
+                    w.nprocs for w in starting + [r[0] for r in
+                                                  running.values()]))
+                print(f"starting {[w.name for w in starting]}: {threads} "
+                      f"torch threads a rank ({cores} cores)")
+            for w in starting:
+                wdir = os.path.join(root, f"world{len(out) + len(running)}")
+                os.makedirs(wdir)
+                running[w.name] = (w, start_world(w, threads, wdir), wdir,
+                                   time.perf_counter())
+            wait([s for _, ctx, _, _ in running.values()
+                  for s in ctx.sentinels], timeout=0.2)
+            if watch is not None:
+                watch()
+            for name, (w, ctx, wdir, t0) in list(running.items()):
+                try:
+                    done = ctx.join(timeout=0)
+                except (mp.ProcessRaisedException,
+                        mp.ProcessExitedException) as exc:
+                    fail(f"world {name}: {exc}")
+                if not done:
+                    continue
+                del running[name]
+                ranks = []
+                for r in range(w.nprocs):
+                    path = os.path.join(wdir, f"rank{r}.json")
+                    if not os.path.exists(path):
+                        fail(f"world {name}: rank {r} ended without its "
+                             f"record")
+                    with open(path) as fh:
+                        ranks.append(json.load(fh))
+                out[name] = {"ranks": ranks, "s": time.perf_counter() - t0}
+    finally:
+        procs = [p for _, ctx, _, _ in running.values()
+                 for p in ctx.processes]
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+        for p in procs:
+            p.join(10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return out
+
+
 # -- the model-parallel phase ----------------------------------------------
 
 MP_WORLDS = ((1, 2), (2, 2))   # ("data", "model") gloo worlds on cuda:0
@@ -2196,8 +2379,8 @@ MP_EP_GRAD_TOL = 2.0 ** -7
 # a model-parallel gradient leaf's max distance to float32 over one
 # device's bf16 one (``grad_close``; mean and RMS stay at 1.25x)
 MP_GRAD_MAX_RATIO = 1.5
-MP_LABEL = ("ranks share one card; collectives staged through the host: "
-            "not a multi-GPU speed")
+MP_LABEL = ("ranks share one card, beside the other worlds' ranks; "
+            "collectives staged through the host: not a multi-GPU speed")
 
 
 def mp_file(mp_dir: str, name: str) -> str:
@@ -3277,11 +3460,12 @@ def mp_two_tower(mesh, seed: int, mp_dir: str, dev) -> dict:
     return out
 
 
-def mp_rank(rank: int, shape: tuple, seed: int, workdir: str,
-            mp_dir: str) -> None:
-    """One rank of a model-parallel world (``torch.multiprocessing.
-    spawn``): gloo over CUDA tensors, every rank on cuda:0, a ("data",
-    "model") ``DeviceMesh`` of ``shape``. Runs qwen3-0.6b (TP/SP prefill,
+def mp_rank(rank: int, workdir: str, shape: tuple, seed: int,
+            mp_dir: str, cells: bool = False) -> None:
+    """One rank of a model-parallel world (``spawn_worlds``): gloo over
+    CUDA tensors, every rank on cuda:0, a ("data", "model")
+    ``DeviceMesh`` of ``shape``. With ``cells``, runs the cells under a
+    mesh (``mp_cells``) alone. Otherwise runs qwen3-0.6b (TP/SP prefill,
     split-KV decode), olmoe-1b-7b's expert parallelism (on MP_MOE_WORLD;
     layer 0's backward too) and two-tower retrieval over row-sharded
     tables, then the training: qwen3-0.6b's train step, steps and
@@ -3289,7 +3473,8 @@ def mp_rank(rank: int, shape: tuple, seed: int, workdir: str,
     where "data" has two ranks) and olmoe's EP train step (on
     MP_MOE_WORLD), each held against the answers the single-device phases
     saved in ``mp_dir``; writes what it saw to ``rank<r>.json`` in
-    ``workdir``. A mismatch raises, and the spawn fails the smoke."""
+    ``workdir``. A mismatch raises, and ``spawn_worlds`` fails the
+    smoke."""
     import datetime
     import math
     import torch
@@ -3305,7 +3490,10 @@ def mp_rank(rank: int, shape: tuple, seed: int, workdir: str,
                                 mesh_dim_names=("data", "model"))
         dev = torch.device("cuda", 0)
         out = {"rank": rank, "coord": mesh.get_coordinate()}
-        for part in (mp_qwen3, mp_olmoe, mp_two_tower):
+        serving = () if cells else (mp_qwen3, mp_olmoe, mp_two_tower)
+        training = () if cells else ((mp_train_qwen3, (workdir,)),
+                                     (mp_train_olmoe, ()))
+        for part in serving:
             if part is mp_olmoe and tuple(shape) != MP_MOE_WORLD:
                 continue
             dist.barrier()
@@ -3313,29 +3501,28 @@ def mp_rank(rank: int, shape: tuple, seed: int, workdir: str,
             out.update(part(mesh, seed, mp_dir, dev))
             out[f"{part.__name__}_s"] = time.perf_counter() - t0
         # training, after the serving checks, in the same world
-        for part, args in ((mp_train_qwen3, (workdir,)),
-                           (mp_train_olmoe, ())):
+        for part, args in training:
             if part is mp_train_olmoe and tuple(shape) != MP_MOE_WORLD:
                 continue
             dist.barrier()
             t0 = time.perf_counter()
             out.update(part(mesh, seed, mp_dir, dev, *args))
             out[f"{part.__name__}_s"] = time.perf_counter() - t0
-        # the cells under a mesh, after the training, in MC_WORLD
-        if tuple(shape) == MC_WORLD:
+        if cells:
             t0 = time.perf_counter()
             out.update(mp_cells(mesh, seed, mp_dir, dev))
             out["mp_cells_s"] = time.perf_counter() - t0
         out["peak"] = torch.cuda.max_memory_allocated()
+        out["reserved"] = torch.cuda.max_memory_reserved()
         with open(os.path.join(workdir, f"rank{rank}.json"), "w") as fh:
             json.dump(out, fh)
     finally:
         dist.destroy_process_group()
 
 
-# -- the cells under a mesh (run in the (1, 2) world) -----------------------
+# -- the cells under a mesh (run in a (1, 2) world of their own) ------------
 
-MC_WORLD = (1, 2)        # the world of MP_WORLDS the mesh cells run in
+MC_WORLD = (1, 2)        # the shape of the mesh cells' world
 ZERO1_CUT = {"n_layers": 8, "global_batch": 2}   # qwen3_zero1 on 2 ranks
 ZERO1_STEPS = 2
 ZERO1_HELD = ("blocks.0.wq", "blocks.0.w_out", "blocks.0.ln1",
@@ -3804,9 +3991,25 @@ def mp_train_lines(shape, ranks: list, each) -> None:
               f"{[round(r['mt_peak'] / 2**30, 2) for r in ranks]} GiB")
 
 
-def mc_lines(shape, ranks: list, each) -> None:
-    """The mesh cells' lines of one world (a)-(d)."""
+def rank_values(ranks: list):
+    """``each(key, nd=3)``: ``key`` of every rank's record, a float
+    rounded to ``nd`` places."""
+    def each(key, nd=3):
+        return [round(r[key], nd) if isinstance(r[key], float)
+                else r[key] for r in ranks]
+    return each
+
+
+def mc_lines(shape, ranks: list, wall: float) -> None:
+    """The mesh cells' lines of their world (a)-(d): its ranks' records
+    (``mp_rank`` with ``cells``) and its wall seconds beside the other
+    worlds."""
+    each = rank_values(ranks)
     lead = ranks[0]
+    print(f"mesh cells world={shape} (\"data\", \"model\"): backend gloo, "
+          f"{len(ranks)} ranks on cuda:0, {wall:.1f} s in all ({MP_LABEL}); "
+          f"peak device memory a rank "
+          f"{[round(r['peak'] / GIB, 2) for r in ranks]} GiB")
     worst = max(lead["z1_errs"], key=lambda n: lead["z1_errs"][n]["max"]
                 / max(lead["z1_errs"][n]["sd_max"], 1e-30))
     e = lead["z1_errs"][worst]
@@ -3846,120 +4049,165 @@ def mc_lines(shape, ranks: list, each) -> None:
           f"{each('mp_cells_s', 1)} s a rank")
 
 
-def mp_path(seed: int, mp_dir: str) -> dict:
-    """The model-parallel phase: ``MP_WORLDS`` gloo worlds on the one card,
-    each rank held against the single-device phases' saved answers.
-    Returns each world's ranks' records and the launches a rank."""
-    import tempfile
+def mp_lines(shape: tuple, ranks: list, wall: float, moe_want) -> None:
+    """The model-parallel phase's lines of one world: its ranks' records
+    (``mp_rank``), its wall seconds beside the other worlds, and the MoE
+    phase's saved answers."""
+    world = len(ranks)
+    each = rank_values(ranks)
+    lead = ranks[0]
+    print(f"mp world={shape} (\"data\", \"model\"): backend gloo, {world} "
+          f"ranks on cuda:0, {wall:.1f} s in all ({MP_LABEL}); seconds "
+          f"a rank: qwen3 {each('mp_qwen3_s', 1)}, two-tower "
+          f"{each('mp_two_tower_s', 1)}"
+          + (f", olmoe {each('mp_olmoe_s', 1)}"
+             if shape == MP_MOE_WORLD else "")
+          + f", training {each('mp_train_qwen3_s', 1)}"
+          + (f", olmoe training {each('mp_train_olmoe_s', 1)}"
+             if shape == MP_MOE_WORLD else "")
+          + f"; peak device memory a rank "
+          f"{[round(r['peak'] / 2**30, 2) for r in ranks]} GiB")
+    pe, ce = lead["lm_prefill_err"], lead["lm_cache_err"]
+    print(f"  mp world={shape} qwen3-0.6b TP/SP prefill ({LM_BATCH} x "
+          f"{LM_PROMPT} tokens, {lead['lm_params']:,} parameters a "
+          f"rank): {each('lm_prefill_s')} s a rank (the first, cold), "
+          f"launches {lead['lm_prefill_launches']} a rank; last logits "
+          f"from the float32 model max {pe['max']:.6f} mean "
+          f"{pe['mean']:.6f} (single-device bf16 chunked "
+          f"{pe['sd_max']:.6f} and {pe['sd_mean']:.6f}, flash max "
+          f"{pe['sd_flash_max']:.6f}), from single-device chunked max "
+          f"{pe['vs_sd']:.6f} and flash {pe['vs_flash']:.6f}; greedy "
+          f"ties {each('lm_prefill_ties')}; "
+          f"cache layers {list(MP_CACHE_LAYERS)} gathered: k max "
+          f"{ce['k']['max']:.6f} v max {ce['v']['max']:.6f} from float32 "
+          f"(single-device {ce['k']['sd_max']:.6f}, "
+          f"{ce['v']['sd_max']:.6f}), from single-device bf16 k "
+          f"{ce['k']['vs_sd']:.6f} v {ce['v']['vs_sd']:.6f}")
+    for kind, steps in (("decode", LM_STEPS),
+                        ("long_ctx", MP_LONG_STEPS)):
+        e = lead[f"lm_{kind}_err"]
+        print(f"  mp world={shape} qwen3-0.6b split-KV decode, {kind} "
+              f"rules ({steps} steps fed the single-device tokens, KV "
+              f"sequence {lead[f'lm_{kind}_local_seq']} positions a "
+              f"rank): {each(f'lm_{kind}_ms')} ms/step a rank, no "
+              f"kernel; logits from float32 max {e['max']:.6f} mean "
+              f"{e['mean']:.6f} (single-device bf16 {e['sd_max']:.6f}, "
+              f"{e['sd_mean']:.6f}), from single-device bf16 max "
+              f"{e['vs_sd']:.6f}; greedy tokens equal the "
+              f"single-device ones but for {each(f'lm_{kind}_ties')} "
+              f"traced near-ties")
+    if shape == MP_MOE_WORLD:
+        drops = {}
+        for r in ranks:
+            for i, d, a in r["moe_drops"]:
+                got = drops.setdefault(i, [0, 0])
+                got[0] += d
+                got[1] += a
+        shares = [drops[i][0] / drops[i][1] for i in sorted(drops)]
+        total = (sum(d for d, _ in drops.values())
+                 / sum(a for _, a in drops.values()))
+        def layer(i, key):
+            return [round(r["moe_layers"][i][key], 6) for r in ranks]
+
+        print(f"  mp world={shape} olmoe-1b-7b expert parallelism "
+              f"({lead['moe_params']:,} parameters a rank, "
+              f"{lead['moe_experts'][0]} of {lead['moe_experts'][1]} "
+              f"experts): "
+              + "; ".join(
+                  f"layer {i} on the single-device layer's input: "
+                  f"dropped {layer(i, 'dropped')} = the per-shard "
+                  f"composition's {layer(i, 'want_dropped')} of "
+                  f"{layer(i, 'assigned')} at capacity "
+                  f"{lead['moe_layers'][i]['capacity']}, outputs max "
+                  f"abs err {layer(i, 'max_abs_err')}"
+                  for i in lead["moe_layers"])
+              + f" (within 2**-6 |ref| + 1e-3); EP prefill "
+              f"{each('moe_prefill_s')} s a rank, launches "
+              f"{lead['moe_prefill_launches']} a rank; dropped "
+              f"{total:.4%} of assignments (single device "
+              f"{moe_want['share']:.4%}), by layer "
+              + ", ".join(f"{x:.4%}" for x in shares)
+              + " (single device "
+              + ", ".join(f"{x:.4%}" for x in moe_want["shares"]) + ")")
+    mp_train_lines(shape, ranks, each)
+    print(f"  mp world={shape} two-tower retrieval ({RETR_REQUESTS} "
+          f"sketch requests, {lead['tt_candidates']:,} candidates, "
+          f"tables row-sharded: "
+          f"{lead['tt_table_rows']:,} user rows a rank): "
+          f"{each('tt_ms')} ms/request a rank, launches "
+          f"{lead['tt_launches']} a rank; item tower and user vectors "
+          f"bitwise the single-device towers; ids and values bitwise "
+          f"the single-device composition of the sharded scan (n_cand "
+          f"{RETR_N_CAND} a shard); {each('tt_same_as_one_device')} of "
+          f"{RETR_REQUESTS} requests have the single-device n_cand "
+          f"{RETR_N_CAND} answer")
+
+
+def worlds_path(seed: int, mp_dir: str, root: str, parent: str,
+                single: dict, budget: int) -> dict:
+    """The gloo worlds, side by side on the one card (``spawn_worlds``, in
+    the order model-parallel (1, 2) and (2, 2), the mesh cells' (1, 2),
+    then the mesh worlds of 2 and 3 ranks, each starting when the
+    reckoning lets it), each rank held against the answers this process
+    saved (``mp_dir``: the single-device phases'; ``parent`` and
+    ``single``: ``mesh_answers``'s file and figures). Every world runs
+    under ``root``, and each rank's measured peak is printed beside its
+    cap. Returns the model-parallel worlds' ranks by shape, the mesh
+    cells' ranks and the mesh phase's launches."""
     import torch
-    import torch.multiprocessing as mp
+    torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    held, reserved = total - free, torch.cuda.memory_reserved()
+    context = held - reserved
+    print(f"worlds: this process holds {held / GIB:.2f} GiB of the card's "
+          f"{total / GIB:.2f} GiB: {reserved / GIB:.2f} GiB reserved by its "
+          f"allocator ({torch.cuda.memory_allocated() / GIB:.2f} GiB "
+          f"allocated), {context / GIB:.2f} GiB besides: its CUDA "
+          f"context, the size each rank's is reckoned at; the worlds' "
+          f"seconds and ms below are taken side by side")
+    cells = f"mesh cells {MC_WORLD}"
+    worlds = [World(f"mp {shape}", mp_rank, shape[0] * shape[1],
+                    (shape, seed, mp_dir), WORLD_PEAK[f"mp {shape}"])
+              for shape in MP_WORLDS]
+    worlds.append(World(cells, mp_rank, MC_WORLD[0] * MC_WORLD[1],
+                        (MC_WORLD, seed, mp_dir, True), WORLD_PEAK[cells]))
+    worlds += [World(f"mesh {n}", mesh_rank, n, (n, seed, parent),
+                     WORLD_PEAK[f"mesh {n}"])
+               for n in MESH_WORLDS]
+    used = [0]
+
+    def watch():
+        f, t = torch.cuda.mem_get_info()
+        used[0] = max(used[0], t - f)
+
+    t0 = time.perf_counter()
+    out = spawn_worlds(worlds, root, held, context, budget, watch)
+    print(f"worlds: {time.perf_counter() - t0:.1f} s in all ("
+          + ", ".join(f"{w.name} {out[w.name]['s']:.1f} s" for w in worlds)
+          + f"); the card's used memory, sampled every 0.2 s, peaked at "
+          f"{used[0] / GIB:.2f} GiB (budget {budget / GIB:.2f} GiB)")
+    for w in worlds:
+        ranks = out[w.name]["ranks"]
+        got = [r["reserved"] for r in ranks]
+        print(f"world {w.name}: peak reserved a rank "
+              f"{[round(x / GIB, 2) for x in got]} GiB, allocated "
+              f"{[round(r['peak'] / GIB, 2) for r in ranks]} GiB (its cap "
+              f"and reckoning {w.peak / GIB:.2f} GiB a rank)")
+        if max(got) > w.peak:
+            fail(f"world {w.name}: a rank reserved {max(got) / GIB:.2f} GiB, "
+                 f"past its cap of {w.peak / GIB:.2f} GiB")
     moe_want = torch.load(mp_file(mp_dir, "moe"), mmap=True)
-    worlds = {}
     for shape in MP_WORLDS:
-        world = shape[0] * shape[1]
-        # the world's checkpoint (~3.4 GB) lands here, beside the build
-        with tempfile.TemporaryDirectory(dir=ROOT / "build") as wdir:
-            t0 = time.perf_counter()
-            mp.spawn(mp_rank, args=(shape, seed, wdir, mp_dir), nprocs=world,
-                     join=True)
-            ranks = []
-            for r in range(world):
-                with open(os.path.join(wdir, f"rank{r}.json")) as fh:
-                    ranks.append(json.load(fh))
-        worlds[shape] = ranks
-        wall = time.perf_counter() - t0
-
-        def each(key, nd=3):
-            return [round(r[key], nd) if isinstance(r[key], float)
-                    else r[key] for r in ranks]
-
-        lead = ranks[0]
-        print(f"mp world={shape} (\"data\", \"model\"): backend gloo, {world} "
-              f"ranks on cuda:0, {wall:.1f} s in all ({MP_LABEL}); seconds "
-              f"a rank: qwen3 {each('mp_qwen3_s', 1)}, two-tower "
-              f"{each('mp_two_tower_s', 1)}"
-              + (f", olmoe {each('mp_olmoe_s', 1)}"
-                 if shape == MP_MOE_WORLD else "")
-              + f"; peak device memory a rank "
-              f"{[round(r['peak'] / 2**30, 2) for r in ranks]} GiB")
-        pe, ce = lead["lm_prefill_err"], lead["lm_cache_err"]
-        print(f"  mp world={shape} qwen3-0.6b TP/SP prefill ({LM_BATCH} x "
-              f"{LM_PROMPT} tokens, {lead['lm_params']:,} parameters a "
-              f"rank): {each('lm_prefill_s')} s a rank (the first, cold), "
-              f"launches {lead['lm_prefill_launches']} a rank; last logits "
-              f"from the float32 model max {pe['max']:.6f} mean "
-              f"{pe['mean']:.6f} (single-device bf16 chunked "
-              f"{pe['sd_max']:.6f} and {pe['sd_mean']:.6f}, flash max "
-              f"{pe['sd_flash_max']:.6f}), from single-device chunked max "
-              f"{pe['vs_sd']:.6f} and flash {pe['vs_flash']:.6f}; greedy "
-              f"ties {each('lm_prefill_ties')}; "
-              f"cache layers {list(MP_CACHE_LAYERS)} gathered: k max "
-              f"{ce['k']['max']:.6f} v max {ce['v']['max']:.6f} from float32 "
-              f"(single-device {ce['k']['sd_max']:.6f}, "
-              f"{ce['v']['sd_max']:.6f}), from single-device bf16 k "
-              f"{ce['k']['vs_sd']:.6f} v {ce['v']['vs_sd']:.6f}")
-        for kind, steps in (("decode", LM_STEPS),
-                            ("long_ctx", MP_LONG_STEPS)):
-            e = lead[f"lm_{kind}_err"]
-            print(f"  mp world={shape} qwen3-0.6b split-KV decode, {kind} "
-                  f"rules ({steps} steps fed the single-device tokens, KV "
-                  f"sequence {lead[f'lm_{kind}_local_seq']} positions a "
-                  f"rank): {each(f'lm_{kind}_ms')} ms/step a rank, no "
-                  f"kernel; logits from float32 max {e['max']:.6f} mean "
-                  f"{e['mean']:.6f} (single-device bf16 {e['sd_max']:.6f}, "
-                  f"{e['sd_mean']:.6f}), from single-device bf16 max "
-                  f"{e['vs_sd']:.6f}; greedy tokens equal the "
-                  f"single-device ones but for {each(f'lm_{kind}_ties')} "
-                  f"traced near-ties")
-        if shape == MP_MOE_WORLD:
-            drops = {}
-            for r in ranks:
-                for i, d, a in r["moe_drops"]:
-                    got = drops.setdefault(i, [0, 0])
-                    got[0] += d
-                    got[1] += a
-            shares = [drops[i][0] / drops[i][1] for i in sorted(drops)]
-            total = (sum(d for d, _ in drops.values())
-                     / sum(a for _, a in drops.values()))
-            def layer(i, key):
-                return [round(r["moe_layers"][i][key], 6) for r in ranks]
-
-            print(f"  mp world={shape} olmoe-1b-7b expert parallelism "
-                  f"({lead['moe_params']:,} parameters a rank, "
-                  f"{lead['moe_experts'][0]} of {lead['moe_experts'][1]} "
-                  f"experts): "
-                  + "; ".join(
-                      f"layer {i} on the single-device layer's input: "
-                      f"dropped {layer(i, 'dropped')} = the per-shard "
-                      f"composition's {layer(i, 'want_dropped')} of "
-                      f"{layer(i, 'assigned')} at capacity "
-                      f"{lead['moe_layers'][i]['capacity']}, outputs max "
-                      f"abs err {layer(i, 'max_abs_err')}"
-                      for i in lead["moe_layers"])
-                  + f" (within 2**-6 |ref| + 1e-3); EP prefill "
-                  f"{each('moe_prefill_s')} s a rank, launches "
-                  f"{lead['moe_prefill_launches']} a rank; dropped "
-                  f"{total:.4%} of assignments (single device "
-                  f"{moe_want['share']:.4%}), by layer "
-                  + ", ".join(f"{x:.4%}" for x in shares)
-                  + " (single device "
-                  + ", ".join(f"{x:.4%}" for x in moe_want["shares"]) + ")")
-        mp_train_lines(shape, ranks, each)
-        if shape == MC_WORLD:
-            mc_lines(shape, ranks, each)
-        print(f"  mp world={shape} two-tower retrieval ({RETR_REQUESTS} "
-              f"sketch requests, {lead['tt_candidates']:,} candidates, "
-              f"tables row-sharded: "
-              f"{lead['tt_table_rows']:,} user rows a rank): "
-              f"{each('tt_ms')} ms/request a rank, launches "
-              f"{lead['tt_launches']} a rank; item tower and user vectors "
-              f"bitwise the single-device towers; ids and values bitwise "
-              f"the single-device composition of the sharded scan (n_cand "
-              f"{RETR_N_CAND} a shard); {each('tt_same_as_one_device')} of "
-              f"{RETR_REQUESTS} requests have the single-device n_cand "
-              f"{RETR_N_CAND} answer")
-    return worlds
+        world = out[f"mp {shape}"]
+        mp_lines(shape, world["ranks"], world["s"], moe_want)
+    mc_lines(MC_WORLD, out[cells]["ranks"], out[cells]["s"])
+    mesh = {n: out[f"mesh {n}"]["ranks"] for n in MESH_WORLDS}
+    for n in MESH_WORLDS:
+        mesh_lines(n, mesh[n], out[f"mesh {n}"]["s"], single)
+    return {"mp": {shape: out[f"mp {shape}"]["ranks"]
+                   for shape in MP_WORLDS},
+            "cells": out[cells]["ranks"], "mesh": mesh_launches(mesh)}
 
 
 # -- the cells phase -------------------------------------------------------
@@ -4530,8 +4778,8 @@ MESH_WORLDS = (2, 3)  # gloo worlds of the mesh phase, every rank on cuda:0
 MESH_K = 10
 MESH_FWD = 256       # forward users of the mesh phase: n_cand covers a
                      # shard's rows, so a lane re-ranks (256, ~9k, 100)
-MESH_LABEL = ("ranks share one card; collectives staged through the host: "
-              "not a multi-GPU speed")
+MESH_LABEL = ("ranks share one card, beside the other worlds' ranks; "
+              "collectives staged through the host: not a multi-GPU speed")
 MESH_COUNTERS = ("blocks_alive", "users_alive", "n_no_lb", "n_yes_norm",
                  "n_scan", "truncated")
 MESH_SERVE = dict(serve_batch_size=8, serve_buckets=(1, 2, 4))
@@ -4563,16 +4811,16 @@ def counted(fn):
     return out, {k: v for k, v in ops.launch_counts.items() if v}
 
 
-def mesh_rank(rank: int, world: int, seed: int, workdir: str,
+def mesh_rank(rank: int, workdir: str, world: int, seed: int,
               parent: str) -> None:
-    """One rank of a mesh-phase world (``torch.multiprocessing.spawn``):
+    """One rank of a mesh-phase world (``spawn_worlds``):
     gloo over CUDA tensors, every rank on cuda:0. Rebuilds the Netflix
     index from ``seed`` under the mesh (the row-parallel stages), answers
     the parent's 16 queries at k = 10 in f32 and int8 and 256 forward
     users, and holds each against the parent's single-device answers
     (the file ``parent``) and its own launch counts against its chunks and
-    tile steps; writes what it saw to ``rank<r>.json`` in ``workdir``. A mismatch raises, and
-    the spawn fails the smoke."""
+    tile steps; writes what it saw to ``rank<r>.json`` in ``workdir``. A
+    mismatch raises, and ``spawn_worlds`` fails the smoke."""
     import datetime
     import math
     import torch
@@ -4672,6 +4920,8 @@ def mesh_rank(rank: int, world: int, seed: int, workdir: str,
                                 items))
         out["serve_s"] = time.perf_counter() - t0
         torch.cuda.synchronize()
+        out["peak"] = torch.cuda.max_memory_allocated()
+        out["reserved"] = torch.cuda.max_memory_reserved()
         with open(os.path.join(workdir, f"rank{rank}.json"), "w") as fh:
             json.dump(out, fh)
     finally:
@@ -4872,122 +5122,125 @@ def mesh_serving(rank: int, world: int, policy, eng, want, queries,
     return out
 
 
-def mesh_path(seed: int, eng, results, users_fwd, exact_vals,
-              exact_ids) -> dict:
-    """The mesh phase: ``MESH_WORLDS`` gloo worlds on the one card, each
-    rank held against this process's single-device answers."""
-    import tempfile
+def mesh_answers(seed: int, eng, results, users_fwd, exact_vals,
+                 exact_ids, parent: str) -> dict:
+    """What the mesh worlds hold their ranks against, saved to the file
+    ``parent``: this process's single-device f32 answers at k = 10, the
+    forward users and their exact answers, the serving checks' catalogue
+    change and its single-device compaction's digest. Returns the
+    single-device figures the mesh lines print beside the ranks'."""
     import torch
-    import torch.multiprocessing as mp
     res = results[MESH_K]
-    worlds, launches, serve_launches = {}, {}, {}
-    with tempfile.TemporaryDirectory() as workdir:
-        # the serving checks' change and its single-device compaction
-        dels, new_rows = catalogue_change(seed, eng.artifact.items,
-                                          eng.index.top_ids.numel())
-        compacted = eng.artifact.with_config(eng.config.replace(
-            **MESH_SERVE)).delete_items(dels).insert_items(
-                new_rows).compact()
-        want = {"fingerprint": eng.artifact.fingerprint,
-                "digest": index_digest(eng.artifact.index),
-                "pred": res.predictions.cpu(),
-                "users_fwd": users_fwd[:MESH_FWD].cpu(),
-                "exact_vals": exact_vals[:MESH_FWD].cpu(),
-                "exact_ids": exact_ids[:MESH_FWD].cpu(),
-                "dels": torch.as_tensor(dels), "new_rows": new_rows.cpu(),
-                "compact_fingerprint": compacted.fingerprint,
-                "compact_digest": index_digest(compacted.index)}
-        del compacted
-        want.update({f: getattr(res.stats, f).cpu() for f in MESH_COUNTERS})
-        parent = os.path.join(workdir, "parent.pt")
-        torch.save(want, parent)
-        for world in MESH_WORLDS:
-            wdir = os.path.join(workdir, f"world{world}")
-            os.makedirs(wdir)
-            t0 = time.perf_counter()
-            mp.spawn(mesh_rank, args=(world, seed, wdir, parent),
-                     nprocs=world, join=True)
-            ranks = []
-            for r in range(world):
-                with open(os.path.join(wdir, f"rank{r}.json")) as fh:
-                    ranks.append(json.load(fh))
-            worlds[world] = ranks
-            for r in ranks:
-                for part in ("build", "f32", "int8", "fwd"):
-                    for name, n in r[f"launches_{part}"].items():
-                        launches[name] = launches.get(name, 0) + n
-                for part in ("rev_f32", "rev_int8", "fwd"):
-                    for name, n in r[f"serve_launches_{part}"].items():
-                        serve_launches[name] = serve_launches.get(name,
-                                                                  0) + n
+    dels, new_rows = catalogue_change(seed, eng.artifact.items,
+                                      eng.index.top_ids.numel())
+    compacted = eng.artifact.with_config(eng.config.replace(
+        **MESH_SERVE)).delete_items(dels).insert_items(new_rows).compact()
+    want = {"fingerprint": eng.artifact.fingerprint,
+            "digest": index_digest(eng.artifact.index),
+            "pred": res.predictions.cpu(),
+            "users_fwd": users_fwd[:MESH_FWD].cpu(),
+            "exact_vals": exact_vals[:MESH_FWD].cpu(),
+            "exact_ids": exact_ids[:MESH_FWD].cpu(),
+            "dels": torch.as_tensor(dels), "new_rows": new_rows.cpu(),
+            "compact_fingerprint": compacted.fingerprint,
+            "compact_digest": index_digest(compacted.index)}
+    del compacted
+    want.update({f: getattr(res.stats, f).cpu() for f in MESH_COUNTERS})
+    torch.save(want, parent)
+    print(f"mesh answers: the single-device f32 answers at k={MESH_K}, "
+          f"{MESH_FWD} forward users and the compaction of "
+          f"{len(dels)} deletes + {len(new_rows)} inserts saved for the "
+          f"mesh worlds")
+    return {"m_pad": eng.index.n_users, "n_blocks": eng.index.n_blocks,
+            "ms_query": res.seconds * 1e3 / NQ,
+            "tiles_scanned": int(res.stats.tiles_scanned.sum()),
+            "chunks": int(res.stats.chunks.sum()), "n_dels": len(dels),
+            "n_new": len(new_rows)}
 
-            def each(key):
-                return [r[key] for r in ranks]
 
-            print(f"mesh world={world}: backend gloo, {world} ranks on "
-                  f"cuda:0 (torch.multiprocessing.spawn, file:// "
-                  f"rendezvous), {time.perf_counter() - t0:.1f} s in all; "
-                  f"m_local {each('m_local')} and n_blocks "
-                  f"{each('n_blocks_local')} after padding "
-                  f"(single-device m_pad {eng.index.n_users}, "
-                  f"{eng.index.n_blocks} blocks); build s "
-                  f"{[round(x, 3) for x in each('build_s')]}; f32 k="
-                  f"{MESH_K} ms/query "
-                  f"{[round(x, 3) for x in each('ms_query_f32')]}, int8 "
-                  f"{[round(x, 3) for x in each('ms_query_int8')]} "
-                  f"({MESH_LABEL}); single-device f32 "
-                  f"{res.seconds * 1e3 / NQ:.3f} ms/query")
-            print(f"  mesh world={world} checks: artifact fingerprint and "
-                  f"index digest equal the single-device build's on every "
-                  f"rank; predictions and {', '.join(MESH_COUNTERS)} "
-                  f"bitwise in f32 and int8; summed packing counts "
-                  f"tiles_scanned {ranks[0]['tiles_scanned_f32']} and chunks "
-                  f"{ranks[0]['chunks_f32']} (single-device "
-                  f"{int(res.stats.tiles_scanned.sum())} and "
-                  f"{int(res.stats.chunks.sum())}); per rank: chunks "
-                  f"{each('chunks')} = srp_hash launches, tile steps "
-                  f"{each('tile_steps')} = hamming_nearest (f32) = "
-                  f"fused_scan (int8) launches, no dense hamming_scores; "
-                  f"forward {MESH_FWD} users with n_cand "
-                  f"{ranks[0]['fwd_n_cand']} (a shard's rows): ids equal "
-                  f"ip_topk's but for {each('fwd_ties')} float ties, "
-                  f"{[round(x, 2) for x in each('fwd_ms')]} ms; build "
-                  f"launches {each('launches_build')}")
-            lead = ranks[0]
-            stream = lead["serve_stream"]
-            n_disp = stream["ops"]["dispatch"]
-            print(f"  mesh world={world} serving (serve_batch_size 8, "
-                  f"buckets 1, 2, 4), {[round(x, 1) for x in each('serve_s')]}"
-                  f" s a rank: reverse server f32 and int8 bitwise the "
-                  f"single-device predictions and plan counters, per rank "
-                  f"srp_hash = {each('serve_chunks')} chunks of 2 dispatches, "
-                  f"hamming_nearest = fused_scan = "
-                  f"{each('serve_tile_steps')} tile steps; forward server "
-                  f"{MESH_FWD} users: bitwise the mesh kmips, ids equal "
-                  f"ip_topk's at n_cand a shard but for "
-                  f"{each('serve_fwd_ties')} float ties, rungs 1, 2, 4 "
-                  f"bitwise the full batch, per rank srp_hash = dense "
-                  f"hamming_scores = {2 * -(-MESH_FWD // 8)} dispatches; "
-                  f"runtimes under the controller ({NQ} reverse + "
-                  f"{MESH_FWD} forward tickets from 4 threads on rank 0, "
-                  f"bitwise the synchronous flush): "
-                  f"{lead['serve_latency']} on rank 0, tickets/s a rank "
-                  f"{[round(x, 1) for x in each('serve_tickets_per_s')]} "
-                  f"({MESH_LABEL}); stream {n_disp} dispatches, "
-                  f"{stream['broadcasts']['dispatch'] / max(n_disp, 1):.2f} "
-                  f"broadcasts a dispatch, ops {stream['ops']}; "
-                  f"{len(want['dels'])} deletes + {len(want['new_rows'])} "
-                  f"inserts and a compaction in "
-                  f"{[round(x, 2) for x in each('serve_compact_s')]} s, "
-                  f"landed on every rank with the single-device compact's "
-                  f"digest; gateway of 3 tenants bitwise the dedicated "
-                  f"runtimes ({lead['serve_gw_truncated']} of {NQ} "
-                  f"scan_budget=1 tickets truncated, each a subset of the "
-                  f"full answer)")
+def mesh_lines(world: int, ranks: list, wall: float, single: dict) -> None:
+    """The mesh phase's lines of one world: its ranks' records
+    (``mesh_rank``), its wall seconds beside the other worlds, and the
+    single-device figures of ``mesh_answers``."""
+    def each(key):
+        return [r[key] for r in ranks]
+
+    print(f"mesh world={world}: backend gloo, {world} ranks on "
+          f"cuda:0 (spawn_worlds, file:// rendezvous), {wall:.1f} s in "
+          f"all; m_local {each('m_local')} and n_blocks "
+          f"{each('n_blocks_local')} after padding "
+          f"(single-device m_pad {single['m_pad']}, "
+          f"{single['n_blocks']} blocks); build s "
+          f"{[round(x, 3) for x in each('build_s')]}; f32 k="
+          f"{MESH_K} ms/query "
+          f"{[round(x, 3) for x in each('ms_query_f32')]}, int8 "
+          f"{[round(x, 3) for x in each('ms_query_int8')]} "
+          f"({MESH_LABEL}); single-device f32 "
+          f"{single['ms_query']:.3f} ms/query; peak device memory a rank "
+          f"{[round(r['peak'] / GIB, 2) for r in ranks]} GiB")
+    print(f"  mesh world={world} checks: artifact fingerprint and "
+          f"index digest equal the single-device build's on every "
+          f"rank; predictions and {', '.join(MESH_COUNTERS)} "
+          f"bitwise in f32 and int8; summed packing counts "
+          f"tiles_scanned {ranks[0]['tiles_scanned_f32']} and chunks "
+          f"{ranks[0]['chunks_f32']} (single-device "
+          f"{single['tiles_scanned']} and {single['chunks']}); per rank: "
+          f"chunks {each('chunks')} = srp_hash launches, tile steps "
+          f"{each('tile_steps')} = hamming_nearest (f32) = "
+          f"fused_scan (int8) launches, no dense hamming_scores; "
+          f"forward {MESH_FWD} users with n_cand "
+          f"{ranks[0]['fwd_n_cand']} (a shard's rows): ids equal "
+          f"ip_topk's but for {each('fwd_ties')} float ties, "
+          f"{[round(x, 2) for x in each('fwd_ms')]} ms; build "
+          f"launches {each('launches_build')}")
+    lead = ranks[0]
+    stream = lead["serve_stream"]
+    n_disp = stream["ops"]["dispatch"]
+    print(f"  mesh world={world} serving (serve_batch_size 8, "
+          f"buckets 1, 2, 4), {[round(x, 1) for x in each('serve_s')]}"
+          f" s a rank: reverse server f32 and int8 bitwise the "
+          f"single-device predictions and plan counters, per rank "
+          f"srp_hash = {each('serve_chunks')} chunks of 2 dispatches, "
+          f"hamming_nearest = fused_scan = "
+          f"{each('serve_tile_steps')} tile steps; forward server "
+          f"{MESH_FWD} users: bitwise the mesh kmips, ids equal "
+          f"ip_topk's at n_cand a shard but for "
+          f"{each('serve_fwd_ties')} float ties, rungs 1, 2, 4 "
+          f"bitwise the full batch, per rank srp_hash = dense "
+          f"hamming_scores = {2 * -(-MESH_FWD // 8)} dispatches; "
+          f"runtimes under the controller ({NQ} reverse + "
+          f"{MESH_FWD} forward tickets from 4 threads on rank 0, "
+          f"bitwise the synchronous flush): "
+          f"{lead['serve_latency']} on rank 0, tickets/s a rank "
+          f"{[round(x, 1) for x in each('serve_tickets_per_s')]} "
+          f"({MESH_LABEL}); stream {n_disp} dispatches, "
+          f"{stream['broadcasts']['dispatch'] / max(n_disp, 1):.2f} "
+          f"broadcasts a dispatch, ops {stream['ops']}; "
+          f"{single['n_dels']} deletes + {single['n_new']} "
+          f"inserts and a compaction in "
+          f"{[round(x, 2) for x in each('serve_compact_s')]} s, "
+          f"landed on every rank with the single-device compact's "
+          f"digest; gateway of 3 tenants bitwise the dedicated "
+          f"runtimes ({lead['serve_gw_truncated']} of {NQ} "
+          f"scan_budget=1 tickets truncated, each a subset of the "
+          f"full answer)")
+
+
+def mesh_launches(worlds: dict) -> dict:
+    """The mesh phase's launches, summed over every rank of its worlds:
+    the engine's (build, f32, int8, forward) and the servers'."""
+    launches, serve_launches = {}, {}
+    for ranks in worlds.values():
+        for r in ranks:
+            for part in ("build", "f32", "int8", "fwd"):
+                for name, n in r[f"launches_{part}"].items():
+                    launches[name] = launches.get(name, 0) + n
+            for part in ("rev_f32", "rev_int8", "fwd"):
+                for name, n in r[f"serve_launches_{part}"].items():
+                    serve_launches[name] = serve_launches.get(name, 0) + n
     print(f"mesh serving launches, all ranks of both worlds: "
           f"{serve_launches}")
-    return {"worlds": worlds, "launches": launches,
-            "serve_launches": serve_launches}
+    return {"launches": launches, "serve_launches": serve_launches}
 
 
 SERVE_WAIT = 300     # seconds any one wait of the serving phase may take
@@ -5958,6 +6211,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the synthetic data and the build's draws")
     args = ap.parse_args()
+    # a run cut at its time limit still shows the phase it reached
+    sys.stdout.reconfigure(line_buffering=True)
 
     # the train phase runs under deterministic algorithms, whose cuBLAS
     # check reads this once, at the process's first matrix product
@@ -6006,6 +6261,8 @@ def main() -> int:
         now = time.perf_counter()
         phases[name] = round(now - t_phase, 1)
         t_phase = now
+        print(f"phase {name}: {phases[name]} s, {now - T_START:.1f} s since "
+              f"start")
 
     # -- f32 reverse path, counted -------------------------------------------
     build_state = gen.get_state()
@@ -6189,10 +6446,13 @@ def main() -> int:
 
     phase_done("forward path")
 
-    # -- the mesh phase: gloo worlds of 2 and 3 ranks on the card, counted ---
-    mesh_out = mesh_path(args.seed, eng, results, users_fwd, exact_vals,
-                         exact_ids)
-    phase_done("mesh")
+    # -- the mesh worlds' answers; the worlds run with the model-parallel
+    # ones, after the single-device phases ---------------------------------
+    worlds_dir = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    mesh_parent = os.path.join(worlds_dir.name, "mesh_parent.pt")
+    mesh_single = mesh_answers(args.seed, eng, results, users_fwd,
+                               exact_vals, exact_ids, mesh_parent)
+    phase_done("mesh answers")
 
     # -- artifact: save/load, a catalogue change, compact, counted -----------
     art_out = artifact_path(args.seed, eng, eng_ex, build_state, items, users,
@@ -6241,17 +6501,6 @@ def main() -> int:
     # -- the bf16 gradients of a frequent token, repaired -------------------
     bf16_repair(args.seed, dev)
     phase_done("bf16 repair")
-
-    # -- model parallelism: gloo worlds (1, 2) and (2, 2) on the card, then
-    # the cells under a mesh; the mesh dry runs beside them on the host ----
-    dry_dir = tempfile.TemporaryDirectory(dir=ROOT / "build")
-    dry = start_mesh_dryruns(dry_dir.name)
-    zero1_answers(mp_dir.name, args.seed, dev)
-    mp_worlds = mp_path(args.seed, mp_dir.name)
-    mp_dir.cleanup()
-    finish_mesh_dryruns(dry, dry_dir.name)
-    dry_dir.cleanup()
-    phase_done("model parallel")
 
     # -- kernels against their plain versions, at main-path inputs -----------
     n_top = cfg.n_top or 2 * cfg.k_max
@@ -6481,11 +6730,29 @@ def main() -> int:
     profile_query(eng8, queries, 10)
     phase_done("profiles")
 
-    # -- the cell catalogue through the dry run, counted -----------------
-    # the cells are reckoned for the card less what the process holds:
-    # let the engines, the Netflix users and the LM go first
+    # the worlds and the cells are reckoned for the card less what this
+    # process holds: let the engines, the Netflix users and the LM go first
     del eng, eng8, eng_ex, idx, idx8, a8, users, lm["model"]
     torch.cuda.empty_cache()
+
+    # -- the gloo worlds side by side: model parallelism (1, 2) and (2, 2),
+    # the cells under a mesh in (1, 2), then the mesh worlds of 2 and 3
+    # ranks; the mesh dry runs beside them on the host ---------------------
+    from repro_torch.launch import dryrun
+    dry_dir = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    dry = start_mesh_dryruns(dry_dir.name)
+    zero1_answers(mp_dir.name, args.seed, dev)
+    worlds_out = worlds_path(args.seed, mp_dir.name, worlds_dir.name,
+                             mesh_parent, mesh_single, dryrun.FIT_BYTES)
+    mp_worlds, mc_ranks = worlds_out["mp"], worlds_out["cells"]
+    mesh_out = worlds_out["mesh"]
+    mp_dir.cleanup()
+    worlds_dir.cleanup()
+    finish_mesh_dryruns(dry, dry_dir.name)
+    dry_dir.cleanup()
+    phase_done("worlds")
+
+    # -- the cell catalogue through the dry run, counted -----------------
     cells_out = cells_path(args.seed, dev, ROOT / "build" / "cells")
     phase_done("cells")
     peak = max(cells_out["peak_before"], cells_out["peak"],
@@ -6508,7 +6775,7 @@ def main() -> int:
 
     def mc_launches(key, name):
         """The mesh cells' launches, a rank."""
-        return [r[key].get(name, 0) for r in mp_worlds[MC_WORLD]]
+        return [r[key].get(name, 0) for r in mc_ranks]
 
     flash_entry["launches_mesh_cells"] = mc_launches("pf_launches",
                                                      "flash_attention")
