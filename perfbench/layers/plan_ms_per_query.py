@@ -1,0 +1,9 @@
+"""plan_ms_per_query: the window's spans around ``core.sah.rkmips_plan``
+(each from a device sync to a device sync) over its queries."""
+
+
+def read(run):
+    spans = run.rec.spans.get("plan")
+    if not spans or run.unit != "queries":
+        return None
+    return sum(spans) * 1e3 / run.units
